@@ -1,0 +1,583 @@
+"""Quadrotor environment, 3D path, on batched PyTorch tensors.
+
+Port of ``safe_control_gym_tpu/envs/quadrotor.py`` for the 3D quadrotor:
+the thrust -> PWM -> RPM -> force actuation, ``pyb`` (RK4) and ``dyn``
+(explicit Euler) physics through the K1 substep kernel
+(``ops/quad_substeps.py``), stabilization and figure8/circle/square
+trajectory tracking, ``rl_reward`` and ``quadratic`` costs, box constraints,
+impulse and step disturbances, out-of-bound / collision / completion done
+flags, time-limit truncation and the non-finite freeze.  Every env of a
+batch carries its own randomized inertia and initial state, drawn from the
+counter PRNG (``ops/ctr_prng.py``) exactly as the JAX package draws them.
+
+Not ported yet (``make_quadrotor`` raises ``NotImplementedError``): the 1D
+and 2D quad types, the aero physics modes, the competition cost and maze
+(gates, obstacles), the adversary channel, and the ``symbolic`` model.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from enum import IntEnum
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from safe_control_gym_torch.envs import benchmark as bm
+from safe_control_gym_torch.envs import gates as gate_geom
+from safe_control_gym_torch.envs.benchmark import Cost, EnvSpaces, FnEnv, Task
+from safe_control_gym_torch.envs.constraints import build_constraints
+from safe_control_gym_torch.envs.disturbances import build_disturbances
+from safe_control_gym_torch.ops import ctr_prng
+from safe_control_gym_torch.ops.quad_substeps import GRAVITY as GRAVITY_ACC
+from safe_control_gym_torch.ops.quad_substeps import (  # noqa: F401 (cmd2pwm, pwm2rpm: the env's actuation API)
+    ARM_L, KF, MAX_PWM, MIN_PWM, PWM2RPM_CONST, PWM2RPM_SCALE, cmd2pwm, pwm2rpm,
+    quad3d_substeps)
+from safe_control_gym_torch.ops.rotations import transform_trajectory
+from safe_control_gym_torch.utils.device import resolve_device
+
+BIG = 1e30
+
+
+class QuadType(IntEnum):
+    """Reference quadrotor_utils.py:11-18."""
+
+    ONE_D = 1
+    TWO_D = 2
+    THREE_D = 3
+
+
+# cf2x.urdf physical constants (reference base_aviary.py:612-651) beyond
+# those the substep kernel holds (ops/quad_substeps.py).
+MASS = 0.03454
+J_DIAG = (1.4e-5, 1.4e-5, 2.17e-5)
+KM = 7.94e-12
+GROUND_PLANE_Z = 0.0
+
+# Default randomization infos (reference quadrotor.py:45-134).
+_DEFAULT_INERTIAL_RAND = {
+    "M": {"distrib": "uniform", "low": 0.022, "high": 0.032},
+    "Ixx": {"distrib": "uniform", "low": 1.3e-5, "high": 1.5e-5},
+    "Iyy": {"distrib": "uniform", "low": 1.3e-5, "high": 1.5e-5},
+    "Izz": {"distrib": "uniform", "low": 2.07e-5, "high": 2.27e-5},
+}
+_DEFAULT_INIT_RAND = {
+    "init_x": {"distrib": "uniform", "low": -0.5, "high": 0.5},
+    "init_x_dot": {"distrib": "uniform", "low": -0.01, "high": 0.01},
+    "init_y": {"distrib": "uniform", "low": -0.5, "high": 0.5},
+    "init_y_dot": {"distrib": "uniform", "low": -0.01, "high": 0.01},
+    "init_z": {"distrib": "uniform", "low": 0.1, "high": 1.5},
+    "init_z_dot": {"distrib": "uniform", "low": -0.01, "high": 0.01},
+    "init_phi": {"distrib": "uniform", "low": -0.3, "high": 0.3},
+    "init_theta": {"distrib": "uniform", "low": -0.3, "high": 0.3},
+    "init_psi": {"distrib": "uniform", "low": -0.3, "high": 0.3},
+    "init_p": {"distrib": "uniform", "low": -0.01, "high": 0.01},
+    "init_theta_dot": {"distrib": "uniform", "low": -0.01, "high": 0.01},
+    "init_q": {"distrib": "uniform", "low": -0.01, "high": 0.01},
+    "init_r": {"distrib": "uniform", "low": -0.01, "high": 0.01},
+}
+_DEFAULT_TASK_INFO = {
+    "stabilization_goal": [0, 1],
+    "stabilization_goal_tolerance": 0.05,
+    "trajectory_type": "circle",
+    "num_cycles": 1,
+    "trajectory_plane": "zx",
+    "trajectory_position_offset": [0.5, 0],
+    "trajectory_scale": -0.5,
+    "proj_point": [0, 0, 0.5],
+    "proj_normal": [0, 1, 1],
+}
+
+INIT_LABELS = ("init_x", "init_x_dot", "init_y", "init_y_dot", "init_z",
+               "init_z_dot", "init_phi", "init_theta", "init_psi", "init_p",
+               "init_q", "init_r")
+OOB_MASK = (1, 0, 1, 0, 1, 0, 1, 1, 1, 0, 0, 0)
+NX, NU = 12, 4
+_CHANNELS = ("observation", "action", "dynamics")
+
+
+@dataclasses.dataclass(frozen=True)
+class QuadrotorConfig:
+    """The JAX package's config fields, less the two that only select TPU
+    paths (``use_pallas``, ``onehot_goal``)."""
+
+    quad_type: int = 2
+    physics: str = "pyb"
+    seed: Optional[int] = None
+    ctrl_freq: int = 50
+    pyb_freq: int = 50
+    episode_len_sec: float = 5.0
+    task: str = "stabilization"
+    task_info: Optional[dict] = None
+    cost: str = "rl_reward"
+    normalized_rl_action_space: bool = False
+    norm_act_scale: float = 0.1
+    obs_goal_horizon: int = 0
+    # Initial state.
+    init_state: Optional[Any] = None
+    randomized_init: bool = True
+    init_state_randomization_info: Optional[dict] = None
+    # Inertial properties.
+    inertial_prop: Optional[Any] = None
+    prior_prop: Optional[Any] = None
+    randomized_inertial_prop: bool = False
+    inertial_prop_randomization_info: Optional[dict] = None
+    # Constraints.
+    constraints: Optional[tuple] = None
+    done_on_violation: bool = False
+    use_constraint_penalty: bool = False
+    constraint_penalty: float = -1.0
+    # Disturbances / adversary.
+    disturbances: Optional[dict] = None
+    adversary_disturbance: Optional[str] = None
+    adversary_disturbance_offset: float = 0.0
+    adversary_disturbance_scale: float = 0.01
+    # Reward shaping.
+    rew_state_weight: Any = 1.0
+    rew_act_weight: Any = 0.0001
+    rew_exponential: bool = True
+    done_on_out_of_bound: bool = True
+    info_mse_metric_state_weight: Optional[Any] = None
+    # Competition maze.
+    gates: Optional[tuple] = None
+    obstacles: Optional[tuple] = None
+    randomized_gates_and_obstacles: bool = False
+    gates_and_obstacles_randomization_info: Optional[dict] = None
+    done_on_collision: bool = False
+    done_on_completion: bool = False
+    # Engine.
+    dtype: Any = torch.float32
+    q_weight: Optional[Any] = None
+    r_weight: Optional[Any] = None
+
+
+@dataclasses.dataclass
+class QuadState:
+    """Per-env state of a batch; every tensor has a leading (B,) axis."""
+
+    x: torch.Tensor  # (B, 12)
+    ctrl_step: torch.Tensor  # int32
+    pyb_step: torch.Tensor  # int32
+    # Counter-PRNG identity (ops/ctr_prng.py): reset draws are pure
+    # functions of (env_seed, episode_idx, slot).
+    env_seed: torch.Tensor  # int32
+    episode_idx: torch.Tensor  # int32
+    mass: torch.Tensor
+    j_diag: torch.Tensor  # (B, 3)
+    # Per-channel randomized impulse/step offsets, (B, n_scheduled) int32.
+    dist_offsets: dict
+    cnstr_violation: torch.Tensor  # bool
+    # Competition maze state (empty gate/obstacle axes until the maze lands).
+    gates_eff: torch.Tensor  # (B, NG, 4): x, y, yaw, aperture height
+    obstacles_eff: torch.Tensor  # (B, NO, 2)
+    current_gate: torch.Tensor  # int32
+    stepped_through_gate: torch.Tensor  # bool
+    currently_collided: torch.Tensor  # bool
+    at_goal_pos: torch.Tensor  # bool
+    steps_at_goal: torch.Tensor  # int32
+    task_completed: torch.Tensor  # bool
+
+    def replace(self, **kw) -> "QuadState":
+        return dataclasses.replace(self, **kw)
+
+
+def where_state(mask, a: QuadState, b: QuadState) -> QuadState:
+    """Field-wise ``where(mask, a, b)`` for a (B,) bool mask."""
+
+    def sel(u, v):
+        if isinstance(u, dict):
+            return {k: sel(u[k], v[k]) for k in u}
+        m = mask.reshape(mask.shape + (1,) * (u.dim() - 1))
+        return torch.where(m, u, v)
+
+    return QuadState(**{f.name: sel(getattr(a, f.name), getattr(b, f.name))
+                        for f in dataclasses.fields(QuadState)})
+
+
+def quad_fc_3d(x, forces, mass, j_diag, ext_f, g=GRAVITY_ACC, km_over_kf=KM / KF):
+    """Full 3D rigid body (reference quadrotor.py:624-674) on batched
+    tensors: x (B, 12), forces (B, 4), mass (B,), j_diag (B, 3),
+    ext_f (B, 3) -> x_dot (B, 12)."""
+    phi, theta, psi = x[..., 6], x[..., 7], x[..., 8]
+    pqr = x[..., 9:12]
+    f1, f2, f3, f4 = forces.unbind(-1)
+    T = f1 + f2 + f3 + f4
+    cphi, sphi = torch.cos(phi), torch.sin(phi)
+    cth, sth = torch.cos(theta), torch.sin(theta)
+    cpsi, spsi = torch.cos(psi), torch.sin(psi)
+    zb = torch.stack([cpsi * sth * cphi + spsi * sphi,
+                      spsi * sth * cphi - cpsi * sphi, cth * cphi], -1)
+    m = mass[..., None]
+    gvec = torch.tensor([0.0, 0.0, g], dtype=x.dtype, device=x.device)
+    pos_dd = zb * T[..., None] / m - gvec + ext_f / m
+    l_sq2 = ARM_L / math.sqrt(2.0)
+    Mb = torch.stack([l_sq2 * (f1 + f2 - f3 - f4), l_sq2 * (-f1 + f2 + f3 - f4),
+                      km_over_kf * (f1 - f2 + f3 - f4)], -1)
+    gyro = torch.linalg.cross(pqr, j_diag * pqr)
+    rate_dot = (Mb - gyro) / j_diag
+    tth = torch.tan(theta)
+    p_, q_, r_ = pqr.unbind(-1)
+    ang_dot = torch.stack([p_ + sphi * tth * q_ + cphi * tth * r_,
+                           cphi * q_ - sphi * r_,
+                           sphi / cth * q_ + cphi / cth * r_], -1)
+    return torch.cat([torch.stack([x[..., 1], pos_dd[..., 0], x[..., 3], pos_dd[..., 1],
+                                   x[..., 5], pos_dd[..., 2]], -1), ang_dot, rate_dot], -1)
+
+
+def _weights_vec(w, dim):
+    w = np.asarray(w, dtype=float).reshape(-1)
+    if w.size == 1:
+        w = np.full(dim, w[0])
+    if w.size != dim:
+        raise ValueError(f"weight size {w.size} != {dim}")
+    return w
+
+
+def _unsupported(cfg: QuadrotorConfig):
+    """Why the port cannot build this config yet, or None."""
+    if int(cfg.quad_type) != QuadType.THREE_D:
+        return f"quad_type {cfg.quad_type} (only the 3D quadrotor is ported)"
+    if cfg.physics in ("pyb_gnd", "pyb_drag", "pyb_dw", "pyb_gnd_drag_dw"):
+        return f"physics {cfg.physics!r} (only 'pyb' and 'dyn' are ported)"
+    if cfg.cost == Cost.COMPETITION:
+        return "the competition cost"
+    if cfg.adversary_disturbance is not None:
+        return "the adversary channel"
+    if cfg.gates or cfg.obstacles:
+        return "the competition maze (gates, obstacles)"
+    return None
+
+
+def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> FnEnv:
+    """Build the batched 3D quadrotor env on ``device`` (CUDA by default)."""
+    cfg = config
+    if cfg.physics not in ("pyb", "dyn", "pyb_gnd", "pyb_drag", "pyb_dw", "pyb_gnd_drag_dw"):
+        raise ValueError(f"unknown physics mode {cfg.physics!r}")
+    missing = _unsupported(cfg)
+    if missing is not None:
+        raise NotImplementedError(f"not ported yet: {missing}")
+    device = resolve_device(device)
+    dtype = cfg.dtype
+    task = Task(cfg.task)
+    cost = Cost(cfg.cost)
+    n_sub = bm.check_timing(cfg.pyb_freq, cfg.ctrl_freq)
+    ctrl_dt = 1.0 / cfg.ctrl_freq
+    pyb_dt = 1.0 / cfg.pyb_freq
+    max_steps = int(cfg.episode_len_sec * cfg.ctrl_freq)
+    task_info = {**_DEFAULT_TASK_INFO, **(cfg.task_info or {})}
+    nx, nu = NX, NU
+
+    def dev(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+    # Nominal inertial properties with optional override (quadrotor.py:241-256).
+    nom_mass, nom_j = MASS, np.array(J_DIAG)
+    ip = cfg.inertial_prop
+    if ip is not None:
+        if isinstance(ip, dict):
+            nom_mass = float(ip.get("M", ip.get("mass", nom_mass)))
+            nom_j[0] = float(ip.get("Ixx", ip.get("ixx", nom_j[0])))
+            nom_j[1] = float(ip.get("Iyy", ip.get("iyy", nom_j[1])))
+            nom_j[2] = float(ip.get("Izz", ip.get("izz", nom_j[2])))
+        else:
+            nom_mass, nom_j[0], nom_j[1], nom_j[2] = map(float, np.asarray(ip, float))
+
+    # Spaces (quadrotor.py:699-806).
+    x_thr, y_thr, z_thr = 5.0, 5.0, 2.5
+    phi_thr = theta_thr = 85 * math.pi / 180
+    psi_thr = math.pi
+    s_low = np.array([-x_thr, -BIG, -y_thr, -BIG, GROUND_PLANE_Z, -BIG,
+                      -phi_thr, -theta_thr, -psi_thr, -BIG, -BIG, -BIG])
+    s_high = np.array([x_thr, BIG, y_thr, BIG, z_thr, BIG,
+                       phi_thr, theta_thr, psi_thr, BIG, BIG, BIG])
+    hover_thrust = GRAVITY_ACC * nom_mass / nu
+    if cfg.normalized_rl_action_space:
+        a_low, a_high = -np.ones(nu), np.ones(nu)
+    else:
+        a_low = np.full(nu, KF * (PWM2RPM_SCALE * MIN_PWM + PWM2RPM_CONST) ** 2)
+        a_high = np.full(nu, KF * (PWM2RPM_SCALE * MAX_PWM + PWM2RPM_CONST) ** 2)
+
+    # Goal references (quadrotor.py:261-329).
+    u_goal = np.ones(nu) * nom_mass * GRAVITY_ACC / nu
+    if task == Task.STABILIZATION:
+        sg = task_info["stabilization_goal"]
+        # A 2-element goal [x, z] (the reference class default) lifts to (x, 0, z).
+        sg3 = list(sg) if len(sg) >= 3 else [sg[0], 0.0, sg[-1]]
+        x_goal = np.hstack([sg3[0], 0.0, sg3[1], 0.0, sg3[2], 0.0, np.zeros(6)])
+    else:
+        pos, vel, _ = bm.generate_trajectory(
+            traj_type=task_info["trajectory_type"],
+            traj_length=cfg.episode_len_sec,
+            num_cycles=task_info["num_cycles"],
+            traj_plane=task_info["trajectory_plane"],
+            position_offset=task_info["trajectory_position_offset"],
+            scaling=task_info["trajectory_scale"],
+            sample_time=ctrl_dt,
+        )
+        # The planar samples are rounded to float32 before the projection,
+        # as the JAX package's table is.
+        pos_t, vel_t = transform_trajectory(
+            pos.astype(np.float32), vel.astype(np.float32),
+            task_info["proj_point"], task_info["proj_normal"])
+        z = np.zeros(pos.shape[0])
+        x_goal = np.stack([pos_t[:, 0], vel_t[:, 0], pos_t[:, 1], vel_t[:, 1],
+                           pos_t[:, 2], vel_t[:, 2], z, z, z, z, z, z], -1)
+
+    mul = 1
+    if cost == Cost.RL_REWARD and cfg.obs_goal_horizon > 0:
+        mul = (1 + cfg.obs_goal_horizon) if task == Task.TRAJ_TRACKING else 2
+    spaces = EnvSpaces(
+        state_low=s_low, state_high=s_high, action_low=a_low, action_high=a_high,
+        obs_low=np.concatenate([s_low] * mul), obs_high=np.concatenate([s_high] * mul),
+    )
+
+    constraints = build_constraints(cfg.constraints, spaces, device, dtype)
+    dist_specs = cfg.disturbances or {}
+    dist_progs = {
+        ch: build_disturbances(dist_specs.get(ch), dim, cfg.episode_len_sec, cfg.ctrl_freq)
+        for ch, dim in zip(_CHANNELS, (nx, nu, 3))
+    }
+    # Randomized offsets come from counter slot 4+nx, which the JAX package
+    # uses for a single randomized dynamics offset only; its other
+    # randomized offsets come from threefry, which the port does not replay.
+    for ch, prog in dist_progs.items():
+        n = prog.num_scheduled if prog is not None else 0
+        if n > (1 if ch == "dynamics" else 0):
+            raise NotImplementedError(
+                f"not ported yet: {n} randomized step offsets on the {ch} channel")
+
+    init_rand = dict(_DEFAULT_INIT_RAND)
+    if cfg.init_state_randomization_info is not None:
+        init_rand = dict(cfg.init_state_randomization_info)
+    inertial_rand = dict(_DEFAULT_INERTIAL_RAND)
+    if cfg.inertial_prop_randomization_info is not None:
+        inertial_rand = dict(cfg.inertial_prop_randomization_info)
+    init_state = cfg.init_state
+    if init_state is None:
+        init_state = {}
+    elif isinstance(init_state, (list, tuple, np.ndarray)):
+        init_state = dict(zip(INIT_LABELS, np.asarray(init_state)))
+
+    rew_state_w = dev(_weights_vec(cfg.rew_state_weight, nx))
+    rew_act_w = dev(_weights_vec(cfg.rew_act_weight, nu))
+    mse_w_np = (cfg.info_mse_metric_state_weight
+                if cfg.info_mse_metric_state_weight is not None
+                else [1, 0, 1, 0, 1, 0, 0, 0, 0, 0, 0, 0])
+    mse_w = dev(_weights_vec(mse_w_np, nx))
+    Q = dev(np.diag(_weights_vec(cfg.q_weight, nx)) if cfg.q_weight is not None else np.eye(nx))
+    R = dev(np.diag(_weights_vec(cfg.r_weight, nu)) if cfg.r_weight is not None else np.eye(nu))
+    x_goal_t = dev(np.asarray(x_goal, np.float32))
+    u_goal_t = dev(np.asarray(u_goal, np.float32))
+    a_low_t, a_high_t = dev(a_low), dev(a_high)
+    s_low_t, s_high_t = dev(s_low), dev(s_high)
+    oob_mask_t = dev(OOB_MASK, torch.bool)
+    goal_tol = float(task_info["stabilization_goal_tolerance"])
+    if task == Task.STABILIZATION:
+        goal_xyz = x_goal_t[[0, 2, 4]]
+    else:
+        goal_xyz = x_goal_t[0, [0, 2, 4]]
+
+    def _goal_rows(steps):
+        """Trajectory reference row(s) for step indices (clipped gather)."""
+        return x_goal_t[torch.clamp(steps.long(), 0, x_goal_t.shape[0] - 1)]
+
+    def _extend_obs(obs, next_step):
+        if mul == 1:
+            return obs
+        if task == Task.TRAJ_TRACKING:
+            idx = next_step[:, None] + torch.arange(
+                cfg.obs_goal_horizon, device=device, dtype=next_step.dtype)
+            return torch.cat([obs, _goal_rows(idx).reshape(obs.shape[0], -1)], -1)
+        return torch.cat([obs, x_goal_t.reshape(1, -1).expand(obs.shape[0], -1)], -1)
+
+    def _obs(state: QuadState):
+        obs = state.x
+        prog = dist_progs["observation"]
+        if prog is not None:
+            obs = prog.apply(state.dist_offsets["observation"], state.ctrl_step, obs)
+        return _extend_obs(obs, state.ctrl_step + 1)
+
+    # Consolidated reset randomization: one counter draw covers inertia (4)
+    # and initial state (nx), with precomputed affine bounds.  Host float32
+    # arithmetic for nominal+low and high-low, as the JAX package does.
+    names = ["M", "Ixx", "Iyy", "Izz"] + list(INIT_LABELS)
+    infos = ([inertial_rand if cfg.randomized_inertial_prop else {}] * 4
+             + [init_rand if cfg.randomized_init else {}] * nx)
+    rand_lo = np.asarray([float(i[n]["low"]) if n in i else 0.0
+                          for n, i in zip(names, infos)], np.float32)
+    rand_hi = np.asarray([float(i[n]["high"]) if n in i else 0.0
+                          for n, i in zip(names, infos)], np.float32)
+    nominal = np.asarray([nom_mass, *nom_j] + [float(init_state.get(n, 0.0))
+                                               for n in INIT_LABELS], np.float32)
+    rand_a = dev(nominal + rand_lo)
+    rand_b = dev(rand_hi - rand_lo)
+    n_slots = 4 + nx + 1
+
+    def _reset_core(env_seed, episode_idx):
+        """Counter-based reset draws: slots 0..3 inertia, 4..4+nx-1 initial
+        state, 4+nx the impulse offset (quadrotor.py:660-744)."""
+        B = env_seed.shape[0]
+        base = ctr_prng.episode_base(env_seed, episode_idx)
+        u_all = ctr_prng.uniform_slots(base, n_slots).to(dtype)  # (n_slots, B)
+        drawn = rand_a + u_all[: 4 + nx].T * rand_b
+        offsets = {}
+        for ch, prog in dist_progs.items():
+            n = prog.num_scheduled if prog is not None else 0
+            if n:
+                offsets[ch] = torch.floor(u_all[4 + nx] * max_steps).to(torch.int32)[:, None]
+            else:
+                offsets[ch] = torch.zeros((B, 0), dtype=torch.int32, device=device)
+        zi = torch.zeros(B, dtype=torch.int32, device=device)
+        zb = torch.zeros(B, dtype=torch.bool, device=device)
+        state = QuadState(
+            x=drawn[:, 4:].contiguous(),
+            ctrl_step=zi,
+            pyb_step=zi,
+            env_seed=env_seed,
+            episode_idx=episode_idx.to(torch.int32),
+            mass=drawn[:, 0].contiguous(),
+            j_diag=drawn[:, 1:4].contiguous(),
+            dist_offsets=offsets,
+            cnstr_violation=zb,
+            gates_eff=torch.zeros((B, 0, 4), dtype=dtype, device=device),
+            obstacles_eff=torch.zeros((B, 0, 2), dtype=dtype, device=device),
+            current_gate=zi,
+            stepped_through_gate=zb,
+            currently_collided=zb,
+            at_goal_pos=zb,
+            steps_at_goal=zi,
+            task_completed=zb,
+        )
+        info = {}
+        if constraints is not None:
+            info["constraint_values_state"] = constraints.get_state_values(state.x)
+        return state, _obs(state), info
+
+    def reset(env_seeds):
+        """Fresh batch: episode 0 of each env seed (int32, shape (B,))."""
+        env_seeds = torch.as_tensor(env_seeds, device=device).to(torch.int32)
+        return _reset_core(env_seeds, torch.zeros_like(env_seeds))
+
+    def reset_episode(state: QuadState):
+        """Next episode of the same envs (the auto-reset path)."""
+        return _reset_core(state.env_seed, state.episode_idx + 1)
+
+    def step(state: QuadState, action):
+        B = state.x.shape[0]
+        action = torch.as_tensor(action, dtype=dtype, device=device).reshape(B, nu)
+        # Preprocess (quadrotor.py:815-842).
+        if cfg.normalized_rl_action_space:
+            clipped = torch.clamp(action, -1.0, 1.0)
+            thrust = (1.0 + cfg.norm_act_scale * clipped) * hover_thrust
+        else:
+            thrust = torch.clamp(action, a_low_t, a_high_t)
+        preprocessed = thrust
+        if dist_progs["action"] is not None:
+            thrust = dist_progs["action"].apply(
+                state.dist_offsets["action"], state.ctrl_step, thrust)
+        ext = torch.zeros((B, 3), dtype=dtype, device=device)
+        if dist_progs["dynamics"] is not None:
+            ext = dist_progs["dynamics"].apply(
+                state.dist_offsets["dynamics"], state.ctrl_step, ext)
+        # K1: actuation pipeline and all physics substeps in one launch.
+        x = quad3d_substeps(
+            state.x, thrust.contiguous(), ext.contiguous(), state.mass, state.j_diag,
+            dt=pyb_dt, n_sub=n_sub, euler=(cfg.physics == "dyn"), actuation=True)
+
+        info = {}
+        pos = x[:, [0, 2, 4]]
+        collided = gate_geom.ground_collision(pos)
+        info["collision"] = collided
+        full = torch.full((B,), -1, dtype=torch.int32, device=device)
+        info["current_target_gate_id"] = full
+        info["current_target_gate_in_range"] = torch.zeros(B, dtype=torch.bool, device=device)
+        info["current_target_gate_pos"] = torch.zeros((B, 6), dtype=dtype, device=device)
+        info["current_target_gate_type"] = full
+        # At-goal / task completion (quadrotor.py:1114-1133); no gates, so
+        # every env is past them.
+        at_goal = torch.linalg.norm(pos - goal_xyz, dim=-1) < goal_tol
+        steps_at_goal = torch.where(at_goal, state.steps_at_goal + 1,
+                                    torch.zeros_like(state.steps_at_goal))
+        completed = state.task_completed | (steps_at_goal > cfg.ctrl_freq * 2)
+        info["at_goal_position"] = at_goal
+        info["task_completed"] = completed
+
+        # Done (quadrotor.py:956-1002).
+        done = torch.zeros(B, dtype=torch.bool, device=device)
+        goal = x_goal_t if task == Task.STABILIZATION else _goal_rows(state.ctrl_step)
+        if task == Task.STABILIZATION and cost == Cost.QUADRATIC:
+            goal_reached = torch.linalg.norm(x - goal, dim=-1) < goal_tol
+            done = done | goal_reached
+            info["goal_reached"] = goal_reached
+        if cfg.done_on_out_of_bound:
+            oob = (x < s_low_t) | (x > s_high_t)
+            done = done | (oob & oob_mask_t).any(-1)
+        if cfg.done_on_collision:
+            done = done | collided
+        if cfg.done_on_completion:
+            done = done | completed
+
+        # Reward (quadrotor.py:886-954).
+        act_err = preprocessed - u_goal_t
+        if cost == Cost.RL_REWARD:
+            state_err = x - goal
+            dist = (rew_state_w * state_err * state_err).sum(-1) + (
+                rew_act_w * act_err * act_err).sum(-1)
+            rew = torch.exp(-dist) if cfg.rew_exponential else -dist
+        else:
+            dx = x - goal
+            rew = -(((0.5 * dx) @ Q * dx).sum(-1) + ((0.5 * act_err) @ R * act_err).sum(-1))
+
+        err = (x - goal) * mse_w
+        info["mse"] = (err * err).sum(-1)
+
+        # after_step (benchmark_env.py:422-463).
+        violated = state.cnstr_violation
+        if constraints is not None:
+            c_val = constraints.get_values(x, action)
+            violated = constraints.is_violated(c_val)
+            info["constraint_values"] = c_val
+            info["constraint_violation"] = violated.to(torch.int32)
+            if cfg.done_on_violation:
+                done = done | violated
+            if cost == Cost.RL_REWARD and cfg.use_constraint_penalty:
+                rew = torch.where(constraints.is_almost_active(c_val),
+                                  rew + cfg.constraint_penalty, rew)
+        # Non-finite safety net: freeze the last finite state, end the
+        # episode and zero the reward (quadrotor.py:1020-1032).
+        finite = torch.isfinite(x).all(-1)
+        x = torch.where(finite[:, None], x, state.x)
+        done = done | ~finite
+        rew = torch.where(finite, rew, torch.zeros_like(rew))
+
+        new_ctrl = state.ctrl_step + 1
+        timeout = new_ctrl >= max_steps
+        info["TimeLimit.truncated"] = timeout & ~done
+        done = done | timeout
+        new_state = state.replace(
+            x=x,
+            ctrl_step=new_ctrl,
+            pyb_step=state.pyb_step + n_sub,
+            cnstr_violation=violated,
+            currently_collided=collided,
+            at_goal_pos=at_goal,
+            steps_at_goal=steps_at_goal,
+            task_completed=completed,
+        )
+        return new_state, _obs(new_state), rew.to(dtype), done, info
+
+    return FnEnv(
+        reset=reset,
+        step=step,
+        spaces=spaces,
+        config=cfg,
+        x_goal=x_goal,
+        u_goal=u_goal,
+        ctrl_freq=cfg.ctrl_freq,
+        pyb_freq=cfg.pyb_freq,
+        episode_len_sec=cfg.episode_len_sec,
+        device=device,
+        extras={"reset_episode": reset_episode},
+    )

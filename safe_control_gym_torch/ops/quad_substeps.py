@@ -1,0 +1,175 @@
+"""K1: batched 3D-quadrotor actuation + physics substeps.
+
+Port of ``safe_control_gym_tpu/ops/pallas_quad.py`` (TPU kernel
+``_substeps_kernel``).  :func:`quad3d_substeps` launches the CUDA kernel
+``csrc/quad3d_substeps.cu`` for CUDA float32 tensors and takes the plain
+PyTorch version :func:`quad3d_substeps_plain` for CPU tensors; anything else
+raises.  The plain version repeats the kernel's arithmetic op for op on
+per-component ``(B,)`` rows; it is the CPU path and the kernel's yardstick
+of correctness, not of speed.
+
+On the card the kernel is bound by launch latency: at B = 4096 it moves
+0.57 MB and does ~2k flops per env, work the card finishes in well under a
+microsecond (see the source note in ``csrc/quad3d_substeps.cu``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# cf2x.urdf constants (envs/quadrotor.py; reference assets/cf2x.urdf).
+GRAVITY = 9.8
+ARM_L = 0.0397
+KF = 3.16e-10
+KM_OVER_KF = 7.94e-12 / KF
+PWM2RPM_SCALE = 0.2685
+PWM2RPM_CONST = 4070.3
+MIN_PWM = 20000.0
+MAX_PWM = 65535.0
+
+NX = 12  # [x, vx, y, vy, z, vz, phi, theta, psi, p, q, r]
+BLOCK = 64  # threads per block: 32 and 64 tie, 128 is ~10% slower (PERF.md)
+
+
+def _f32(v) -> float:
+    """A Python scalar rounded to float32, as a weakly typed constant is."""
+    return float(np.float32(v))
+
+
+def div(a, c: float):
+    """``a / c`` as a true division on every device.  PyTorch's CUDA division
+    by a Python scalar multiplies by the scalar's reciprocal instead, which
+    rounds differently from the kernels' (and the JAX package's) division."""
+    return a / torch.full_like(a, c)
+
+
+def cmd2pwm(thrust):
+    """Per-motor thrust commands -> motor PWMs, clipped (reference
+    quadrotor_utils.py:21-67, 4-motor form)."""
+    pwm = div(torch.sqrt(div(torch.clamp_min(thrust, 0.0), KF)) - PWM2RPM_CONST, PWM2RPM_SCALE)
+    return torch.clamp(pwm, MIN_PWM, MAX_PWM)
+
+
+def pwm2rpm(pwm):
+    return PWM2RPM_SCALE * pwm + PWM2RPM_CONST
+
+
+def actuate(t):
+    """Per-motor thrust command -> realized force: cmd2pwm -> clip ->
+    pwm2rpm -> rpm^2 * KF (pallas_quad.py:98-106)."""
+    rpm = pwm2rpm(cmd2pwm(t))
+    return rpm * rpm * KF
+
+
+def fc_rows(s, f, ext, minv, j, g, l_sq2, km_over_kf):
+    """Rigid-body derivative on per-component rows (pallas_quad.py:49-91)."""
+    vx, vy, vz = s[1], s[3], s[5]
+    phi, theta, psi = s[6], s[7], s[8]
+    p, q, r = s[9], s[10], s[11]
+    f1, f2, f3, f4 = f
+
+    T = f1 + f2 + f3 + f4
+    cphi, sphi = torch.cos(phi), torch.sin(phi)
+    cth, sth = torch.cos(theta), torch.sin(theta)
+    cpsi, spsi = torch.cos(psi), torch.sin(psi)
+    zb_x = cpsi * sth * cphi + spsi * sphi
+    zb_y = spsi * sth * cphi - cpsi * sphi
+    zb_z = cth * cphi
+    ax = (zb_x * T + ext[0]) * minv
+    ay = (zb_y * T + ext[1]) * minv
+    az = (zb_z * T + ext[2]) * minv - g
+
+    mx = l_sq2 * (f1 + f2 - f3 - f4)
+    my = l_sq2 * (-f1 + f2 + f3 - f4)
+    mz = km_over_kf * (f1 - f2 + f3 - f4)
+    jx, jy, jz = j
+    gx = q * (jz * r) - r * (jy * q)
+    gy = r * (jx * p) - p * (jz * r)
+    gz = p * (jy * q) - q * (jx * p)
+
+    tth = sth / cth
+    phi_dot = p + sphi * tth * q + cphi * tth * r
+    theta_dot = cphi * q - sphi * r
+    psi_dot = sphi / cth * q + cphi / cth * r
+    return (vx, ax, vy, ay, vz, az, phi_dot, theta_dot, psi_dot,
+            (mx - gx) / jx, (my - gy) / jy, (mz - gz) / jz)
+
+
+def axpy(x, a, k):
+    return tuple(xi + a * ki for xi, ki in zip(x, k))
+
+
+def substeps_rows(s, fc, n_sub, euler, dt):
+    """``n_sub`` RK4 (or Euler) substeps on component rows
+    (pallas_quad.py:126-137)."""
+    for _ in range(n_sub):
+        if euler:
+            s = axpy(s, dt, fc(s))
+        else:
+            k1 = fc(s)
+            k2 = fc(axpy(s, dt / 2, k1))
+            k3 = fc(axpy(s, dt / 2, k2))
+            k4 = fc(axpy(s, dt, k3))
+            s = tuple(si + dt / 6 * (a + 2 * b + 2 * c + d)
+                      for si, a, b, c, d in zip(s, k1, k2, k3, k4))
+    return s
+
+
+def quad3d_substeps_plain(x, thrust, ext, mass, j_diag, *, dt, n_sub, euler=False,
+                          g=GRAVITY, arm_l=ARM_L, km_over_kf=KM_OVER_KF,
+                          actuation=False):
+    """Plain PyTorch version of K1.  x (B, 12), thrust (B, 4), ext (B, 3),
+    mass (B,), j_diag (B, 3) -> (B, 12)."""
+    f = tuple(thrust[:, i] for i in range(4))
+    if actuation:
+        f = tuple(actuate(fi) for fi in f)
+    e = tuple(ext[:, i] for i in range(3))
+    j = tuple(j_diag[:, i] for i in range(3))
+    minv = 1.0 / mass
+    l_sq2 = arm_l / (2.0**0.5)
+
+    def fc(s):
+        return fc_rows(s, f, e, minv, j, g, l_sq2, km_over_kf)
+
+    s = substeps_rows(tuple(x[:, i] for i in range(NX)), fc, n_sub, euler, dt)
+    return torch.stack(s, -1)
+
+
+def quad3d_substeps(x, thrust, ext, mass, j_diag, *, dt, n_sub, euler=False,
+                    g=GRAVITY, arm_l=ARM_L, km_over_kf=KM_OVER_KF,
+                    actuation=False):
+    """K1: actuation (if ``actuation``) then ``n_sub`` substeps for a batch.
+
+    CPU tensors take :func:`quad3d_substeps_plain`; CUDA float32 tensors
+    launch ``csrc/quad3d_substeps.cu``; anything else raises."""
+    args = (x, thrust, ext, mass, j_diag)
+    if all(a.device.type == "cpu" for a in args):
+        return quad3d_substeps_plain(
+            x, thrust, ext, mass, j_diag, dt=dt, n_sub=n_sub, euler=euler, g=g,
+            arm_l=arm_l, km_over_kf=km_over_kf, actuation=actuation)
+    B = x.shape[0]
+    shapes = ((B, NX), (B, 4), (B, 3), (B,), (B, 3))
+    for a, shp in zip(args, shapes):
+        if a.device != x.device or a.device.type != "cuda" or a.dtype != torch.float32 \
+                or tuple(a.shape) != shp:
+            raise ValueError(
+                "quad3d_substeps takes float32 tensors on one CUDA device with shapes "
+                f"{shapes}; got {[(tuple(t.shape), t.dtype, str(t.device)) for t in args]}")
+    from safe_control_gym_torch import kernels
+
+    args = tuple(a.contiguous() for a in args)
+    out = torch.empty_like(args[0])
+    if B == 0:
+        return out
+    code = kernels.lib().quad3d_substeps(
+        *(a.data_ptr() for a in args), out.data_ptr(), B,
+        _f32(dt), _f32(dt / 2), _f32(dt / 6), int(n_sub), int(bool(euler)),
+        _f32(g), _f32(arm_l / (2.0**0.5)), _f32(km_over_kf), int(bool(actuation)),
+        BLOCK, kernels.stream_ptr(x.device))
+    kernels.check(code, "quad3d_substeps")
+    quad3d_substeps.launches += 1
+    return out
+
+
+quad3d_substeps.launches = 0
