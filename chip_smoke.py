@@ -20,7 +20,21 @@ initial state, out-of-bound done, masked auto-reset), on one CUDA card:
    inputs (K2: all rows after the timed 8192-step call); times each kernel
    alone (profiler device time) and the plain versions (no yardstick of
    speed: they repeat the kernels' arithmetic op by op);
-6. prints one JSON line of per-kernel results, then the final status line.
+6. holds K3 (``quad3d_policy_rollout``, the PPO data collection) against
+   its plain version at B = 1024 for 25 steps through auto-resets: all rows
+   and the whole record, done counts exactly;
+7. holds K4 (``ppo_grads``, the PPO minibatch gradients) against its plain
+   version and against ``torch.autograd`` of the reference losses at
+   mb = 131072, H = 64, tanh, and two K4 launches against each other bit
+   for bit;
+8. drives the training path, PPO on config 4 with the normalized action
+   space at the ``rl_train`` shapes (B = 4096, T = 128, 10 epochs of 4
+   minibatches of 131072): two warm-up train steps, then 3 timed train
+   steps with the launch counters zeroed just before and read just after
+   (K3 once and K4 forty times per train step); the device busy share and
+   the kernels that take the time; K3 against its plain version on the
+   timed call's own input; K3 and K4 timed alone;
+9. prints one JSON line of per-kernel results, then the final status line.
 
 Any failure raises and exits non-zero; nothing falls back to the CPU.
 
@@ -66,6 +80,59 @@ ACTUATE_OPS, ACTUATE_TRANS = 10, 1  # per motor
 # 48+2, violation and bound tests 36, reward 50+1, done 3, statistics 16.
 K2_STEP_OPS, K2_STEP_TRANS = 8 + 1 + 48 + 36 + 50 + 3 + 16, 1 + 2 + 1
 K2_RESET_OPS = 300  # per auto-reset: 17 counter hashes and affine draws
+
+# The training path (bench.py rl_train): PPO on config 4 with the
+# normalized action space, B x T env-steps per train step, EPOCHS epochs of
+# N_MINI minibatches of MB samples.
+TRAIN_B, TRAIN_T, EPOCHS, HIDDEN = 4096, 128, 10, 64
+MB = TRAIN_B * TRAIN_T // 4
+N_MINI = TRAIN_B * TRAIN_T // MB
+TRAIN_STEPS = 3
+# K3 against its plain version: both sides run the same float32 operations
+# in the same order (-fmad=false), but tanh, log, cos and exp are CUDA's
+# libdevice functions in the kernel and PyTorch's CUDA operators in the
+# plain version, which may round differently in the last place.  The record
+# and state rows are therefore held at the JAX suite's state tolerance;
+# done, truncation and the integer rows exactly.
+K3_EXACT_REC = [17, 18]  # done, trunc
+K3_RTOL, K3_ATOL = 2e-4, 2e-5
+# K4 against its plain version and torch.autograd: sums in other orders
+# (the JAX suite's gradient tolerance); loss sums of up to ~1e5 in size
+# at rtol 2e-4 with an atol for the one that cancels (sum of logp
+# differences).  The actor's hidden-layer gradients are ~1e-5 in size at
+# these shapes (a 1/mb factor and an output gain of 0.01), so each
+# segment's atol is also held to K4_ATOL_REL times its reference's largest
+# entry: float32 sums in other orders stay within ~5e-6 of it (float32
+# against float64 on the CPU), and a wrong kernel does not.
+K4_RTOL, K4_ATOL, K4_ATOL_REL = 2e-4, 2e-6, 2e-5
+K4_SUM_RTOL, K4_SUM_ATOL = 2e-4, 1e-2
+
+# K3 operations per env-step beyond K2's step, the products the function
+# needs (csrc/quad3d_policy_rollout.cu skips the zero blocks of the packed
+# layout): multiply and add of the actor's and the critic's three layers,
+# their biases, and the tanh of their hidden layers; two Philox-4x32-10
+# blocks (10 rounds of 2 multiply-highs, 2 multiplies, 3 xors, 2 key adds);
+# Box-Muller, log-prob and the normalized action map (4 x (log, sqrt, cos,
+# exp) and ~20 operations per action); the four actuations and the action
+# cost.
+def k3_mlp_ops(h, nx=12, nu=4):
+    return 2 * (nx * 2 * h + 2 * h * h + h * (nu + 1)) + 2 * 2 * h + (nu + 1)
+
+
+K3_MLP_TRANS_PER_H = 4  # tanh of both hidden layers of both nets
+K3_RNG_OPS = 2 * 10 * 9
+K3_SAMPLE_OPS, K3_SAMPLE_TRANS = 4 * 20, 4 * 4
+K3_ACTION_OPS = 4 * (ACTUATE_OPS + ACTUATE_TRANS) + 16
+# K4 operations per sample, counted from csrc/ppo_update.cu as written:
+# forward of both nets (multiply-add of three layers, biases, tanh), the
+# backward into both hidden layers (tanh' = 1 - a^2), and one multiply-add
+# per sample into every weight gradient entry (an add for each bias entry),
+# plus the losses (exp of the ratio, 4 exp of logstd, ~60 operations).
+def k4_ops_per_sample(nx, nu, h):
+    fwd = 2 * (2 * (nx * h + h * h) + (nu + 1) * h) + 2 * h * 2 + (nu + 1) + 2 * 2 * h
+    bwd = 2 * (nu + 1) * h + 2 * (2 * h * h) + 2 * 2 * h * 3
+    acc = 2 * (2 * (nx * h + h * h) + (nu + 1) * h) + (4 * h + nu + 1 + nu + 3)
+    return fwd + bwd + acc + 2 + 4 + 60
 
 
 def cfg4(**kw):
@@ -144,22 +211,23 @@ def max_err(a, b):
 
 
 def check_k2_rows(tag, out, ref, rows_in):
-    """All 27 rows of K2's output against its plain version's on the same
-    input rows; returns the largest absolute difference on the float rows."""
+    """All 27 state rows a kernel (K2 or K3) left against its plain
+    version's on the same input rows; returns the largest absolute
+    difference on the float rows."""
     import torch
 
     diff = (out[K2_EXACT_ROWS] != ref[K2_EXACT_ROWS]).any(0)
     done_k, done_p = int(out[21].sum()), int(ref[21].sum())
-    check(f"K2 {tag}: step, offset, done and episode rows", not bool(diff.any()) and done_k > 0,
+    check(f"{tag}: step, offset, done and episode rows", not bool(diff.any()) and done_k > 0,
           f"episodes {done_k} vs {done_p}; {int(diff.sum())} envs differ (exact)")
     seed = rows_in[25].view(torch.int32)
-    check(f"K2 {tag}: seed row bits", torch.equal(out[25].view(torch.int32), seed)
+    check(f"{tag}: seed row bits", torch.equal(out[25].view(torch.int32), seed)
           and torch.equal(ref[25].view(torch.int32), seed), "copied through unchanged")
     errs = []
     for what, rs, rtol, atol in K2_CLOSE_ROWS:
         err = max_err(out[rs], ref[rs])
         errs.append(err)
-        check(f"K2 {tag}: {what}", bool(torch.isclose(out[rs], ref[rs], rtol=rtol, atol=atol).all()),
+        check(f"{tag}: {what}", bool(torch.isclose(out[rs], ref[rs], rtol=rtol, atol=atol).all()),
               f"max_abs_err {err:.3g} (rtol {rtol:g}, atol {atol:g})")
     return max(errs)
 
@@ -231,7 +299,7 @@ def phase_k2(dev):
     out = fr.run(rows0, act)
     ref = F.quad3d_rollout_plain(fr.params, rows0, act)
     torch.cuda.synchronize()
-    err = check_k2_rows(f"vs plain (B={CHECK_B}, {CHECK_STEPS} steps)", out, ref, rows0)
+    err = check_k2_rows(f"K2 vs plain (B={CHECK_B}, {CHECK_STEPS} steps)", out, ref, rows0)
     return err, env, fr, rows0, out
 
 
@@ -339,7 +407,7 @@ def phase_main(dev):
     torch.cuda.synchronize()
     res["k2_plain_ms"] = start.elapsed_time(end)
     res["k2_main_max_abs_err"] = check_k2_rows(
-        f"vs plain on the main path (B={B_MAIN}, {FAST_STEPS} steps)", rows, rows_plain, rows_in)
+        f"K2 vs plain on the main path (B={B_MAIN}, {FAST_STEPS} steps)", rows, rows_plain, rows_in)
 
     # -- where the general engine's time goes: device busy share and the
     # kernels that take it, over 32 steps.
@@ -381,6 +449,231 @@ def phase_main(dev):
     return res
 
 
+def seeded_ac(dev, seed=0):
+    """Actor-critic of the rl_train widths with weights from a fixed seed."""
+    import torch
+
+    from safe_control_gym_torch.controllers.ppo import ActorCritic
+
+    ac = ActorCritic(12, 4, HIDDEN, "tanh", generator=torch.Generator().manual_seed(seed))
+    return ac.to(dev)
+
+
+def check_k3(tag, rows, traj, rows_p, traj_p, rows_in):
+    """K3's rows and record against its plain version's on the same
+    inputs; returns (largest absolute difference, share of record entries
+    that differ at all)."""
+    import torch
+
+    err_rows = check_k2_rows(f"K3 {tag}", rows, rows_p, rows_in)
+    exact = torch.equal(traj[:, K3_EXACT_REC], traj_p[:, K3_EXACT_REC])
+    check(f"K3 {tag}: done and truncation records", exact,
+          f"{int(traj[:, 17].sum())} vs {int(traj_p[:, 17].sum())} dones, exact")
+    err = max_err(traj, traj_p)
+    close = bool(torch.isclose(traj, traj_p, rtol=K3_RTOL, atol=K3_ATOL).all())
+    differ = float((traj != traj_p).double().mean())
+    check(f"K3 {tag}: whole record", close and bool(torch.isfinite(traj).all()),
+          f"max_abs_err {err:.3g}, {differ:.3g} of entries not bit-equal "
+          f"(rtol {K3_RTOL:g}, atol {K3_ATOL:g})")
+    return max(err, err_rows), differ
+
+
+def phase_k3(dev):
+    import torch
+
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+    from safe_control_gym_torch.parallel import fast_policy as P
+
+    env = make_quadrotor(cfg4(episode_len_sec=0.2, normalized_rl_action_space=True), device=dev)
+    fp = P.FastPolicyRollout(env, CHECK_B, CHECK_STEPS, mlp_hidden=HIDDEN, device=dev)
+    rows0 = fp.reset(seed=0)
+    ac = seeded_ac(dev)
+    w = P.pack_weights(ac.actor, ac.critic, ac.logstd)
+    seed = torch.tensor([7], dtype=torch.int32, device=dev)
+    rows, traj = P.policy_rollout(fp.params, rows0, w, seed)
+    rows_p, traj_p = P.policy_rollout_plain(fp.params, rows0, w, seed)
+    torch.cuda.synchronize()
+    return check_k3(f"vs plain (B={CHECK_B}, {CHECK_STEPS} steps)", rows, traj, rows_p, traj_p,
+                    rows0)
+
+
+def k4_inputs(dev, ac, n, seed=0):
+    """A seeded (20, n) minibatch near the policy ``ac``: ratios spread
+    over both sides of the clip range."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
+    with torch.no_grad():
+        obs = 0.5 * rn(n, 12)
+        mean, std = ac.actor(obs), torch.exp(ac.logstd)
+        act = mean + std * rn(n, 4)
+        logp = (-((act - mean) ** 2) / (2 * std**2) - torch.log(std)
+                - 0.5 * float(np.log(2 * np.pi))).sum(-1)
+        v = ac.critic(obs)[:, 0]
+        cols = [obs, act, v[:, None], (logp + 0.3 * rn(n))[:, None],
+                (v + rn(n))[:, None], rn(n)[:, None]]
+    return torch.cat(cols, 1).T.contiguous()
+
+
+def k4_autograd(ac, mb, clip):
+    """torch.autograd of the reference losses (the minibatch's mean clipped
+    surrogate and half its mean squared value error): the gradients K4
+    returns, keyed like fast_update.SEGMENTS, and the 3 loss sums."""
+    import torch
+
+    from safe_control_gym_torch.parallel import fast_update as U
+
+    obs, act, logp_old, ret, adv = mb[:12].T, mb[12:16].T, mb[17], mb[18], mb[19]
+    params = dict(zip(U.SEGMENTS, [p for net in (ac.actor, ac.critic) for p in net.parameters()]
+                      + [ac.logstd]))
+    with torch.enable_grad():
+        mean, std = ac.actor(obs), torch.exp(ac.logstd)
+        logp = (-((act - mean) ** 2) / (2 * std**2) - ac.logstd
+                - 0.5 * float(np.log(2 * np.pi))).sum(-1)
+        ratio = torch.exp(logp - logp_old)
+        min_surr = torch.minimum(ratio * adv, torch.clamp(ratio, 1 - clip, 1 + clip) * adv)
+        v = ac.critic(obs)[:, 0]
+        loss = -min_surr.mean() + 0.5 * ((v - ret) ** 2).mean()
+        grads = torch.autograd.grad(loss, list(params.values()))
+    sums = torch.stack([min_surr.sum(), (logp_old - logp).sum(), ((v - ret) ** 2).sum()])
+    return dict(zip(params, grads)), sums.detach()
+
+
+def check_grads(tag, g, sums, g_ref, sums_ref):
+    import torch
+
+    from safe_control_gym_torch.parallel import fast_update as U
+
+    errs = []
+    for k in U.SEGMENTS:
+        ref = g_ref[k].reshape(g[k].shape)
+        scale = float(ref.abs().max())
+        atol = min(K4_ATOL, K4_ATOL_REL * scale)
+        errs.append(max_err(g[k], ref))
+        check(f"K4 {tag}: {k}", bool(torch.isclose(g[k], ref, rtol=K4_RTOL, atol=atol).all()),
+              f"max_abs_err {errs[-1]:.3g} against max|ref| {scale:.3g} "
+              f"(rtol {K4_RTOL:g}, atol {atol:.3g})")
+    ok = bool(torch.isclose(sums, sums_ref, rtol=K4_SUM_RTOL, atol=K4_SUM_ATOL).all())
+    check(f"K4 {tag}: loss sums", ok, f"{sums.tolist()} vs {sums_ref.tolist()} "
+          f"(rtol {K4_SUM_RTOL:g}, atol {K4_SUM_ATOL:g})")
+    return max(errs)
+
+
+def phase_k4(dev):
+    """K4 at the main path's shapes on a seeded minibatch."""
+    import torch
+
+    from safe_control_gym_torch.parallel import fast_update as U
+
+    ac = seeded_ac(dev, seed=1)
+    with torch.no_grad():  # spread logstd so each action dim differs
+        ac.logstd.copy_(torch.tensor([-0.5, -0.7, -0.3, -0.6], device=dev))
+    mb = k4_inputs(dev, ac, MB)
+    w = U.prep_weights(ac.actor, ac.critic, ac.logstd)
+    g1, s1 = U.ppo_grads(mb, w, clip=0.2)
+    g2, s2 = U.ppo_grads(mb, w, clip=0.2)
+    gp, sp = U.ppo_grads_plain(mb, w, clip=0.2)
+    ga, sa = k4_autograd(ac, mb, 0.2)
+    torch.cuda.synchronize()
+    same = all(torch.equal(g1[k], g2[k]) for k in U.SEGMENTS) and torch.equal(s1, s2)
+    check(f"K4 two launches on the same input (mb={MB})", same, "bit-equal")
+    err = check_grads(f"vs plain (mb={MB})", g1, s1, gp, sp)
+    err_ag = check_grads(f"vs torch.autograd (mb={MB})", g1, s1, ga, sa)
+    return err, err_ag
+
+
+def phase_train(dev):
+    """The training path: PPO train steps at the rl_train shapes."""
+    import torch
+
+    from safe_control_gym_torch.controllers.ppo import PPO
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+    from safe_control_gym_torch.ops import quad_substeps as K1
+    from safe_control_gym_torch.parallel import fast_env as F
+    from safe_control_gym_torch.parallel import fast_policy as P
+    from safe_control_gym_torch.parallel import fast_update as U
+
+    env = make_quadrotor(cfg4(normalized_rl_action_space=True), device=dev)
+    ppo = PPO(env, seed=0, rollout_batch_size=TRAIN_B, rollout_steps=TRAIN_T, opt_epochs=EPOCHS,
+              mini_batch_size=MB, hidden_dim=HIDDEN, use_fast_rollout=True,
+              reshuffle_each_epoch=False)
+    check("PPO on the card takes K3 and K4", ppo._fp is not None and ppo._fu is not None,
+          "use_fast_rollout=True, use_fast_update='auto' on CUDA")
+    res = {}
+    for _ in range(2):
+        ppo.state, _ = ppo._train_step(ppo.state)
+    # The first timed call's own K3 input: rows, packed weights, and the
+    # seed the controller's generator is about to draw.
+    fp, ac = ppo._fp, ppo.state.ac
+    rows_in = ppo.state.env_state.clone()
+    w = P.pack_weights(ac.actor, ac.critic, ac.logstd)
+    gen = torch.Generator(device=dev)
+    gen.set_state(ppo.gen.get_state())
+    seed = torch.randint(0, 2**31 - 1, (1,), generator=gen, device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    for c in (K1.quad3d_substeps, F.quad3d_rollout, P.policy_rollout, U.ppo_grads):
+        c.launches = 0
+    t0 = time.perf_counter()
+    ppo.state, metrics = ppo.train_many(TRAIN_STEPS)(ppo.state)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    res["k3_launches"] = P.policy_rollout.launches
+    res["k4_launches"] = U.ppo_grads.launches
+    res["train_k1_k2_launches"] = K1.quad3d_substeps.launches + F.quad3d_rollout.launches
+    res["train_step_s"] = t_train / TRAIN_STEPS
+    res["train_env_steps_s"] = TRAIN_STEPS * TRAIN_B * TRAIN_T / t_train
+    res["train_metrics"] = {k: float(v) for k, v in metrics.items()}
+    check("train steps went through the kernels",
+          res["k3_launches"] == TRAIN_STEPS and res["k4_launches"] == TRAIN_STEPS * EPOCHS * N_MINI,
+          f"K3 {res['k3_launches']} and K4 {res['k4_launches']} launches in {TRAIN_STEPS} train "
+          f"steps (want 1 and {EPOCHS * N_MINI} per step)")
+    check("train step output", all(np.isfinite(v) for v in res["train_metrics"].values())
+          and ppo.state.total_steps == (2 + TRAIN_STEPS) * TRAIN_B * TRAIN_T,
+          f"finite metrics {res['train_metrics']}, total_steps {ppo.state.total_steps}")
+
+    # -- K3 against its plain version on the first timed call's own input.
+    rows, traj = P.policy_rollout(fp.params, rows_in, w, seed)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    rows_p, traj_p = P.policy_rollout_plain(fp.params, rows_in, w, seed)
+    end.record()
+    torch.cuda.synchronize()
+    res["k3_plain_ms"] = start.elapsed_time(end)
+    res["k3_main_max_abs_err"], res["k3_main_differ"] = check_k3(
+        f"vs plain on the training path (B={TRAIN_B}, {TRAIN_T} steps)", rows, traj, rows_p,
+        traj_p, rows_in)
+    res["k3_resets"] = float(rows[21].sum() - rows_in[21].sum())
+
+    # -- where a train step's time goes: device busy share and the kernels.
+    step = lambda: ppo._train_step(ppo.state)  # noqa: E731
+    _, kern = profile_kernels(step, 1)
+    busy = sum(t for t, _ in kern.values())
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    k3_dev = sum(t for k, (t, _) in kern.items() if "quad3d_policy_rollout" in k)
+    k4_dev = sum(t for k, (t, _) in kern.items() if "ppo_grads" in k)
+    res["train_profile"] = {
+        "wall_ms": wall, "device_ms": busy, "busy_share": busy / wall if wall else None,
+        "k3_device_ms": k3_dev, "k4_device_ms": k4_dev,
+        "kernel_launches": sum(n for _, n in kern.values()),
+        "top": sorted(((k[:80], t, n) for k, (t, n) in kern.items()), key=lambda r: -r[1])[:10]}
+
+    # -- K3 and K4 alone (profiler device time), and K4's plain version.
+    res["k3_ms"] = kernel_device_ms(lambda: P.policy_rollout(fp.params, rows_in, w, seed),
+                                    "quad3d_policy_rollout_kernel", 3)
+    mb = k4_inputs(dev, ac, MB, seed=2)
+    wk = U.prep_weights(ac.actor, ac.critic, ac.logstd)
+    _, kern = profile_kernels(lambda: U.ppo_grads(mb, wk, clip=0.2), 20)
+    res["k4_ms"] = sum(t for k, (t, _) in kern.items() if "ppo_grads" in k) / 20
+    plain = lambda: U.ppo_grads_plain(mb, wk, clip=0.2)  # noqa: E731
+    cuda_ms(plain, 3)
+    res["k4_plain_ms"] = cuda_ms(plain, 20)
+    return res
+
+
 def bounds(res):
     """Least time the card could take for each kernel's main-path work."""
     B = B_MAIN
@@ -391,8 +684,25 @@ def bounds(res):
     env_steps = B * FAST_STEPS
     k2_ops = (env_steps * (4 * RK4_SUBSTEP_OPS + 4 * 4 * FC_TRANS + K2_STEP_OPS + K2_STEP_TRANS)
               + res["fast_resets"] * K2_RESET_OPS + B * 4 * (ACTUATE_OPS + ACTUATE_TRANS))
+    # K3 at the training path's shapes: rows in and out, the packed weights
+    # read once, the record written once; K2's step plus the policy per
+    # env-step, the resets this run's timed call made.
+    h2 = 2 * HIDDEN
+    n_w = h2 * 12 + h2 + h2 * h2 + h2 + 8 * h2 + 8 + 4
+    k3_bytes = 4 * (TRAIN_B * 2 * 27 + n_w + TRAIN_T * 33 * TRAIN_B)
+    k3_steps = TRAIN_B * TRAIN_T
+    k3_ops = (k3_steps * (4 * RK4_SUBSTEP_OPS + 4 * 4 * FC_TRANS + K2_STEP_OPS + K2_STEP_TRANS
+                          + k3_mlp_ops(HIDDEN) + K3_MLP_TRANS_PER_H * HIDDEN + K3_RNG_OPS
+                          + K3_SAMPLE_OPS + K3_SAMPLE_TRANS + K3_ACTION_OPS)
+              + res["k3_resets"] * K2_RESET_OPS)
+    # K4 per launch: the minibatch read once, the weights read and the
+    # gradients and loss sums written once.
+    n_g = 2 * (HIDDEN * 12 + HIDDEN + HIDDEN * HIDDEN + HIDDEN) + 4 * HIDDEN + 4 + HIDDEN + 1 + 4
+    k4_bytes = 4 * (20 * MB + 2 * n_g + 3)
+    k4_ops = MB * k4_ops_per_sample(12, 4, HIDDEN)
     out = {}
-    for name, nbytes, ops in (("k1", k1_bytes, k1_ops), ("k2", k2_bytes, k2_ops)):
+    for name, nbytes, ops in (("k1", k1_bytes, k1_ops), ("k2", k2_bytes, k2_ops),
+                              ("k3", k3_bytes, k3_ops), ("k4", k4_bytes, k4_ops)):
         t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
         out[name] = {"bytes": nbytes, "ops": ops, "bound_ms": max(t_b, t_o),
                      "bound_by": "bytes" if t_b >= t_o else "operations"}
@@ -420,6 +730,9 @@ def main():
     k2_err, env_c, fr_c, rows0, rows_k2 = phase_k2(dev)
     cross_err = phase_cross(dev, env_c, fr_c, rows0, rows_k2)
     res = phase_main(dev)
+    k3_err, k3_differ = phase_k3(dev)
+    k4_err, k4_err_ag = phase_k4(dev)
+    res.update(phase_train(dev))
     bnd = bounds(res)
 
     from safe_control_gym_torch.ops import quad_substeps as K1
@@ -442,6 +755,21 @@ def main():
     print(f"launch counters: K1 {res['k1_launches']}, K2 {res['k2_launches']}")
     print(f"plain versions (no yardstick): K1 {res['k1_plain_ms']:.4f} ms per call, "
           f"K2 {res['k2_plain_ms']:.1f} ms per call of {FAST_STEPS} steps")
+    tp = res["train_profile"]
+    print(f"PPO train step (B={TRAIN_B}, T={TRAIN_T}, {EPOCHS} epochs x {N_MINI} minibatches of "
+          f"{MB}): {res['train_env_steps_s']:.6g} env-steps/s, {res['train_step_s'] * 1e3:.3f} ms "
+          f"per train step over {TRAIN_STEPS}; metrics {res['train_metrics']}")
+    print(f"launches per train step: K3 {res['k3_launches'] / TRAIN_STEPS:g}, "
+          f"K4 {res['k4_launches'] / TRAIN_STEPS:g}; K1+K2 {res['train_k1_k2_launches']}")
+    print(f"train step: wall {tp['wall_ms']:.3f} ms, device busy {tp['device_ms']:.3f} ms "
+          f"({tp['busy_share']}), K3 {tp['k3_device_ms']:.3f} ms, K4 {tp['k4_device_ms']:.3f} ms, "
+          f"{tp['kernel_launches']} kernel launches; top {tp['top']}")
+    print(f"K3 device time {res['k3_ms']:.4f} ms per call of {TRAIN_T} steps "
+          f"(bound {bnd['k3']['bound_ms']:.4f} ms, {bnd['k3']['bound_by']}); "
+          f"plain {res['k3_plain_ms']:.1f} ms; {res['k3_resets']:.0f} auto-resets")
+    print(f"K4 device time {res['k4_ms'] * 1e3:.2f} us per launch at mb={MB} "
+          f"(bound {bnd['k4']['bound_ms'] * 1e3:.2f} us, {bnd['k4']['bound_by']}); "
+          f"plain {res['k4_plain_ms'] * 1e3:.2f} us")
 
     kernels_line = {"kernels": [
         {"name": "quad3d_substeps", "route": "cuda",
@@ -461,6 +789,23 @@ def main():
          "ms": res["k2_ms"], "plain_ms": res["k2_plain_ms"],
          "bound_ms": bnd["k2"]["bound_ms"], "bound_by": bnd["k2"]["bound_by"],
          "library_ms": None, "block": F.BLOCK},
+        {"name": "quad3d_policy_rollout", "route": "cuda",
+         "source": "safe_control_gym_torch/csrc/quad3d_policy_rollout.cu",
+         "replaces": "safe_control_gym_tpu/parallel/fast_policy.py:76",
+         "launches": res["k3_launches"],
+         "max_abs_err": max(k3_err, res["k3_main_max_abs_err"]),
+         "share_not_bit_equal": max(k3_differ, res["k3_main_differ"]),
+         "ms": res["k3_ms"], "plain_ms": res["k3_plain_ms"],
+         "bound_ms": bnd["k3"]["bound_ms"], "bound_by": bnd["k3"]["bound_by"],
+         "library_ms": None},
+        {"name": "ppo_grads", "route": "cuda",
+         "source": "safe_control_gym_torch/csrc/ppo_update.cu",
+         "replaces": "safe_control_gym_tpu/parallel/fast_update.py:44",
+         "launches": res["k4_launches"],
+         "max_abs_err": k4_err, "max_abs_err_vs_autograd": k4_err_ag,
+         "ms": res["k4_ms"], "plain_ms": res["k4_plain_ms"],
+         "bound_ms": bnd["k4"]["bound_ms"], "bound_by": bnd["k4"]["bound_by"],
+         "library_ms": None},
     ]}
     total_s = time.perf_counter() - t_start
     if args.out:
@@ -470,6 +815,8 @@ def main():
                        "cuda": torch.version.cuda, "build_s": build_s, "total_s": total_s,
                        "k1_max_abs_err": k1_errs, "k2_vs_plain_max_abs_err": k2_err,
                        "k2_vs_general_max_abs_err": cross_err, "bounds": bnd,
+                       "k3_vs_plain_max_abs_err": k3_err, "k4_vs_plain_max_abs_err": k4_err,
+                       "k4_vs_autograd_max_abs_err": k4_err_ag,
                        **res, **kernels_line}, f, indent=1, default=str)
     print(f"total {total_s:.1f} s")
     print(json.dumps(kernels_line))

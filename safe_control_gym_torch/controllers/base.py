@@ -1,0 +1,101 @@
+"""Controller protocol.
+
+Port of ``safe_control_gym_tpu/controllers/base.py`` (reference
+base_controller.py:6-90): ``reset`` / ``close`` / ``learn`` / ``save`` /
+``load`` and the chunked training loop.  The JAX package's learners are pure
+``train_step(state) -> (state, metrics)`` functions that ``train_many``
+scans under one jit; here a train step runs eagerly and ``train_many`` is a
+Python loop with the same contract.  The batched evaluation loop ``run()``
+is ported without the reference's post-analysis and plots.
+"""
+
+from __future__ import annotations
+
+import pickle
+from typing import Any
+
+import torch
+
+from safe_control_gym_torch.envs.quadrotor import where_state
+from safe_control_gym_torch.parallel.vector import make_vec_env
+
+
+class BaseController:
+    """Host-side shell around a controller's ``state``."""
+
+    def __init__(self, env, output_dir: str = ".", seed: int = 0, **kwargs):
+        self.env = env
+        self.output_dir = output_dir
+        self.seed = seed
+        self.state: Any = None
+
+    def reset(self):
+        pass
+
+    def close(self):
+        pass
+
+    def learn(self, **kwargs):
+        """Train loop; model-based controllers are no-ops."""
+
+    def train_many(self, n: int):
+        """A function ``state -> (state, metrics)`` that runs ``n`` train
+        steps (``self._train_step``) and returns the LAST step's metrics, the
+        contract of one train step."""
+        def run(state):
+            metrics = {}
+            for _ in range(n):
+                state, metrics = self._train_step(state)
+            return state, metrics
+
+        return run
+
+    def _learn_chunked(self, n_iters: int, chunk: int = 8):
+        """Advance ``self.state`` by ``n_iters`` train steps in chunks of
+        ``train_many(chunk)``; returns the last metrics."""
+        metrics = {}
+        many = self.train_many(chunk)
+        for _ in range(n_iters // chunk):
+            self.state, metrics = many(self.state)
+        for _ in range(n_iters % chunk):
+            self.state, metrics = self._train_step(self.state)
+        return metrics
+
+    def select_action(self, obs, info=None):
+        raise NotImplementedError
+
+    def save(self, path):
+        torch.save(self.state, path, pickle_protocol=pickle.HIGHEST_PROTOCOL)
+
+    def load(self, path):
+        self.state = torch.load(path, weights_only=False)
+
+    @torch.no_grad()
+    def run(self, num_episodes: int = 1, max_steps: int | None = None, seed: int = 0,
+            env_seeds=None):
+        """Batched evaluation: ``num_episodes`` envs in parallel without
+        auto-reset; an env that is done keeps its last state and obs and
+        earns no more reward (base.py:95-160).  ``env_seeds`` (int32,
+        ``(num_episodes,)``) wins over ``seed``, as in ``make_vec_env``'s
+        reset.  Returns per-step obs/action/reward/done/mse stacks (time
+        first, NumPy) and per-episode returns and lengths."""
+        vec = make_vec_env(self.env, num_episodes, auto_reset=False)
+        state, obs, _ = vec.reset(seed=seed, env_seeds=env_seeds)
+        done_mask = torch.zeros(num_episodes, dtype=torch.bool, device=obs.device)
+        recs = []
+        for _ in range(max_steps or self.env.max_episode_steps):
+            act = self._policy(obs)
+            new_state, new_obs, rew, done, info = vec.step_no_reset(state, act)
+            state = where_state(done_mask, state, new_state)
+            obs = torch.where(done_mask[:, None], obs, new_obs)
+            rew = torch.where(done_mask, torch.zeros_like(rew), rew)
+            recs.append({"obs": obs, "action": act, "reward": rew, "done": done,
+                         "mse": info["mse"]})
+            done_mask = done_mask | done
+        traj = {k: torch.stack([r[k] for r in recs]).cpu().numpy() for k in recs[0]}
+        return {**traj, "ep_returns": traj["reward"].sum(0),
+                "ep_lengths": (~traj["done"]).sum(0) + 1}
+
+    def _policy(self, obs):
+        """Batched policy the evaluation loop uses; subclasses override."""
+        raise NotImplementedError

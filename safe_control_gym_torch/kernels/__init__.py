@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 LIB = BUILD / "libscg_kernels.so"
-SOURCES = ("quad3d_substeps.cu", "quad3d_rollout.cu")
+SOURCES = ("quad3d_substeps.cu", "quad3d_rollout.cu", "quad3d_policy_rollout.cu", "ppo_update.cu")
 # -fmad=false: no contraction of a*b+c into FMA, so the kernels round like
 # their plain PyTorch versions (one rounding per op) and done flags at the
 # bounds do not flip between the two.  Never --use_fast_math.
@@ -44,6 +44,14 @@ _SIGNATURES = {
     # params (host struct pointer), rows_in, action, rows_out, B, block, stream
     "quad3d_rollout": [_P, _P, _P, _P, _I, _I, _P],
     "quad3d_rollout_params_size": [],
+    # params, normalized, relu, norm_act_scale, hover_thrust, hidden, seed,
+    # wflat, rows_in, rows_out, traj, B, stream
+    "quad3d_policy_rollout": [_P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P, _I, _P],
+    # nx, nu, H, mb, *ng, *nblk, *smem_bytes
+    "ppo_grads_plan": [_I, _I, _I, _I, _P, _P, _P],
+    # nx, nu, H, mb, relu, clip_lo, clip_hi, inv_n, mb_ptr, wflat, partial,
+    # out, nblk, smem_bytes, stream
+    "ppo_grads": [_I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None

@@ -14,9 +14,14 @@ used in arithmetic.  Reset draws come from the counter stream both engines
 share (``ops/ctr_prng.py``), so this engine and the general engine
 (``envs/quadrotor.py`` + ``parallel/vector.py``) agree through auto-resets.
 
-Outside the envelope (``supports``): action white noise and the uniform
-dynamics force need an in-kernel Philox stream, and the maze needs its
-geometry rows; neither is supported yet.
+Outside the envelope (``supports``): action and observation white noise,
+the uniform dynamics force, the goal-horizon observation and the maze are
+not supported yet.  The normalized RL action space is the policy engine's
+(``parallel/fast_policy.py``, ``allow_normalized=True``): a constant-action
+call has no policy output to map.
+
+:func:`step_rows` is the plain version of the control step both kernels
+share (``scg::env_step`` in ``csrc/quad3d.cuh``).
 """
 
 from __future__ import annotations
@@ -96,10 +101,13 @@ def dist_envelope_flags(cfg):
     }
 
 
-def supports(cfg, allow_maze: bool = False) -> bool:
-    """True if the config is in the constant-action engine's envelope.
+def supports(cfg, allow_normalized: bool = False, allow_maze: bool = False) -> bool:
+    """True if the config is in the whole-rollout engines' envelope.
 
-    The maze envelope (``allow_maze``) is not ported yet and raises."""
+    ``allow_normalized``: the policy engine (``fast_policy.py``) maps the
+    normalized RL action space to thrust in-kernel; the constant-action
+    engine does not.  The maze envelope (``allow_maze``) is not ported yet
+    and raises."""
     if allow_maze:
         raise NotImplementedError("the maze envelope is not ported yet")
     ti = {**Q._DEFAULT_TASK_INFO, **(cfg.task_info or {})}
@@ -112,7 +120,7 @@ def supports(cfg, allow_maze: bool = False) -> bool:
         and int(cfg.quad_type) == Q.QuadType.THREE_D
         and cfg.physics in ("pyb", "dyn")
         and cfg.cost in ("rl_reward", "quadratic")
-        and not cfg.normalized_rl_action_space
+        and (allow_normalized or not cfg.normalized_rl_action_space)
         and (cfg.task == "stabilization"
              or (cfg.task == "traj_tracking"
                  and ti.get("trajectory_type") in ("figure8", "circle", "square")))
@@ -133,11 +141,11 @@ def supports(cfg, allow_maze: bool = False) -> bool:
     )
 
 
-def build_engine_params(env, steps_per_call: int) -> dict:
+def build_engine_params(env, steps_per_call: int, allow_normalized: bool = False) -> dict:
     """Static engine-parameter dict from an env (the JAX package's keys for
     this envelope; Python floats, rounded to float32 where used)."""
     cfg = env.config
-    if not supports(cfg):
+    if not supports(cfg, allow_normalized=allow_normalized):
         raise ValueError("config outside the whole-rollout engine's envelope (supports())")
     ti = {**Q._DEFAULT_TASK_INFO, **(cfg.task_info or {})}
     n_sub = cfg.pyb_freq // cfg.ctrl_freq
@@ -245,6 +253,11 @@ def build_engine_params(env, steps_per_call: int) -> dict:
             (4,)).tolist()),
         stab_tol=float(ti.get("stabilization_goal_tolerance", 0.0)),
         rand_nominal=tuple(nominal), rand_lo=tuple(lo), rand_hi=tuple(hi),
+        # Normalized RL action space (quadrotor.py:758-763), mapped to
+        # thrust by the policy engine.
+        normalized=bool(cfg.normalized_rl_action_space),
+        norm_act_scale=float(cfg.norm_act_scale),
+        hover_thrust=float(Q.GRAVITY_ACC * nominal[0] / 4.0),
         cost={"quadratic": "quad"}.get(cfg.cost, "rl"),
     )
 
@@ -306,7 +319,12 @@ def eval_goal(p, step_f):
 
 def step_rows(p, carry, thrust_rows, act_rows):
     """One control step on the 27 state rows (fast_env.py:297-590, without
-    the maze and the step-noise channels).  Returns the new rows."""
+    the maze and the step-noise channels).
+
+    Returns ``(new_rows, rew, done, trunc, violf, s_post)``: ``done``
+    includes the time limit, ``trunc`` is the time limit without another
+    done, and ``s_post`` the post-step state before the auto-reset (the
+    terminal observation)."""
     s = carry[:_NX]
     mass, jd = carry[_R_MASS], carry[_R_J:_R_J + 3]
     step_f, offset = carry[_R_STEP], carry[_R_OFFSET]
@@ -374,6 +392,7 @@ def step_rows(p, carry, thrust_rows, act_rows):
             e = s[k] - goal[k]
             d2 = d2 + e * e
         done = done | (d2 < p["stab_tol"] ** 2)
+    trunc = timeout & ~done  # before the time limit joins done (fast_env.py:509)
     done = done | timeout
 
     donef = done.to(torch.float32)
@@ -397,8 +416,9 @@ def step_rows(p, carry, thrust_rows, act_rows):
     new_off = torch.where(done, torch.floor(u[16] * p["max_steps"]), offset)
     new_step = torch.where(done, zero_t, new_step)
     new_ep = torch.where(done, carry[_R_EP] + 1.0, carry[_R_EP])
-    return (new_x + [new_mass] + new_j + [new_step, new_off] + list(new_stats)
-            + [carry[_R_SEED], new_ep])
+    new_rows = (new_x + [new_mass] + new_j + [new_step, new_off] + list(new_stats)
+                + [carry[_R_SEED], new_ep])
+    return new_rows, rew, done, trunc, violf, list(s)
 
 
 def quad3d_rollout_plain(p, rows, action):
@@ -408,7 +428,7 @@ def quad3d_rollout_plain(p, rows, action):
     act = list(action.unbind(0))
     thr = [torch.clamp(a, p["a_low"], p["a_high"]) for a in act]
     for _ in range(p["steps"]):
-        carry = step_rows(p, carry, thr, act)
+        carry = step_rows(p, carry, thr, act)[0]
     return torch.stack(carry, 0)
 
 

@@ -1,0 +1,243 @@
+"""Policy-in-kernel whole-rollout engine: PPO data collection in one launch.
+
+Port of ``safe_control_gym_tpu/parallel/fast_policy.py`` (TPU kernel
+``_policy_rollout_kernel``, :76).  K3, :func:`policy_rollout`, runs T
+control steps for every env: the dual actor+critic MLP forward on the
+observation, a Box-Muller Gaussian sample from Philox uniforms
+(``ops/philox.py``), its log-prob, the normalized-action map, the control
+step K2 also runs (``step_rows``), and one record per step.  CUDA tensors
+launch ``csrc/quad3d_policy_rollout.cu``; CPU tensors take the plain
+version :func:`policy_rollout_plain`; anything else raises.
+
+Record layout (the JAX rows, ``fast_policy.py:62-71``), stored (T, 33, B)
+with the batch last: obs 0..11 | act 12..15 | rew 16 | done 17 | trunc 18 |
+v 19 | logp 20 | terminal obs 21..32, the post-step state masked to
+truncated steps for the GAE bootstrap.  Weights keep the packed dual-network
+layout of ``pack_weights`` (``fast_policy.py:296-330``).
+
+Envelope: ``fast_env.supports(cfg, allow_normalized=True)``.  The
+observation white noise and the goal-horizon observation rows of the TPU
+kernel are not ported yet; ``supports`` refuses them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from safe_control_gym_torch.ops import ctr_prng, philox
+from safe_control_gym_torch.parallel import fast_env as FE
+from safe_control_gym_torch.utils.device import resolve_device
+
+TRAJ_ROWS = 33
+_T_OBS = slice(0, 12)
+_T_ACT = slice(12, 16)
+_T_REW, _T_DONE, _T_TRUNC, _T_V, _T_LOGP = 16, 17, 18, 19, 20
+_T_TERMOBS = slice(21, 33)
+
+_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+_TWO_PI = 2.0 * math.pi
+HIDDEN = 64  # the width the kernel is built for (its 2H second-layer sums live in registers)
+
+
+def _matvec(w, x):
+    """``w @ x`` for (m, n) weights and a list of n (B,) rows, as the kernel
+    sums: terms in input order, ``acc = acc + w[:, k] * x[k]``."""
+    acc = w[:, 0:1] * x[0]
+    for k in range(1, len(x)):
+        acc = acc + w[:, k:k + 1] * x[k]
+    return acc
+
+
+def _act_fn(name):
+    if name == "tanh":
+        return torch.tanh
+    if name == "relu":
+        return lambda z: torch.maximum(z, torch.zeros_like(z))
+    raise ValueError(f"K3 supports tanh and relu, not {name!r}")
+
+
+def policy_rollout_plain(p, rows, weights, seed):
+    """Plain PyTorch version of K3: ``p['steps']`` policy-driven control
+    steps on ``rows`` (27, B).
+
+    ``weights``: (w1, b1, w2, b2, w3, b3, logstd) from :func:`pack_weights`;
+    ``seed``: int32 tensor of one element.  Returns (rows, traj (T, 33, B)).
+    As the kernel, it runs the actor's and the critic's blocks of the packed
+    layers apart and skips their zero blocks."""
+    w1, b1, w2, b2, w3, b3, logstd = weights
+    f = _act_fn(p["mlp_act"])
+    carry = list(rows.unbind(0))
+    B = rows.shape[1]
+    H = w2.shape[0] // 2
+    env = torch.arange(B, device=rows.device)
+    records = []
+    for it in range(p["steps"]):
+        obs = carry[:12]
+        h1 = f(_matvec(w1, obs) + b1)
+        a2 = f(_matvec(w2[:H, :H], list(h1[:H])) + b2[:H])
+        c2 = f(_matvec(w2[H:, H:], list(h1[H:])) + b2[H:])
+        mean = _matvec(w3[:4, :H], list(a2)) + b3[:4]
+        value = (_matvec(w3[4:5, H:], list(c2)) + b3[4:5])[0]
+
+        u = philox.uniforms(seed, it, env, 8)
+        # Multiply by the float32 2*pi the kernel uses: PyTorch's CUDA
+        # division by a Python scalar would multiply by its reciprocal.
+        eps = torch.sqrt(-2.0 * torch.log(1.0 - u[:4])) * torch.cos(_TWO_PI * u[4:])
+        act, thr = [], []
+        logp = torch.zeros_like(value)
+        for i in range(4):
+            a = mean[i] + torch.exp(logstd[i]) * eps[i]
+            act.append(a)
+            logp = logp - 0.5 * (eps[i] * eps[i]) - logstd[i] - _HALF_LOG_2PI
+            if p["normalized"]:
+                thr.append((1.0 + p["norm_act_scale"] * torch.clamp(a, -1.0, 1.0)) * p["hover_thrust"])
+            else:
+                thr.append(torch.clamp(a, p["a_low"], p["a_high"]))
+        carry, rew, done, trunc, _, s_post = FE.step_rows(p, carry, thr, act)
+        truncf = trunc.to(torch.float32)
+        records.append(torch.stack(
+            obs + act + [rew, done.to(torch.float32), truncf, value, logp]
+            + [s * truncf for s in s_post]))
+    return torch.stack(carry), torch.stack(records)
+
+
+def kernel_weights(weights):
+    """The kernel's flat weight vector from :func:`pack_weights`' tuple:
+    w1 | b1 | w2^T | b2 | w3^T | b3 | logstd."""
+    w1, b1, w2, b2, w3, b3, logstd = weights
+    return torch.cat([w1.reshape(-1), b1.reshape(-1), w2.T.reshape(-1), b2.reshape(-1),
+                      w3.T.reshape(-1), b3.reshape(-1), logstd.reshape(-1)]).contiguous()
+
+
+def policy_rollout(p, rows, weights, seed):
+    """K3: the rollout of :func:`policy_rollout_plain`.
+
+    CPU tensors take the plain version; CUDA float32 tensors launch
+    ``csrc/quad3d_policy_rollout.cu``; anything else raises."""
+    tensors = [rows, seed, *weights]
+    if all(t.device.type == "cpu" for t in tensors):
+        return policy_rollout_plain(p, rows, weights, seed)
+    B = rows.shape[-1]
+    H2 = weights[0].shape[0]
+    shapes = ((H2, 12), (H2, 1), (H2, H2), (H2, 1), (8, H2), (8, 1), (4,))
+    ok = (tuple(rows.shape) == (FE._NROWS, B) and seed.numel() == 1 and seed.dtype == torch.int32
+          and all(tuple(t.shape) == s for t, s in zip(weights, shapes))
+          and all(t.device == rows.device and t.device.type == "cuda" for t in tensors)
+          and all(t.dtype == torch.float32 for t in [rows, *weights]))
+    if not ok or H2 != 2 * HIDDEN or p["mlp_act"] not in ("tanh", "relu"):
+        raise ValueError(
+            f"policy_rollout takes float32 rows (27, B), packed weights of hidden {HIDDEN} "
+            f"and an int32 seed on one CUDA device, tanh or relu; got rows "
+            f"{tuple(rows.shape)} {rows.dtype} {rows.device}, "
+            f"weights {[tuple(t.shape) for t in weights]}, act {p['mlp_act']!r}")
+    from safe_control_gym_torch import kernels
+
+    rows = rows.contiguous()
+    out = torch.empty_like(rows)
+    traj = torch.empty((p["steps"], TRAJ_ROWS, B), dtype=torch.float32, device=rows.device)
+    if B == 0:
+        return out, traj
+    wflat = kernel_weights(weights)
+    params = FE.kernel_params(p)
+    code = kernels.lib().quad3d_policy_rollout(
+        ctypes.addressof(params), int(p["normalized"]), int(p["mlp_act"] == "relu"),
+        float(p["norm_act_scale"]), float(p["hover_thrust"]), H2 // 2, seed.data_ptr(),
+        wflat.data_ptr(), rows.data_ptr(), out.data_ptr(), traj.data_ptr(), B,
+        kernels.stream_ptr(rows.device))
+    kernels.check(code, "quad3d_policy_rollout")
+    policy_rollout.launches += 1
+    return out, traj
+
+
+policy_rollout.launches = 0
+
+
+def pack_weights(actor, critic, logstd):
+    """Port actor/critic ``MLP``s -> the fused dual-network matrices
+    (fast_policy.py:296-330): hidden rows 0..H-1 actor, H..2H-1 critic; w2
+    block-diagonal; output rows 0..3 actor mean, 4 value, 5..7 zero."""
+    a = [layer for layer in actor.layers]
+    c = [layer for layer in critic.layers]
+    H = a[0].weight.shape[0]
+    with torch.no_grad():
+        w1 = torch.cat([a[0].weight, c[0].weight], 0)
+        b1 = torch.cat([a[0].bias, c[0].bias])[:, None]
+        w2 = torch.zeros((2 * H, 2 * H), dtype=w1.dtype, device=w1.device)
+        w2[:H, :H], w2[H:, H:] = a[1].weight, c[1].weight
+        b2 = torch.cat([a[1].bias, c[1].bias])[:, None]
+        nu = a[2].weight.shape[0]
+        w3 = torch.zeros((8, 2 * H), dtype=w1.dtype, device=w1.device)
+        w3[:nu, :H], w3[nu:nu + 1, H:] = a[2].weight, c[2].weight
+        b3 = torch.zeros((8, 1), dtype=w1.dtype, device=w1.device)
+        b3[:nu, 0], b3[nu, 0] = a[2].bias, c[2].bias[0]
+        return (w1.contiguous(), b1.contiguous(), w2, b2.contiguous(), w3, b3,
+                logstd.detach().clone())
+
+
+class FastPolicyRollout:
+    """Host wrapper: one launch = T policy-driven env steps for B envs,
+    returning the whole PPO trajectory record."""
+
+    def __init__(self, env, num_envs: int, steps_per_call: int, mlp_hidden: int = 64,
+                 mlp_act: str = "tanh", device=None):
+        self.env = env
+        self.B = num_envs
+        self.T = steps_per_call
+        self.H = mlp_hidden
+        self.device = resolve_device(device)
+        _act_fn(mlp_act)
+        self.params = FE.build_engine_params(env, steps_per_call, allow_normalized=True)
+        self.params["mlp_act"] = mlp_act
+        self.obs_dim = FE._NX
+        self.traj_rows = TRAJ_ROWS
+        self.n_rows = FE.total_rows(self.params)
+        self._auto_seed = 1
+
+    def reset(self, seed: int = 0, env_seeds=None):
+        """Fresh packed rows: episode 0 of ``env_seeds`` (int32, (B,)) or of
+        the port's per-env seeds for ``seed``."""
+        if env_seeds is None:
+            env_seeds = ctr_prng.env_seeds_from_seed(seed, self.B, self.device)
+        return FE.reset_rows(self.params, torch.as_tensor(env_seeds, device=self.device))
+
+    pack_weights = staticmethod(pack_weights)
+
+    def unpack_traj(self, traj):
+        """(T, 33, B) record -> PPO field dict in (T, B, ...) layout."""
+        def mat(sl):
+            return traj[:, sl].transpose(1, 2)
+
+        return {
+            "obs": mat(_T_OBS),
+            "act": mat(_T_ACT),
+            "rew": traj[:, _T_REW],
+            "done": traj[:, _T_DONE],
+            "mask": 1.0 - traj[:, _T_DONE],
+            "trunc": traj[:, _T_TRUNC],
+            "v": traj[:, _T_V],
+            "logp": traj[:, _T_LOGP],
+            "term_obs": mat(_T_TERMOBS),
+        }
+
+    def states(self, rows):
+        """(B, 12) state matrix from packed rows."""
+        return rows[:FE._NX].T
+
+    # The observation is the state: this envelope has no observation noise
+    # and no goal rows.
+    observe = states
+
+    def run(self, rows, weights, seed=None):
+        """One launch = T policy-driven env steps.  ``weights``: the tuple
+        of :meth:`pack_weights`; ``seed``: int or int32 tensor of one
+        element (one per call: it keys the call's Philox stream).  Returns
+        (new rows, traj record)."""
+        if seed is None:
+            seed = self._auto_seed
+            self._auto_seed += 1
+        if not torch.is_tensor(seed):
+            seed = torch.tensor([seed], dtype=torch.int32, device=self.device)
+        return policy_rollout(self.params, rows, weights, seed)

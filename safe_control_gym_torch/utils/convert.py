@@ -1,6 +1,12 @@
-"""Carry env state across from the JAX package.
+"""Carry env state and network weights across from the JAX package.
 
-The JAX package's batched ``QuadState`` reaches this module as a dict of
+Network weights: a flax MLP's params ``{"params": {"Dense_i": {"kernel",
+"bias"}}}`` as NumPy arrays load into the port's ``MLP`` (``layers[i]``,
+``weight = kernel.T``), and an ``ActorCritic``'s (actor, critic, logstd)
+into the port's, so both packages compute the same function.  The reverse
+direction serves the tests' comparisons.
+
+Env state: the JAX package's batched ``QuadState`` reaches this module as a dict of
 NumPy arrays (field name -> array with a leading batch axis; ``dist_sched``
 as the nested dict of channel -> ``{"offsets": ..., "walk": ...}`` or an
 empty array).  :func:`quad_state_from_numpy` returns the port's
@@ -52,3 +58,42 @@ def quad_state_from_numpy(fields: dict, device, dtype=torch.float32) -> QuadStat
         for ch in ("observation", "action", "dynamics")
     }
     return QuadState(**kw)
+
+
+def load_mlp(mlp, params) -> None:
+    """Copy flax MLP params (NumPy, ``{"params": {"Dense_i": ...}}``) into
+    the port's ``MLP`` in place."""
+    tree = params["params"]
+    if len(tree) != len(mlp.layers):
+        raise ValueError(f"{len(tree)} flax layers for an MLP of {len(mlp.layers)}")
+    with torch.no_grad():
+        for i, layer in enumerate(mlp.layers):
+            d = tree[f"Dense_{i}"]
+            kernel = np.asarray(d["kernel"], np.float32)
+            if kernel.shape != tuple(layer.weight.shape[::-1]):
+                raise ValueError(f"Dense_{i}: kernel {kernel.shape} for weight "
+                                 f"{tuple(layer.weight.shape)}")
+            layer.weight.copy_(torch.tensor(kernel.T))
+            layer.bias.copy_(torch.tensor(np.asarray(d["bias"], np.float32)))
+
+
+def mlp_params(mlp) -> dict:
+    """The port's ``MLP`` as flax-layout NumPy params."""
+    return {"params": {f"Dense_{i}": {"kernel": layer.weight.detach().cpu().numpy().T.copy(),
+                                      "bias": layer.bias.detach().cpu().numpy().copy()}
+                       for i, layer in enumerate(mlp.layers)}}
+
+
+def load_actor_critic(ac, actor_params, critic_params, logstd) -> None:
+    """Copy a JAX ``ActorCritic``'s fields (NumPy trees) into the port's
+    ``ActorCritic`` in place."""
+    load_mlp(ac.actor, actor_params)
+    load_mlp(ac.critic, critic_params)
+    with torch.no_grad():
+        ac.logstd.copy_(torch.tensor(np.asarray(logstd, np.float32)))
+
+
+def actor_critic_params(ac):
+    """The port's ``ActorCritic`` as flax-layout NumPy (actor, critic,
+    logstd)."""
+    return mlp_params(ac.actor), mlp_params(ac.critic), ac.logstd.detach().cpu().numpy().copy()

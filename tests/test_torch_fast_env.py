@@ -180,7 +180,8 @@ def test_params_struct_mirrors_cuda_source():
     import re
     from pathlib import Path
 
-    src = (Path(tf.__file__).parents[1] / "csrc" / "quad3d_rollout.cu").read_text()
+    csrc = Path(tf.__file__).parents[1] / "csrc"
+    src = "".join((csrc / f).read_text() for f in ("quad3d.cuh", "quad3d_rollout.cu"))
     body = re.search(r"struct RolloutParams \{(.*?)\};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     want = []
