@@ -1,40 +1,60 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``safe_control_gym_torch``).
 
-Drives the port's main path, BASELINE config 4 (3D quadrotor, figure-8
-tracking, box constraints, impulse disturbance, randomized inertia and
-initial state, out-of-bound done, masked auto-reset), on one CUDA card:
+Drives the port's paths on one CUDA card: BASELINE config 4 (3D quadrotor,
+figure-8 tracking, box constraints, impulse disturbance, randomized inertia
+and initial state, out-of-bound done, masked auto-reset), config 2
+(CartPole tracking with box constraints and action white noise), config 3
+(2D quadrotor stabilization with randomized mass and inertia), and PPO
+training on config 4, CartPole stabilization and quad-2D stabilization:
 
-1. builds the kernels from ``safe_control_gym_torch/csrc`` and prints the
-   card (``nvidia-smi`` name and power limit), torch and CUDA versions;
+1. builds the kernels (K1-K8) from ``safe_control_gym_torch/csrc`` and
+   prints the card (``nvidia-smi`` name and power limit), torch and CUDA
+   versions;
 2. holds K1 (``quad3d_substeps``) against its plain PyTorch version at
    B = 4096 on random states, RK4 and Euler;
 3. holds K2 (``quad3d_rollout``) against its plain version at B = 1024 for
    25 steps with auto-resets: all rows, done counts exactly;
 4. holds K2 against the port's general engine (which runs K1) over the same
    25 steps and env seeds;
-5. times the main path at B = 4096: the general engine for 256 hover steps
-   and the whole-rollout engine for one call of 8192 steps, after two
-   warm-ups, with launch counters zeroed just before and read just after;
-   holds each kernel against its plain version on the main path's own
-   inputs (K2: all rows after the timed 8192-step call); times each kernel
-   alone (profiler device time) and the plain versions (no yardstick of
-   speed: they repeat the kernels' arithmetic op by op);
+5. times config 4's serving path at B = 4096: the general engine for 256
+   hover steps and the whole-rollout engine for one call of 8192 steps,
+   after two warm-ups, with launch counters zeroed just before and read just
+   after; holds K2 against its plain version on a 1024-step call from the
+   timed call's own rows, and K1 on the general engine's own inputs; times
+   each kernel alone (K1 by the profiler's device time; the others, whose
+   launches take milliseconds, by CUDA events around back-to-back launches,
+   since torch.profiler was seen to drop kernel events after the plain
+   versions' many small launches) and the plain versions (no yardstick of speed: they
+   repeat the kernels' arithmetic op by op);
 6. holds K3 (``quad3d_policy_rollout``, the PPO data collection) against
    its plain version at B = 1024 for 25 steps through auto-resets: all rows
    and the whole record, done counts exactly;
 7. holds K4 (``ppo_grads``, the PPO minibatch gradients) against its plain
    version and against ``torch.autograd`` of the reference losses at
-   mb = 131072, H = 64, tanh, and two K4 launches against each other bit
-   for bit;
-8. drives the training path, PPO on config 4 with the normalized action
-   space at the ``rl_train`` shapes (B = 4096, T = 128, 10 epochs of 4
-   minibatches of 131072): two warm-up train steps, then 3 timed train
-   steps with the launch counters zeroed just before and read just after
-   (K3 once and K4 forty times per train step); the device busy share and
-   the kernels that take the time; K3 against its plain version on the
-   timed call's own input; K3 and K4 timed alone;
-9. prints one JSON line of per-kernel results, then the final status line.
+   mb = 131072, H = 64, tanh, at the config-4 (nx 12, nu 4), CartPole
+   (4, 1) and quad-2D (6, 2) shapes, and two K4 launches against each other
+   bit for bit;
+8. holds K5 (``cartpole_rollout``) and K6 (``cartpole_policy_rollout``), K7
+   (``quad_planar_rollout``, 1D and 2D) and K8
+   (``quad_planar_policy_rollout``, 1D and 2D) against their plain versions
+   at B = 1024 for 25 steps through auto-resets, and K5 and K7 against the
+   port's general engine;
+9. serves config 2 and config 3 at B = 4096: the general engine
+   (``make_cartpole`` / ``make_quadrotor`` + ``make_vec_env`` + ``rollout``)
+   for 64 steps, then one K5 call of 8192 steps and one K7 call of 4096
+   steps, timed after two warm-ups with the launch counters zeroed just
+   before and read just after; K5 and K7 against their plain versions on a
+   1024-step call from the timed call's own rows;
+10. drives the training paths, PPO at the ``rl_train`` shapes (B = 4096,
+   T = 128, 10 epochs of 4 minibatches of 131072) on config 4, CartPole
+   stabilization and quad-2D stabilization, normalized action space: two
+   warm-up train steps, then 3 timed train steps with the launch counters
+   zeroed just before and read just after (K3, K6 or K8 once and K4 forty
+   times per train step); the device busy share and the kernels that take
+   the time; the policy kernel against its plain version on the timed
+   call's own input; the policy kernel and K4 timed alone;
+11. prints one JSON line of per-kernel results, then the final status line.
 
 Any failure raises and exits non-zero; nothing falls back to the CPU.
 
@@ -57,13 +77,36 @@ B_MAIN = 4096
 GENERAL_STEPS = 256
 FAST_STEPS = 8192
 CHECK_B, CHECK_STEPS = 1024, 25
-K2_EXACT_ROWS = [16, 17, 21, 26]  # step, offset, done count, episode index
-# K2's float rows against the plain version: (what, rows, rtol, atol).  The
-# states and statistics take the JAX suite's tolerances; mass and inertia
-# (~1e-5 in size) are compared relatively, as the JAX comparison does.
+# The whole-rollout kernels against their plain versions on a call of this
+# many steps from the timed call's own rows (the plain versions launch
+# thousands of small PyTorch ops per step).
+PLAIN_STEPS = 1024
+CP_FAST_STEPS, Q2_FAST_STEPS = 8192, 4096  # one K5 call (config 2), one K7 call (config 3)
+SERVE_GENERAL_STEPS = 64  # general-engine steps of the config 2 and 3 serving paths
+# Row layouts for a whole-rollout kernel's check against its plain version:
+# rows held exactly (step, offset, done count, episode index), the done-count
+# row, the seed row (a bit pattern), and the float rows (what, rows, rtol,
+# atol).  The states and statistics take the JAX suite's tolerances; mass
+# and inertia (~1e-5 in size for the quadrotors) are compared relatively,
+# as the JAX comparison does.
+K2_EXACT_ROWS = [16, 17, 21, 26]
 K2_CLOSE_ROWS = (("states", slice(0, 12), 2e-4, 2e-5),
                  ("mass and inertia", slice(12, 16), 1e-6, 0.0),
                  ("statistics", slice(18, 25), 2e-4, 1e-5))
+K2_LAYOUT = dict(exact=K2_EXACT_ROWS, done=21, seed=25, close=K2_CLOSE_ROWS)
+K5_LAYOUT = dict(exact=[7, 8, 12, 17], done=12, seed=16,
+                 close=(("states", slice(0, 4), 2e-4, 2e-5), ("inertia", slice(4, 7), 1e-6, 0.0),
+                        ("statistics", slice(9, 16), 2e-4, 1e-5)))
+
+
+def k7_layout(nx):
+    """K7's rows (fast_quad_planar.rows_layout): state | mass | iyy | step |
+    offset | stats(7) | seed | ep."""
+    st = nx + 4
+    return dict(exact=[nx + 2, nx + 3, st + 3, nx + 12], done=st + 3, seed=nx + 11,
+                close=(("states", slice(0, nx), 2e-4, 2e-5),
+                       ("mass and inertia", slice(nx, nx + 2), 1e-6, 0.0),
+                       ("statistics", slice(st, st + 7), 2e-4, 1e-5)))
 
 # Data-sheet peaks of an H100 SXM: HBM3 bytes/s
 # and float32 operations/s outside the tensor cores.
@@ -88,13 +131,12 @@ TRAIN_B, TRAIN_T, EPOCHS, HIDDEN = 4096, 128, 10, 64
 MB = TRAIN_B * TRAIN_T // 4
 N_MINI = TRAIN_B * TRAIN_T // MB
 TRAIN_STEPS = 3
-# K3 against its plain version: both sides run the same float32 operations
+# K3, K6 and K8 against their plain versions: both sides run the same float32 operations
 # in the same order (-fmad=false), but tanh, log, cos and exp are CUDA's
 # libdevice functions in the kernel and PyTorch's CUDA operators in the
 # plain version, which may round differently in the last place.  The record
 # and state rows are therefore held at the JAX suite's state tolerance;
 # done, truncation and the integer rows exactly.
-K3_EXACT_REC = [17, 18]  # done, trunc
 K3_RTOL, K3_ATOL = 2e-4, 2e-5
 # K4 against its plain version and torch.autograd: sums in other orders
 # (the JAX suite's gradient tolerance); loss sums of up to ~1e5 in size
@@ -121,7 +163,6 @@ def k3_mlp_ops(h, nx=12, nu=4):
 
 K3_MLP_TRANS_PER_H = 4  # tanh of both hidden layers of both nets
 K3_RNG_OPS = 2 * 10 * 9
-K3_SAMPLE_OPS, K3_SAMPLE_TRANS = 4 * 20, 4 * 4
 K3_ACTION_OPS = 4 * (ACTUATE_OPS + ACTUATE_TRANS) + 16
 # K4 operations per sample, counted from csrc/ppo_update.cu as written:
 # forward of both nets (multiply-add of three layers, biases, tanh), the
@@ -133,6 +174,29 @@ def k4_ops_per_sample(nx, nu, h):
     bwd = 2 * (nu + 1) * h + 2 * (2 * h * h) + 2 * 2 * h * 3
     acc = 2 * (2 * (nx * h + h * h) + (nu + 1) * h) + (4 * h + nu + 1 + nu + 3)
     return fwd + bwd + acc + 2 + 4 + 60
+
+
+# K5 per env-step (csrc/cartpole.cuh, one RK4 substep at 50 Hz): the cart-pole
+# derivative is 18 operations and a sine and a cosine; the substep 4 of them,
+# 3 axpy of 4 rows and the combine; then impulse, goal (closed-form circle:
+# 8 and a sine and cosine), box tests, reward (and its exp), done, freeze,
+# statistics.  The action white noise adds one Philox block and Box-Muller.
+CP_FC_OPS, CP_FC_TRANS = 18, 2
+CP_SUBSTEP_OPS = 4 * CP_FC_OPS + 3 * 4 * 2 + 4 * 7
+K5_STEP_OPS, K5_STEP_TRANS = 3 + 1 + 9 + 8 + 10 + 15 + 4 + 8 + 2 + 16, 1 + 2 + 1
+K5_NOISE_OPS, K5_NOISE_TRANS = K3_RNG_OPS // 2 + 6, 3
+K5_RESET_OPS = 150  # 8 counter hashes and affine draws
+# K7 per env-step of the 2D quad (csrc/quad_planar.cuh): the derivative is 9
+# operations and a sine and a cosine; an RK4 substep 4 of them, 3 axpy of 6
+# rows and the combine; the two actuations, thrust sums and theta_dd, the
+# impulse, box tests, reward, done, freeze and statistics.
+Q2_FC_OPS, Q2_FC_TRANS = 9, 2
+Q2_SUBSTEP_OPS = 4 * Q2_FC_OPS + 3 * 6 * 2 + 6 * 7
+K7_STEP_OPS, K7_STEP_TRANS = 2 * 10 + 10 + 1 + 9 + 12 + 25 + 6 + 12 + 18, 2 + 1 + 1
+K7_RESET_OPS = 200  # 11 counter hashes and affine draws
+# Per action of a policy kernel: Box-Muller, log-prob and the action map
+# (~20 operations), and a log, sqrt, cos and exp.
+K68_SAMPLE_OPS, K68_SAMPLE_TRANS = 20, 4
 
 
 def cfg4(**kw):
@@ -156,11 +220,105 @@ def cfg4(**kw):
     return QuadrotorConfig(**base)
 
 
+def cfg_cartpole(**kw):
+    """BASELINE config 2 (bench.py:226-260): CartPole tracking, box state and
+    input constraints, action white noise of std 0.2, out-of-bound done."""
+    from safe_control_gym_torch.envs.cartpole import CartPoleConfig
+
+    base = dict(
+        ctrl_freq=50, pyb_freq=50, episode_len_sec=10, task="traj_tracking", randomized_init=True,
+        constraints=({"constraint_form": "default_constraint", "constrained_variable": "state"},
+                     {"constraint_form": "default_constraint", "constrained_variable": "input"}),
+        disturbances={"action": ({"disturbance_func": "white_noise", "std": 0.2},)},
+        done_on_out_of_bound=True,
+    )
+    base.update(kw)
+    return CartPoleConfig(**base)
+
+
+def cfg_quad2d(**kw):
+    """BASELINE config 3 (bench.py:275-308): 2D quadrotor stabilization at
+    [0, 1], randomized inertia and initial state, state box, out-of-bound
+    done."""
+    from safe_control_gym_torch.envs.quadrotor import QuadrotorConfig
+
+    base = dict(
+        quad_type=2, ctrl_freq=50, pyb_freq=200, episode_len_sec=10, task="stabilization",
+        task_info={"stabilization_goal": [0, 1], "stabilization_goal_tolerance": 0.05},
+        randomized_init=True, randomized_inertial_prop=True,
+        constraints=({"constraint_form": "default_constraint", "constrained_variable": "state"},),
+        done_on_out_of_bound=True,
+    )
+    base.update(kw)
+    return QuadrotorConfig(**base)
+
+
+def cfg_cartpole_rl(**kw):
+    """cartpole_stab (benchmarks/rl_convergence.py:34-41)."""
+    from safe_control_gym_torch.envs.cartpole import CartPoleConfig
+
+    base = dict(ctrl_freq=50, pyb_freq=50, episode_len_sec=5.0, task="stabilization",
+                cost="rl_reward", randomized_init=True, normalized_rl_action_space=True)
+    base.update(kw)
+    return CartPoleConfig(**base)
+
+
+def cfg_quad2d_rl(**kw):
+    """quad2d_stab_reference_task (benchmarks/rl_convergence.py:44-54)."""
+    from safe_control_gym_torch.envs.quadrotor import QuadrotorConfig
+
+    base = dict(quad_type=2, ctrl_freq=60, pyb_freq=240, episode_len_sec=5, task="stabilization",
+                cost="rl_reward", randomized_init=True, normalized_rl_action_space=True)
+    base.update(kw)
+    return QuadrotorConfig(**base)
+
+
+def counters():
+    """Every kernel wrapper's launch counter, by kernel tag."""
+    from safe_control_gym_torch.ops import quad_substeps as K1
+    from safe_control_gym_torch.parallel import fast_cartpole as FC
+    from safe_control_gym_torch.parallel import fast_env as F
+    from safe_control_gym_torch.parallel import fast_policy as P
+    from safe_control_gym_torch.parallel import fast_quad_planar as PQ
+    from safe_control_gym_torch.parallel import fast_update as U
+
+    return {"k1": K1.quad3d_substeps, "k2": F.quad3d_rollout, "k3": P.policy_rollout,
+            "k4": U.ppo_grads, "k5": FC.cartpole_rollout, "k6": FC.cartpole_policy_rollout,
+            "k7": PQ.planar_rollout, "k8": PQ.planar_policy_rollout}
+
+
+def zero_counters():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counters():
+    return {k: fn.launches for k, fn in counters().items()}
+
+
 def cuda_ms(fn, reps):
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+    """Mean time of ``fn`` over ``reps`` back-to-back calls between two CUDA
+    events, host launch overhead included."""
     import torch
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """Mean device time per call of a kernel whose launch takes
+    milliseconds (K2-K8): one untimed call first keeps the device busy while
+    the host enqueues the timed ones, so the events bracket device work
+    alone."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()
     start.record()
     for _ in range(reps):
         fn()
@@ -178,6 +336,10 @@ def profile_kernels(fn, reps):
 
     fn()
     torch.cuda.synchronize()
+    # A first, empty session: after many unprofiled launches the profiler
+    # was seen to drop the first events of the next session (PERF.md).
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -210,21 +372,23 @@ def max_err(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
-def check_k2_rows(tag, out, ref, rows_in):
-    """All 27 state rows a kernel (K2 or K3) left against its plain
-    version's on the same input rows; returns the largest absolute
-    difference on the float rows."""
+def check_rows(tag, out, ref, rows_in, layout):
+    """All state rows a whole-rollout kernel left against its plain
+    version's on the same input rows (``layout``: K2_LAYOUT, K5_LAYOUT,
+    k7_layout(nx)); returns the largest absolute difference on the float
+    rows."""
     import torch
 
-    diff = (out[K2_EXACT_ROWS] != ref[K2_EXACT_ROWS]).any(0)
-    done_k, done_p = int(out[21].sum()), int(ref[21].sum())
+    ex, d = layout["exact"], layout["done"]
+    diff = (out[ex] != ref[ex]).any(0)
+    done_k, done_p = int(out[d].sum()), int(ref[d].sum())
     check(f"{tag}: step, offset, done and episode rows", not bool(diff.any()) and done_k > 0,
           f"episodes {done_k} vs {done_p}; {int(diff.sum())} envs differ (exact)")
-    seed = rows_in[25].view(torch.int32)
-    check(f"{tag}: seed row bits", torch.equal(out[25].view(torch.int32), seed)
-          and torch.equal(ref[25].view(torch.int32), seed), "copied through unchanged")
+    seed = rows_in[layout["seed"]].view(torch.int32)
+    check(f"{tag}: seed row bits", torch.equal(out[layout["seed"]].view(torch.int32), seed)
+          and torch.equal(ref[layout["seed"]].view(torch.int32), seed), "copied through unchanged")
     errs = []
-    for what, rs, rtol, atol in K2_CLOSE_ROWS:
+    for what, rs, rtol, atol in layout["close"]:
         err = max_err(out[rs], ref[rs])
         errs.append(err)
         check(f"{tag}: {what}", bool(torch.isclose(out[rs], ref[rs], rtol=rtol, atol=atol).all()),
@@ -299,7 +463,8 @@ def phase_k2(dev):
     out = fr.run(rows0, act)
     ref = F.quad3d_rollout_plain(fr.params, rows0, act)
     torch.cuda.synchronize()
-    err = check_k2_rows(f"K2 vs plain (B={CHECK_B}, {CHECK_STEPS} steps)", out, ref, rows0)
+    err = check_rows(f"K2 vs plain (B={CHECK_B}, {CHECK_STEPS} steps)", out, ref, rows0,
+                     K2_LAYOUT)
     return err, env, fr, rows0, out
 
 
@@ -359,14 +524,13 @@ def phase_main(dev):
     general()
     general()
     torch.cuda.synchronize()
-    K1.quad3d_substeps.launches = 0
-    F.quad3d_rollout.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     carry = general()
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
-    res["k1_launches"] = K1.quad3d_substeps.launches
-    res["general_k2_launches"] = F.quad3d_rollout.launches
+    res["general_launches"] = read_counters()
+    res["k1_launches"] = res["general_launches"]["k1"]
     check("general engine output", bool(torch.isfinite(carry.env_state.x).all())
           and tuple(carry.env_state.x.shape) == (B_MAIN, 12),
           f"finite (B, 12) states; {carry.stats.means()}")
@@ -379,35 +543,25 @@ def phase_main(dev):
     rows_in = fr.run(fr.reset(seed=0), act)
     rows_in = fr.run(rows_in, act)
     torch.cuda.synchronize()
-    K1.quad3d_substeps.launches = 0
-    F.quad3d_rollout.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     rows = fr.run(rows_in, act)
     torch.cuda.synchronize()
     t_fast = time.perf_counter() - t0
-    res["k2_launches"] = F.quad3d_rollout.launches
-    res["fast_k1_launches"] = K1.quad3d_substeps.launches
+    res["fast_launches"] = read_counters()
+    res["k2_launches"] = res["fast_launches"]["k2"]
     res["fast_env_steps_s"] = B_MAIN * FAST_STEPS / t_fast
     res["fast_call_ms"] = t_fast * 1e3
     res["fast_resets"] = float(rows[21].sum() - rows_in[21].sum())
     body = torch.cat([rows[:25], rows[26:]])
     check("whole-rollout output", bool(torch.isfinite(body).all()),
           f"finite rows; {fr.stats(rows)}")
+    others = sum(v for k, v in res["general_launches"].items() if k != "k1") \
+        + sum(v for k, v in res["fast_launches"].items() if k != "k2")
     check("main path went through the kernels",
-          res["k1_launches"] == GENERAL_STEPS and res["k2_launches"] == 1,
+          res["k1_launches"] == GENERAL_STEPS and res["k2_launches"] == 1 and others == 0,
           f"K1 launches {res['k1_launches']} in {GENERAL_STEPS} general steps, "
-          f"K2 launches {res['k2_launches']} in one whole-rollout call")
-
-    # -- the plain K2 on the timed call's own rows and action: K2's check at
-    # the main path's shapes, and the plain version's time.
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    rows_plain = F.quad3d_rollout_plain(fr.params, rows_in, act)
-    end.record()
-    torch.cuda.synchronize()
-    res["k2_plain_ms"] = start.elapsed_time(end)
-    res["k2_main_max_abs_err"] = check_k2_rows(
-        f"K2 vs plain on the main path (B={B_MAIN}, {FAST_STEPS} steps)", rows, rows_plain, rows_in)
+          f"K2 launches {res['k2_launches']} in one whole-rollout call, {others} others")
 
     # -- where the general engine's time goes: device busy share and the
     # kernels that take it, over 32 steps.
@@ -444,35 +598,50 @@ def phase_main(dev):
     res["k1_launch_ms"] = cuda_ms(fn, 2000)
     res["k1_ms"] = kernel_device_ms(fn, "quad3d_substeps_kernel", 200)
     res["k1_plain_ms"] = cuda_ms(lambda: K1.quad3d_substeps_plain(*k1_args, **k1_kw), 20)
-    res["k2_ms"] = kernel_device_ms(lambda: F.quad3d_rollout(fr.params, rows_in, act),
-                                    "quad3d_rollout_kernel", 2)
+    res["k2_ms"] = device_ms(lambda: F.quad3d_rollout(fr.params, rows_in, act), 3)
+
+    # -- K2 and its plain version on a PLAIN_STEPS-step call from the timed
+    # call's own rows and action: K2's check at the main path's width, and
+    # the plain version's time (PERF.md keeps the 8192-step agreement).
+    p_short = dict(fr.params, steps=PLAIN_STEPS)
+    rows_k = F.quad3d_rollout(p_short, rows_in, act)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    rows_plain = F.quad3d_rollout_plain(p_short, rows_in, act)
+    end.record()
+    torch.cuda.synchronize()
+    res["k2_plain_ms"] = start.elapsed_time(end)
+    res["k2_main_max_abs_err"] = check_rows(
+        f"K2 vs plain from the main path's rows (B={B_MAIN}, {PLAIN_STEPS} steps)", rows_k,
+        rows_plain, rows_in, K2_LAYOUT)
     return res
 
 
-def seeded_ac(dev, seed=0):
+def seeded_ac(dev, seed=0, nx=12, nu=4):
     """Actor-critic of the rl_train widths with weights from a fixed seed."""
     import torch
 
     from safe_control_gym_torch.controllers.ppo import ActorCritic
 
-    ac = ActorCritic(12, 4, HIDDEN, "tanh", generator=torch.Generator().manual_seed(seed))
+    ac = ActorCritic(nx, nu, HIDDEN, "tanh", generator=torch.Generator().manual_seed(seed))
     return ac.to(dev)
 
 
-def check_k3(tag, rows, traj, rows_p, traj_p, rows_in):
-    """K3's rows and record against its plain version's on the same
-    inputs; returns (largest absolute difference, share of record entries
-    that differ at all)."""
+def check_record(tag, rows, traj, rows_p, traj_p, rows_in, layout, nx, nu):
+    """A policy kernel's rows and record against its plain version's on the
+    same inputs; returns (largest absolute difference, share of record
+    entries that differ at all)."""
     import torch
 
-    err_rows = check_k2_rows(f"K3 {tag}", rows, rows_p, rows_in)
-    exact = torch.equal(traj[:, K3_EXACT_REC], traj_p[:, K3_EXACT_REC])
-    check(f"K3 {tag}: done and truncation records", exact,
-          f"{int(traj[:, 17].sum())} vs {int(traj_p[:, 17].sum())} dones, exact")
+    err_rows = check_rows(tag, rows, rows_p, rows_in, layout)
+    done, trunc = nx + nu + 1, nx + nu + 2
+    exact = torch.equal(traj[:, [done, trunc]], traj_p[:, [done, trunc]])
+    check(f"{tag}: done and truncation records", exact,
+          f"{int(traj[:, done].sum())} vs {int(traj_p[:, done].sum())} dones, exact")
     err = max_err(traj, traj_p)
     close = bool(torch.isclose(traj, traj_p, rtol=K3_RTOL, atol=K3_ATOL).all())
     differ = float((traj != traj_p).double().mean())
-    check(f"K3 {tag}: whole record", close and bool(torch.isfinite(traj).all()),
+    check(f"{tag}: whole record", close and bool(torch.isfinite(traj).all()),
           f"max_abs_err {err:.3g}, {differ:.3g} of entries not bit-equal "
           f"(rtol {K3_RTOL:g}, atol {K3_ATOL:g})")
     return max(err, err_rows), differ
@@ -493,21 +662,21 @@ def phase_k3(dev):
     rows, traj = P.policy_rollout(fp.params, rows0, w, seed)
     rows_p, traj_p = P.policy_rollout_plain(fp.params, rows0, w, seed)
     torch.cuda.synchronize()
-    return check_k3(f"vs plain (B={CHECK_B}, {CHECK_STEPS} steps)", rows, traj, rows_p, traj_p,
-                    rows0)
+    return check_record(f"K3 vs plain (B={CHECK_B}, {CHECK_STEPS} steps)", rows, traj, rows_p,
+                        traj_p, rows0, K2_LAYOUT, 12, 4)
 
 
-def k4_inputs(dev, ac, n, seed=0):
-    """A seeded (20, n) minibatch near the policy ``ac``: ratios spread
+def k4_inputs(dev, ac, n, seed=0, nx=12, nu=4):
+    """A seeded (nx+nu+4, n) minibatch near the policy ``ac``: ratios spread
     over both sides of the clip range."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
     rn = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
     with torch.no_grad():
-        obs = 0.5 * rn(n, 12)
+        obs = 0.5 * rn(n, nx)
         mean, std = ac.actor(obs), torch.exp(ac.logstd)
-        act = mean + std * rn(n, 4)
+        act = mean + std * rn(n, nu)
         logp = (-((act - mean) ** 2) / (2 * std**2) - torch.log(std)
                 - 0.5 * float(np.log(2 * np.pi))).sum(-1)
         v = ac.critic(obs)[:, 0]
@@ -524,7 +693,9 @@ def k4_autograd(ac, mb, clip):
 
     from safe_control_gym_torch.parallel import fast_update as U
 
-    obs, act, logp_old, ret, adv = mb[:12].T, mb[12:16].T, mb[17], mb[18], mb[19]
+    nx, nu = ac.actor.layers[0].weight.shape[1], ac.logstd.shape[0]
+    obs, act = mb[:nx].T, mb[nx:nx + nu].T
+    logp_old, ret, adv = mb[nx + nu + 1], mb[nx + nu + 2], mb[nx + nu + 3]
     params = dict(zip(U.SEGMENTS, [p for net in (ac.actor, ac.critic) for p in net.parameters()]
                       + [ac.logstd]))
     with torch.enable_grad():
@@ -560,51 +731,281 @@ def check_grads(tag, g, sums, g_ref, sums_ref):
     return max(errs)
 
 
+# K4's shapes: config 4 (nx 12, nu 4), CartPole (4, 1), quad-2D (6, 2).
+K4_SHAPES = {"config4": (12, 4, [-0.5, -0.7, -0.3, -0.6]), "cartpole": (4, 1, [-0.4]),
+             "quad2d": (6, 2, [-0.5, -0.3])}
+
+
 def phase_k4(dev):
-    """K4 at the main path's shapes on a seeded minibatch."""
+    """K4 at each training path's shapes on a seeded minibatch."""
     import torch
 
     from safe_control_gym_torch.parallel import fast_update as U
 
-    ac = seeded_ac(dev, seed=1)
-    with torch.no_grad():  # spread logstd so each action dim differs
-        ac.logstd.copy_(torch.tensor([-0.5, -0.7, -0.3, -0.6], device=dev))
-    mb = k4_inputs(dev, ac, MB)
-    w = U.prep_weights(ac.actor, ac.critic, ac.logstd)
-    g1, s1 = U.ppo_grads(mb, w, clip=0.2)
-    g2, s2 = U.ppo_grads(mb, w, clip=0.2)
-    gp, sp = U.ppo_grads_plain(mb, w, clip=0.2)
-    ga, sa = k4_autograd(ac, mb, 0.2)
+    out = {}
+    for tag, (nx, nu, logstd) in K4_SHAPES.items():
+        ac = seeded_ac(dev, seed=1, nx=nx, nu=nu)
+        with torch.no_grad():  # spread logstd so each action dim differs
+            ac.logstd.copy_(torch.tensor(logstd, device=dev))
+        mb = k4_inputs(dev, ac, MB, nx=nx, nu=nu)
+        w = U.prep_weights(ac.actor, ac.critic, ac.logstd)
+        g1, s1 = U.ppo_grads(mb, w, clip=0.2)
+        g2, s2 = U.ppo_grads(mb, w, clip=0.2)
+        gp, sp = U.ppo_grads_plain(mb, w, clip=0.2)
+        ga, sa = k4_autograd(ac, mb, 0.2)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g1[k], g2[k]) for k in U.SEGMENTS) and torch.equal(s1, s2)
+        check(f"K4 {tag} two launches on the same input (mb={MB})", same, "bit-equal")
+        out[tag] = (check_grads(f"{tag} vs plain (mb={MB}, nx {nx}, nu {nu})", g1, s1, gp, sp),
+                    check_grads(f"{tag} vs torch.autograd (mb={MB}, nx {nx}, nu {nu})", g1, s1,
+                                ga, sa))
+    return out
+
+
+def phase_k5_k6(dev):
+    """K5 and K6 against their plain versions, K5 against the general
+    engine, at B = 1024 over 25 steps through auto-resets."""
+    import torch
+
+    from safe_control_gym_torch.envs.cartpole import make_cartpole
+    from safe_control_gym_torch.parallel import fast_cartpole as FC
+    from safe_control_gym_torch.parallel import rollout as R
+    from safe_control_gym_torch.parallel.vector import make_vec_env
+
+    res = {}
+    seed = torch.tensor([7], dtype=torch.int32, device=dev)
+    # K5 on config 2 itself, its action white noise included (10-step episodes).
+    env = make_cartpole(cfg_cartpole(episode_len_sec=0.2), device=dev)
+    fr = FC.FastCartPoleRollout(env, CHECK_B, CHECK_STEPS, device=dev)
+    rows0, act = fr.reset(seed=0), fr.prepare_action(0.3)
+    out = FC.cartpole_rollout(fr.params, rows0, act, seed)
+    ref = FC.cartpole_rollout_plain(fr.params, rows0, act, seed)
     torch.cuda.synchronize()
-    same = all(torch.equal(g1[k], g2[k]) for k in U.SEGMENTS) and torch.equal(s1, s2)
-    check(f"K4 two launches on the same input (mb={MB})", same, "bit-equal")
-    err = check_grads(f"vs plain (mb={MB})", g1, s1, gp, sp)
-    err_ag = check_grads(f"vs torch.autograd (mb={MB})", g1, s1, ga, sa)
-    return err, err_ag
+    res["k5_err"] = check_rows(f"K5 vs plain (config 2, B={CHECK_B}, {CHECK_STEPS} steps)", out,
+                               ref, rows0, K5_LAYOUT)
+
+    # K5 against the general engine, noise-free with an impulse on the cart.
+    impulse = {"dynamics": ({"disturbance_func": "impulse", "magnitude": 0.4, "duration": 4,
+                             "decay_rate": 0.8},)}
+    env = make_cartpole(cfg_cartpole(episode_len_sec=0.2, disturbances=impulse,
+                                     randomized_inertial_prop=True), device=dev)
+    fr = FC.FastCartPoleRollout(env, CHECK_B, CHECK_STEPS, device=dev)
+    vec = make_vec_env(env, CHECK_B)
+    state, obs, _ = vec.reset(seed=0)
+    rows0 = fr.reset(seed=0)
+    check("K5 reset rows vs general-engine reset",
+          torch.equal(fr.pack(state).view(torch.int32), rows0.view(torch.int32)), "bit-identical")
+    rows = fr.run(rows0, 0.3)
+    force = torch.full((CHECK_B, 1), 0.3, device=dev)
+    carry, _ = R.rollout(vec, lambda ps, o: (force, ps),
+                         R.RolloutCarry(state, obs, (), R.EpisodeStats.create(CHECK_B, device=dev)),
+                         CHECK_STEPS, collect=False)
+    torch.cuda.synchronize()
+    res["k5_cross_err"] = check_cross("K5", rows, carry, 4, [7, 8, 12, 17], "pole_length", 4)
+
+    # K6 on cartpole_stab (10-step episodes).
+    env = make_cartpole(cfg_cartpole_rl(episode_len_sec=0.2), device=dev)
+    fp = FC.FastCartPolePolicyRollout(env, CHECK_B, CHECK_STEPS, device=dev)
+    rows0 = fp.reset(seed=0)
+    ac = seeded_ac(dev, nx=4, nu=1)
+    w = fp.pack_weights(ac.actor, ac.critic, ac.logstd)
+    rows, traj = FC.cartpole_policy_rollout(fp.params, rows0, w, seed)
+    rows_p, traj_p = FC.cartpole_policy_rollout_plain(fp.params, rows0, w, seed)
+    torch.cuda.synchronize()
+    res["k6_err"], res["k6_differ"] = check_record(
+        f"K6 vs plain (B={CHECK_B}, {CHECK_STEPS} steps)", rows, traj, rows_p, traj_p, rows0,
+        K5_LAYOUT, 4, 1)
+    return res
 
 
-def phase_train(dev):
-    """The training path: PPO train steps at the rl_train shapes."""
+def check_cross(tag, rows, carry, nx, exact, inertia_field, inertia_row):
+    """A whole-rollout kernel's rows against the general engine's state and
+    statistics after the same steps from the same env seeds: done counts,
+    episode, step and offset rows exactly, states at the JAX suite's
+    tolerance, the first inertia row relatively."""
+    import torch
+
+    step, offset, done, ep = exact
+    es = carry.env_state
+    check(f"{tag} vs general engine: done counts", torch.equal(rows[done], carry.stats.done_count.float()),
+          f"{int(rows[done].sum())} vs {int(carry.stats.done_count.sum())} episodes")
+    same = (torch.equal(rows[ep], es.episode_idx.float()) and torch.equal(rows[step], es.ctrl_step.float())
+            and torch.equal(rows[offset], es.dist_offsets["dynamics"][:, 0].float()))
+    check(f"{tag} vs general engine: episode, step and offset rows", same, "exact")
+    err = max_err(rows[:nx].T, es.x)
+    close = bool(torch.isclose(rows[:nx].T, es.x, rtol=2e-4, atol=2e-5).all()) and \
+        bool(torch.isclose(rows[inertia_row], getattr(es, inertia_field), rtol=1e-6, atol=0).all())
+    check(f"{tag} vs general engine: states and inertia", close,
+          f"max_abs_err {err:.3g} (rtol 2e-4, atol 2e-5)")
+    return err
+
+
+def phase_k7_k8(dev):
+    """K7 and K8 on the 1D and 2D quads against their plain versions, K7
+    against the general engine, at B = 1024 over 25 steps through resets."""
+    import torch
+
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+    from safe_control_gym_torch.parallel import fast_quad_planar as PQ
+    from safe_control_gym_torch.parallel import rollout as R
+    from safe_control_gym_torch.parallel.vector import make_vec_env
+
+    res = {"k7_err": 0.0, "k7_cross_err": 0.0, "k8_err": 0.0, "k8_differ": 0.0}
+    seed = torch.tensor([7], dtype=torch.int32, device=dev)
+    impulse = {"dynamics": ({"disturbance_func": "impulse", "magnitude": 0.02, "duration": 4,
+                             "decay_rate": 0.8},)}
+    noisy = {**impulse, "action": ({"disturbance_func": "white_noise", "std": 0.001},)}
+    for qt in (1, 2):
+        nx, nu = PQ.nx_nu(qt)
+        lay = k7_layout(nx)
+        # K7 with the action white noise and the impulse (10-step episodes).
+        env = make_quadrotor(cfg_quad2d(quad_type=qt, episode_len_sec=0.2, disturbances=noisy),
+                             device=dev)
+        fr = PQ.FastPlanarQuadRollout(env, CHECK_B, CHECK_STEPS, device=dev)
+        rows0 = fr.reset(seed=0)
+        act = fr.prepare_action(np.full(nu, 1.1 * float(env.u_goal[0]), np.float32))
+        out = PQ.planar_rollout(fr.params, rows0, act, seed)
+        ref = PQ.planar_rollout_plain(fr.params, rows0, act, seed)
+        torch.cuda.synchronize()
+        res["k7_err"] = max(res["k7_err"], check_rows(
+            f"K7 {qt}D vs plain (B={CHECK_B}, {CHECK_STEPS} steps)", out, ref, rows0, lay))
+
+        # K7 against the general engine, noise-free.
+        env = make_quadrotor(cfg_quad2d(quad_type=qt, episode_len_sec=0.2, disturbances=impulse),
+                             device=dev)
+        fr = PQ.FastPlanarQuadRollout(env, CHECK_B, CHECK_STEPS, device=dev)
+        vec = make_vec_env(env, CHECK_B)
+        state, obs, _ = vec.reset(seed=0)
+        rows0 = fr.reset(seed=0)
+        check(f"K7 {qt}D reset rows vs general-engine reset",
+              torch.equal(fr.pack(state).view(torch.int32), rows0.view(torch.int32)), "bit-identical")
+        hover = float(env.u_goal[0])
+        rows = fr.run(rows0, np.full(nu, 1.1 * hover, np.float32))
+        thrust = torch.full((CHECK_B, nu), 1.1 * hover, device=dev)
+        carry, _ = R.rollout(vec, lambda ps, o: (thrust, ps), R.RolloutCarry(
+            state, obs, (), R.EpisodeStats.create(CHECK_B, device=dev)), CHECK_STEPS, collect=False)
+        torch.cuda.synchronize()
+        res["k7_cross_err"] = max(res["k7_cross_err"], check_cross(
+            f"K7 {qt}D", rows, carry, nx, lay["exact"], "mass", nx))
+
+        # K8 on quad stabilization with the normalized action space.
+        env = make_quadrotor(cfg_quad2d_rl(quad_type=qt, episode_len_sec=0.2), device=dev)
+        fp = PQ.FastPlanarQuadPolicyRollout(env, CHECK_B, CHECK_STEPS, device=dev)
+        rows0 = fp.reset(seed=0)
+        ac = seeded_ac(dev, nx=nx, nu=nu)
+        w = fp.pack_weights(ac.actor, ac.critic, ac.logstd)
+        rows, traj = PQ.planar_policy_rollout(fp.params, rows0, w, seed)
+        rows_p, traj_p = PQ.planar_policy_rollout_plain(fp.params, rows0, w, seed)
+        torch.cuda.synchronize()
+        err, differ = check_record(f"K8 {qt}D vs plain (B={CHECK_B}, {CHECK_STEPS} steps)", rows,
+                                   traj, rows_p, traj_p, rows0, lay, nx, nu)
+        res["k8_err"], res["k8_differ"] = max(res["k8_err"], err), max(res["k8_differ"], differ)
+    return res
+
+
+def serve(dev, tag, env, fr, act, kernel, plain, kname, key, layout, done_row):
+    """One serving path at B = 4096: the general engine for
+    SERVE_GENERAL_STEPS steps of ``act``'s command, then the whole-rollout
+    engine's timed call after two warm-ups, the kernel against its plain
+    version on a PLAIN_STEPS-step call from the timed call's rows, and the
+    kernel's device time."""
+    import torch
+
+    from safe_control_gym_torch.parallel import rollout as R
+    from safe_control_gym_torch.parallel.vector import make_vec_env
+
+    res = {}
+    vec = make_vec_env(env, B_MAIN)
+    command = act.T.contiguous()
+    state, obs, _ = vec.reset(seed=0)
+    carry0 = R.RolloutCarry(state, obs, (), R.EpisodeStats.create(B_MAIN, device=dev))
+    general = lambda: R.rollout(vec, lambda ps, o: (command, ps), carry0,  # noqa: E731
+                                SERVE_GENERAL_STEPS, collect=False)[0]
+    general()
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    carry = general()
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    res["general_launches"] = read_counters()
+    check(f"{tag} general engine output", bool(torch.isfinite(carry.env_state.x).all()),
+          f"finite states; {carry.stats.means()}; launches {res['general_launches']}")
+    res["general_env_steps_s"] = B_MAIN * SERVE_GENERAL_STEPS / t_gen
+
+    seed = torch.tensor([3], dtype=torch.int32, device=dev)
+    rows_in = fr.run(fr.run(fr.reset(seed=0), act, seed=1), act, seed=2)
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    rows = fr.run(rows_in, act, seed=seed)
+    torch.cuda.synchronize()
+    t_fast = time.perf_counter() - t0
+    res["launches"] = read_counters()
+    others = sum(v for k, v in res["launches"].items() if k != key)
+    check(f"{tag} whole-rollout call went through {kname}",
+          res["launches"][key] == 1 and others == 0, f"launches {res['launches']}")
+    check(f"{tag} whole-rollout output", bool(torch.isfinite(rows[:layout['seed']]).all()),
+          f"finite rows; {fr.stats(rows)}")
+    res["fast_env_steps_s"] = B_MAIN * fr.steps / t_fast
+    res["fast_call_ms"] = t_fast * 1e3
+    res["resets"] = float(rows[done_row].sum() - rows_in[done_row].sum())
+
+    p_short = dict(fr.params, steps=PLAIN_STEPS)
+    out = kernel(p_short, rows_in, act, seed)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = plain(p_short, rows_in, act, seed)
+    end.record()
+    torch.cuda.synchronize()
+    res["plain_ms"] = start.elapsed_time(end)
+    res["main_max_abs_err"] = check_rows(
+        f"{kname} vs plain from the main path's rows (B={B_MAIN}, {PLAIN_STEPS} steps)", out, ref,
+        rows_in, layout)
+    res["ms"] = device_ms(lambda: kernel(fr.params, rows_in, act, seed), 5)
+    return res
+
+
+def phase_serve_cartpole(dev):
+    from safe_control_gym_torch.envs.cartpole import make_cartpole
+    from safe_control_gym_torch.parallel import fast_cartpole as FC
+
+    env = make_cartpole(cfg_cartpole(), device=dev)
+    fr = FC.FastCartPoleRollout(env, B_MAIN, CP_FAST_STEPS, device=dev)
+    return serve(dev, "config 2", env, fr, fr.prepare_action(0.0), FC.cartpole_rollout,
+                 FC.cartpole_rollout_plain, "cartpole_rollout", "k5", K5_LAYOUT, 12)
+
+
+def phase_serve_quad2d(dev):
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+    from safe_control_gym_torch.parallel import fast_quad_planar as PQ
+
+    env = make_quadrotor(cfg_quad2d(), device=dev)
+    fr = PQ.FastPlanarQuadRollout(env, B_MAIN, Q2_FAST_STEPS, device=dev)
+    act = fr.prepare_action(np.full(2, float(env.u_goal[0]), np.float32))
+    return serve(dev, "config 3", env, fr, act, PQ.planar_rollout, PQ.planar_rollout_plain,
+                 "quad_planar_rollout", "k7", k7_layout(6), 6 + 7)
+
+
+def run_train(dev, tag, env, key, kernel, plain, kname, layout, nx, nu):
+    """A training path: PPO train steps at the rl_train shapes, the policy
+    kernel (K3, K6 or K8) once and K4 forty times per train step."""
     import torch
 
     from safe_control_gym_torch.controllers.ppo import PPO
-    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
-    from safe_control_gym_torch.ops import quad_substeps as K1
-    from safe_control_gym_torch.parallel import fast_env as F
     from safe_control_gym_torch.parallel import fast_policy as P
     from safe_control_gym_torch.parallel import fast_update as U
 
-    env = make_quadrotor(cfg4(normalized_rl_action_space=True), device=dev)
     ppo = PPO(env, seed=0, rollout_batch_size=TRAIN_B, rollout_steps=TRAIN_T, opt_epochs=EPOCHS,
               mini_batch_size=MB, hidden_dim=HIDDEN, use_fast_rollout=True,
               reshuffle_each_epoch=False)
-    check("PPO on the card takes K3 and K4", ppo._fp is not None and ppo._fu is not None,
-          "use_fast_rollout=True, use_fast_update='auto' on CUDA")
+    check(f"{tag}: PPO on the card takes {kname} and K4", ppo._fp is not None and ppo._fu is not None,
+          f"{type(ppo._fp).__name__}, use_fast_update='auto' on CUDA")
     res = {}
     for _ in range(2):
         ppo.state, _ = ppo._train_step(ppo.state)
-    # The first timed call's own K3 input: rows, packed weights, and the
-    # seed the controller's generator is about to draw.
+    # The first timed call's own policy-kernel input: rows, packed weights,
+    # and the seed the controller's generator is about to draw.
     fp, ac = ppo._fp, ppo.state.ac
     rows_in = ppo.state.env_state.clone()
     w = P.pack_weights(ac.actor, ac.critic, ac.logstd)
@@ -612,38 +1013,25 @@ def phase_train(dev):
     gen.set_state(ppo.gen.get_state())
     seed = torch.randint(0, 2**31 - 1, (1,), generator=gen, device=dev, dtype=torch.int32)
     torch.cuda.synchronize()
-    for c in (K1.quad3d_substeps, F.quad3d_rollout, P.policy_rollout, U.ppo_grads):
-        c.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     ppo.state, metrics = ppo.train_many(TRAIN_STEPS)(ppo.state)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
-    res["k3_launches"] = P.policy_rollout.launches
-    res["k4_launches"] = U.ppo_grads.launches
-    res["train_k1_k2_launches"] = K1.quad3d_substeps.launches + F.quad3d_rollout.launches
+    res["launches"] = read_counters()
+    res["policy_launches"], res["k4_launches"] = res["launches"][key], res["launches"]["k4"]
+    others = sum(v for k, v in res["launches"].items() if k not in (key, "k4"))
     res["train_step_s"] = t_train / TRAIN_STEPS
     res["train_env_steps_s"] = TRAIN_STEPS * TRAIN_B * TRAIN_T / t_train
     res["train_metrics"] = {k: float(v) for k, v in metrics.items()}
-    check("train steps went through the kernels",
-          res["k3_launches"] == TRAIN_STEPS and res["k4_launches"] == TRAIN_STEPS * EPOCHS * N_MINI,
-          f"K3 {res['k3_launches']} and K4 {res['k4_launches']} launches in {TRAIN_STEPS} train "
-          f"steps (want 1 and {EPOCHS * N_MINI} per step)")
-    check("train step output", all(np.isfinite(v) for v in res["train_metrics"].values())
+    check(f"{tag}: train steps went through the kernels",
+          res["policy_launches"] == TRAIN_STEPS and others == 0
+          and res["k4_launches"] == TRAIN_STEPS * EPOCHS * N_MINI,
+          f"{kname} {res['policy_launches']} and K4 {res['k4_launches']} launches in {TRAIN_STEPS} "
+          f"train steps (want 1 and {EPOCHS * N_MINI} per step), {others} others")
+    check(f"{tag}: train step output", all(np.isfinite(v) for v in res["train_metrics"].values())
           and ppo.state.total_steps == (2 + TRAIN_STEPS) * TRAIN_B * TRAIN_T,
           f"finite metrics {res['train_metrics']}, total_steps {ppo.state.total_steps}")
-
-    # -- K3 against its plain version on the first timed call's own input.
-    rows, traj = P.policy_rollout(fp.params, rows_in, w, seed)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    rows_p, traj_p = P.policy_rollout_plain(fp.params, rows_in, w, seed)
-    end.record()
-    torch.cuda.synchronize()
-    res["k3_plain_ms"] = start.elapsed_time(end)
-    res["k3_main_max_abs_err"], res["k3_main_differ"] = check_k3(
-        f"vs plain on the training path (B={TRAIN_B}, {TRAIN_T} steps)", rows, traj, rows_p,
-        traj_p, rows_in)
-    res["k3_resets"] = float(rows[21].sum() - rows_in[21].sum())
 
     # -- where a train step's time goes: device busy share and the kernels.
     step = lambda: ppo._train_step(ppo.state)  # noqa: E731
@@ -653,28 +1041,77 @@ def phase_train(dev):
     step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    k3_dev = sum(t for k, (t, _) in kern.items() if "quad3d_policy_rollout" in k)
-    k4_dev = sum(t for k, (t, _) in kern.items() if "ppo_grads" in k)
-    res["train_profile"] = {
+    res["profile"] = {
         "wall_ms": wall, "device_ms": busy, "busy_share": busy / wall if wall else None,
-        "k3_device_ms": k3_dev, "k4_device_ms": k4_dev,
+        "policy_device_ms": sum(t for k, (t, _) in kern.items() if kname in k),
+        "k4_device_ms": sum(t for k, (t, _) in kern.items() if "ppo_grads" in k),
         "kernel_launches": sum(n for _, n in kern.values()),
         "top": sorted(((k[:80], t, n) for k, (t, n) in kern.items()), key=lambda r: -r[1])[:10]}
 
-    # -- K3 and K4 alone (profiler device time), and K4's plain version.
-    res["k3_ms"] = kernel_device_ms(lambda: P.policy_rollout(fp.params, rows_in, w, seed),
-                                    "quad3d_policy_rollout_kernel", 3)
-    mb = k4_inputs(dev, ac, MB, seed=2)
+    # -- the policy kernel against its plain version on the first timed
+    # call's own input.
+    rows, traj = kernel(fp.params, rows_in, w, seed)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    rows_p, traj_p = plain(fp.params, rows_in, w, seed)
+    end.record()
+    torch.cuda.synchronize()
+    res["plain_ms"] = start.elapsed_time(end)
+    res["main_max_abs_err"], res["main_differ"] = check_record(
+        f"{kname} vs plain on the training path (B={TRAIN_B}, {TRAIN_T} steps)", rows, traj,
+        rows_p, traj_p, rows_in, layout, nx, nu)
+    res["resets"] = float(rows[layout["done"]].sum() - rows_in[layout["done"]].sum())
+
+    # -- the policy kernel and K4 alone, K4's plain version.
+    res["ms"] = device_ms(lambda: kernel(fp.params, rows_in, w, seed), 5)
+    mb = k4_inputs(dev, ac, MB, seed=2, nx=nx, nu=nu)
     wk = U.prep_weights(ac.actor, ac.critic, ac.logstd)
-    _, kern = profile_kernels(lambda: U.ppo_grads(mb, wk, clip=0.2), 20)
-    res["k4_ms"] = sum(t for k, (t, _) in kern.items() if "ppo_grads" in k) / 20
-    plain = lambda: U.ppo_grads_plain(mb, wk, clip=0.2)  # noqa: E731
-    cuda_ms(plain, 3)
-    res["k4_plain_ms"] = cuda_ms(plain, 20)
+    res["k4_ms"] = device_ms(lambda: U.ppo_grads(mb, wk, clip=0.2), 20)
+    plain_k4 = lambda: U.ppo_grads_plain(mb, wk, clip=0.2)  # noqa: E731
+    cuda_ms(plain_k4, 3)
+    res["k4_plain_ms"] = cuda_ms(plain_k4, 20)
     return res
 
 
-def bounds(res):
+def phase_train(dev):
+    """The training paths: config 4 (K3), cartpole_stab (K6), quad2d_stab
+    (K8)."""
+    from safe_control_gym_torch.envs.cartpole import make_cartpole
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+    from safe_control_gym_torch.parallel import fast_cartpole as FC
+    from safe_control_gym_torch.parallel import fast_policy as P
+    from safe_control_gym_torch.parallel import fast_quad_planar as PQ
+
+    return {
+        "config4": run_train(dev, "config 4", make_quadrotor(cfg4(normalized_rl_action_space=True),
+                                                             device=dev),
+                             "k3", P.policy_rollout, P.policy_rollout_plain,
+                             "quad3d_policy_rollout", K2_LAYOUT, 12, 4),
+        "cartpole": run_train(dev, "cartpole_stab", make_cartpole(cfg_cartpole_rl(), device=dev),
+                              "k6", FC.cartpole_policy_rollout, FC.cartpole_policy_rollout_plain,
+                              "cartpole_policy_rollout", K5_LAYOUT, 4, 1),
+        "quad2d": run_train(dev, "quad2d_stab", make_quadrotor(cfg_quad2d_rl(), device=dev),
+                            "k8", PQ.planar_policy_rollout, PQ.planar_policy_rollout_plain,
+                            "quad_planar_policy_rollout", k7_layout(6), 6, 2),
+    }
+
+
+def bound(nbytes, ops):
+    t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def policy_ops(nx, nu):
+    """Per env-step operations of a policy kernel beyond its env step: the
+    two nets' products and biases, the tanh of both hidden layers, the
+    Philox blocks of the sample, Box-Muller, log-prob and the action map."""
+    blocks = (2 * nu + 3) // 4
+    return (k3_mlp_ops(HIDDEN, nx, nu) + K3_MLP_TRANS_PER_H * HIDDEN + blocks * K3_RNG_OPS // 2
+            + nu * (K68_SAMPLE_OPS + K68_SAMPLE_TRANS))
+
+
+def bounds(res, serve_cp, serve_q2, train):
     """Least time the card could take for each kernel's main-path work."""
     B = B_MAIN
     k1_bytes = B * (12 + 4 + 3 + 1 + 3 + 12) * 4
@@ -682,31 +1119,48 @@ def bounds(res):
                   + 4 * 4 * FC_TRANS + 4 * ACTUATE_TRANS)
     k2_bytes = B * (2 * 27 + 4) * 4
     env_steps = B * FAST_STEPS
-    k2_ops = (env_steps * (4 * RK4_SUBSTEP_OPS + 4 * 4 * FC_TRANS + K2_STEP_OPS + K2_STEP_TRANS)
-              + res["fast_resets"] * K2_RESET_OPS + B * 4 * (ACTUATE_OPS + ACTUATE_TRANS))
-    # K3 at the training path's shapes: rows in and out, the packed weights
-    # read once, the record written once; K2's step plus the policy per
-    # env-step, the resets this run's timed call made.
+    k2_step = 4 * RK4_SUBSTEP_OPS + 4 * 4 * FC_TRANS + K2_STEP_OPS + K2_STEP_TRANS
+    k2_ops = (env_steps * k2_step + res["fast_resets"] * K2_RESET_OPS
+              + B * 4 * (ACTUATE_OPS + ACTUATE_TRANS))
+    # The policy kernels at the training paths' shapes: rows in and out, the
+    # packed weights read once, the record written once; the env step plus
+    # the policy per env-step, the resets of this run's timed call.
     h2 = 2 * HIDDEN
-    n_w = h2 * 12 + h2 + h2 * h2 + h2 + 8 * h2 + 8 + 4
-    k3_bytes = 4 * (TRAIN_B * 2 * 27 + n_w + TRAIN_T * 33 * TRAIN_B)
-    k3_steps = TRAIN_B * TRAIN_T
-    k3_ops = (k3_steps * (4 * RK4_SUBSTEP_OPS + 4 * 4 * FC_TRANS + K2_STEP_OPS + K2_STEP_TRANS
-                          + k3_mlp_ops(HIDDEN) + K3_MLP_TRANS_PER_H * HIDDEN + K3_RNG_OPS
-                          + K3_SAMPLE_OPS + K3_SAMPLE_TRANS + K3_ACTION_OPS)
-              + res["k3_resets"] * K2_RESET_OPS)
-    # K4 per launch: the minibatch read once, the weights read and the
-    # gradients and loss sums written once.
-    n_g = 2 * (HIDDEN * 12 + HIDDEN + HIDDEN * HIDDEN + HIDDEN) + 4 * HIDDEN + 4 + HIDDEN + 1 + 4
-    k4_bytes = 4 * (20 * MB + 2 * n_g + 3)
-    k4_ops = MB * k4_ops_per_sample(12, 4, HIDDEN)
-    out = {}
-    for name, nbytes, ops in (("k1", k1_bytes, k1_ops), ("k2", k2_bytes, k2_ops),
-                              ("k3", k3_bytes, k3_ops), ("k4", k4_bytes, k4_ops)):
-        t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
-        out[name] = {"bytes": nbytes, "ops": ops, "bound_ms": max(t_b, t_o),
-                     "bound_by": "bytes" if t_b >= t_o else "operations"}
+    steps_t = TRAIN_B * TRAIN_T
+
+    def policy_bytes(n_rows, nx, nu):
+        n_w = h2 * nx + h2 + h2 * h2 + h2 + 8 * h2 + 8 + nu
+        return 4 * (TRAIN_B * 2 * n_rows + n_w + TRAIN_T * (2 * nx + nu + 5) * TRAIN_B)
+
+    k3_ops = (steps_t * (k2_step + policy_ops(12, 4) + K3_ACTION_OPS)
+              + train["config4"]["resets"] * K2_RESET_OPS)
+    # K5: config 2, one RK4 substep, the action noise, constant force.
+    k5_step = CP_SUBSTEP_OPS + 4 * CP_FC_TRANS + K5_STEP_OPS + K5_STEP_TRANS
+    k5_ops = B * CP_FAST_STEPS * (k5_step + K5_NOISE_OPS + K5_NOISE_TRANS) \
+        + serve_cp["resets"] * K5_RESET_OPS
+    k6_ops = steps_t * (k5_step + policy_ops(4, 1)) + train["cartpole"]["resets"] * K5_RESET_OPS
+    # K7: config 3, 2D, four RK4 substeps.
+    k7_step = 4 * (Q2_SUBSTEP_OPS + 4 * Q2_FC_TRANS) + K7_STEP_OPS + K7_STEP_TRANS
+    k7_ops = B * Q2_FAST_STEPS * k7_step + serve_q2["resets"] * K7_RESET_OPS
+    k8_ops = steps_t * (k7_step + policy_ops(6, 2)) + train["quad2d"]["resets"] * K7_RESET_OPS
+    out = {"k1": bound(k1_bytes, k1_ops), "k2": bound(k2_bytes, k2_ops),
+           "k3": bound(policy_bytes(27, 12, 4), k3_ops),
+           "k5": bound(B * (2 * 18 + 1) * 4, k5_ops), "k6": bound(policy_bytes(18, 4, 1), k6_ops),
+           "k7": bound(B * (2 * 19 + 2) * 4, k7_ops), "k8": bound(policy_bytes(19, 6, 2), k8_ops)}
+    # K4 per launch at each training path's shapes: the minibatch read once,
+    # the weights read and the gradients and loss sums written once.
+    for tag, (nx, nu, _) in K4_SHAPES.items():
+        n_g = 2 * (HIDDEN * nx + HIDDEN + HIDDEN * HIDDEN + HIDDEN) + (nu + 1) * HIDDEN + nu + 1 + nu
+        out[f"k4_{tag}"] = bound(4 * ((nx + nu + 4) * MB + 2 * n_g + 3),
+                                 MB * k4_ops_per_sample(nx, nu, HIDDEN))
     return out
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
+    return {"name": name, "route": "cuda", "source": f"safe_control_gym_torch/csrc/{source}",
+            "replaces": f"safe_control_gym_tpu/{replaces}", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
+            "bound_by": bnd["bound_by"], "library_ms": None, **extra}
 
 
 def main():
@@ -731,9 +1185,12 @@ def main():
     cross_err = phase_cross(dev, env_c, fr_c, rows0, rows_k2)
     res = phase_main(dev)
     k3_err, k3_differ = phase_k3(dev)
-    k4_err, k4_err_ag = phase_k4(dev)
-    res.update(phase_train(dev))
-    bnd = bounds(res)
+    k4_errs = phase_k4(dev)
+    small = {**phase_k5_k6(dev), **phase_k7_k8(dev)}
+    serve_cp = phase_serve_cartpole(dev)
+    serve_q2 = phase_serve_quad2d(dev)
+    train = phase_train(dev)
+    bnd = bounds(res, serve_cp, serve_q2, train)
 
     from safe_control_gym_torch.ops import quad_substeps as K1
     from safe_control_gym_torch.parallel import fast_env as F
@@ -754,58 +1211,74 @@ def main():
           f"kernel launches; top {gp['top']}")
     print(f"launch counters: K1 {res['k1_launches']}, K2 {res['k2_launches']}")
     print(f"plain versions (no yardstick): K1 {res['k1_plain_ms']:.4f} ms per call, "
-          f"K2 {res['k2_plain_ms']:.1f} ms per call of {FAST_STEPS} steps")
-    tp = res["train_profile"]
-    print(f"PPO train step (B={TRAIN_B}, T={TRAIN_T}, {EPOCHS} epochs x {N_MINI} minibatches of "
-          f"{MB}): {res['train_env_steps_s']:.6g} env-steps/s, {res['train_step_s'] * 1e3:.3f} ms "
-          f"per train step over {TRAIN_STEPS}; metrics {res['train_metrics']}")
-    print(f"launches per train step: K3 {res['k3_launches'] / TRAIN_STEPS:g}, "
-          f"K4 {res['k4_launches'] / TRAIN_STEPS:g}; K1+K2 {res['train_k1_k2_launches']}")
-    print(f"train step: wall {tp['wall_ms']:.3f} ms, device busy {tp['device_ms']:.3f} ms "
-          f"({tp['busy_share']}), K3 {tp['k3_device_ms']:.3f} ms, K4 {tp['k4_device_ms']:.3f} ms, "
-          f"{tp['kernel_launches']} kernel launches; top {tp['top']}")
-    print(f"K3 device time {res['k3_ms']:.4f} ms per call of {TRAIN_T} steps "
-          f"(bound {bnd['k3']['bound_ms']:.4f} ms, {bnd['k3']['bound_by']}); "
-          f"plain {res['k3_plain_ms']:.1f} ms; {res['k3_resets']:.0f} auto-resets")
-    print(f"K4 device time {res['k4_ms'] * 1e3:.2f} us per launch at mb={MB} "
-          f"(bound {bnd['k4']['bound_ms'] * 1e3:.2f} us, {bnd['k4']['bound_by']}); "
-          f"plain {res['k4_plain_ms'] * 1e3:.2f} us")
+          f"K2 {res['k2_plain_ms']:.1f} ms per call of {PLAIN_STEPS} steps")
+    for tag, sv, kn, steps, b in (("config 2", serve_cp, "K5", CP_FAST_STEPS, bnd["k5"]),
+                                  ("config 3", serve_q2, "K7", Q2_FAST_STEPS, bnd["k7"])):
+        print(f"{tag}: general engine {sv['general_env_steps_s']:.6g} env-steps/s "
+              f"({SERVE_GENERAL_STEPS} steps); whole-rollout {sv['fast_env_steps_s']:.6g} "
+              f"env-steps/s (B={B_MAIN}, {steps} steps in {sv['fast_call_ms']:.4f} ms); {kn} device "
+              f"time {sv['ms']:.4f} ms (bound {b['bound_ms']:.4f} ms, {b['bound_by']}); "
+              f"{sv['resets']:.0f} auto-resets; plain {sv['plain_ms']:.1f} ms per {PLAIN_STEPS} steps")
+    for tag, pk in (("config4", "K3"), ("cartpole", "K6"), ("quad2d", "K8")):
+        tr, tp = train[tag], train[tag]["profile"]
+        pb = bnd[{"K3": "k3", "K6": "k6", "K8": "k8"}[pk]]
+        print(f"PPO train step {tag} (B={TRAIN_B}, T={TRAIN_T}, {EPOCHS} epochs x {N_MINI} "
+              f"minibatches of {MB}): {tr['train_env_steps_s']:.6g} env-steps/s, "
+              f"{tr['train_step_s'] * 1e3:.3f} ms per train step over {TRAIN_STEPS}; metrics "
+              f"{tr['train_metrics']}; launches per train step: {pk} "
+              f"{tr['policy_launches'] / TRAIN_STEPS:g}, K4 {tr['k4_launches'] / TRAIN_STEPS:g}")
+        print(f"  train step: wall {tp['wall_ms']:.3f} ms, device busy {tp['device_ms']:.3f} ms "
+              f"({tp['busy_share']}), {pk} {tp['policy_device_ms']:.3f} ms, K4 "
+              f"{tp['k4_device_ms']:.3f} ms, {tp['kernel_launches']} kernel launches; top {tp['top']}")
+        kb = bnd[f"k4_{tag}"]
+        print(f"  {pk} device time {tr['ms']:.4f} ms per call of {TRAIN_T} steps (bound "
+              f"{pb['bound_ms']:.4f} ms, {pb['bound_by']}); plain {tr['plain_ms']:.1f} ms; "
+              f"{tr['resets']:.0f} auto-resets; K4 {tr['k4_ms'] * 1e3:.2f} us per launch at "
+              f"mb={MB} (bound {kb['bound_ms'] * 1e3:.2f} us, {kb['bound_by']}); plain "
+              f"{tr['k4_plain_ms'] * 1e3:.2f} us")
 
+    c4 = train["config4"]
+    k4_by_path = {tag: {"launches": train[tag]["k4_launches"], "ms": train[tag]["k4_ms"],
+                        "plain_ms": train[tag]["k4_plain_ms"],
+                        "bound_ms": bnd[f"k4_{tag}"]["bound_ms"],
+                        "bound_by": bnd[f"k4_{tag}"]["bound_by"],
+                        "max_abs_err": k4_errs[tag][0], "max_abs_err_vs_autograd": k4_errs[tag][1]}
+                  for tag in K4_SHAPES}
     kernels_line = {"kernels": [
-        {"name": "quad3d_substeps", "route": "cuda",
-         "source": "safe_control_gym_torch/csrc/quad3d_substeps.cu",
-         "replaces": "safe_control_gym_tpu/ops/pallas_quad.py:109",
-         "launches": res["k1_launches"],
-         "max_abs_err": max(*k1_errs.values(), res["k1_main_max_abs_err"]),
-         "ms": res["k1_ms"], "plain_ms": res["k1_plain_ms"],
-         "bound_ms": bnd["k1"]["bound_ms"], "bound_by": bnd["k1"]["bound_by"],
-         "library_ms": None, "block": K1.BLOCK},
-        {"name": "quad3d_rollout", "route": "cuda",
-         "source": "safe_control_gym_torch/csrc/quad3d_rollout.cu",
-         "replaces": "safe_control_gym_tpu/parallel/fast_env.py:593",
-         "launches": res["k2_launches"],
-         "max_abs_err": max(k2_err, res["k2_main_max_abs_err"]),
-         "max_abs_err_vs_general_engine": cross_err,
-         "ms": res["k2_ms"], "plain_ms": res["k2_plain_ms"],
-         "bound_ms": bnd["k2"]["bound_ms"], "bound_by": bnd["k2"]["bound_by"],
-         "library_ms": None, "block": F.BLOCK},
-        {"name": "quad3d_policy_rollout", "route": "cuda",
-         "source": "safe_control_gym_torch/csrc/quad3d_policy_rollout.cu",
-         "replaces": "safe_control_gym_tpu/parallel/fast_policy.py:76",
-         "launches": res["k3_launches"],
-         "max_abs_err": max(k3_err, res["k3_main_max_abs_err"]),
-         "share_not_bit_equal": max(k3_differ, res["k3_main_differ"]),
-         "ms": res["k3_ms"], "plain_ms": res["k3_plain_ms"],
-         "bound_ms": bnd["k3"]["bound_ms"], "bound_by": bnd["k3"]["bound_by"],
-         "library_ms": None},
-        {"name": "ppo_grads", "route": "cuda",
-         "source": "safe_control_gym_torch/csrc/ppo_update.cu",
-         "replaces": "safe_control_gym_tpu/parallel/fast_update.py:44",
-         "launches": res["k4_launches"],
-         "max_abs_err": k4_err, "max_abs_err_vs_autograd": k4_err_ag,
-         "ms": res["k4_ms"], "plain_ms": res["k4_plain_ms"],
-         "bound_ms": bnd["k4"]["bound_ms"], "bound_by": bnd["k4"]["bound_by"],
-         "library_ms": None},
+        kernel_entry("quad3d_substeps", "quad3d_substeps.cu", "ops/pallas_quad.py:109",
+                     res["k1_launches"], max(*k1_errs.values(), res["k1_main_max_abs_err"]),
+                     res["k1_ms"], res["k1_plain_ms"], bnd["k1"], block=K1.BLOCK),
+        kernel_entry("quad3d_rollout", "quad3d_rollout.cu", "parallel/fast_env.py:593",
+                     res["k2_launches"], max(k2_err, res["k2_main_max_abs_err"]), res["k2_ms"],
+                     res["k2_plain_ms"], bnd["k2"], plain_steps=PLAIN_STEPS,
+                     max_abs_err_vs_general_engine=cross_err, block=F.BLOCK),
+        kernel_entry("quad3d_policy_rollout", "quad3d_policy_rollout.cu",
+                     "parallel/fast_policy.py:76", c4["policy_launches"],
+                     max(k3_err, c4["main_max_abs_err"]), c4["ms"], c4["plain_ms"], bnd["k3"],
+                     share_not_bit_equal=max(k3_differ, c4["main_differ"])),
+        kernel_entry("ppo_grads", "ppo_update.cu", "parallel/fast_update.py:44",
+                     c4["k4_launches"], k4_errs["config4"][0], c4["k4_ms"], c4["k4_plain_ms"],
+                     bnd["k4_config4"], max_abs_err_vs_autograd=k4_errs["config4"][1],
+                     by_path=k4_by_path),
+        kernel_entry("cartpole_rollout", "cartpole_rollout.cu", "parallel/fast_cartpole.py:264",
+                     serve_cp["launches"]["k5"], max(small["k5_err"], serve_cp["main_max_abs_err"]),
+                     serve_cp["ms"], serve_cp["plain_ms"], bnd["k5"], plain_steps=PLAIN_STEPS,
+                     max_abs_err_vs_general_engine=small["k5_cross_err"]),
+        kernel_entry("cartpole_policy_rollout", "cartpole_policy_rollout.cu",
+                     "parallel/fast_cartpole.py:288", train["cartpole"]["policy_launches"],
+                     max(small["k6_err"], train["cartpole"]["main_max_abs_err"]),
+                     train["cartpole"]["ms"], train["cartpole"]["plain_ms"], bnd["k6"],
+                     share_not_bit_equal=max(small["k6_differ"], train["cartpole"]["main_differ"])),
+        kernel_entry("quad_planar_rollout", "quad_planar_rollout.cu",
+                     "parallel/fast_quad_planar.py:339", serve_q2["launches"]["k7"],
+                     max(small["k7_err"], serve_q2["main_max_abs_err"]), serve_q2["ms"],
+                     serve_q2["plain_ms"], bnd["k7"], plain_steps=PLAIN_STEPS,
+                     max_abs_err_vs_general_engine=small["k7_cross_err"]),
+        kernel_entry("quad_planar_policy_rollout", "quad_planar_policy_rollout.cu",
+                     "parallel/fast_quad_planar.py:677", train["quad2d"]["policy_launches"],
+                     max(small["k8_err"], train["quad2d"]["main_max_abs_err"]),
+                     train["quad2d"]["ms"], train["quad2d"]["plain_ms"], bnd["k8"],
+                     share_not_bit_equal=max(small["k8_differ"], train["quad2d"]["main_differ"])),
     ]}
     total_s = time.perf_counter() - t_start
     if args.out:
@@ -815,10 +1288,11 @@ def main():
                        "cuda": torch.version.cuda, "build_s": build_s, "total_s": total_s,
                        "k1_max_abs_err": k1_errs, "k2_vs_plain_max_abs_err": k2_err,
                        "k2_vs_general_max_abs_err": cross_err, "bounds": bnd,
-                       "k3_vs_plain_max_abs_err": k3_err, "k4_vs_plain_max_abs_err": k4_err,
-                       "k4_vs_autograd_max_abs_err": k4_err_ag,
-                       **res, **kernels_line}, f, indent=1, default=str)
+                       "k3_vs_plain_max_abs_err": k3_err, "k4_max_abs_err": k4_errs,
+                       "small_checks": small, "serve_cartpole": serve_cp, "serve_quad2d": serve_q2,
+                       "train": train, **res, **kernels_line}, f, indent=1, default=str)
     print(f"total {total_s:.1f} s")
+    print(card_line())
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,7 @@ from typing import Any
 
 import torch
 
-from safe_control_gym_torch.envs.quadrotor import where_state
+from safe_control_gym_torch.envs.benchmark import where_state
 from safe_control_gym_torch.parallel.vector import make_vec_env
 
 

@@ -6,8 +6,10 @@ semantics:
 
   * rollout over a vectorized env batch with optional obs/reward
     normalizers (ppo.py:247-276), or with ``use_fast_rollout=True`` the
-    policy-in-kernel engine K3 (``parallel/fast_policy.py``, one launch per
-    train step);
+    policy-in-kernel engine of the env's family, one launch per train step:
+    K3 for the 3D quadrotor (``parallel/fast_policy.py``), K6 for CartPole
+    (``parallel/fast_cartpole.py``), K8 for the 1D/2D quadrotors
+    (``parallel/fast_quad_planar.py``);
   * time-truncation bootstrap ``rew += gamma * V(terminal obs)``
     (ppo.py:259-273);
   * returns/advantages by a reversed GAE loop with done masks
@@ -38,7 +40,8 @@ from safe_control_gym_torch.controllers.base import BaseController
 from safe_control_gym_torch.models.distributions import Normal
 from safe_control_gym_torch.models.networks import MLP
 from safe_control_gym_torch.models.normalization import MeanStdNormalizer, RewardStdNormalizer
-from safe_control_gym_torch.parallel import fast_env
+from safe_control_gym_torch.envs.cartpole import CartPoleConfig
+from safe_control_gym_torch.parallel import fast_cartpole, fast_env, fast_quad_planar
 from safe_control_gym_torch.parallel.fast_policy import FastPolicyRollout, pack_weights
 from safe_control_gym_torch.parallel.fast_update import FastPPOUpdate, prep_weights
 from safe_control_gym_torch.parallel.vector import make_vec_env
@@ -154,12 +157,25 @@ class PPOState:
     total_steps: int = 0
 
 
+def fast_rollout_engine(env_cfg):
+    """The policy-in-kernel engine of an env config's family and its
+    envelope test (the JAX package's selection, ppo.py:159-200)."""
+    if isinstance(env_cfg, CartPoleConfig):
+        return fast_cartpole.FastCartPolePolicyRollout, fast_cartpole.supports
+    if not hasattr(env_cfg, "quad_type"):
+        raise ValueError("use_fast_rollout supports CartPole and quadrotor configs, not "
+                         f"{type(env_cfg).__name__}")
+    if int(env_cfg.quad_type) in (1, 2):
+        return fast_quad_planar.FastPlanarQuadPolicyRollout, fast_quad_planar.supports
+    return FastPolicyRollout, fast_env.supports
+
+
 class PPO(BaseController):
     """PPO on the env's device (CUDA unless the env was built on the CPU).
 
-    ``use_fast_rollout=True`` collects with K3 (config envelope:
-    ``fast_env.supports(cfg, allow_normalized=True)``; running normalizers
-    off; no action filter)."""
+    ``use_fast_rollout=True`` collects with the policy-in-kernel engine of
+    the env's family (:func:`fast_rollout_engine`; running normalizers off;
+    no action filter)."""
 
     def __init__(self, env, seed: int = 0, output_dir: str = ".", action_filter_fn=None,
                  use_fast_rollout: bool = False, **kwargs):
@@ -184,12 +200,12 @@ class PPO(BaseController):
                 raise ValueError("the fast rollout does not implement running normalizers")
             if action_filter_fn is not None:
                 raise ValueError("the fast rollout takes no action filter")
-            if not fast_env.supports(env.config, allow_normalized=True):
-                raise ValueError("env config outside the fast-rollout envelope "
-                                 "(fast_env.supports(cfg, allow_normalized=True))")
-            self._fp = FastPolicyRollout(env, cfg.rollout_batch_size, cfg.rollout_steps,
-                                         mlp_hidden=cfg.hidden_dim, mlp_act=cfg.activation,
-                                         device=dev)
+            engine, supports = fast_rollout_engine(env.config)
+            if not supports(env.config, allow_normalized=True):
+                raise ValueError(f"env config outside the envelope of {engine.__name__} "
+                                 "(supports(cfg, allow_normalized=True))")
+            self._fp = engine(env, cfg.rollout_batch_size, cfg.rollout_steps,
+                              mlp_hidden=cfg.hidden_dim, mlp_act=cfg.activation, device=dev)
             env_state = self._fp.reset(seed)
             obs = self._fp.observe(env_state)
         else:
@@ -253,15 +269,16 @@ class PPO(BaseController):
 
     @torch.no_grad()
     def collect_fast(self, state: PPOState):
-        """The whole rollout in one K3 launch (ppo.py:331-363)."""
+        """The whole rollout in one launch of the policy engine (K3, K6 or
+        K8; ppo.py:331-363)."""
         fp, ac = self._fp, state.ac
         seed = torch.randint(0, 2**31 - 1, (1,), generator=self.gen, device=self.device,
                              dtype=torch.int32)
         rows, traj = fp.run(state.env_state, pack_weights(ac.actor, ac.critic, ac.logstd),
                             seed=seed)
         d = fp.unpack_traj(traj)
-        # Truncation bootstrap from the stored terminal observations (K3
-        # masks them to truncated steps).
+        # Truncation bootstrap from the stored terminal observations (the
+        # kernels mask them to truncated steps).
         term_v = torch.where(d["trunc"] > 0.0, self._value(ac, d["term_obs"]),
                              torch.zeros_like(d["rew"]))
         state.env_state, state.obs = rows, fp.observe(rows)
@@ -333,10 +350,11 @@ class PPO(BaseController):
         return {"policy_loss": m[0], "value_loss": m[1], "entropy_loss": m[2], "approx_kl": m[3]}
 
     def _unpack(self, rows):
-        """(mb, F) packed rows -> field dict."""
+        """(mb, F) packed rows -> field dict: obs (mb, obs_dim) and act
+        (mb, act_dim), a single action included; the rest (mb,)."""
         out, o = {}, 0
         for f, w in zip(_UPDATE_FIELDS, (self.obs_dim, self.act_dim, 1, 1, 1, 1)):
-            out[f] = rows[:, o] if w == 1 else rows[:, o:o + w]
+            out[f] = rows[:, o:o + w] if f in ("obs", "act") else rows[:, o]
             o += w
         return out
 

@@ -1,14 +1,20 @@
 // Philox-4x32-10 counter generator (Random123 constants): the port's
 // replacement for the TPU core PRNG of the JAX package's kernels
-// (safe_control_gym_tpu/parallel/fast_env.py::make_draw).  Draw i of env e
-// at step t of a call keyed by seed s is word i % 4 of
-// philox4x32_10(ctr = {e, t, i / 4, 0}, key = {s, 0}); the plain PyTorch
-// version (ops/philox.py) computes the same words.
+// (safe_control_gym_tpu/parallel/fast_env.py::make_draw).  Draw i at call
+// site c of env e at step t of a call keyed by seed s is word i % 4 of
+// philox4x32_10(ctr = {e, t, i / 4, c}, key = {s, 0}); the plain PyTorch
+// version (ops/philox.py) computes the same words.  The call sites take the
+// place of the TPU kernels' salt argument.
 #pragma once
 
 #include <cstdint>
 
 namespace scg {
+
+constexpr uint32_t SITE_POLICY = 0;  // the policy's Gaussian sample
+constexpr uint32_t SITE_ACTION = 1;  // action white noise
+constexpr uint32_t SITE_OBS = 2;     // observation white noise
+constexpr float TWO_PI = 6.283185307179586476925286766559f;
 
 struct Philox4 {
   uint32_t w[4];

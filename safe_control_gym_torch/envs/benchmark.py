@@ -90,6 +90,20 @@ class FnEnv:
         return int(self.episode_len_sec * self.ctrl_freq)
 
 
+def where_state(mask, a, b):
+    """Field-wise ``where(mask, a, b)`` of two env-state dataclasses of one
+    type, for a (B,) bool mask (nested dicts of tensors included)."""
+
+    def sel(u, v):
+        if isinstance(u, dict):
+            return {k: sel(u[k], v[k]) for k in u}
+        m = mask.reshape(mask.shape + (1,) * (u.dim() - 1))
+        return torch.where(m, u, v)
+
+    return type(a)(**{f.name: sel(getattr(a, f.name), getattr(b, f.name))
+                      for f in dataclasses.fields(a)})
+
+
 def check_timing(pyb_freq: int, ctrl_freq: int) -> int:
     """Validate physics/control frequency divisibility
     (reference benchmark_env.py:154-156)."""

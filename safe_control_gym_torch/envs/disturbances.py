@@ -1,13 +1,24 @@
-"""Batched disturbance injection (impulse and step kinds).
+"""Batched disturbance injection (impulse, step and white_noise kinds).
 
 Port of ``safe_control_gym_tpu/envs/disturbances.py`` for the two
-deterministic kinds (``disturbances.py:138-163``).  A channel's YAML list
-compiles to a ``CompiledDisturbances`` program, a function of the
-per-episode offsets and the step counter.  A randomized offset is drawn at
-reset from the counter PRNG (``envs/quadrotor.py``), so it needs no carried
-random stream.  The kinds that draw step noise (uniform, white_noise,
-periodic, brownian) and state_dependent raise ``NotImplementedError`` when
-the env is built.
+deterministic kinds (``disturbances.py:138-163``) and ``white_noise``
+(:171-175, :243-250).  A channel's YAML list compiles to a
+``CompiledDisturbances`` program, a function of the per-episode offsets,
+the step counter and, for white noise, the env's identity.  A randomized
+offset is drawn at reset from the counter PRNG (``envs/quadrotor.py``), so
+it needs no carried random stream.
+
+White noise: the JAX package draws it from a threefry key carried in the
+env state, whose bits the port cannot reproduce.  The port draws it from
+Philox (``ops/philox.py``) keyed on ``(env_seed, episode_idx)`` and counted
+by ``(ctrl_step, entry, block, site)``, where ``entry`` is the entry's index
+in the channel's list and ``site`` the channel's call site (action 1,
+observation 2), Box-Muller on each pair of draws.  The noise is then a pure
+function of the env's identity and step, with no generator to carry, and
+the CPU and CUDA give the same stream.  It matches the JAX package's in
+distribution only.  White noise on the dynamics channel has no call site
+yet and raises, as do the other noisy kinds (uniform, periodic, brownian)
+and state_dependent, when the env is built.
 """
 
 from __future__ import annotations
@@ -18,16 +29,22 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from safe_control_gym_torch.ops import philox
+
+# Call site (4th Philox counter word) of each channel's white noise.
+NOISE_SITES = {"action": philox.SITE_ACTION, "observation": philox.SITE_OBS}
+
 
 @dataclasses.dataclass(frozen=True)
 class _Dist:
-    kind: str  # impulse | step
+    kind: str  # impulse | step | white_noise
     dim: int
     mask: Optional[np.ndarray]
     magnitude: float = 1.0
     step_offset: Optional[int] = None  # None -> randomized per episode
     duration: int = 1
     decay_rate: float = 1.0
+    std: Optional[np.ndarray] = None  # white noise, (dim,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,21 +54,35 @@ class CompiledDisturbances:
     dists: Sequence[_Dist]
     dim: int
     max_step: int  # EPISODE_LEN_SEC / CTRL_TIMESTEP (disturbances.py:112)
+    site: Optional[int] = None  # the channel's Philox call site (white noise)
 
     @property
     def num_scheduled(self) -> int:
         """Entries needing a per-episode sampled offset."""
-        return sum(1 for d in self.dists if d.step_offset is None)
+        return sum(1 for d in self.dists
+                   if d.kind in ("impulse", "step") and d.step_offset is None)
 
-    def apply(self, offsets, ctrl_step, target):
+    def apply(self, offsets, ctrl_step, target, identity=None):
         """Apply all entries in order (disturbances.py:69-79).
 
         offsets: (B, num_scheduled) int32; ctrl_step: (B,) int32;
-        target: (B, dim)."""
+        target: (B, dim); identity: the envs' ``(env_seed, episode_idx)``
+        int32 tensors, which key the white noise."""
         dtype = target.dtype
         out = target
         si = 0
-        for d in self.dists:
+        for entry, d in enumerate(self.dists):
+            if d.kind == "white_noise":
+                # jax.random.normal(sub, (dim,)) * std (disturbances.py:171-175).
+                env_seed, episode_idx = identity
+                u = philox.block_uniforms(ctrl_step, entry, self.site, env_seed, episode_idx,
+                                          2 * d.dim)
+                std = torch.as_tensor(d.std, dtype=dtype, device=target.device)
+                noise = philox.box_muller(u, d.dim).T.to(dtype) * std
+                if d.mask is not None:
+                    noise = noise * torch.as_tensor(d.mask, dtype=dtype, device=target.device)
+                out = out + noise
+                continue
             if d.step_offset is None:
                 offset = offsets[:, si]
                 si += 1
@@ -89,9 +120,12 @@ def build_disturbances(
     dim: int,
     episode_len_sec: float,
     ctrl_freq: int,
+    channel: Optional[str] = None,
 ) -> Optional[CompiledDisturbances]:
     """Compile one channel's YAML spec list (reference
-    create_disturbance_list, disturbances.py:315-333)."""
+    create_disturbance_list, disturbances.py:315-333); ``channel`` names
+    the channel (observation, action or dynamics), whose call site keys
+    its white noise."""
     if not specs:
         return None
     dists = []
@@ -119,9 +153,14 @@ def build_disturbances(
                 magnitude=float(spec.get("magnitude", 1.0)),
                 step_offset=spec.get("step_offset"),
             )
+        elif kind == "white_noise" and channel in NOISE_SITES:
+            d = _Dist(kind="white_noise", dim=dim, mask=mask, std=np.broadcast_to(
+                np.asarray(spec.get("std", 1.0), float), (dim,)).copy())
         else:
             raise NotImplementedError(
-                f"disturbance_func {kind!r} is not ported yet (impulse and step only)")
+                f"disturbance_func {kind!r} on the {channel} channel is not ported yet "
+                "(impulse and step, and white_noise on the action and observation channels)")
         dists.append(d)
     return CompiledDisturbances(
-        dists=tuple(dists), dim=dim, max_step=int(episode_len_sec * ctrl_freq))
+        dists=tuple(dists), dim=dim, max_step=int(episode_len_sec * ctrl_freq),
+        site=NOISE_SITES.get(channel))

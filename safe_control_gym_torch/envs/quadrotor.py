@@ -1,18 +1,20 @@
-"""Quadrotor environment, 3D path, on batched PyTorch tensors.
+"""Quadrotor environment (1D, 2D and 3D) on batched PyTorch tensors.
 
-Port of ``safe_control_gym_tpu/envs/quadrotor.py`` for the 3D quadrotor:
-the thrust -> PWM -> RPM -> force actuation, ``pyb`` (RK4) and ``dyn``
-(explicit Euler) physics through the K1 substep kernel
-(``ops/quad_substeps.py``), stabilization and figure8/circle/square
-trajectory tracking, ``rl_reward`` and ``quadratic`` costs, box constraints,
-impulse and step disturbances, out-of-bound / collision / completion done
-flags, time-limit truncation and the non-finite freeze.  Every env of a
+Port of ``safe_control_gym_tpu/envs/quadrotor.py``: the thrust -> PWM ->
+RPM -> force actuation (with the 1D/2D motor grouping of ``cmd2pwm``),
+``pyb`` (RK4) and ``dyn`` (explicit Euler) physics, stabilization and
+figure8/circle/square trajectory tracking, ``rl_reward`` and ``quadratic``
+costs, box constraints, impulse, step and white-noise disturbances,
+out-of-bound / collision / completion done flags, time-limit truncation and
+the non-finite freeze.  The 3D physics runs through the K1 substep kernel
+(``ops/quad_substeps.py``); the 1D and 2D bodies (``quad_fc_1d`` /
+``quad_fc_2d``), which had no TPU kernel, are plain PyTorch.  Every env of a
 batch carries its own randomized inertia and initial state, drawn from the
 counter PRNG (``ops/ctr_prng.py``) exactly as the JAX package draws them.
 
-Not ported yet (``make_quadrotor`` raises ``NotImplementedError``): the 1D
-and 2D quad types, the aero physics modes, the competition cost and maze
-(gates, obstacles), the adversary channel, and the ``symbolic`` model.
+Not ported yet (``make_quadrotor`` raises ``NotImplementedError``): the
+aero physics modes, the competition cost and maze (gates, obstacles), the
+adversary channel, and the ``symbolic`` model.
 """
 
 from __future__ import annotations
@@ -31,9 +33,10 @@ from safe_control_gym_torch.envs.benchmark import Cost, EnvSpaces, FnEnv, Task
 from safe_control_gym_torch.envs.constraints import build_constraints
 from safe_control_gym_torch.envs.disturbances import build_disturbances
 from safe_control_gym_torch.ops import ctr_prng
+from safe_control_gym_torch.ops.integrators import rk4_step
 from safe_control_gym_torch.ops.quad_substeps import GRAVITY as GRAVITY_ACC
 from safe_control_gym_torch.ops.quad_substeps import (  # noqa: F401 (cmd2pwm, pwm2rpm: the env's actuation API)
-    ARM_L, KF, MAX_PWM, MIN_PWM, PWM2RPM_CONST, PWM2RPM_SCALE, cmd2pwm, pwm2rpm,
+    ARM_L, KF, MAX_PWM, MIN_PWM, PWM2RPM_CONST, PWM2RPM_SCALE, actuate, cmd2pwm, div, pwm2rpm,
     quad3d_substeps)
 from safe_control_gym_torch.ops.rotations import transform_trajectory
 from safe_control_gym_torch.utils.device import resolve_device
@@ -96,6 +99,19 @@ INIT_LABELS = ("init_x", "init_x_dot", "init_y", "init_y_dot", "init_z",
 OOB_MASK = (1, 0, 1, 0, 1, 0, 1, 1, 1, 0, 0, 0)
 NX, NU = 12, 4
 _CHANNELS = ("observation", "action", "dynamics")
+
+# Per quad type (quadrotor.py:128-143, :362-404): state and input widths,
+# initial-state labels (1D aliases init_x/init_x_dot to z, z_dot), the
+# out-of-bound mask, the inertia randomizations kept by default, and the
+# state dims of the default mse metric.
+TYPE_NX_NU = {1: (2, 1), 2: (6, 2), 3: (NX, NU)}
+TYPE_INIT_LABELS = {1: ("init_x", "init_x_dot"),
+                    2: ("init_x", "init_x_dot", "init_z", "init_z_dot", "init_theta",
+                        "init_theta_dot"),
+                    3: INIT_LABELS}
+TYPE_OOB_MASK = {1: (1, 0), 2: (1, 0, 1, 0, 1, 0), 3: OOB_MASK}
+_TYPE_INERTIAL_KEYS = {1: ("M",), 2: ("M", "Iyy"), 3: ("M", "Ixx", "Iyy", "Izz")}
+_TYPE_MSE_W = {1: [1, 0], 2: [1, 0, 1, 0, 0, 0], 3: [1, 0, 1, 0, 1, 0, 0, 0, 0, 0, 0, 0]}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,17 +199,38 @@ class QuadState:
         return dataclasses.replace(self, **kw)
 
 
-def where_state(mask, a: QuadState, b: QuadState) -> QuadState:
-    """Field-wise ``where(mask, a, b)`` for a (B,) bool mask."""
+def motor_force(thrust, n_motor: int):
+    """A 1D/2D thrust command -> the force of each of the ``n_motor`` motors
+    it drives: the command split evenly (the ``cmd2pwm`` grouping,
+    quadrotor.py:239-250), then the 4-motor actuation, cmd2pwm -> clip ->
+    pwm2rpm -> rpm^2 * KF."""
+    return actuate(div(torch.clamp_min(thrust, 0.0), float(n_motor)))
 
-    def sel(u, v):
-        if isinstance(u, dict):
-            return {k: sel(u[k], v[k]) for k in u}
-        m = mask.reshape(mask.shape + (1,) * (u.dim() - 1))
-        return torch.where(m, u, v)
 
-    return QuadState(**{f.name: sel(getattr(a, f.name), getattr(b, f.name))
-                        for f in dataclasses.fields(QuadState)})
+def planar_forces(thrust, n_motor: int):
+    """1D/2D thrust commands (B, nu) -> the 4 motors' forces (B, 4): 1D
+    commands all four motors, 2D the pairs (T1, T2, T2, T1)."""
+    f = motor_force(thrust, n_motor)
+    return f.repeat(1, 4) if f.shape[-1] == 1 else torch.cat([f, f.flip(-1)], -1)
+
+
+def quad_fc_1d(x, forces, mass, ext_fz, g=GRAVITY_ACC):
+    """Vertical quadrotor (quadrotor.py:261-265): x (B, 2), forces (B, 4)."""
+    T = forces.sum(-1)
+    z_dd = T / mass - g + ext_fz / mass
+    return torch.stack([x[..., 1], z_dd], -1)
+
+
+def quad_fc_2d(x, forces, mass, iyy, ext_fx, ext_fz, g=GRAVITY_ACC):
+    """Planar quadrotor in x-z (quadrotor.py:268-279): paired thrusts
+    T1 = motors 1 & 4, T2 = motors 2 & 3."""
+    T1 = forces[..., 0] + forces[..., 3]
+    T2 = forces[..., 1] + forces[..., 2]
+    theta = x[..., 4]
+    x_dd = torch.sin(theta) * (T1 + T2) / mass + ext_fx / mass
+    z_dd = torch.cos(theta) * (T1 + T2) / mass - g + ext_fz / mass
+    theta_dd = div(ARM_L * (T2 - T1) / iyy, math.sqrt(2.0))
+    return torch.stack([x[..., 1], x_dd, x[..., 3], z_dd, x[..., 5], theta_dd], -1)
 
 
 def quad_fc_3d(x, forces, mass, j_diag, ext_f, g=GRAVITY_ACC, km_over_kf=KM / KF):
@@ -237,8 +274,8 @@ def _weights_vec(w, dim):
 
 def _unsupported(cfg: QuadrotorConfig):
     """Why the port cannot build this config yet, or None."""
-    if int(cfg.quad_type) != QuadType.THREE_D:
-        return f"quad_type {cfg.quad_type} (only the 3D quadrotor is ported)"
+    if int(cfg.quad_type) not in TYPE_NX_NU:
+        return f"quad_type {cfg.quad_type}"
     if cfg.physics in ("pyb_gnd", "pyb_drag", "pyb_dw", "pyb_gnd_drag_dw"):
         return f"physics {cfg.physics!r} (only 'pyb' and 'dyn' are ported)"
     if cfg.cost == Cost.COMPETITION:
@@ -251,7 +288,7 @@ def _unsupported(cfg: QuadrotorConfig):
 
 
 def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> FnEnv:
-    """Build the batched 3D quadrotor env on ``device`` (CUDA by default)."""
+    """Build the batched quadrotor env on ``device`` (CUDA by default)."""
     cfg = config
     if cfg.physics not in ("pyb", "dyn", "pyb_gnd", "pyb_drag", "pyb_dw", "pyb_gnd_drag_dw"):
         raise ValueError(f"unknown physics mode {cfg.physics!r}")
@@ -260,6 +297,7 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
         raise NotImplementedError(f"not ported yet: {missing}")
     device = resolve_device(device)
     dtype = cfg.dtype
+    quad_type = QuadType(int(cfg.quad_type))
     task = Task(cfg.task)
     cost = Cost(cfg.cost)
     n_sub = bm.check_timing(cfg.pyb_freq, cfg.ctrl_freq)
@@ -267,7 +305,9 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
     pyb_dt = 1.0 / cfg.pyb_freq
     max_steps = int(cfg.episode_len_sec * cfg.ctrl_freq)
     task_info = {**_DEFAULT_TASK_INFO, **(cfg.task_info or {})}
-    nx, nu = NX, NU
+    nx, nu = TYPE_NX_NU[quad_type]
+    labels = TYPE_INIT_LABELS[quad_type]
+    three_d = quad_type == QuadType.THREE_D
 
     def dev(a, dt=dtype):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
@@ -282,30 +322,48 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
             nom_j[1] = float(ip.get("Iyy", ip.get("iyy", nom_j[1])))
             nom_j[2] = float(ip.get("Izz", ip.get("izz", nom_j[2])))
         else:
-            nom_mass, nom_j[0], nom_j[1], nom_j[2] = map(float, np.asarray(ip, float))
+            arr = np.asarray(ip, float)
+            if quad_type == QuadType.ONE_D:
+                nom_mass = float(arr[0])
+            elif quad_type == QuadType.TWO_D:
+                nom_mass, nom_j[1] = float(arr[0]), float(arr[1])
+            else:
+                nom_mass, nom_j[0], nom_j[1], nom_j[2] = map(float, arr)
 
     # Spaces (quadrotor.py:699-806).
     x_thr, y_thr, z_thr = 5.0, 5.0, 2.5
     phi_thr = theta_thr = 85 * math.pi / 180
     psi_thr = math.pi
-    s_low = np.array([-x_thr, -BIG, -y_thr, -BIG, GROUND_PLANE_Z, -BIG,
-                      -phi_thr, -theta_thr, -psi_thr, -BIG, -BIG, -BIG])
-    s_high = np.array([x_thr, BIG, y_thr, BIG, z_thr, BIG,
-                       phi_thr, theta_thr, psi_thr, BIG, BIG, BIG])
+    if quad_type == QuadType.ONE_D:
+        s_low, s_high = np.array([GROUND_PLANE_Z, -BIG]), np.array([z_thr, BIG])
+    elif quad_type == QuadType.TWO_D:
+        s_low = np.array([-x_thr, -BIG, GROUND_PLANE_Z, -BIG, -theta_thr, -BIG])
+        s_high = np.array([x_thr, BIG, z_thr, BIG, theta_thr, BIG])
+    else:
+        s_low = np.array([-x_thr, -BIG, -y_thr, -BIG, GROUND_PLANE_Z, -BIG,
+                          -phi_thr, -theta_thr, -psi_thr, -BIG, -BIG, -BIG])
+        s_high = np.array([x_thr, BIG, y_thr, BIG, z_thr, BIG,
+                           phi_thr, theta_thr, psi_thr, BIG, BIG, BIG])
     hover_thrust = GRAVITY_ACC * nom_mass / nu
+    n_motor = 4 // nu
     if cfg.normalized_rl_action_space:
         a_low, a_high = -np.ones(nu), np.ones(nu)
     else:
-        a_low = np.full(nu, KF * (PWM2RPM_SCALE * MIN_PWM + PWM2RPM_CONST) ** 2)
-        a_high = np.full(nu, KF * (PWM2RPM_SCALE * MAX_PWM + PWM2RPM_CONST) ** 2)
+        a_low = np.full(nu, KF * (4 / nu) * (PWM2RPM_SCALE * MIN_PWM + PWM2RPM_CONST) ** 2)
+        a_high = np.full(nu, KF * (4 / nu) * (PWM2RPM_SCALE * MAX_PWM + PWM2RPM_CONST) ** 2)
 
     # Goal references (quadrotor.py:261-329).
     u_goal = np.ones(nu) * nom_mass * GRAVITY_ACC / nu
     if task == Task.STABILIZATION:
         sg = task_info["stabilization_goal"]
-        # A 2-element goal [x, z] (the reference class default) lifts to (x, 0, z).
-        sg3 = list(sg) if len(sg) >= 3 else [sg[0], 0.0, sg[-1]]
-        x_goal = np.hstack([sg3[0], 0.0, sg3[1], 0.0, sg3[2], 0.0, np.zeros(6)])
+        if quad_type == QuadType.ONE_D:
+            x_goal = np.array([sg[1], 0.0])
+        elif quad_type == QuadType.TWO_D:
+            x_goal = np.array([sg[0], 0.0, sg[1], 0.0, 0.0, 0.0])
+        else:
+            # A 2-element goal [x, z] (the reference class default) lifts to (x, 0, z).
+            sg3 = list(sg) if len(sg) >= 3 else [sg[0], 0.0, sg[-1]]
+            x_goal = np.hstack([sg3[0], 0.0, sg3[1], 0.0, sg3[2], 0.0, np.zeros(6)])
     else:
         pos, vel, _ = bm.generate_trajectory(
             traj_type=task_info["trajectory_type"],
@@ -316,14 +374,19 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
             scaling=task_info["trajectory_scale"],
             sample_time=ctrl_dt,
         )
-        # The planar samples are rounded to float32 before the projection,
-        # as the JAX package's table is.
-        pos_t, vel_t = transform_trajectory(
-            pos.astype(np.float32), vel.astype(np.float32),
-            task_info["proj_point"], task_info["proj_normal"])
         z = np.zeros(pos.shape[0])
-        x_goal = np.stack([pos_t[:, 0], vel_t[:, 0], pos_t[:, 1], vel_t[:, 1],
-                           pos_t[:, 2], vel_t[:, 2], z, z, z, z, z, z], -1)
+        if quad_type == QuadType.ONE_D:
+            x_goal = np.stack([pos[:, 2], vel[:, 2]], -1)
+        elif quad_type == QuadType.TWO_D:
+            x_goal = np.stack([pos[:, 0], vel[:, 0], pos[:, 2], vel[:, 2], z, z], -1)
+        else:
+            # The planar samples are rounded to float32 before the projection,
+            # as the JAX package's table is.
+            pos_t, vel_t = transform_trajectory(
+                pos.astype(np.float32), vel.astype(np.float32),
+                task_info["proj_point"], task_info["proj_normal"])
+            x_goal = np.stack([pos_t[:, 0], vel_t[:, 0], pos_t[:, 1], vel_t[:, 1],
+                               pos_t[:, 2], vel_t[:, 2], z, z, z, z, z, z], -1)
 
     mul = 1
     if cost == Cost.RL_REWARD and cfg.obs_goal_horizon > 0:
@@ -335,9 +398,11 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
 
     constraints = build_constraints(cfg.constraints, spaces, device, dtype)
     dist_specs = cfg.disturbances or {}
+    dyn_dim = int(quad_type)  # DISTURBANCE_MODES dims (quadrotor.py:808-813)
     dist_progs = {
-        ch: build_disturbances(dist_specs.get(ch), dim, cfg.episode_len_sec, cfg.ctrl_freq)
-        for ch, dim in zip(_CHANNELS, (nx, nu, 3))
+        ch: build_disturbances(dist_specs.get(ch), dim, cfg.episode_len_sec, cfg.ctrl_freq,
+                               channel=ch)
+        for ch, dim in zip(_CHANNELS, (nx, nu, dyn_dim))
     }
     # Randomized offsets come from counter slot 4+nx, which the JAX package
     # uses for a single randomized dynamics offset only; its other
@@ -348,23 +413,25 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
             raise NotImplementedError(
                 f"not ported yet: {n} randomized step offsets on the {ch} channel")
 
-    init_rand = dict(_DEFAULT_INIT_RAND)
+    # Randomization infos replace the defaults when given; the defaults are
+    # filtered to this quad type's fields (quadrotor.py:485-496).
+    init_rand = {k: v for k, v in _DEFAULT_INIT_RAND.items() if k in labels}
     if cfg.init_state_randomization_info is not None:
         init_rand = dict(cfg.init_state_randomization_info)
-    inertial_rand = dict(_DEFAULT_INERTIAL_RAND)
+    inertial_rand = {k: v for k, v in _DEFAULT_INERTIAL_RAND.items()
+                     if k in _TYPE_INERTIAL_KEYS[quad_type]}
     if cfg.inertial_prop_randomization_info is not None:
         inertial_rand = dict(cfg.inertial_prop_randomization_info)
     init_state = cfg.init_state
     if init_state is None:
         init_state = {}
     elif isinstance(init_state, (list, tuple, np.ndarray)):
-        init_state = dict(zip(INIT_LABELS, np.asarray(init_state)))
+        init_state = dict(zip(labels, np.asarray(init_state)))
 
     rew_state_w = dev(_weights_vec(cfg.rew_state_weight, nx))
     rew_act_w = dev(_weights_vec(cfg.rew_act_weight, nu))
     mse_w_np = (cfg.info_mse_metric_state_weight
-                if cfg.info_mse_metric_state_weight is not None
-                else [1, 0, 1, 0, 1, 0, 0, 0, 0, 0, 0, 0])
+                if cfg.info_mse_metric_state_weight is not None else _TYPE_MSE_W[quad_type])
     mse_w = dev(_weights_vec(mse_w_np, nx))
     Q = dev(np.diag(_weights_vec(cfg.q_weight, nx)) if cfg.q_weight is not None else np.eye(nx))
     R = dev(np.diag(_weights_vec(cfg.r_weight, nu)) if cfg.r_weight is not None else np.eye(nu))
@@ -372,12 +439,12 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
     u_goal_t = dev(np.asarray(u_goal, np.float32))
     a_low_t, a_high_t = dev(a_low), dev(a_high)
     s_low_t, s_high_t = dev(s_low), dev(s_high)
-    oob_mask_t = dev(OOB_MASK, torch.bool)
+    oob_mask_t = dev(TYPE_OOB_MASK[quad_type], torch.bool)
     goal_tol = float(task_info["stabilization_goal_tolerance"])
     if task == Task.STABILIZATION:
-        goal_xyz = x_goal_t[[0, 2, 4]]
+        goal_xyz = x_goal_t[[0, 2, 4]] if three_d else None
     else:
-        goal_xyz = x_goal_t[0, [0, 2, 4]]
+        goal_xyz = x_goal_t[0, [0, 2, 4]] if three_d else None
 
     def _goal_rows(steps):
         """Trajectory reference row(s) for step indices (clipped gather)."""
@@ -396,13 +463,22 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
         obs = state.x
         prog = dist_progs["observation"]
         if prog is not None:
-            obs = prog.apply(state.dist_offsets["observation"], state.ctrl_step, obs)
+            obs = prog.apply(state.dist_offsets["observation"], state.ctrl_step, obs,
+                             (state.env_seed, state.episode_idx))
         return _extend_obs(obs, state.ctrl_step + 1)
+
+    def _pos3d(x):
+        """World position of the drone for any quad type."""
+        if quad_type == QuadType.ONE_D:
+            return torch.stack([torch.zeros_like(x[:, 0]), torch.zeros_like(x[:, 0]), x[:, 0]], -1)
+        if quad_type == QuadType.TWO_D:
+            return torch.stack([x[:, 0], torch.zeros_like(x[:, 0]), x[:, 2]], -1)
+        return x[:, [0, 2, 4]]
 
     # Consolidated reset randomization: one counter draw covers inertia (4)
     # and initial state (nx), with precomputed affine bounds.  Host float32
     # arithmetic for nominal+low and high-low, as the JAX package does.
-    names = ["M", "Ixx", "Iyy", "Izz"] + list(INIT_LABELS)
+    names = ["M", "Ixx", "Iyy", "Izz"] + list(labels)
     infos = ([inertial_rand if cfg.randomized_inertial_prop else {}] * 4
              + [init_rand if cfg.randomized_init else {}] * nx)
     rand_lo = np.asarray([float(i[n]["low"]) if n in i else 0.0
@@ -410,7 +486,7 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
     rand_hi = np.asarray([float(i[n]["high"]) if n in i else 0.0
                           for n, i in zip(names, infos)], np.float32)
     nominal = np.asarray([nom_mass, *nom_j] + [float(init_state.get(n, 0.0))
-                                               for n in INIT_LABELS], np.float32)
+                                               for n in labels], np.float32)
     rand_a = dev(nominal + rand_lo)
     rand_b = dev(rand_hi - rand_lo)
     n_slots = 4 + nx + 1
@@ -464,8 +540,20 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
         """Next episode of the same envs (the auto-reset path)."""
         return _reset_core(state.env_seed, state.episode_idx + 1)
 
+    def _planar_substeps(x, thrust, ext, mass, j_diag):
+        """1D/2D actuation and physics substeps (quadrotor.py:834-865)."""
+        forces = planar_forces(thrust, n_motor)
+        if quad_type == QuadType.ONE_D:
+            fc = lambda xx, f: quad_fc_1d(xx, f, mass, ext[:, 0])  # noqa: E731
+        else:
+            fc = lambda xx, f: quad_fc_2d(xx, f, mass, j_diag[:, 1], ext[:, 0], ext[:, 1])  # noqa: E731
+        for _ in range(n_sub):
+            x = x + pyb_dt * fc(x, forces) if cfg.physics == "dyn" else rk4_step(fc, x, forces, pyb_dt)
+        return x
+
     def step(state: QuadState, action):
         B = state.x.shape[0]
+        identity = (state.env_seed, state.episode_idx)
         action = torch.as_tensor(action, dtype=dtype, device=device).reshape(B, nu)
         # Preprocess (quadrotor.py:815-842).
         if cfg.normalized_rl_action_space:
@@ -476,18 +564,21 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
         preprocessed = thrust
         if dist_progs["action"] is not None:
             thrust = dist_progs["action"].apply(
-                state.dist_offsets["action"], state.ctrl_step, thrust)
-        ext = torch.zeros((B, 3), dtype=dtype, device=device)
+                state.dist_offsets["action"], state.ctrl_step, thrust, identity)
+        ext = torch.zeros((B, dyn_dim), dtype=dtype, device=device)
         if dist_progs["dynamics"] is not None:
             ext = dist_progs["dynamics"].apply(
-                state.dist_offsets["dynamics"], state.ctrl_step, ext)
-        # K1: actuation pipeline and all physics substeps in one launch.
-        x = quad3d_substeps(
-            state.x, thrust.contiguous(), ext.contiguous(), state.mass, state.j_diag,
-            dt=pyb_dt, n_sub=n_sub, euler=(cfg.physics == "dyn"), actuation=True)
+                state.dist_offsets["dynamics"], state.ctrl_step, ext, identity)
+        if three_d:
+            # K1: actuation pipeline and all physics substeps in one launch.
+            x = quad3d_substeps(
+                state.x, thrust.contiguous(), ext.contiguous(), state.mass, state.j_diag,
+                dt=pyb_dt, n_sub=n_sub, euler=(cfg.physics == "dyn"), actuation=True)
+        else:
+            x = _planar_substeps(state.x, thrust, ext, state.mass, state.j_diag)
 
         info = {}
-        pos = x[:, [0, 2, 4]]
+        pos = _pos3d(x)
         collided = gate_geom.ground_collision(pos)
         info["collision"] = collided
         full = torch.full((B,), -1, dtype=torch.int32, device=device)
@@ -495,12 +586,16 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
         info["current_target_gate_in_range"] = torch.zeros(B, dtype=torch.bool, device=device)
         info["current_target_gate_pos"] = torch.zeros((B, 6), dtype=dtype, device=device)
         info["current_target_gate_type"] = full
-        # At-goal / task completion (quadrotor.py:1114-1133); no gates, so
-        # every env is past them.
-        at_goal = torch.linalg.norm(pos - goal_xyz, dim=-1) < goal_tol
-        steps_at_goal = torch.where(at_goal, state.steps_at_goal + 1,
-                                    torch.zeros_like(state.steps_at_goal))
-        completed = state.task_completed | (steps_at_goal > cfg.ctrl_freq * 2)
+        # At-goal / task completion (quadrotor.py:1114-1133), 3D only; no
+        # gates, so every env is past them.
+        if three_d:
+            at_goal = torch.linalg.norm(pos - goal_xyz, dim=-1) < goal_tol
+            steps_at_goal = torch.where(at_goal, state.steps_at_goal + 1,
+                                        torch.zeros_like(state.steps_at_goal))
+            completed = state.task_completed | (steps_at_goal > cfg.ctrl_freq * 2)
+        else:
+            at_goal = torch.zeros(B, dtype=torch.bool, device=device)
+            steps_at_goal, completed = state.steps_at_goal, state.task_completed
         info["at_goal_position"] = at_goal
         info["task_completed"] = completed
 

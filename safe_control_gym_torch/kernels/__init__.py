@@ -24,7 +24,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 LIB = BUILD / "libscg_kernels.so"
-SOURCES = ("quad3d_substeps.cu", "quad3d_rollout.cu", "quad3d_policy_rollout.cu", "ppo_update.cu")
+SOURCES = ("quad3d_substeps.cu", "quad3d_rollout.cu", "quad3d_policy_rollout.cu", "ppo_update.cu",
+           "cartpole_rollout.cu", "cartpole_policy_rollout.cu", "quad_planar_rollout.cu",
+           "quad_planar_policy_rollout.cu")
 # -fmad=false: no contraction of a*b+c into FMA, so the kernels round like
 # their plain PyTorch versions (one rounding per op) and done flags at the
 # bounds do not flip between the two.  Never --use_fast_math.
@@ -52,6 +54,16 @@ _SIGNATURES = {
     # nx, nu, H, mb, relu, clip_lo, clip_hi, inv_n, mb_ptr, wflat, partial,
     # out, nblk, smem_bytes, stream
     "ppo_grads": [_I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _I, _I, _P],
+    # params, seed, rows_in, action, rows_out, B, block, stream
+    "cartpole_rollout": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "cartpole_params_size": [],
+    # params, relu, hidden, seed, wflat, rows_in, rows_out, traj, B, stream
+    "cartpole_policy_rollout": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    # params, nx, seed, rows_in, action, rows_out, B, block, stream
+    "quad_planar_rollout": [_P, _I, _P, _P, _P, _P, _I, _I, _P],
+    "quad_planar_params_size": [],
+    # params, nx, relu, hidden, seed, wflat, rows_in, rows_out, traj, B, stream
+    "quad_planar_policy_rollout": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
 }
 
 _lib = None

@@ -5,11 +5,20 @@ The JAX package draws in-kernel randomness from the TPU core PRNG
 ``pltpu.prng_random_bits``), whose bits exist only on that chip.  The port
 replaces it with Philox-4x32-10 (Salmon et al., SC'11; the Random123
 constants), keyed on the call's seed and counted by (env, step, draw
-block): draw ``i`` of env ``e`` at step ``t`` of a call with seed ``s`` is
-word ``i % 4`` of ``philox4x32_10(ctr=(e, t, i // 4, 0), key=(s, 0))``.
-The CUDA kernels compute the same words in native ``uint32`` arithmetic
+block, call site): draw ``i`` at call site ``c`` of env ``e`` at step ``t``
+of a call with seed ``s`` is word ``i % 4`` of
+``philox4x32_10(ctr=(e, t, i // 4, c), key=(s, 0))``.  The call sites
+(the TPU kernels' ``salt`` argument, ``fast_cartpole.py:121,327``) are
+:data:`SITE_POLICY` (the policy's Gaussian sample), :data:`SITE_ACTION`
+(action white noise) and :data:`SITE_OBS` (observation white noise).  The
+CUDA kernels compute the same words in native ``uint32`` arithmetic
 (``csrc/philox.cuh``), so a kernel and its plain version draw the same
 uniforms bit for bit.
+
+The general engine's white-noise disturbances (``envs/disturbances.py``)
+draw from the same generator keyed on the env's identity instead:
+:func:`block_uniforms` with ``key=(env_seed, episode_idx)`` and
+``ctr=(ctrl_step, entry, block, site)``.
 
 As in ``ops/ctr_prng.py``, the words are non-negative int64 tensors masked
 to 32 bits; the 32x32 -> 64-bit product is split into 16-bit halves so that
@@ -18,12 +27,16 @@ no intermediate leaves int64.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 _U32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57  # round multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85  # key bumps (Weyl sequence)
 ROUNDS = 10
+SITE_POLICY, SITE_ACTION, SITE_OBS = 0, 1, 2  # 4th counter word: the call site
+TWO_PI = 2.0 * math.pi
 
 
 def _mulhilo(x, m: int):
@@ -52,17 +65,36 @@ def bits_to_unit(bits):
     return (bits >> 8).to(torch.float32) * 2.0**-24
 
 
-def uniforms(seed, step: int, env, n: int):
-    """(n, *env.shape) float32 uniforms: draws 0..n-1 of each env at
-    ``step`` of the call keyed by ``seed``.
+def _word(x, device):
+    """An int or int tensor as uint32 words (non-negative int64)."""
+    return torch.as_tensor(x, device=device).to(torch.int64) & _U32
+
+
+def block_uniforms(c0, c1, c3, k0, k1, n: int):
+    """(n, *shape) float32 uniforms: draw ``i`` is word ``i % 4`` of
+    ``philox4x32_10(ctr=(c0, c1, i // 4, c3), key=(k0, k1))``.  Each
+    argument is an int or an int tensor (int32 bit patterns are taken as
+    uint32 words); tensors broadcast against ``c0``."""
+    c0 = _word(c0, None)
+    c1, c3, k0, k1 = (_word(v, c0.device) for v in (c1, c3, k0, k1))
+    out = []
+    for blk in range((n + 3) // 4):
+        out.extend(philox4x32(c0, c1, torch.full_like(c0, blk), c3, k0, k1))
+    return torch.stack([bits_to_unit(w) for w in out[:n]])
+
+
+def uniforms(seed, step: int, env, n: int, site: int = SITE_POLICY):
+    """(n, *env.shape) float32 uniforms: draws 0..n-1 at call site ``site``
+    of each env at ``step`` of the call keyed by ``seed``.
 
     ``seed``: int or int32 tensor of one element; ``env``: int tensor of env
     indices."""
-    env = env.to(torch.int64) & _U32
-    k0 = torch.as_tensor(seed, device=env.device).to(torch.int64).reshape(()) & _U32
-    out = []
-    for blk in range((n + 3) // 4):
-        words = philox4x32(env, torch.full_like(env, step & _U32),
-                           torch.full_like(env, blk), torch.zeros_like(env), k0, 0)
-        out.extend(words)
-    return torch.stack([bits_to_unit(w) for w in out[:n]])
+    k0 = torch.as_tensor(seed, device=env.device).to(torch.int64).reshape(())
+    return block_uniforms(env, step, site, k0, 0, n)
+
+
+def box_muller(u, n: int):
+    """n standard normals from 2n uniforms ``u`` (radius draws first, then
+    angle draws): ``sqrt(-2 log(1 - u_r)) * cos(2 pi u_a)``, with ``2 pi``
+    one float32 constant as in the kernels."""
+    return torch.sqrt(-2.0 * torch.log(1.0 - u[:n])) * torch.cos(TWO_PI * u[n:2 * n])

@@ -141,6 +141,34 @@ def supports(cfg, allow_normalized: bool = False, allow_maze: bool = False) -> b
     )
 
 
+def impulse_spec(cfg):
+    """(magnitude, duration, decay_rate) of the config's impulse on the
+    dynamics channel (the single form the envelopes admit), or None."""
+    dist = (cfg.disturbances or {}).get("dynamics")
+    if not dist:
+        return None
+    return tuple(float(np.asarray(dist[0].get(k, dflt), dtype=float).ravel()[0])
+                 for k, dflt in (("magnitude", 1.0), ("duration", 1), ("decay_rate", 1.0)))
+
+
+def act_noise_std(cfg) -> float:
+    """Std of the config's action white noise (0 without one)."""
+    act_d = (cfg.disturbances or {}).get("action")
+    return float(np.asarray(act_d[0].get("std", 1.0), float).ravel()[0]) if act_d else 0.0
+
+
+def constraint_box(env, nx: int, nu: int):
+    """Per-dim violation bounds of the env's pure box constraint program
+    (``box_bounds_view``) or, without constraints, the state space: (state
+    low, state high, input low, input high, whether any input bound is
+    finite)."""
+    if env.config.constraints is not None:
+        s_lo, s_hi, u_lo, u_hi = box_bounds_view(env.config.constraints, nx, nu, env.spaces)
+        return s_lo, s_hi, u_lo, u_hi, bool((u_lo > -1e29).any() or (u_hi < 1e29).any())
+    return (np.asarray(env.spaces.state_low, float), np.asarray(env.spaces.state_high, float),
+            np.full(nu, -1e30), np.full(nu, 1e30), False)
+
+
 def build_engine_params(env, steps_per_call: int, allow_normalized: bool = False) -> dict:
     """Static engine-parameter dict from an env (the JAX package's keys for
     this envelope; Python floats, rounded to float32 where used)."""
@@ -149,13 +177,6 @@ def build_engine_params(env, steps_per_call: int, allow_normalized: bool = False
         raise ValueError("config outside the whole-rollout engine's envelope (supports())")
     ti = {**Q._DEFAULT_TASK_INFO, **(cfg.task_info or {})}
     n_sub = cfg.pyb_freq // cfg.ctrl_freq
-    dist = (cfg.disturbances or {}).get("dynamics")
-    impulse = None
-    if dist:
-        d = dist[0]
-        impulse = tuple(
-            float(np.asarray(d.get(k, dflt), dtype=float).ravel()[0])
-            for k, dflt in (("magnitude", 1.0), ("duration", 1), ("decay_rate", 1.0)))
     # Randomization bounds in fast-row order: mass, jx, jy, jz, x0..x11.
     inertial = Q._DEFAULT_INERTIAL_RAND if cfg.randomized_inertial_prop else {}
     if cfg.randomized_inertial_prop and cfg.inertial_prop_randomization_info:
@@ -207,15 +228,7 @@ def build_engine_params(env, steps_per_call: int, allow_normalized: bool = False
             ti.get("proj_point", [0, 0, 0]), ti.get("proj_normal", [0, 0, 1])), dtype=float)
         proj = tuple(tuple(float(v) for v in M4[k, :4]) for k in range(3))
 
-    if cfg.constraints is not None:
-        c_s_lo, c_s_hi, c_u_lo, c_u_hi = box_bounds_view(cfg.constraints, _NX, 4, env.spaces)
-        u_check = bool((c_u_lo > -1e29).any() or (c_u_hi < 1e29).any())
-    else:
-        c_s_lo = np.asarray(env.spaces.state_low, float)
-        c_s_hi = np.asarray(env.spaces.state_high, float)
-        c_u_lo, c_u_hi = np.full(4, -1e30), np.full(4, 1e30)
-        u_check = False
-
+    c_s_lo, c_s_hi, c_u_lo, c_u_hi, u_check = constraint_box(env, _NX, 4)
     return dict(
         steps=steps_per_call,
         n_sub=n_sub,
@@ -240,7 +253,7 @@ def build_engine_params(env, steps_per_call: int, allow_normalized: bool = False
         u_low=tuple(float(v) for v in c_u_lo),
         u_high=tuple(float(v) for v in c_u_hi),
         max_steps=float(int(cfg.episode_len_sec * cfg.ctrl_freq)),
-        impulse=impulse,
+        impulse=impulse_spec(cfg),
         task=task, x_goal=x_goal,
         traj_type=traj_type, traj_w=traj_w, traj_scale=traj_scale,
         traj_period=float(period),

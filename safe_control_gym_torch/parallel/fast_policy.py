@@ -32,13 +32,8 @@ from safe_control_gym_torch.parallel import fast_env as FE
 from safe_control_gym_torch.utils.device import resolve_device
 
 TRAJ_ROWS = 33
-_T_OBS = slice(0, 12)
-_T_ACT = slice(12, 16)
-_T_REW, _T_DONE, _T_TRUNC, _T_V, _T_LOGP = 16, 17, 18, 19, 20
-_T_TERMOBS = slice(21, 33)
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
-_TWO_PI = 2.0 * math.pi
 HIDDEN = 64  # the width the kernel is built for (its 2H second-layer sums live in registers)
 
 
@@ -59,44 +54,53 @@ def _act_fn(name):
     raise ValueError(f"K3 supports tanh and relu, not {name!r}")
 
 
-def policy_rollout_plain(p, rows, weights, seed):
-    """Plain PyTorch version of K3: ``p['steps']`` policy-driven control
-    steps on ``rows`` (27, B).
+def dual_mlp(weights, obs, nu: int, f):
+    """The packed dual network's outputs on observation rows ``obs`` (a
+    list of (B,) rows): the ``nu`` actor means and the value.  As the
+    kernels, it runs the actor's and the critic's blocks of the packed
+    layers apart and skips their zero blocks; output rows 0..nu-1 are the
+    means and row nu the value (``pack_weights``)."""
+    w1, b1, w2, b2, w3, b3, _ = weights
+    H = w2.shape[0] // 2
+    h1 = f(_matvec(w1, obs) + b1)
+    a2 = f(_matvec(w2[:H, :H], list(h1[:H])) + b2[:H])
+    c2 = f(_matvec(w2[H:, H:], list(h1[H:])) + b2[H:])
+    mean = _matvec(w3[:nu, :H], list(a2)) + b3[:nu]
+    value = (_matvec(w3[nu:nu + 1, H:], list(c2)) + b3[nu:nu + 1])[0]
+    return mean, value
 
-    ``weights``: (w1, b1, w2, b2, w3, b3, logstd) from :func:`pack_weights`;
-    ``seed``: int32 tensor of one element.  Returns (rows, traj (T, 33, B)).
-    As the kernel, it runs the actor's and the critic's blocks of the packed
-    layers apart and skips their zero blocks."""
-    w1, b1, w2, b2, w3, b3, logstd = weights
+
+def gaussian_sample(mean, logstd, u, nu: int):
+    """act = mean + exp(logstd) * eps and its log-prob, eps by Box-Muller
+    on the 2 * nu uniforms ``u`` (radius draws 0..nu-1, angle draws
+    nu..2nu-1), in the kernels' operation order (fast_policy.py:141-161)."""
+    eps = philox.box_muller(u, nu)
+    act = []
+    logp = torch.zeros_like(mean[0])
+    for i in range(nu):
+        act.append(mean[i] + torch.exp(logstd[i]) * eps[i])
+        logp = logp - 0.5 * (eps[i] * eps[i]) - logstd[i] - _HALF_LOG_2PI
+    return act, logp
+
+
+def policy_rollout_loop(p, rows, weights, seed, nx: int, nu: int, thrust_fn, step_fn):
+    """Plain policy-driven rollout of any engine: per step the dual MLP on
+    state rows 0..nx-1, the Gaussian sample from Philox call site 0, the
+    engine's action map ``thrust_fn(a)`` and control step ``step_fn(carry,
+    thrust_rows, act_rows, it)`` (returning ``step_rows``' tuple), and one
+    record: obs | act | rew | done | trunc | v | logp | terminal obs (the
+    post-step state times trunc).  Returns (rows, traj (T, 2 nx + nu + 5,
+    B))."""
     f = _act_fn(p["mlp_act"])
     carry = list(rows.unbind(0))
-    B = rows.shape[1]
-    H = w2.shape[0] // 2
-    env = torch.arange(B, device=rows.device)
+    env = torch.arange(rows.shape[1], device=rows.device)
     records = []
     for it in range(p["steps"]):
-        obs = carry[:12]
-        h1 = f(_matvec(w1, obs) + b1)
-        a2 = f(_matvec(w2[:H, :H], list(h1[:H])) + b2[:H])
-        c2 = f(_matvec(w2[H:, H:], list(h1[H:])) + b2[H:])
-        mean = _matvec(w3[:4, :H], list(a2)) + b3[:4]
-        value = (_matvec(w3[4:5, H:], list(c2)) + b3[4:5])[0]
-
-        u = philox.uniforms(seed, it, env, 8)
-        # Multiply by the float32 2*pi the kernel uses: PyTorch's CUDA
-        # division by a Python scalar would multiply by its reciprocal.
-        eps = torch.sqrt(-2.0 * torch.log(1.0 - u[:4])) * torch.cos(_TWO_PI * u[4:])
-        act, thr = [], []
-        logp = torch.zeros_like(value)
-        for i in range(4):
-            a = mean[i] + torch.exp(logstd[i]) * eps[i]
-            act.append(a)
-            logp = logp - 0.5 * (eps[i] * eps[i]) - logstd[i] - _HALF_LOG_2PI
-            if p["normalized"]:
-                thr.append((1.0 + p["norm_act_scale"] * torch.clamp(a, -1.0, 1.0)) * p["hover_thrust"])
-            else:
-                thr.append(torch.clamp(a, p["a_low"], p["a_high"]))
-        carry, rew, done, trunc, _, s_post = FE.step_rows(p, carry, thr, act)
+        obs = carry[:nx]
+        mean, value = dual_mlp(weights, obs, nu, f)
+        act, logp = gaussian_sample(mean, weights[6], philox.uniforms(seed, it, env, 2 * nu), nu)
+        thr = [thrust_fn(a) for a in act]
+        carry, rew, done, trunc, _, s_post = step_fn(carry, thr, act, it)
         truncf = trunc.to(torch.float32)
         records.append(torch.stack(
             obs + act + [rew, done.to(torch.float32), truncf, value, logp]
@@ -104,10 +108,31 @@ def policy_rollout_plain(p, rows, weights, seed):
     return torch.stack(carry), torch.stack(records)
 
 
+def policy_rollout_plain(p, rows, weights, seed):
+    """Plain PyTorch version of K3: ``p['steps']`` policy-driven control
+    steps on ``rows`` (27, B).
+
+    ``weights``: (w1, b1, w2, b2, w3, b3, logstd) from :func:`pack_weights`;
+    ``seed``: int32 tensor of one element.  Returns (rows, traj (T, 33, B))."""
+    if p["normalized"]:
+        def thrust(a):
+            return (1.0 + p["norm_act_scale"] * torch.clamp(a, -1.0, 1.0)) * p["hover_thrust"]
+    else:
+        def thrust(a):
+            return torch.clamp(a, p["a_low"], p["a_high"])
+    return policy_rollout_loop(p, rows, weights, seed, FE._NX, 4, thrust,
+                               lambda c, thr, act, it: FE.step_rows(p, c, thr, act))
+
+
 def kernel_weights(weights):
-    """The kernel's flat weight vector from :func:`pack_weights`' tuple:
-    w1 | b1 | w2^T | b2 | w3^T | b3 | logstd."""
+    """The kernels' flat weight vector from :func:`pack_weights`' tuple:
+    w1 | b1 | w2^T | b2 | w3^T | b3 | logstd, each row of w1 zero-padded to
+    a multiple of 4 so that the kernels' float4 loads stay aligned
+    (``csrc/policy_mlp.cuh``)."""
     w1, b1, w2, b2, w3, b3, logstd = weights
+    pad = -w1.shape[1] % 4
+    if pad:
+        w1 = torch.cat([w1, w1.new_zeros((w1.shape[0], pad))], 1)
     return torch.cat([w1.reshape(-1), b1.reshape(-1), w2.T.reshape(-1), b2.reshape(-1),
                       w3.T.reshape(-1), b3.reshape(-1), logstd.reshape(-1)]).contiguous()
 
@@ -155,10 +180,25 @@ def policy_rollout(p, rows, weights, seed):
 policy_rollout.launches = 0
 
 
+def unpack_record(traj, obs_dim: int, nu: int):
+    """A (T, 2 obs_dim + nu + 5, B) record of any policy engine -> the PPO
+    field dict in (T, B, ...) layout."""
+    od = obs_dim
+
+    def mat(a, b):
+        return traj[:, a:b].transpose(1, 2)
+
+    done = traj[:, od + nu + 1]
+    return {"obs": mat(0, od), "act": mat(od, od + nu), "rew": traj[:, od + nu], "done": done,
+            "mask": 1.0 - done, "trunc": traj[:, od + nu + 2], "v": traj[:, od + nu + 3],
+            "logp": traj[:, od + nu + 4], "term_obs": mat(od + nu + 5, 2 * od + nu + 5)}
+
+
 def pack_weights(actor, critic, logstd):
     """Port actor/critic ``MLP``s -> the fused dual-network matrices
     (fast_policy.py:296-330): hidden rows 0..H-1 actor, H..2H-1 critic; w2
-    block-diagonal; output rows 0..3 actor mean, 4 value, 5..7 zero."""
+    block-diagonal; output rows 0..nu-1 actor means, nu value, the rest
+    zero (the layout of all three policy engines)."""
     a = [layer for layer in actor.layers]
     c = [layer for layer in critic.layers]
     H = a[0].weight.shape[0]
@@ -207,20 +247,7 @@ class FastPolicyRollout:
 
     def unpack_traj(self, traj):
         """(T, 33, B) record -> PPO field dict in (T, B, ...) layout."""
-        def mat(sl):
-            return traj[:, sl].transpose(1, 2)
-
-        return {
-            "obs": mat(_T_OBS),
-            "act": mat(_T_ACT),
-            "rew": traj[:, _T_REW],
-            "done": traj[:, _T_DONE],
-            "mask": 1.0 - traj[:, _T_DONE],
-            "trunc": traj[:, _T_TRUNC],
-            "v": traj[:, _T_V],
-            "logp": traj[:, _T_LOGP],
-            "term_obs": mat(_T_TERMOBS),
-        }
+        return unpack_record(traj, FE._NX, 4)
 
     def states(self, rows):
         """(B, 12) state matrix from packed rows."""

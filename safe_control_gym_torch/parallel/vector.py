@@ -15,7 +15,7 @@ from typing import Any, Callable
 
 import torch
 
-from safe_control_gym_torch.envs.quadrotor import where_state
+from safe_control_gym_torch.envs.benchmark import where_state
 from safe_control_gym_torch.ops import ctr_prng
 
 

@@ -6,13 +6,14 @@ Network weights: a flax MLP's params ``{"params": {"Dense_i": {"kernel",
 into the port's, so both packages compute the same function.  The reverse
 direction serves the tests' comparisons.
 
-Env state: the JAX package's batched ``QuadState`` reaches this module as a dict of
-NumPy arrays (field name -> array with a leading batch axis; ``dist_sched``
-as the nested dict of channel -> ``{"offsets": ..., "walk": ...}`` or an
-empty array).  :func:`quad_state_from_numpy` returns the port's
-``QuadState`` on a given device, so that both packages can start from the
-same state.  The PRNG key and the adversary fields have no counterpart in
-the port and are dropped.
+Env state: the JAX package's batched ``QuadState`` or ``CartPoleState``
+reaches this module as a dict of NumPy arrays (field name -> array with a
+leading batch axis; ``dist_sched`` as the nested dict of channel ->
+``{"offsets": ..., "walk": ...}`` or an empty array).
+:func:`quad_state_from_numpy` and :func:`cartpole_state_from_numpy` return
+the port's state on a given device, so that both packages can start from
+the same state.  The PRNG key and the adversary fields have no counterpart
+in the port and are dropped.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from safe_control_gym_torch.envs.cartpole import CartPoleState
 from safe_control_gym_torch.envs.quadrotor import QuadState
 
 _INT_FIELDS = ("ctrl_step", "pyb_step", "env_seed", "episode_idx", "current_gate",
@@ -38,26 +40,40 @@ def _offsets(sched, batch: int) -> np.ndarray:
     return np.asarray(sched, np.int32).reshape(batch, -1)
 
 
-def quad_state_from_numpy(fields: dict, device, dtype=torch.float32) -> QuadState:
-    """The port's ``QuadState`` from a batched JAX ``QuadState``'s fields."""
+def _state_from_numpy(cls, fields, device, dtype, float_fields, int_fields, bool_fields):
     batch = np.asarray(fields["x"]).shape[0]
 
     def put(a, dt):
         return torch.as_tensor(np.array(a), device=device).to(dt)
 
     kw = {}
-    for name in _FLOAT_FIELDS:
+    for name in float_fields:
         kw[name] = put(np.asarray(fields[name], np.float32), dtype)
-    for name in _INT_FIELDS:
+    for name in int_fields:
         kw[name] = put(np.asarray(fields[name]).astype(np.int32), torch.int32)
-    for name in _BOOL_FIELDS:
+    for name in bool_fields:
         kw[name] = put(np.asarray(fields[name]).astype(bool), torch.bool)
     sched = fields.get("dist_sched", {})
     kw["dist_offsets"] = {
         ch: put(_offsets(sched.get(ch), batch), torch.int32)
         for ch in ("observation", "action", "dynamics")
     }
-    return QuadState(**kw)
+    return cls(**kw)
+
+
+def quad_state_from_numpy(fields: dict, device, dtype=torch.float32) -> QuadState:
+    """The port's ``QuadState`` from a batched JAX ``QuadState``'s fields."""
+    return _state_from_numpy(QuadState, fields, device, dtype, _FLOAT_FIELDS, _INT_FIELDS,
+                             _BOOL_FIELDS)
+
+
+def cartpole_state_from_numpy(fields: dict, device, dtype=torch.float32) -> CartPoleState:
+    """The port's ``CartPoleState`` from a batched JAX ``CartPoleState``'s
+    fields."""
+    return _state_from_numpy(CartPoleState, fields, device, dtype,
+                             ("x", "pole_length", "pole_mass", "cart_mass"),
+                             ("ctrl_step", "pyb_step", "env_seed", "episode_idx"),
+                             ("cnstr_violation",))
 
 
 def load_mlp(mlp, params) -> None:

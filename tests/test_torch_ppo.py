@@ -1,7 +1,8 @@
 """The port's PPO (``controllers/ppo.py``) against the JAX package's on the
 same weights and batches: GAE, the minibatch update through both of the
-port's gradient paths (``torch.autograd`` and K4's plain version), and
-whole train steps on both engines.
+port's gradient paths (``torch.autograd`` and K4's plain version) on the 3D
+quadrotor, CartPole and the 2D quadrotor, whole train steps on every
+engine (K3, K6 and K8 in their plain versions), and the evaluation loop.
 
 The JAX functions are reached without editing the JAX package, through the
 closure cells of ``PPO._make_train_step()``.  Tolerances: params rtol 3e-4
@@ -17,9 +18,12 @@ import pytest
 import torch
 
 from safe_control_gym_torch.controllers.ppo import PPO as TPPO
+from safe_control_gym_torch.envs import cartpole as tc
 from safe_control_gym_torch.envs import quadrotor as tq
+from safe_control_gym_torch.parallel import fast_cartpole, fast_policy, fast_quad_planar
 from safe_control_gym_torch.utils import convert
 from safe_control_gym_tpu.controllers.ppo import PPO as JPPO
+from safe_control_gym_tpu.envs import cartpole as jc
 from safe_control_gym_tpu.envs import quadrotor as jq
 from safe_control_gym_tpu.ops import ctr_prng as jctr
 
@@ -39,6 +43,19 @@ CFG = dict(
 )
 PPO_KW = dict(rollout_batch_size=B, rollout_steps=T, opt_epochs=EPOCHS, mini_batch_size=MB,
               reshuffle_each_epoch=False)
+# The reference's canonical RL tasks (benchmarks/rl_convergence.py:34-54):
+# CartPole stabilization and quad-2D stabilization, normalized action space;
+# short episodes so that a train step crosses resets.
+CP_CFG = dict(ctrl_freq=50, pyb_freq=50, episode_len_sec=0.3, task="stabilization",
+              cost="rl_reward", randomized_init=True, normalized_rl_action_space=True)
+Q2_CFG = dict(quad_type=2, ctrl_freq=60, pyb_freq=240, episode_len_sec=0.25, task="stabilization",
+              cost="rl_reward", randomized_init=True, normalized_rl_action_space=True)
+FAMILIES = {
+    "cartpole": (lambda: jc.make_cartpole(jc.CartPoleConfig(**CP_CFG)),
+                 lambda: tc.make_cartpole(tc.CartPoleConfig(**CP_CFG), device="cpu"), 4),
+    "quad2d": (lambda: jq.make_quadrotor(jq.QuadrotorConfig(**Q2_CFG)),
+               lambda: tq.make_quadrotor(tq.QuadrotorConfig(**Q2_CFG), device="cpu"), 6),
+}
 
 
 def _closure(jppo, **cfg):
@@ -87,12 +104,12 @@ def test_gae_matches_jax(jax_side, tenv, use_gae):
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-5, atol=1e-5)
 
 
-def _batch(jppo, seed=1):
+def _batch(jppo, seed=1, obs_dim=12):
     """A batch near the current policy: the KL gate stays open."""
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
     ac = jppo.state.ac
-    obs = 0.5 * f(T, B, 12)
+    obs = 0.5 * f(T, B, obs_dim)
     dist = jppo._dist(ac, jnp.asarray(obs))
     act = np.asarray(dist.sample(jax.random.key(seed)))
     logp = np.asarray(dist.log_prob(jnp.asarray(act))) + 0.01 * f(T, B)
@@ -215,3 +232,79 @@ def test_options_the_port_refuses(tenv):
         TPPO(tenv, use_fast_update=True, use_clipped_value=True, **PPO_KW)
     # "auto" means K4 only on a CUDA device.
     assert TPPO(tenv, **PPO_KW)._fu is None
+
+
+@pytest.fixture(scope="module", params=list(FAMILIES))
+def family(request):
+    jmake, tmake, obs_dim = FAMILIES[request.param]
+    jppo = JPPO(jmake(), seed=0, **PPO_KW)
+    return request.param, jppo, jppo.cfg, tmake(), obs_dim
+
+
+@pytest.mark.parametrize("fast_update", [False, True], ids=["autograd", "k4-plain"])
+def test_update_matches_jax_on_family(family, fast_update):
+    """The 3-epoch update on CartPole (nx 4, nu 1) and the 2D quadrotor
+    (nx 6, nu 2) from the same weights, batch and permutation as the JAX
+    package's XLA update, through both gradient paths."""
+    name, jppo, cfg0, tenv, obs_dim = family
+    jupdate = _closure(jppo, reshuffle_each_epoch=False)["update"]
+    jppo.cfg = cfg0
+    batch = _batch(jppo, obs_dim=obs_dim)
+    jstate, jm = jupdate(jppo.state, {k: jnp.asarray(v) for k, v in batch.items()})
+    perm = np.asarray(jax.random.permutation(jax.random.split(jppo.state.key, EPOCHS + 2)[-1],
+                                             B * T // 256))
+    ppo = _port_ppo(tenv, jppo, use_fast_update=fast_update)
+    assert (ppo._fu is not None) == fast_update and ppo.obs_dim == obs_dim
+    tm = ppo.update(ppo.state, {k: torch.tensor(v) for k, v in batch.items()},
+                    perm=torch.tensor(perm))
+    ja, jcr, jl = jax.device_get((jstate.ac.actor_params, jstate.ac.critic_params,
+                                  jstate.ac.logstd))
+    ta, tcr, tl = convert.actor_critic_params(ppo.state.ac)
+    for got, want in ((ta, ja), (tcr, jcr)):
+        for x, y in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            np.testing.assert_allclose(x, y, rtol=3e-4, atol=3e-6, err_msg=name)
+    np.testing.assert_allclose(tl, jl, rtol=3e-4, atol=3e-6)
+    a0 = jax.device_get(jppo.state.ac.actor_params)["params"]["Dense_1"]["kernel"]
+    assert np.abs(ta["params"]["Dense_1"]["kernel"] - a0).max() > 1e-4
+    for k in ("policy_loss", "value_loss", "entropy_loss", "approx_kl"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=2e-3, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("make,engine,obs_dim", [
+    (lambda: tc.make_cartpole(tc.CartPoleConfig(**CP_CFG), device="cpu"),
+     fast_cartpole.FastCartPolePolicyRollout, 4),
+    (lambda: tq.make_quadrotor(tq.QuadrotorConfig(**Q2_CFG), device="cpu"),
+     fast_quad_planar.FastPlanarQuadPolicyRollout, 6),
+    (lambda: tq.make_quadrotor(tq.QuadrotorConfig(**{**Q2_CFG, "quad_type": 1}), device="cpu"),
+     fast_quad_planar.FastPlanarQuadPolicyRollout, 2),
+    (lambda: tq.make_quadrotor(tq.QuadrotorConfig(**CFG), device="cpu"),
+     fast_policy.FastPolicyRollout, 12),
+], ids=["cartpole-k6", "quad2d-k8", "quad1d-k8", "quad3d-k3"])
+def test_fast_rollout_engine_by_family(make, engine, obs_dim):
+    """use_fast_rollout picks the policy engine of the env's family; a train
+    step through it (plain version) and K4's plain version runs with finite
+    metrics across episode resets."""
+    ppo = TPPO(make(), seed=0, use_fast_rollout=True, use_fast_update=True, **PPO_KW)
+    assert type(ppo._fp) is engine and ppo._fu.F == obs_dim + ppo.act_dim + 4
+    state, m = ppo._train_step(ppo.state)
+    assert state.total_steps == B * T
+    assert all(np.isfinite(float(v)) for v in m.values()), m
+    assert state.obs.shape == (B, obs_dim) and state.env_state.shape == (ppo._fp.n_rows, B)
+    assert bool(torch.isfinite(state.env_state).all()) or obs_dim == 12
+
+
+def test_run_matches_jax_on_cartpole():
+    """The batched evaluation loop on CartPole from the same weights and env
+    seeds: per-step obs, actions, rewards and mse at the suite's state
+    tolerance, done flags and episode lengths exact (15-step episodes)."""
+    jppo = JPPO(jc.make_cartpole(jc.CartPoleConfig(**CP_CFG)), seed=0, **PPO_KW)
+    n = 8
+    jres = jax.device_get(jppo.run(num_episodes=n, max_steps=20, seed=4))
+    seeds = np.asarray(jax.vmap(jctr.env_seed_from_key)(jax.random.split(jax.random.key(4), n)))
+    tenv = tc.make_cartpole(tc.CartPoleConfig(**CP_CFG), device="cpu")
+    tres = _port_ppo(tenv, jppo).run(num_episodes=n, max_steps=20, env_seeds=torch.tensor(seeds))
+    for k in ("obs", "action", "reward", "mse", "ep_returns"):
+        np.testing.assert_allclose(tres[k], np.asarray(jres[k]), rtol=2e-4, atol=2e-5, err_msg=k)
+    np.testing.assert_array_equal(tres["done"], np.asarray(jres["done"]))
+    np.testing.assert_array_equal(tres["ep_lengths"], np.asarray(jres["ep_lengths"]))
+    assert tres["done"][-1].all() and (tres["reward"][-1] == 0).all()

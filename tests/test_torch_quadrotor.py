@@ -125,7 +125,7 @@ def test_convert_carries_jax_state():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(quad_type=2), dict(physics="pyb_gnd"), dict(cost="competition"),
+    dict(quad_type=2, physics="pyb_drag"), dict(physics="pyb_gnd"), dict(cost="competition"),
     dict(adversary_disturbance="dynamics"), dict(gates=((0.5, -1.0, 0, 0, 0, 0, 0),)),
     dict(disturbances={"dynamics": ({"disturbance_func": "white_noise", "std": 0.1},)}),
     dict(constraints=({"constraint_form": "linear_constraint",
