@@ -20,7 +20,7 @@ training on config 4, CartPole stabilization and quad-2D stabilization:
 5. times config 4's serving path at B = 4096: the general engine for 256
    hover steps and the whole-rollout engine for one call of 8192 steps,
    after two warm-ups, with launch counters zeroed just before and read just
-   after; holds K2 against its plain version on a 1024-step call from the
+   after; holds K2 against its plain version on a 512-step call from the
    timed call's own rows, and K1 on the general engine's own inputs; times
    each kernel alone (K1 by the profiler's device time; the others, whose
    launches take milliseconds, by CUDA events around back-to-back launches,
@@ -28,33 +28,36 @@ training on config 4, CartPole stabilization and quad-2D stabilization:
    versions' many small launches) and the plain versions (no yardstick of speed: they
    repeat the kernels' arithmetic op by op);
 6. holds K3 (``quad3d_policy_rollout``, the PPO data collection) against
-   its plain version at B = 1024 for 25 steps through auto-resets: all rows
-   and the whole record, done counts exactly;
+   its plain version at B = 1024 for 25 steps through auto-resets, at hidden
+   width 64 and 128 (the run-time-width instance): all rows and the whole
+   record, done counts exactly;
 7. holds K4 (``ppo_grads``, the PPO minibatch gradients) against its plain
    version and against ``torch.autograd`` of the reference losses at
-   mb = 131072, H = 64, tanh, at the config-4 (nx 12, nu 4), CartPole
-   (4, 1) and quad-2D (6, 2) shapes, and two K4 launches against each other
-   bit for bit;
+   mb = 131072, tanh, at the config-4 (nx 12, nu 4), CartPole (4, 1) and
+   quad-2D (6, 2) shapes with H = 64, config 4 with H = 128 and (128, 8)
+   with H = 64 and 256, two K4 launches against each other bit for bit, and
+   times K4 and its plain version at each shape;
 8. holds K5 (``cartpole_rollout``) and K6 (``cartpole_policy_rollout``), K7
    (``quad_planar_rollout``, 1D and 2D) and K8
    (``quad_planar_policy_rollout``, 1D and 2D) against their plain versions
-   at B = 1024 for 25 steps through auto-resets, and K5 and K7 against the
-   port's general engine;
+   at B = 1024 for 25 steps through auto-resets (K6 and K8 at H = 64 and
+   128), and K5 and K7 against the port's general engine;
 9. serves config 2 and config 3 at B = 4096: the general engine
    (``make_cartpole`` / ``make_quadrotor`` + ``make_vec_env`` + ``rollout``)
    for 64 steps, then one K5 call of 8192 steps and one K7 call of 4096
    steps, timed after two warm-ups with the launch counters zeroed just
    before and read just after; K5 and K7 against their plain versions on a
-   1024-step call from the timed call's own rows;
+   512-step call from the timed call's own rows;
 10. drives the training paths, PPO at the ``rl_train`` shapes (B = 4096,
    T = 128, 10 epochs of 4 minibatches of 131072) on config 4, CartPole
-   stabilization and quad-2D stabilization, normalized action space: two
-   warm-up train steps, then 3 timed train steps with the launch counters
-   zeroed just before and read just after (K3, K6 or K8 once and K4 forty
-   times per train step); the device busy share and the kernels that take
-   the time; the policy kernel against its plain version on the timed
-   call's own input; the policy kernel and K4 timed alone;
-11. prints one JSON line of per-kernel results, then the final status line.
+   stabilization and quad-2D stabilization at H = 64, and config 4 at
+   H = 128, normalized action space: two warm-up train steps, then 3 timed
+   train steps with the launch counters zeroed just before and read just
+   after (K3, K6 or K8 once and K4 forty times per train step); the device
+   busy share and the kernels that take the time; the policy kernel against
+   its plain version on the timed call's own input, and timed alone;
+11. prints each kernel's registers and spills (``ptxas -v``), one JSON line
+   of per-kernel results, then the final status line.
 
 Any failure raises and exits non-zero; nothing falls back to the CPU.
 
@@ -79,8 +82,9 @@ FAST_STEPS = 8192
 CHECK_B, CHECK_STEPS = 1024, 25
 # The whole-rollout kernels against their plain versions on a call of this
 # many steps from the timed call's own rows (the plain versions launch
-# thousands of small PyTorch ops per step).
-PLAIN_STEPS = 1024
+# thousands of small PyTorch ops per step, and this many keeps the run
+# near 100-150 s).
+PLAIN_STEPS = 512
 CP_FAST_STEPS, Q2_FAST_STEPS = 8192, 4096  # one K5 call (config 2), one K7 call (config 3)
 SERVE_GENERAL_STEPS = 64  # general-engine steps of the config 2 and 3 serving paths
 # Row layouts for a whole-rollout kernel's check against its plain version:
@@ -416,11 +420,34 @@ def phase_build():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     print(f"[ok] build: {build_s:.1f} s")
-    log = (kernels.BUILD / "ptxas.log").read_text()
+    regs = ptxas_summary((kernels.BUILD / "ptxas.log").read_text())
+    for name, r in regs.items():
+        print(f"  ptxas: {name}: {r['registers']} registers, {r['spill_stores']} / "
+              f"{r['spill_loads']} bytes spill stores / loads")
+    spills = {k: r for k, r in regs.items() if r["spill_stores"] or r["spill_loads"]}
+    print(f"  ptxas: {len(regs)} kernels, spills in {sorted(spills) or 'none'}")
+    return build_s, regs
+
+
+def ptxas_summary(log):
+    """{entry function: registers and spill bytes} from ``nvcc -Xptxas -v``
+    output (mangled names, the template arguments in them)."""
+    import re
+
+    out, name = {}, None
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print("  ptxas:", line.strip())
-    return build_s
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": None, "spill_stores": 0, "spill_loads": 0}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name]["spill_stores"], out[name]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def phase_k1(dev):
@@ -617,13 +644,14 @@ def phase_main(dev):
     return res
 
 
-def seeded_ac(dev, seed=0, nx=12, nu=4):
-    """Actor-critic of the rl_train widths with weights from a fixed seed."""
+def seeded_ac(dev, seed=0, nx=12, nu=4, hidden=HIDDEN):
+    """Actor-critic of the rl_train widths (or ``hidden``) with weights from
+    a fixed seed."""
     import torch
 
     from safe_control_gym_torch.controllers.ppo import ActorCritic
 
-    ac = ActorCritic(nx, nu, HIDDEN, "tanh", generator=torch.Generator().manual_seed(seed))
+    ac = ActorCritic(nx, nu, hidden, "tanh", generator=torch.Generator().manual_seed(seed))
     return ac.to(dev)
 
 
@@ -647,23 +675,38 @@ def check_record(tag, rows, traj, rows_p, traj_p, rows_in, layout, nx, nu):
     return max(err, err_rows), differ
 
 
-def phase_k3(dev):
+# The policy kernels' widths checked against their plain versions: the
+# rl_train width and the JAX kernels' largest (a run-time-width instance).
+POLICY_WIDTHS = (HIDDEN, 128)
+
+
+def check_policy(tag, fp, kernel, plain, layout, nx, nu, hidden):
+    """A policy kernel against its plain version at B = CHECK_B over
+    CHECK_STEPS steps from fresh rows, weights of width ``hidden``."""
     import torch
 
+    from safe_control_gym_torch.parallel import fast_policy as P
+
+    rows0 = fp.reset(seed=0)
+    ac = seeded_ac(rows0.device, nx=nx, nu=nu, hidden=hidden)
+    w = P.pack_weights(ac.actor, ac.critic, ac.logstd)
+    seed = torch.tensor([7], dtype=torch.int32, device=rows0.device)
+    rows, traj = kernel(fp.params, rows0, w, seed)
+    rows_p, traj_p = plain(fp.params, rows0, w, seed)
+    torch.cuda.synchronize()
+    return check_record(f"{tag} vs plain (H={hidden}, B={CHECK_B}, {CHECK_STEPS} steps)", rows,
+                        traj, rows_p, traj_p, rows0, layout, nx, nu)
+
+
+def phase_k3(dev):
     from safe_control_gym_torch.envs.quadrotor import make_quadrotor
     from safe_control_gym_torch.parallel import fast_policy as P
 
     env = make_quadrotor(cfg4(episode_len_sec=0.2, normalized_rl_action_space=True), device=dev)
-    fp = P.FastPolicyRollout(env, CHECK_B, CHECK_STEPS, mlp_hidden=HIDDEN, device=dev)
-    rows0 = fp.reset(seed=0)
-    ac = seeded_ac(dev)
-    w = P.pack_weights(ac.actor, ac.critic, ac.logstd)
-    seed = torch.tensor([7], dtype=torch.int32, device=dev)
-    rows, traj = P.policy_rollout(fp.params, rows0, w, seed)
-    rows_p, traj_p = P.policy_rollout_plain(fp.params, rows0, w, seed)
-    torch.cuda.synchronize()
-    return check_record(f"K3 vs plain (B={CHECK_B}, {CHECK_STEPS} steps)", rows, traj, rows_p,
-                        traj_p, rows0, K2_LAYOUT, 12, 4)
+    errs = [check_policy("K3", P.FastPolicyRollout(env, CHECK_B, CHECK_STEPS, mlp_hidden=h, device=dev),
+                         P.policy_rollout, P.policy_rollout_plain, K2_LAYOUT, 12, 4, h)
+            for h in POLICY_WIDTHS]
+    return max(e for e, _ in errs), max(d for _, d in errs)
 
 
 def k4_inputs(dev, ac, n, seed=0, nx=12, nu=4):
@@ -731,20 +774,30 @@ def check_grads(tag, g, sums, g_ref, sums_ref):
     return max(errs)
 
 
-# K4's shapes: config 4 (nx 12, nu 4), CartPole (4, 1), quad-2D (6, 2).
-K4_SHAPES = {"config4": (12, 4, [-0.5, -0.7, -0.3, -0.6]), "cartpole": (4, 1, [-0.4]),
-             "quad2d": (6, 2, [-0.5, -0.3])}
+# K4's shapes (nx, nu, H, logstd): the three training paths at the
+# rl_train width (config 4, CartPole, quad 2D), config 4 at H = 128, the
+# largest observation and action widths the JAX rule sends to its kernel
+# (obs_dim 128, act_dim 8), and those at K4's largest width, whose weights
+# do not fit in shared memory and whose gradient tiles take five slices.
+_LOGSTD8 = [-0.7 + 0.4 * i / 7 for i in range(8)]
+K4_SHAPES = {"config4": (12, 4, HIDDEN, [-0.5, -0.7, -0.3, -0.6]),
+             "cartpole": (4, 1, HIDDEN, [-0.4]), "quad2d": (6, 2, HIDDEN, [-0.5, -0.3]),
+             "config4_h128": (12, 4, 128, [-0.5, -0.7, -0.3, -0.6]),
+             "obs128_act8": (128, 8, HIDDEN, _LOGSTD8),
+             "obs128_act8_h256": (128, 8, 256, _LOGSTD8)}
 
 
 def phase_k4(dev):
-    """K4 at each training path's shapes on a seeded minibatch."""
+    """K4 at each shape of K4_SHAPES on a seeded minibatch of MB samples:
+    against its plain version and torch.autograd, a bit-equal relaunch, its
+    device time and the plain version's."""
     import torch
 
     from safe_control_gym_torch.parallel import fast_update as U
 
     out = {}
-    for tag, (nx, nu, logstd) in K4_SHAPES.items():
-        ac = seeded_ac(dev, seed=1, nx=nx, nu=nu)
+    for tag, (nx, nu, h, logstd) in K4_SHAPES.items():
+        ac = seeded_ac(dev, seed=1, nx=nx, nu=nu, hidden=h)
         with torch.no_grad():  # spread logstd so each action dim differs
             ac.logstd.copy_(torch.tensor(logstd, device=dev))
         mb = k4_inputs(dev, ac, MB, nx=nx, nu=nu)
@@ -754,11 +807,19 @@ def phase_k4(dev):
         gp, sp = U.ppo_grads_plain(mb, w, clip=0.2)
         ga, sa = k4_autograd(ac, mb, 0.2)
         torch.cuda.synchronize()
+        shape = f"mb={MB}, nx {nx}, nu {nu}, H {h}"
         same = all(torch.equal(g1[k], g2[k]) for k in U.SEGMENTS) and torch.equal(s1, s2)
-        check(f"K4 {tag} two launches on the same input (mb={MB})", same, "bit-equal")
-        out[tag] = (check_grads(f"{tag} vs plain (mb={MB}, nx {nx}, nu {nu})", g1, s1, gp, sp),
-                    check_grads(f"{tag} vs torch.autograd (mb={MB}, nx {nx}, nu {nu})", g1, s1,
-                                ga, sa))
+        check(f"K4 {tag} two launches on the same input ({shape})", same, "bit-equal")
+        res = {"nx": nx, "nu": nu, "H": h,
+               "max_abs_err": check_grads(f"{tag} vs plain ({shape})", g1, s1, gp, sp),
+               "max_abs_err_vs_autograd": check_grads(f"{tag} vs torch.autograd ({shape})", g1, s1,
+                                                      ga, sa),
+               "plan": list(U._plans[(nx, nu, h, MB, mb.device.index)]),
+               "ms": device_ms(lambda: U.ppo_grads(mb, w, clip=0.2), 20)}
+        plain = lambda: U.ppo_grads_plain(mb, w, clip=0.2)  # noqa: E731
+        cuda_ms(plain, 3)
+        res["plain_ms"] = cuda_ms(plain, 20)
+        out[tag] = res
     return out
 
 
@@ -805,16 +866,11 @@ def phase_k5_k6(dev):
 
     # K6 on cartpole_stab (10-step episodes).
     env = make_cartpole(cfg_cartpole_rl(episode_len_sec=0.2), device=dev)
-    fp = FC.FastCartPolePolicyRollout(env, CHECK_B, CHECK_STEPS, device=dev)
-    rows0 = fp.reset(seed=0)
-    ac = seeded_ac(dev, nx=4, nu=1)
-    w = fp.pack_weights(ac.actor, ac.critic, ac.logstd)
-    rows, traj = FC.cartpole_policy_rollout(fp.params, rows0, w, seed)
-    rows_p, traj_p = FC.cartpole_policy_rollout_plain(fp.params, rows0, w, seed)
-    torch.cuda.synchronize()
-    res["k6_err"], res["k6_differ"] = check_record(
-        f"K6 vs plain (B={CHECK_B}, {CHECK_STEPS} steps)", rows, traj, rows_p, traj_p, rows0,
-        K5_LAYOUT, 4, 1)
+    errs = [check_policy("K6", FC.FastCartPolePolicyRollout(env, CHECK_B, CHECK_STEPS, mlp_hidden=h,
+                                                            device=dev),
+                         FC.cartpole_policy_rollout, FC.cartpole_policy_rollout_plain, K5_LAYOUT, 4,
+                         1, h) for h in POLICY_WIDTHS]
+    res["k6_err"], res["k6_differ"] = max(e for e, _ in errs), max(d for _, d in errs)
     return res
 
 
@@ -890,16 +946,11 @@ def phase_k7_k8(dev):
 
         # K8 on quad stabilization with the normalized action space.
         env = make_quadrotor(cfg_quad2d_rl(quad_type=qt, episode_len_sec=0.2), device=dev)
-        fp = PQ.FastPlanarQuadPolicyRollout(env, CHECK_B, CHECK_STEPS, device=dev)
-        rows0 = fp.reset(seed=0)
-        ac = seeded_ac(dev, nx=nx, nu=nu)
-        w = fp.pack_weights(ac.actor, ac.critic, ac.logstd)
-        rows, traj = PQ.planar_policy_rollout(fp.params, rows0, w, seed)
-        rows_p, traj_p = PQ.planar_policy_rollout_plain(fp.params, rows0, w, seed)
-        torch.cuda.synchronize()
-        err, differ = check_record(f"K8 {qt}D vs plain (B={CHECK_B}, {CHECK_STEPS} steps)", rows,
-                                   traj, rows_p, traj_p, rows0, lay, nx, nu)
-        res["k8_err"], res["k8_differ"] = max(res["k8_err"], err), max(res["k8_differ"], differ)
+        for h in POLICY_WIDTHS:
+            fp = PQ.FastPlanarQuadPolicyRollout(env, CHECK_B, CHECK_STEPS, mlp_hidden=h, device=dev)
+            err, differ = check_policy(f"K8 {qt}D", fp, PQ.planar_policy_rollout,
+                                       PQ.planar_policy_rollout_plain, lay, nx, nu, h)
+            res["k8_err"], res["k8_differ"] = max(res["k8_err"], err), max(res["k8_differ"], differ)
     return res
 
 
@@ -987,20 +1038,20 @@ def phase_serve_quad2d(dev):
                  "quad_planar_rollout", "k7", k7_layout(6), 6 + 7)
 
 
-def run_train(dev, tag, env, key, kernel, plain, kname, layout, nx, nu):
-    """A training path: PPO train steps at the rl_train shapes, the policy
-    kernel (K3, K6 or K8) once and K4 forty times per train step."""
+def run_train(dev, tag, env, key, kernel, plain, kname, layout, nx, nu, hidden=HIDDEN):
+    """A training path: PPO train steps at the rl_train shapes (hidden width
+    ``hidden``), the policy kernel (K3, K6 or K8) once and K4 forty times
+    per train step."""
     import torch
 
     from safe_control_gym_torch.controllers.ppo import PPO
     from safe_control_gym_torch.parallel import fast_policy as P
-    from safe_control_gym_torch.parallel import fast_update as U
 
     ppo = PPO(env, seed=0, rollout_batch_size=TRAIN_B, rollout_steps=TRAIN_T, opt_epochs=EPOCHS,
-              mini_batch_size=MB, hidden_dim=HIDDEN, use_fast_rollout=True,
+              mini_batch_size=MB, hidden_dim=hidden, use_fast_rollout=True,
               reshuffle_each_epoch=False)
     check(f"{tag}: PPO on the card takes {kname} and K4", ppo._fp is not None and ppo._fu is not None,
-          f"{type(ppo._fp).__name__}, use_fast_update='auto' on CUDA")
+          f"{type(ppo._fp).__name__}, hidden {hidden}, use_fast_update='auto' on CUDA")
     res = {}
     for _ in range(2):
         ppo.state, _ = ppo._train_step(ppo.state)
@@ -1062,20 +1113,15 @@ def run_train(dev, tag, env, key, kernel, plain, kname, layout, nx, nu):
         rows_p, traj_p, rows_in, layout, nx, nu)
     res["resets"] = float(rows[layout["done"]].sum() - rows_in[layout["done"]].sum())
 
-    # -- the policy kernel and K4 alone, K4's plain version.
+    # -- the policy kernel alone (K4 is timed in phase_k4).
     res["ms"] = device_ms(lambda: kernel(fp.params, rows_in, w, seed), 5)
-    mb = k4_inputs(dev, ac, MB, seed=2, nx=nx, nu=nu)
-    wk = U.prep_weights(ac.actor, ac.critic, ac.logstd)
-    res["k4_ms"] = device_ms(lambda: U.ppo_grads(mb, wk, clip=0.2), 20)
-    plain_k4 = lambda: U.ppo_grads_plain(mb, wk, clip=0.2)  # noqa: E731
-    cuda_ms(plain_k4, 3)
-    res["k4_plain_ms"] = cuda_ms(plain_k4, 20)
     return res
 
 
 def phase_train(dev):
     """The training paths: config 4 (K3), cartpole_stab (K6), quad2d_stab
-    (K8)."""
+    (K8) at the rl_train width, and config 4 at hidden width 128 (K3's
+    run-time-width instance and K4's wide plan)."""
     from safe_control_gym_torch.envs.cartpole import make_cartpole
     from safe_control_gym_torch.envs.quadrotor import make_quadrotor
     from safe_control_gym_torch.parallel import fast_cartpole as FC
@@ -1093,6 +1139,10 @@ def phase_train(dev):
         "quad2d": run_train(dev, "quad2d_stab", make_quadrotor(cfg_quad2d_rl(), device=dev),
                             "k8", PQ.planar_policy_rollout, PQ.planar_policy_rollout_plain,
                             "quad_planar_policy_rollout", k7_layout(6), 6, 2),
+        "config4_h128": run_train(dev, "config 4, H=128",
+                                  make_quadrotor(cfg4(normalized_rl_action_space=True), device=dev),
+                                  "k3", P.policy_rollout, P.policy_rollout_plain,
+                                  "quad3d_policy_rollout", K2_LAYOUT, 12, 4, hidden=128),
     }
 
 
@@ -1147,12 +1197,12 @@ def bounds(res, serve_cp, serve_q2, train):
            "k3": bound(policy_bytes(27, 12, 4), k3_ops),
            "k5": bound(B * (2 * 18 + 1) * 4, k5_ops), "k6": bound(policy_bytes(18, 4, 1), k6_ops),
            "k7": bound(B * (2 * 19 + 2) * 4, k7_ops), "k8": bound(policy_bytes(19, 6, 2), k8_ops)}
-    # K4 per launch at each training path's shapes: the minibatch read once,
-    # the weights read and the gradients and loss sums written once.
-    for tag, (nx, nu, _) in K4_SHAPES.items():
-        n_g = 2 * (HIDDEN * nx + HIDDEN + HIDDEN * HIDDEN + HIDDEN) + (nu + 1) * HIDDEN + nu + 1 + nu
+    # K4 per launch at each of its shapes: the minibatch read once, the
+    # weights read and the gradients and loss sums written once.
+    for tag, (nx, nu, h, _) in K4_SHAPES.items():
+        n_g = 2 * (h * nx + h + h * h + h) + (nu + 1) * h + nu + 1 + nu
         out[f"k4_{tag}"] = bound(4 * ((nx + nu + 4) * MB + 2 * n_g + 3),
-                                 MB * k4_ops_per_sample(nx, nu, HIDDEN))
+                                 MB * k4_ops_per_sample(nx, nu, h))
     return out
 
 
@@ -1179,13 +1229,13 @@ def main():
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
-    build_s = phase_build()
+    build_s, ptxas = phase_build()
     k1_errs, _ = phase_k1(dev)
     k2_err, env_c, fr_c, rows0, rows_k2 = phase_k2(dev)
     cross_err = phase_cross(dev, env_c, fr_c, rows0, rows_k2)
     res = phase_main(dev)
     k3_err, k3_differ = phase_k3(dev)
-    k4_errs = phase_k4(dev)
+    k4 = phase_k4(dev)
     small = {**phase_k5_k6(dev), **phase_k7_k8(dev)}
     serve_cp = phase_serve_cartpole(dev)
     serve_q2 = phase_serve_quad2d(dev)
@@ -1219,9 +1269,8 @@ def main():
               f"env-steps/s (B={B_MAIN}, {steps} steps in {sv['fast_call_ms']:.4f} ms); {kn} device "
               f"time {sv['ms']:.4f} ms (bound {b['bound_ms']:.4f} ms, {b['bound_by']}); "
               f"{sv['resets']:.0f} auto-resets; plain {sv['plain_ms']:.1f} ms per {PLAIN_STEPS} steps")
-    for tag, pk in (("config4", "K3"), ("cartpole", "K6"), ("quad2d", "K8")):
+    for tag, pk in (("config4", "K3"), ("cartpole", "K6"), ("quad2d", "K8"), ("config4_h128", "K3")):
         tr, tp = train[tag], train[tag]["profile"]
-        pb = bnd[{"K3": "k3", "K6": "k6", "K8": "k8"}[pk]]
         print(f"PPO train step {tag} (B={TRAIN_B}, T={TRAIN_T}, {EPOCHS} epochs x {N_MINI} "
               f"minibatches of {MB}): {tr['train_env_steps_s']:.6g} env-steps/s, "
               f"{tr['train_step_s'] * 1e3:.3f} ms per train step over {TRAIN_STEPS}; metrics "
@@ -1230,19 +1279,21 @@ def main():
         print(f"  train step: wall {tp['wall_ms']:.3f} ms, device busy {tp['device_ms']:.3f} ms "
               f"({tp['busy_share']}), {pk} {tp['policy_device_ms']:.3f} ms, K4 "
               f"{tp['k4_device_ms']:.3f} ms, {tp['kernel_launches']} kernel launches; top {tp['top']}")
+        pb = bnd[{"K3": "k3", "K6": "k6", "K8": "k8"}[pk]] if tag != "config4_h128" else None
+        print(f"  {pk} device time {tr['ms']:.4f} ms per call of {TRAIN_T} steps"
+              + (f" (bound {pb['bound_ms']:.4f} ms, {pb['bound_by']})" if pb else "")
+              + f"; plain {tr['plain_ms']:.1f} ms; {tr['resets']:.0f} auto-resets")
+    for tag, kr in k4.items():
         kb = bnd[f"k4_{tag}"]
-        print(f"  {pk} device time {tr['ms']:.4f} ms per call of {TRAIN_T} steps (bound "
-              f"{pb['bound_ms']:.4f} ms, {pb['bound_by']}); plain {tr['plain_ms']:.1f} ms; "
-              f"{tr['resets']:.0f} auto-resets; K4 {tr['k4_ms'] * 1e3:.2f} us per launch at "
-              f"mb={MB} (bound {kb['bound_ms'] * 1e3:.2f} us, {kb['bound_by']}); plain "
-              f"{tr['k4_plain_ms'] * 1e3:.2f} us")
+        print(f"K4 {tag} (nx {kr['nx']}, nu {kr['nu']}, H {kr['H']}, mb={MB}): "
+              f"{kr['ms'] * 1e3:.2f} us per launch, bound {kb['bound_ms'] * 1e3:.2f} us "
+              f"({kb['bound_by']}), {kb['bound_ms'] / kr['ms']:.1%} of it; plain "
+              f"{kr['plain_ms'] * 1e3:.2f} us; plan {kr['plan']}")
 
     c4 = train["config4"]
-    k4_by_path = {tag: {"launches": train[tag]["k4_launches"], "ms": train[tag]["k4_ms"],
-                        "plain_ms": train[tag]["k4_plain_ms"],
+    k4_by_path = {tag: {**k4[tag], "launches": train.get(tag, {}).get("k4_launches", 0),
                         "bound_ms": bnd[f"k4_{tag}"]["bound_ms"],
-                        "bound_by": bnd[f"k4_{tag}"]["bound_by"],
-                        "max_abs_err": k4_errs[tag][0], "max_abs_err_vs_autograd": k4_errs[tag][1]}
+                        "bound_by": bnd[f"k4_{tag}"]["bound_by"]}
                   for tag in K4_SHAPES}
     kernels_line = {"kernels": [
         kernel_entry("quad3d_substeps", "quad3d_substeps.cu", "ops/pallas_quad.py:109",
@@ -1257,8 +1308,9 @@ def main():
                      max(k3_err, c4["main_max_abs_err"]), c4["ms"], c4["plain_ms"], bnd["k3"],
                      share_not_bit_equal=max(k3_differ, c4["main_differ"])),
         kernel_entry("ppo_grads", "ppo_update.cu", "parallel/fast_update.py:44",
-                     c4["k4_launches"], k4_errs["config4"][0], c4["k4_ms"], c4["k4_plain_ms"],
-                     bnd["k4_config4"], max_abs_err_vs_autograd=k4_errs["config4"][1],
+                     c4["k4_launches"], k4["config4"]["max_abs_err"], k4["config4"]["ms"],
+                     k4["config4"]["plain_ms"], bnd["k4_config4"],
+                     max_abs_err_vs_autograd=k4["config4"]["max_abs_err_vs_autograd"],
                      by_path=k4_by_path),
         kernel_entry("cartpole_rollout", "cartpole_rollout.cu", "parallel/fast_cartpole.py:264",
                      serve_cp["launches"]["k5"], max(small["k5_err"], serve_cp["main_max_abs_err"]),
@@ -1288,7 +1340,7 @@ def main():
                        "cuda": torch.version.cuda, "build_s": build_s, "total_s": total_s,
                        "k1_max_abs_err": k1_errs, "k2_vs_plain_max_abs_err": k2_err,
                        "k2_vs_general_max_abs_err": cross_err, "bounds": bnd,
-                       "k3_vs_plain_max_abs_err": k3_err, "k4_max_abs_err": k4_errs,
+                       "k3_vs_plain_max_abs_err": k3_err, "k4": k4, "ptxas": ptxas,
                        "small_checks": small, "serve_cartpole": serve_cp, "serve_quad2d": serve_q2,
                        "train": train, **res, **kernels_line}, f, indent=1, default=str)
     print(f"total {total_s:.1f} s")

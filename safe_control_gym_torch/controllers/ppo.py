@@ -43,7 +43,7 @@ from safe_control_gym_torch.models.normalization import MeanStdNormalizer, Rewar
 from safe_control_gym_torch.envs.cartpole import CartPoleConfig
 from safe_control_gym_torch.parallel import fast_cartpole, fast_env, fast_quad_planar
 from safe_control_gym_torch.parallel.fast_policy import FastPolicyRollout, pack_weights
-from safe_control_gym_torch.parallel.fast_update import FastPPOUpdate, prep_weights
+from safe_control_gym_torch.parallel.fast_update import FastPPOUpdate, kernel_scope, prep_weights
 from safe_control_gym_torch.parallel.vector import make_vec_env
 
 _UPDATE_FIELDS = ("obs", "act", "v", "logp", "ret", "adv")  # all the update reads
@@ -72,8 +72,9 @@ class PPOConfig:
     mini_batch_size: int = 64
     reshuffle_each_epoch: bool = True
     fused_update: bool = False
-    # "auto": K4 on a CUDA device when its scope holds (tanh/relu, no
-    # clipped value loss, minibatch a multiple of 8); True: K4 (its plain
+    # "auto": K4 on a CUDA device when fast_update.kernel_scope holds
+    # (tanh/relu, no clipped value loss, obs_dim <= 128, act_dim <= 8,
+    # hidden_dim <= 256, minibatch a multiple of 8); True: K4 (its plain
     # version on the CPU); False: torch.autograd.
     use_fast_update: Any = "auto"
     actor_lr: float = 3e-4
@@ -220,16 +221,15 @@ class PPO(BaseController):
             env_state=env_state,
             obs=obs,
         )
-        in_scope = (not cfg.use_clipped_value and cfg.activation in ("tanh", "relu")
-                    and cfg.mini_batch_size % 8 == 0)
         use_fu = cfg.use_fast_update
         if use_fu == "auto":
-            use_fu = dev.type == "cuda" and in_scope
-        elif use_fu and not in_scope:
-            raise ValueError("use_fast_update needs tanh/relu, use_clipped_value=False and a "
-                             "minibatch size that is a multiple of 8")
+            use_fu = dev.type == "cuda" and kernel_scope(
+                obs_dim, act_dim, cfg.hidden_dim, cfg.activation, cfg.mini_batch_size,
+                cfg.use_clipped_value)
+        # FastPPOUpdate raises for a shape outside K4's scope.
         self._fu = FastPPOUpdate(cfg.mini_batch_size, cfg.hidden_dim, cfg.activation,
-                                 cfg.clip_param, obs_dim=obs_dim, act_dim=act_dim) if use_fu else None
+                                 cfg.clip_param, obs_dim=obs_dim, act_dim=act_dim,
+                                 clipped_value=cfg.use_clipped_value) if use_fu else None
 
     # -- policy ---------------------------------------------------------------
     def _dist(self, ac: ActorCritic, obs):

@@ -43,9 +43,12 @@ constexpr int T_ACT = OBS, T_REW = OBS + NU, T_DONE = T_REW + 1, T_TRUNC = T_REW
 constexpr int T_V = T_REW + 3, T_LOGP = T_REW + 4, T_TERM = T_REW + 5;
 constexpr int BLOCK = 64;
 
+// H: the hidden width, 64, or 0 for a width h read at run time (1..128).
+template <int H>
 __global__ void __launch_bounds__(BLOCK) cartpole_policy_rollout_kernel(
     const CartPoleParams P, int relu, const int* __restrict__ seed_ptr, const float* __restrict__ w,
-    const float* __restrict__ rows_in, float* __restrict__ rows_out, float* __restrict__ traj, int B) {
+    int h, const float* __restrict__ rows_in, float* __restrict__ rows_out, float* __restrict__ traj,
+    int B) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= B) return;
   const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
@@ -58,8 +61,8 @@ __global__ void __launch_bounds__(BLOCK) cartpole_policy_rollout_kernel(
 #pragma unroll
     for (int k = 0; k < OBS; ++k) obs[k] = r.s[k];
     float mean[NU], value, act[NU], logp;
-    scg::dual_mlp<OBS, NU>(w, obs, relu, mean, value);
-    scg::gaussian_sample<OBS, NU>(w, mean, e, it, seed, act, logp);
+    scg::dual_mlp<OBS, NU, H>(w, h, obs, relu, mean, value);
+    scg::gaussian_sample<OBS, NU, H>(w, h, mean, e, it, seed, act, logp);
     scg::cp::env_step(P, r, scg::cp::preprocess(P, act[0]), act[0], e, it, seed, o);
 
     float* rec = traj + static_cast<size_t>(it) * TRAJ_ROWS * B + e;
@@ -84,10 +87,20 @@ extern "C" int cartpole_policy_rollout(const void* params, int relu, int hidden,
                                        const void* wflat, const void* rows_in, void* rows_out,
                                        void* traj, int B, void* stream) {
   const CartPoleParams P = *static_cast<const CartPoleParams*>(params);
-  if (hidden != scg::MLP_H) return static_cast<int>(cudaErrorInvalidValue);
+  if (hidden < 1 || hidden > scg::MLP_MAX_H) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = (B + BLOCK - 1) / BLOCK;
-  cartpole_policy_rollout_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      P, relu, static_cast<const int*>(seed), static_cast<const float*>(wflat),
-      static_cast<const float*>(rows_in), static_cast<float*>(rows_out), static_cast<float*>(traj), B);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* sd = static_cast<const int*>(seed);
+  const float* wp = static_cast<const float*>(wflat);
+  const float* ri = static_cast<const float*>(rows_in);
+  float* ro = static_cast<float*>(rows_out);
+  float* tr = static_cast<float*>(traj);
+  if (hidden == 64) {
+    cartpole_policy_rollout_kernel<64><<<grid, BLOCK, 0, st>>>(P, relu, sd, wp, hidden, ri, ro, tr,
+                                                               B);
+  } else {
+    cartpole_policy_rollout_kernel<0><<<grid, BLOCK, 0, st>>>(P, relu, sd, wp, hidden, ri, ro, tr,
+                                                              B);
+  }
   return static_cast<int>(cudaGetLastError());
 }

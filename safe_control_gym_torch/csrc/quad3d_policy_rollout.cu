@@ -18,7 +18,8 @@
 // that each store coalesces.  Weights: one flat vector of the packed dual
 // network (pack_weights, fast_policy.py:296-330) in kernel orientation:
 // w1 (2H, 12) | b1 (2H) | w2^T (2H, 2H) | b2 (2H) | w3^T (2H, 8) | b3 (8) |
-// logstd (4).
+// logstd (4), w2^T padded where H is not a multiple of 32 (policy_mlp.cuh).
+// Hidden widths 1..128: H = 64 has its own instance.
 //
 // Design: one thread per env, its 27 rows in registers for the whole call
 // (as K2).  The dual MLP and the Gaussian sample are csrc/policy_mlp.cuh's,
@@ -60,10 +61,12 @@ struct PolicyParams {
   float norm_act_scale, hover_thrust;
 };
 
+// H: the hidden width, 64, or 0 for a width h read at run time (1..128).
+template <int H>
 __global__ void __launch_bounds__(BLOCK) quad3d_policy_rollout_kernel(
     const RolloutParams P, const PolicyParams Q, const int* __restrict__ seed_ptr,
-    const float* __restrict__ w, const float* __restrict__ rows_in, float* __restrict__ rows_out,
-    float* __restrict__ traj, int B) {
+    const float* __restrict__ w, int h, const float* __restrict__ rows_in,
+    float* __restrict__ rows_out, float* __restrict__ traj, int B) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= B) return;
   const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
@@ -81,8 +84,8 @@ __global__ void __launch_bounds__(BLOCK) quad3d_policy_rollout_kernel(
     // Gaussian sample and its log-prob (fast_policy.py:141-161), the
     // normalized action map.
     float mean[4], value, act[4], thr[4], logp;
-    scg::dual_mlp<scg::NX, 4>(w, obs, Q.relu, mean, value);
-    scg::gaussian_sample<scg::NX, 4>(w, mean, e, it, seed, act, logp);
+    scg::dual_mlp<scg::NX, 4, H>(w, h, obs, Q.relu, mean, value);
+    scg::gaussian_sample<scg::NX, 4, H>(w, h, mean, e, it, seed, act, logp);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       thr[i] = Q.normalized ? (1.0f + Q.norm_act_scale * scg::clipf(act[i], -1.0f, 1.0f)) * Q.hover_thrust
@@ -125,7 +128,11 @@ extern "C" int quad3d_policy_rollout(const void* params, int normalized, int rel
   const float* ri = static_cast<const float*>(rows_in);
   float* ro = static_cast<float*>(rows_out);
   float* tr = static_cast<float*>(traj);
-  if (hidden != scg::MLP_H) return static_cast<int>(cudaErrorInvalidValue);
-  quad3d_policy_rollout_kernel<<<grid, BLOCK, 0, st>>>(P, Q, sd, wp, ri, ro, tr, B);
+  if (hidden < 1 || hidden > scg::MLP_MAX_H) return static_cast<int>(cudaErrorInvalidValue);
+  if (hidden == 64) {
+    quad3d_policy_rollout_kernel<64><<<grid, BLOCK, 0, st>>>(P, Q, sd, wp, hidden, ri, ro, tr, B);
+  } else {
+    quad3d_policy_rollout_kernel<0><<<grid, BLOCK, 0, st>>>(P, Q, sd, wp, hidden, ri, ro, tr, B);
+  }
   return static_cast<int>(cudaGetLastError());
 }

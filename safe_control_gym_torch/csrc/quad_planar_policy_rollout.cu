@@ -38,10 +38,12 @@ using scg::pq::PlanarParams;
 
 constexpr int BLOCK = 64;
 
-template <int NX, int NU>
+// H: the hidden width, 64, or 0 for a width h read at run time (1..128).
+template <int NX, int NU, int H>
 __global__ void __launch_bounds__(BLOCK) quad_planar_policy_rollout_kernel(
     const PlanarParams P, int relu, const int* __restrict__ seed_ptr, const float* __restrict__ w,
-    const float* __restrict__ rows_in, float* __restrict__ rows_out, float* __restrict__ traj, int B) {
+    int h, const float* __restrict__ rows_in, float* __restrict__ rows_out, float* __restrict__ traj,
+    int B) {
   constexpr int TRAJ_ROWS = 2 * NX + NU + 5;
   constexpr int T_ACT = NX, T_REW = NX + NU, T_DONE = T_REW + 1, T_TRUNC = T_REW + 2;
   constexpr int T_V = T_REW + 3, T_LOGP = T_REW + 4, T_TERM = T_REW + 5;
@@ -57,8 +59,8 @@ __global__ void __launch_bounds__(BLOCK) quad_planar_policy_rollout_kernel(
 #pragma unroll
     for (int k = 0; k < NX; ++k) obs[k] = r.s[k];
     float mean[NU], value, act[NU], thr[NU], logp;
-    scg::dual_mlp<NX, NU>(w, obs, relu, mean, value);
-    scg::gaussian_sample<NX, NU>(w, mean, e, it, seed, act, logp);
+    scg::dual_mlp<NX, NU, H>(w, h, obs, relu, mean, value);
+    scg::gaussian_sample<NX, NU, H>(w, h, mean, e, it, seed, act, logp);
 #pragma unroll
     for (int i = 0; i < NU; ++i) thr[i] = scg::pq::preprocess(P, act[i]);
     scg::pq::env_step<NX, NU>(P, r, thr, act, e, it, seed, o);
@@ -86,7 +88,7 @@ extern "C" int quad_planar_policy_rollout(const void* params, int nx, int relu, 
                                           const void* seed, const void* wflat, const void* rows_in,
                                           void* rows_out, void* traj, int B, void* stream) {
   const PlanarParams P = *static_cast<const PlanarParams*>(params);
-  if (hidden != scg::MLP_H) return static_cast<int>(cudaErrorInvalidValue);
+  if (hidden < 1 || hidden > scg::MLP_MAX_H) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = (B + BLOCK - 1) / BLOCK;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* sd = static_cast<const int*>(seed);
@@ -94,10 +96,18 @@ extern "C" int quad_planar_policy_rollout(const void* params, int nx, int relu, 
   const float* ri = static_cast<const float*>(rows_in);
   float* ro = static_cast<float*>(rows_out);
   float* tr = static_cast<float*>(traj);
-  if (nx == 2) {
-    quad_planar_policy_rollout_kernel<2, 1><<<grid, BLOCK, 0, st>>>(P, relu, sd, wp, ri, ro, tr, B);
+  if (nx == 2 && hidden == 64) {
+    quad_planar_policy_rollout_kernel<2, 1, 64><<<grid, BLOCK, 0, st>>>(P, relu, sd, wp, hidden, ri,
+                                                                      ro, tr, B);
+  } else if (nx == 2) {
+    quad_planar_policy_rollout_kernel<2, 1, 0><<<grid, BLOCK, 0, st>>>(P, relu, sd, wp, hidden, ri,
+                                                                     ro, tr, B);
+  } else if (nx == 6 && hidden == 64) {
+    quad_planar_policy_rollout_kernel<6, 2, 64><<<grid, BLOCK, 0, st>>>(P, relu, sd, wp, hidden, ri,
+                                                                      ro, tr, B);
   } else if (nx == 6) {
-    quad_planar_policy_rollout_kernel<6, 2><<<grid, BLOCK, 0, st>>>(P, relu, sd, wp, ri, ro, tr, B);
+    quad_planar_policy_rollout_kernel<6, 2, 0><<<grid, BLOCK, 0, st>>>(P, relu, sd, wp, hidden, ri,
+                                                                     ro, tr, B);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

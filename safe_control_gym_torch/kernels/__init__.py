@@ -29,7 +29,8 @@ SOURCES = ("quad3d_substeps.cu", "quad3d_rollout.cu", "quad3d_policy_rollout.cu"
            "quad_planar_policy_rollout.cu")
 # -fmad=false: no contraction of a*b+c into FMA, so the kernels round like
 # their plain PyTorch versions (one rounding per op) and done flags at the
-# bounds do not flip between the two.  Never --use_fast_math.
+# bounds do not flip between the two.  K4 alone asks for FMA in its
+# products with __fmaf_rn (csrc/ppo_update.cu).  Never --use_fast_math.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -49,11 +50,12 @@ _SIGNATURES = {
     # params, normalized, relu, norm_act_scale, hover_thrust, hidden, seed,
     # wflat, rows_in, rows_out, traj, B, stream
     "quad3d_policy_rollout": [_P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P, _I, _P],
-    # nx, nu, H, mb, *ng, *nblk, *smem_bytes
-    "ppo_grads_plan": [_I, _I, _I, _I, _P, _P, _P],
-    # nx, nu, H, mb, relu, clip_lo, clip_hi, inv_n, mb_ptr, wflat, partial,
-    # out, nblk, smem_bytes, stream
-    "ppo_grads": [_I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _I, _I, _P],
+    # nx, nu, H, mb, plan (int[8], written)
+    "ppo_grads_plan": [_I, _I, _I, _I, _P],
+    # plan, nx, nu, H, mb, relu, clip_lo, clip_hi, inv_n, mb_ptr, wflat, wpad,
+    # partial, out, stream
+    "ppo_grads": [_P, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P],
+    "ppo_grads_api_version": [],
     # params, seed, rows_in, action, rows_out, B, block, stream
     "cartpole_rollout": [_P, _P, _P, _P, _P, _I, _I, _P],
     "cartpole_params_size": [],

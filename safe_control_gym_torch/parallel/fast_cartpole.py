@@ -497,10 +497,11 @@ def check_policy_inputs(name, rows, n_rows, weights, seed, obs_dim, nu, act):
     ok = (dev.type == "cuda" and tuple(rows.shape) == (n_rows, B) and seed_ok(seed, dev)
           and all(tuple(t.shape) == s for t, s in zip(weights, policy_shapes(obs_dim, nu, H2)))
           and all(t.device == dev and t.dtype == torch.float32 for t in [rows, *weights]))
-    if not ok or H2 != 2 * FP.HIDDEN or act not in ("tanh", "relu"):
+    if not ok or H2 % 2 or not 1 <= H2 // 2 <= FP.MAX_HIDDEN or act not in ("tanh", "relu"):
         raise ValueError(
-            f"{name} takes float32 rows ({n_rows}, B), packed weights of hidden {FP.HIDDEN} for "
-            f"obs {obs_dim} and {nu} actions, and an int32 seed on one CUDA device, tanh or "
+            f"{name} takes float32 rows ({n_rows}, B), packed weights of hidden "
+            f"1..{FP.MAX_HIDDEN} for obs {obs_dim} and {nu} actions, and an int32 seed on one "
+            "CUDA device, tanh or "
             f"relu; got rows {tuple(rows.shape)} {rows.dtype} {rows.device}, weights "
             f"{[tuple(t.shape) for t in weights]}, act {act!r}")
 
@@ -527,7 +528,8 @@ def cartpole_policy_rollout(p, rows, weights, seed):
     check_params_size(lib, "cartpole", params)
     wflat = FP.kernel_weights(weights)
     code = lib.cartpole_policy_rollout(
-        ctypes.addressof(params), int(p["mlp_act"] == "relu"), FP.HIDDEN, seed.data_ptr(),
+        ctypes.addressof(params), int(p["mlp_act"] == "relu"), weights[0].shape[0] // 2,
+        seed.data_ptr(),
         wflat.data_ptr(), rows.data_ptr(), out.data_ptr(), traj.data_ptr(), B,
         kernels.stream_ptr(rows.device))
     kernels.check(code, "cartpole_policy_rollout")
@@ -641,6 +643,7 @@ class FastCartPolePolicyRollout:
         self.H = mlp_hidden
         self.device = resolve_device(device)
         FP._act_fn(mlp_act)
+        FP.check_hidden(mlp_hidden)
         self.params = build_engine_params(env, steps_per_call, allow_normalized=True)
         self.params["mlp_act"] = mlp_act
         self.obs_dim, self.nu = _NX, 1

@@ -34,7 +34,13 @@ from safe_control_gym_torch.utils.device import resolve_device
 TRAJ_ROWS = 33
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
-HIDDEN = 64  # the width the kernel is built for (its 2H second-layer sums live in registers)
+MAX_HIDDEN = 128  # the widths the policy kernels take, as the JAX kernels (fast_policy.py:227)
+
+
+def check_hidden(h: int) -> None:
+    """Raise for a hidden width the policy kernels do not take."""
+    if not 1 <= h <= MAX_HIDDEN:
+        raise ValueError(f"the policy kernels take hidden widths 1..{MAX_HIDDEN}, not {h}")
 
 
 def _matvec(w, x):
@@ -124,16 +130,33 @@ def policy_rollout_plain(p, rows, weights, seed):
                                lambda c, thr, act, it: FE.step_rows(p, c, thr, act))
 
 
+MLP_CHUNK = 32  # csrc/policy_mlp.cuh: second-layer units a run-time-width kernel sums at a time
+
+
 def kernel_weights(weights):
-    """The kernels' flat weight vector from :func:`pack_weights`' tuple:
-    w1 | b1 | w2^T | b2 | w3^T | b3 | logstd, each row of w1 zero-padded to
-    a multiple of 4 so that the kernels' float4 loads stay aligned
-    (``csrc/policy_mlp.cuh``)."""
+    """The kernels' flat weight vector from :func:`pack_weights`' tuple
+    (``csrc/policy_mlp.cuh``): w1 | b1 | w2^T | b2 | w3^T | b3 | logstd, each
+    row of w1 zero-padded to a multiple of 4, the actor's and the critic's
+    columns of w2^T each zero-padded to HP = H rounded up to a multiple of
+    MLP_CHUNK, and b1 and b2 to a multiple of 4, so that the kernels' float4
+    loads stay aligned.  At H = 64 it is the packed tuple, transposed and
+    concatenated."""
     w1, b1, w2, b2, w3, b3, logstd = weights
+    H2 = w1.shape[0]
+    H = H2 // 2
     pad = -w1.shape[1] % 4
     if pad:
-        w1 = torch.cat([w1, w1.new_zeros((w1.shape[0], pad))], 1)
-    return torch.cat([w1.reshape(-1), b1.reshape(-1), w2.T.reshape(-1), b2.reshape(-1),
+        w1 = torch.cat([w1, w1.new_zeros((H2, pad))], 1)
+    w2t = w2.T
+    if H % MLP_CHUNK:
+        z = w2.new_zeros((H2, -H % MLP_CHUNK))
+        w2t = torch.cat([w2t[:, :H], z, w2t[:, H:], z], 1)
+
+    def flat4(t):
+        t = t.reshape(-1)
+        return torch.cat([t, t.new_zeros(-t.numel() % 4)]) if t.numel() % 4 else t
+
+    return torch.cat([w1.reshape(-1), flat4(b1), w2t.reshape(-1), flat4(b2),
                       w3.T.reshape(-1), b3.reshape(-1), logstd.reshape(-1)]).contiguous()
 
 
@@ -152,9 +175,9 @@ def policy_rollout(p, rows, weights, seed):
           and all(tuple(t.shape) == s for t, s in zip(weights, shapes))
           and all(t.device == rows.device and t.device.type == "cuda" for t in tensors)
           and all(t.dtype == torch.float32 for t in [rows, *weights]))
-    if not ok or H2 != 2 * HIDDEN or p["mlp_act"] not in ("tanh", "relu"):
+    if not ok or H2 % 2 or not 1 <= H2 // 2 <= MAX_HIDDEN or p["mlp_act"] not in ("tanh", "relu"):
         raise ValueError(
-            f"policy_rollout takes float32 rows (27, B), packed weights of hidden {HIDDEN} "
+            f"policy_rollout takes float32 rows (27, B), packed weights of hidden 1..{MAX_HIDDEN} "
             f"and an int32 seed on one CUDA device, tanh or relu; got rows "
             f"{tuple(rows.shape)} {rows.dtype} {rows.device}, "
             f"weights {[tuple(t.shape) for t in weights]}, act {p['mlp_act']!r}")
@@ -229,6 +252,7 @@ class FastPolicyRollout:
         self.H = mlp_hidden
         self.device = resolve_device(device)
         _act_fn(mlp_act)
+        check_hidden(mlp_hidden)
         self.params = FE.build_engine_params(env, steps_per_call, allow_normalized=True)
         self.params["mlp_act"] = mlp_act
         self.obs_dim = FE._NX

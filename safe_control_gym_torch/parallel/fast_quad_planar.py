@@ -502,7 +502,8 @@ def planar_policy_rollout(p, rows, weights, seed):
     FC.check_params_size(lib, "quad_planar", params)
     wflat = FP.kernel_weights(weights)
     code = lib.quad_planar_policy_rollout(
-        ctypes.addressof(params), nx, int(p["mlp_act"] == "relu"), FP.HIDDEN, seed.data_ptr(),
+        ctypes.addressof(params), nx, int(p["mlp_act"] == "relu"), weights[0].shape[0] // 2,
+        seed.data_ptr(),
         wflat.data_ptr(), rows.data_ptr(), out.data_ptr(), traj.data_ptr(), B,
         kernels.stream_ptr(rows.device))
     kernels.check(code, "quad_planar_policy_rollout")
@@ -610,6 +611,7 @@ class FastPlanarQuadPolicyRollout(_PlanarBase):
     def __init__(self, env, num_envs: int, steps_per_call: int, mlp_hidden: int = 64,
                  mlp_act: str = "tanh", device=None):
         FP._act_fn(mlp_act)
+        FP.check_hidden(mlp_hidden)
         params = build_engine_params(env, steps_per_call, allow_normalized=True)
         params["mlp_act"] = mlp_act
         self._setup(env, num_envs, device, params)

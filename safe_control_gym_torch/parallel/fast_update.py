@@ -16,10 +16,15 @@ K4 returns gradients; it is not a ``torch.autograd.Function``, as the JAX
 kernel runs outside any ``custom_vjp``.  The controller's other update path
 (``controllers/ppo.py``, ``use_fast_update=False``) uses ``torch.autograd``.
 
-Scope (as the JAX kernel): ``use_clipped_value=False``, tanh or relu MLPs
-of two hidden layers of one width, a Gaussian policy with state-independent
-logstd.  The TPU's 4096-sample chunks and its multiple-of-1024 guard are
-VMEM and Mosaic limits: the kernel takes any minibatch of a multiple of 8.
+Scope (:func:`kernel_scope`, the JAX package's ``use_fast_update="auto"``
+rule, ``safe_control_gym_tpu/controllers/ppo.py:240-256``):
+``use_clipped_value=False``, tanh
+or relu MLPs of two hidden layers of one width H <= 256, obs_dim <= 128,
+act_dim <= 8, a Gaussian policy with state-independent logstd.  The TPU's
+4096-sample chunks and its multiple-of-1024 guard are VMEM and Mosaic
+limits: the kernel takes any minibatch of a multiple of 8.  The JAX kernel
+takes any H; this one stops at 256, where one net's gradient tiles need up
+to five passes over the forward.
 """
 
 from __future__ import annotations
@@ -125,8 +130,44 @@ def ppo_grads_plain(mb, w, *, clip: float, act: str = "tanh"):
     return g, sums
 
 
+MAX_OBS, MAX_ACT, MAX_HIDDEN = 128, 8, 256
+
+
+def kernel_scope(nx: int, nu: int, H: int, act: str, mb: int, clipped_value: bool) -> bool:
+    """Whether K4 takes this update: the JAX ``auto`` rule (``ppo.py:240-256``)
+    without its TPU-only chunk terms (``mb % 1024`` / ``% 4096``, VMEM and
+    Mosaic limits), and with the port's width limit ``H <= 256``."""
+    return (not clipped_value and act in ("tanh", "relu")
+            and 1 <= nx <= MAX_OBS and 1 <= nu <= MAX_ACT and 1 <= H <= MAX_HIDDEN
+            and mb > 0 and mb % 8 == 0)
+
+
 def _f32(v) -> float:
     return float(np.float32(v))
+
+
+_PLAN_LEN = 8  # csrc/ppo_update.cu::ppo_grads_plan
+_plans: dict = {}
+
+
+def _plan(lib, nx: int, nu: int, H: int, n: int, device):
+    """The kernel's launch plan for one shape on one device, worked out (and
+    its shared-memory attribute set) once: (ng, nsb, slices, ts, r, smem_w,
+    smem_bytes, wpad_floats) as a ctypes int array."""
+    from safe_control_gym_torch import kernels
+
+    key = (nx, nu, H, n, device.index)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = (ctypes.c_int * _PLAN_LEN)()
+        with torch.cuda.device(device):
+            code = lib.ppo_grads_plan(nx, nu, H, n, plan)
+        if code == -1:
+            raise ValueError(f"ppo_grads: nx={nx}, nu={nu}, H={H}, mb={n} is outside the "
+                             "kernel's scope")
+        kernels.check(code, "ppo_grads_plan")
+        _plans[key] = plan
+    return plan
 
 
 def ppo_grads(mb, w, *, clip: float, act: str = "tanh"):
@@ -144,28 +185,27 @@ def ppo_grads(mb, w, *, clip: float, act: str = "tanh"):
           and all(tuple(w[k].shape) == shapes[k] for k in SEGMENTS)
           and all(t.device == mb.device and t.device.type == "cuda" and t.dtype == torch.float32
                   for t in tensors))
-    if not ok or act not in ("tanh", "relu"):
+    if not ok or not kernel_scope(nx, nu, H, act, n, False):
         raise ValueError(
             "ppo_grads takes a float32 (nx+nu+4, n) minibatch with n a positive multiple of 8 "
-            f"and the {SEGMENTS} weights on one CUDA device, tanh or relu; got mb "
-            f"{tuple(mb.shape)} {mb.dtype} {mb.device}, act {act!r}")
+            f"and the {SEGMENTS} weights on one CUDA device, nx <= {MAX_OBS}, nu <= {MAX_ACT}, "
+            f"H <= {MAX_HIDDEN}, tanh or relu; got mb {tuple(mb.shape)} {mb.dtype} {mb.device}, "
+            f"H {H}, act {act!r}")
     from safe_control_gym_torch import kernels
 
     lib = kernels.lib()
-    ng, nblk, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    code = lib.ppo_grads_plan(nx, nu, H, n, ctypes.byref(ng), ctypes.byref(nblk),
-                              ctypes.byref(smem))
-    if code == -1:
-        raise ValueError(f"ppo_grads: H={H}, nx={nx}, nu={nu} has more gradient entries "
-                         "than one block of the kernel holds")
-    kernels.check(code, "ppo_grads_plan")
+    plan = _plan(lib, nx, nu, H, n, mb.device)
     mb = mb.contiguous()
+    if mb.data_ptr() % 16:  # the kernel reads the minibatch as float4
+        mb = mb.clone()
     wflat = torch.cat([w[k].reshape(-1) for k in SEGMENTS])
-    partial = torch.empty(nblk.value * ng.value, dtype=torch.float32, device=mb.device)
-    out = torch.empty(ng.value, dtype=torch.float32, device=mb.device)
-    code = lib.ppo_grads(nx, nu, H, n, int(act == "relu"), _f32(1.0 - clip), _f32(1.0 + clip),
-                         _f32(1.0 / n), mb.data_ptr(), wflat.data_ptr(), partial.data_ptr(),
-                         out.data_ptr(), nblk.value, smem.value, kernels.stream_ptr(mb.device))
+    f32 = dict(dtype=torch.float32, device=mb.device)
+    wpad = torch.empty(plan[7], **f32)
+    partial = torch.empty(plan[1] * plan[0], **f32)
+    out = torch.empty(plan[0], **f32)
+    code = lib.ppo_grads(plan, nx, nu, H, n, int(act == "relu"), _f32(1.0 - clip), _f32(1.0 + clip),
+                         _f32(1.0 / n), mb.data_ptr(), wflat.data_ptr(), wpad.data_ptr(),
+                         partial.data_ptr(), out.data_ptr(), kernels.stream_ptr(mb.device))
     kernels.check(code, "ppo_grads")
     ppo_grads.launches += 1
     g, o = {}, 0
@@ -183,10 +223,13 @@ class FastPPOUpdate:
     """Host wrapper: per-minibatch exact PPO gradients (K4)."""
 
     def __init__(self, mb_size: int, hidden: int, act: str, clip_param: float,
-                 obs_dim: int = 12, act_dim: int = 4):
-        if mb_size <= 0 or mb_size % 8:
-            raise ValueError(f"minibatch size {mb_size} must be a positive multiple of 8")
-        _act(act)
+                 obs_dim: int = 12, act_dim: int = 4, clipped_value: bool = False):
+        if not kernel_scope(obs_dim, act_dim, hidden, act, mb_size, clipped_value):
+            raise ValueError(
+                f"K4 takes obs_dim <= {MAX_OBS}, act_dim <= {MAX_ACT}, hidden <= {MAX_HIDDEN}, "
+                "tanh or relu, use_clipped_value=False and a minibatch size that is a positive "
+                f"multiple of 8; got obs_dim {obs_dim}, act_dim {act_dim}, hidden {hidden}, "
+                f"{act!r}, clipped value {clipped_value}, minibatch {mb_size}")
         self.mb = mb_size
         self.H = hidden
         self.act = act

@@ -1,26 +1,30 @@
 #!/usr/bin/env python3
-"""Time K2 or K3 built from several source trees in one run.
+"""Time K2, K3 or K4 built from several source trees in one run.
 
 Builds the kernel's source (``quad3d_rollout.cu`` for K2,
-``quad3d_policy_rollout.cu`` for K3) of each other ``csrc`` directory (for
-example the parent commit's, unpacked with ``git archive <commit>
-safe_control_gym_torch/csrc``) into a library of its own, beside this
-tree's kernel library.  All run on the same input, BASELINE config 4 at
-B = 4096 from rows that have already run two calls: K2 one call of 8192
-hover steps; K3 one call of 128 policy steps (the rl_train shapes, the
-normalized action space, weights from a fixed seed).  Each round runs the
-others, this tree twice, then the others in reverse (other, this, this,
-other for one other tree); each call is timed alone with CUDA events.  All
-must leave the same rows (and K3 the same record) bit for bit.  Prints
+``quad3d_policy_rollout.cu`` for K3, ``ppo_update.cu`` for K4) of each
+other ``csrc`` directory (for example the parent commit's, unpacked with
+``git archive <commit> safe_control_gym_torch/csrc``) into a library of
+its own, beside this tree's kernel library.  All run on the same input,
+BASELINE config 4: K2 one call of 8192 hover steps and K3 one call of 128
+policy steps (the rl_train shapes, the normalized action space, weights
+from a fixed seed) at B = 4096 from rows that have already run two calls;
+K4 one minibatch of 131072 samples at H = 64 (``chip_smoke.k4_inputs``).
+Each round runs the others, this tree twice, then the others in reverse
+(other, this, this, other for one other tree); each call is timed alone
+with CUDA events.  K2 and K3 must leave the same rows (and K3 the same
+record) bit for bit; K4's builds may sum in other orders (the kernel
+before the redesign has no FMA), so each build must repeat its own gradients bit for bit and
+the largest difference from the first other tree's is reported.  Prints
 each call's time, the medians, their ratio to the first other tree, each
 build's registers and, with ``--sass-dir``, the kernel's SASS instruction
 count (``cuobjdump``), and the card as ``nvidia-smi`` names it.
 
-    python3 scripts/ab_kernel.py --kernel k2|k3 --other NAME=DIR [--other NAME=DIR ...]
+    python3 scripts/ab_kernel.py --kernel k2|k3|k4 --other NAME=DIR [--other NAME=DIR ...]
         [--rounds 5] [--sass-dir DIR] [--out results.json]
 
-Needs one CUDA card, ``nvcc`` and the same ``RolloutParams`` size in every
-tree (checked).
+Needs one CUDA card, ``nvcc`` and, for K2 and K3, the same ``RolloutParams``
+size in every tree (checked).
 """
 
 from __future__ import annotations
@@ -43,8 +47,27 @@ B = 4096
 # Per kernel: source file, C entry point, the kernel function's name.
 KERNELS = {"k2": ("quad3d_rollout.cu", "quad3d_rollout", "quad3d_rollout_kernel"),
            "k3": ("quad3d_policy_rollout.cu", "quad3d_policy_rollout",
-                  "quad3d_policy_rollout_kernel")}
-STEPS = {"k2": 8192, "k3": 128}
+                  "quad3d_policy_rollout_kernel"),
+           "k4": ("ppo_update.cu", "ppo_grads", "ppo_grads_kernel")}
+STEPS = {"k2": 8192, "k3": 128, "k4": 131072}  # K4: samples of the minibatch
+# Mangled template arguments of the instance the main path runs.
+PREFER = {"quad3d_policy_rollout_kernel": "ILi64E", "ppo_grads_kernel": "ILi2ELb1E"}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# K4's entry points before the redesign (no ppo_grads_api_version): nx, nu,
+# H, mb, *ng, *nblk, *smem_bytes; and nx, nu, H, mb, relu, clip_lo, clip_hi,
+# inv_n, mb_ptr, wflat, partial, out, nblk, smem_bytes, stream.
+K4_V1 = {"ppo_grads_plan": [_I, _I, _I, _I, _P, _P, _P],
+         "ppo_grads": [_I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _I, _I, _P]}
+
+
+def k4_api(lib) -> int:
+    """2 for the redesigned K4's entry points, 1 for those before it."""
+    try:
+        fn = lib.ppo_grads_api_version
+    except AttributeError:
+        return 1
+    fn.restype = ctypes.c_int
+    return fn()
 
 
 def build_other(kernel: str, name: str, csrc: str, out_dir):
@@ -56,7 +79,7 @@ def build_other(kernel: str, name: str, csrc: str, out_dir):
     out_dir.mkdir(parents=True, exist_ok=True)
     so = out_dir / f"lib{kernel}_{name}.so"
     srcs = [os.path.join(csrc, src)] + ([os.path.join(csrc, "quad3d_rollout.cu")]
-                                        if kernel == "k3" else [])
+                                        if kernel == "k3" else [])  # K3 and K4 need no other
     res = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", *srcs, "-o", str(so)],
                          capture_output=True, text=True)
     if res.returncode != 0:
@@ -64,10 +87,14 @@ def build_other(kernel: str, name: str, csrc: str, out_dir):
     regs = [line.strip() for line in (res.stdout + res.stderr).splitlines()
             if "registers" in line or "spill" in line or "entry function" in line]
     lib = ctypes.CDLL(str(so))
-    getattr(lib, entry).argtypes = kernels._SIGNATURES[entry]
-    getattr(lib, entry).restype = ctypes.c_int
-    lib.quad3d_rollout_params_size.argtypes = []
-    lib.quad3d_rollout_params_size.restype = ctypes.c_int
+    if kernel == "k4":
+        sigs = kernels._SIGNATURES if k4_api(lib) == 2 else K4_V1
+        entries = ("ppo_grads_plan", "ppo_grads")
+    else:
+        sigs, entries = kernels._SIGNATURES, (entry, "quad3d_rollout_params_size")
+    for name in entries:
+        getattr(lib, name).argtypes = sigs[name]
+        getattr(lib, name).restype = ctypes.c_int
     return lib, so, regs
 
 
@@ -78,10 +105,58 @@ def sass_count(path, kname, out_file) -> int:
     text = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
                           check=True).stdout
     funcs = re.split(r"\n\s*Function : ", text)
-    body = next(f for f in funcs[1:] if kname in f.splitlines()[0])
+    # A templated build: the main path's instance (K3 at H = 64, K4 at R = 2
+    # with its weights in shared memory); else the one kernel of that name.
+    names = [f.splitlines()[0] for f in funcs[1:]]
+    want = next((n for n in names if kname + PREFER.get(kname, "") in n), kname)
+    body = next(f for f, n in zip(funcs[1:], names) if want in n)
     with open(out_file, "w") as f:
         f.write(body)
     return len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+[^ ;]", body))
+
+
+def k4_launch(dev, stream):
+    """K4's config-4 minibatch (mb = 131072, H = 64) and a launch of any
+    library's build, through the entry points of its API version."""
+    import torch
+
+    from chip_smoke import k4_inputs, seeded_ac
+    from safe_control_gym_torch.parallel import fast_update as U
+
+    nx, nu, n = 12, 4, STEPS["k4"]
+    ac = seeded_ac(dev, seed=1)
+    with torch.no_grad():
+        ac.logstd.copy_(torch.tensor([-0.5, -0.7, -0.3, -0.6], device=dev))
+    mb = k4_inputs(dev, ac, n)
+    w = U.prep_weights(ac.actor, ac.critic, ac.logstd)
+    wflat = torch.cat([w[k].reshape(-1) for k in U.SEGMENTS])
+    args = (1.0 - 0.2, 1.0 + 0.2, 1.0 / n)
+    plans = {}
+
+    def launch(lib):
+        f32 = dict(dtype=torch.float32, device=dev)
+        if k4_api(lib) == 2:
+            if id(lib) not in plans:
+                plans[id(lib)] = plan = (ctypes.c_int * 8)()
+                if lib.ppo_grads_plan(nx, nu, 64, n, plan):
+                    raise RuntimeError("ppo_grads_plan failed")
+            plan = plans[id(lib)]
+            wpad, partial = torch.empty(plan[7], **f32), torch.empty(plan[1] * plan[0], **f32)
+            out = torch.empty(plan[0], **f32)
+            code = lib.ppo_grads(plan, nx, nu, 64, n, 0, *args, mb.data_ptr(), wflat.data_ptr(),
+                                 wpad.data_ptr(), partial.data_ptr(), out.data_ptr(), stream)
+        else:
+            ng, nblk, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+            if lib.ppo_grads_plan(nx, nu, 64, n, ctypes.byref(ng), ctypes.byref(nblk),
+                                  ctypes.byref(smem)):
+                raise RuntimeError("ppo_grads_plan failed")
+            partial = torch.empty(nblk.value * ng.value, **f32)
+            out = torch.empty(ng.value, **f32)
+            code = lib.ppo_grads(nx, nu, 64, n, 0, *args, mb.data_ptr(), wflat.data_ptr(),
+                                 partial.data_ptr(), out.data_ptr(), nblk.value, smem.value, stream)
+        return code, (out,)
+
+    return launch
 
 
 def inputs(kernel, dev):
@@ -96,7 +171,9 @@ def inputs(kernel, dev):
     from safe_control_gym_torch.parallel import fast_policy as P
 
     stream = kernels.stream_ptr(dev)
-    if kernel == "k2":
+    if kernel == "k4":
+        launch = k4_launch(dev, stream)
+    elif kernel == "k2":
         env = make_quadrotor(cfg4(), device=dev)
         fr = F.FastQuadRollout(env, B, steps_per_call=STEPS[kernel], device=dev)
         act = fr.prepare_action(np.full(4, float(env.u_goal[0])))
@@ -124,12 +201,14 @@ def inputs(kernel, dev):
             traj = torch.empty((STEPS[kernel], P.TRAJ_ROWS, B), device=dev)
             code = lib.quad3d_policy_rollout(
                 ctypes.addressof(params), int(p["normalized"]), 0, float(p["norm_act_scale"]),
-                float(p["hover_thrust"]), P.HIDDEN, seed.data_ptr(), wflat.data_ptr(),
+                float(p["hover_thrust"]), 64, seed.data_ptr(), wflat.data_ptr(),
                 rows_in.data_ptr(), out.data_ptr(), traj.data_ptr(), B, stream)
             return code, (out, traj)
 
     def call(lib):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if kernel == "k4":  # keeps the device busy while the timed launch is enqueued
+            launch(lib)
         start.record()
         code, outs = launch(lib)
         end.record()
@@ -172,9 +251,10 @@ def main():
     regs["this"] = [line.strip() for line in (kernels.BUILD / "ptxas.log").read_text()
                     .split(f"== {src}")[1].split("==")[0].splitlines()
                     if "registers" in line or "spill" in line]
-    sizes = {k: lib.quad3d_rollout_params_size() for k, lib in libs.items()}
-    if len(set(sizes.values())) != 1:
-        raise RuntimeError(f"RolloutParams differ in size between the trees: {sizes}")
+    if kernel != "k4":
+        sizes = {k: lib.quad3d_rollout_params_size() for k, lib in libs.items()}
+        if len(set(sizes.values())) != 1:
+            raise RuntimeError(f"RolloutParams differ in size between the trees: {sizes}")
     sass = {}
     if args.sass_dir:
         os.makedirs(args.sass_dir, exist_ok=True)
@@ -186,27 +266,32 @@ def main():
     def equal(a, b):
         return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
 
-    _, ref = call(libs[others[0]])
-    same = {k: True for k in libs}
-    for k, lib in libs.items():  # warm-up of each library
-        same[k] = equal(ref, call(lib)[1])
+    first = {k: call(lib)[1] for k, lib in libs.items()}  # warm-up of each library
+    # K2 and K3 builds must leave the first other tree's outputs bit for bit;
+    # each K4 build its own first launch's.
+    want = {k: first[k] if kernel == "k4" else first[others[0]] for k in libs}
+    same = {k: equal(want[k], first[k]) for k in libs}
+    err = {k: max(float((x.double() - y.double()).abs().nan_to_num(0.0).max())  # NaN seed bits
+                  for x, y in zip(first[k], first[others[0]])) for k in libs}
     order = others + ["this", "this"] + others[::-1]
     ms = {k: [] for k in libs}
     for _ in range(args.rounds):
         for k in order:
             t, out = call(libs[k])
             ms[k].append(t)
-            same[k] = same[k] and equal(ref, out)
+            same[k] = same[k] and equal(want[k], out)
     med = {k: statistics.median(v) for k, v in ms.items()}
     base = med[others[0]]
     res = {"card": card_line(), "kernel": kernel, "B": B, "steps": STEPS[kernel],
            "rounds": args.rounds, "order": order, "ms": ms, "median_ms": med,
            "over_first_other": {k: v / base for k, v in med.items()},
-           "ptxas": regs, "sass_instructions": sass, "bit_equal": same}
+           "ptxas": regs, "sass_instructions": sass, "bit_equal": same,
+           "max_abs_err_vs_first_other": err}
     print(res["card"])
     for k in libs:
         print(f"{kernel.upper()} {k}: median {med[k]:.4f} ms per call of {STEPS[kernel]} steps "
-              f"({med[k] / base:.4f} of {others[0]}); bit-equal {same[k]}; "
+              f"({med[k] / base:.4f} of {others[0]}); bit-equal {same[k]}; max_abs_err "
+              f"{err[k]:.3g} from {others[0]}; "
               f"SASS {sass.get(k, 'not dumped')}; {regs[k]}; calls {[round(t, 4) for t in ms[k]]}")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

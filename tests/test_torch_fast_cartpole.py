@@ -235,6 +235,33 @@ def test_plain_k6_matches_jax_policy(policy_setup):
     np.testing.assert_allclose(d["act"].numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("hidden", [32, 128])
+def test_plain_k6_matches_jax_policy_at_width(policy_setup, hidden):
+    """The plain K6 at hidden widths other than 64 (the kernel's
+    run-time-width instance): recorded v and logp against the JAX package's
+    critic and Gaussian actor of that width, weights carried by
+    utils/convert.py (numpy-seeded noise on the actor)."""
+    s = policy_setup
+    nx, nu = 4, 1
+    jppo = JPPO(s["jenv"], seed=0, rollout_batch_size=16, rollout_steps=4, hidden_dim=hidden)
+    jac = jax.device_get(jppo.state.ac)
+    rng = np.random.default_rng(hidden)
+    jac = jac.replace(
+        actor_params=jax.tree.map(lambda a: a + 0.05 * rng.standard_normal(a.shape).astype(np.float32),
+                                  jac.actor_params),
+        logstd=np.linspace(-0.4, 0.1, nu).astype(np.float32))
+    ac = ActorCritic(nx, nu, hidden, "tanh")
+    convert.load_actor_critic(ac, jac.actor_params, jac.critic_params, jac.logstd)
+    fp = tf.FastCartPolePolicyRollout(s["tenv"], 16, 4, mlp_hidden=hidden, device="cpu")
+    _, traj = fp.run(fp.reset(seed=0), fp.pack_weights(ac.actor, ac.critic, ac.logstd), seed=SEED)
+    d = fp.unpack_traj(traj)
+    obs, act = jnp.asarray(d["obs"].numpy()), jnp.asarray(d["act"].numpy())
+    np.testing.assert_allclose(d["v"].numpy(), np.asarray(jppo._value(jac, obs)),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(d["logp"].numpy(), np.asarray(jppo._dist(jac, obs).log_prob(act)),
+                               rtol=2e-3, atol=2e-3)
+
+
 def test_plain_k6_step_matches_jax_general_engine(policy_setup):
     """One K6 step from rows with spread control steps (some at the time
     limit) and some envs past the x threshold, against the JAX package's
@@ -330,10 +357,11 @@ def test_wrappers_reject_tensors_off_cpu_and_cuda(policy_setup):
                                    m(1, dt=torch.int32))
 
 
-def test_kernels_match_plain_on_card(policy_setup):
+@pytest.mark.parametrize("hidden", [64, 128])
+def test_kernels_match_plain_on_card(policy_setup, hidden):
     """K5 and K6 against their plain versions on the card, 25 steps through
     resets, config 2 with its action white noise: rows and record at rtol
-    2e-4 / atol 2e-5, done counts exact."""
+    2e-4 / atol 2e-5, done counts exact; K6 at H = 64 and 128."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -347,8 +375,9 @@ def test_kernels_match_plain_on_card(policy_setup):
     torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
     penv = tc.make_cartpole(tc.CartPoleConfig(**{**CFG2, "episode_len_sec": 0.2,
                                                  "normalized_rl_action_space": True}), device=dev)
-    fp = tf.FastCartPolePolicyRollout(penv, 1024, 25, device=dev)
-    ac = policy_setup["ac"].to(dev)
+    fp = tf.FastCartPolePolicyRollout(penv, 1024, 25, mlp_hidden=hidden, device=dev)
+    ac = (policy_setup["ac"] if hidden == 64 else
+          ActorCritic(4, 1, hidden, "tanh", generator=torch.Generator().manual_seed(0))).to(dev)
     w = fp.pack_weights(ac.actor, ac.critic, ac.logstd)
     rows, traj = tf.cartpole_policy_rollout(fp.params, rows0, w, seed)
     rows_p, traj_p = tf.cartpole_policy_rollout_plain(fp.params, rows0, w, seed)

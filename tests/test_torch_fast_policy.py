@@ -169,6 +169,69 @@ def test_plain_matches_constant_action_engine_step(setup):
     assert torch.equal(torch.stack(carry).view(torch.int32), setup["rows"].view(torch.int32))
 
 
+def perturbed_policy(jppo, nu, seed=1):
+    """The JAX PPO's fresh actor-critic with numpy-seeded noise on the actor
+    (its output gain is 0.01) and a logstd that differs per action."""
+    jac = jax.device_get(jppo.state.ac)
+    rng = np.random.default_rng(seed)
+    return jac.replace(
+        actor_params=jax.tree.map(lambda a: a + 0.05 * rng.standard_normal(a.shape).astype(np.float32),
+                                  jac.actor_params),
+        logstd=np.linspace(-0.7, -0.3, nu).astype(np.float32))
+
+
+@pytest.mark.parametrize("hidden", [32, 128])
+def test_plain_k3_matches_jax_policy_at_width(setup, hidden):
+    """The plain K3 at hidden widths other than 64 (the kernel's run-time
+    width instance): recorded v and logp against the JAX package's critic
+    and Gaussian actor of that width, weights carried by utils/convert.py."""
+    jppo = JPPO(setup["jenv"], seed=0, rollout_batch_size=16, rollout_steps=4, hidden_dim=hidden)
+    jac = perturbed_policy(jppo, 4)
+    ac = ActorCritic(12, 4, hidden, "tanh")
+    convert.load_actor_critic(ac, jac.actor_params, jac.critic_params, jac.logstd)
+    fp = tp.FastPolicyRollout(setup["tenv"], 16, 4, mlp_hidden=hidden, device="cpu")
+    _, traj = fp.run(fp.reset(seed=0), fp.pack_weights(ac.actor, ac.critic, ac.logstd), seed=SEED)
+    d = fp.unpack_traj(traj)
+    obs, act = jnp.asarray(d["obs"].numpy()), jnp.asarray(d["act"].numpy())
+    np.testing.assert_allclose(d["v"].numpy(), np.asarray(jppo._value(jac, obs)),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(d["logp"].numpy(), np.asarray(jppo._dist(jac, obs).log_prob(act)),
+                               rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("hidden", [64, 30, 100])
+def test_kernel_weights_layout(hidden):
+    """The flat vector the policy kernels read (csrc/policy_mlp.cuh): at
+    H = 64 the packed tuple transposed and concatenated; at other widths
+    each block starts on a multiple of 4 floats, w2^T holds each net's
+    columns in a zero-padded block of HP = H rounded up to a multiple of 32,
+    and b1 and b2 are zero-padded to a multiple of 4."""
+    ac = ActorCritic(12, 4, hidden, "tanh", generator=torch.Generator().manual_seed(0))
+    w1, b1, w2, b2, w3, b3, logstd = w = tp.pack_weights(ac.actor, ac.critic, ac.logstd)
+    flat = tp.kernel_weights(w)
+    H, H2, HP = hidden, 2 * hidden, -(-hidden // 32) * 32
+    if hidden == 64:
+        want = torch.cat([w1.reshape(-1), b1.reshape(-1), w2.T.reshape(-1), b2.reshape(-1),
+                          w3.T.reshape(-1), b3.reshape(-1), logstd])
+        assert torch.equal(flat, want)
+        return
+    up4 = lambda n: (n + 3) // 4 * 4  # noqa: E731
+    o_b1 = H2 * 12
+    o_w2t = o_b1 + up4(H2)
+    o_b2 = o_w2t + H2 * 2 * HP
+    o_w3t = o_b2 + up4(H2)
+    o_b3 = o_w3t + H2 * 8
+    assert flat.numel() == o_b3 + 8 + 4
+    assert torch.equal(flat[:o_b1].view(H2, 12), w1)
+    assert torch.equal(flat[o_b1:o_b1 + H2], b1[:, 0]) and not flat[o_b1 + H2:o_w2t].any()
+    w2t = flat[o_w2t:o_b2].view(H2, 2 * HP)
+    assert torch.equal(w2t[:, :H], w2.T[:, :H]) and torch.equal(w2t[:, HP:HP + H], w2.T[:, H:])
+    assert not w2t[:, H:HP].any() and not w2t[:, HP + H:].any()
+    assert torch.equal(flat[o_b2:o_b2 + H2], b2[:, 0]) and not flat[o_b2 + H2:o_w3t].any()
+    assert torch.equal(flat[o_w3t:o_b3].view(H2, 8), w3.T)
+    assert torch.equal(flat[o_b3:o_b3 + 8], b3[:, 0]) and torch.equal(flat[o_b3 + 8:], logstd)
+
+
 def test_philox_known_answers():
     """Philox-4x32-10 on the Random123 known-answer vectors."""
     t = lambda v: torch.tensor([v], dtype=torch.int64)  # noqa: E731
@@ -210,6 +273,10 @@ def test_supports_normalized_envelope():
     with pytest.raises(ValueError):
         tp.FastPolicyRollout(tq.make_quadrotor(cfg, device="cpu"), 8, 2, mlp_act="elu",
                              device="cpu")
+    tp.FastPolicyRollout(tq.make_quadrotor(cfg, device="cpu"), 8, 2, mlp_hidden=128, device="cpu")
+    with pytest.raises(ValueError):  # the JAX kernels assert hidden <= 128
+        tp.FastPolicyRollout(tq.make_quadrotor(cfg, device="cpu"), 8, 2, mlp_hidden=129,
+                             device="cpu")
 
 
 def test_cpu_run_counts_no_launch(setup):
@@ -218,18 +285,21 @@ def test_cpu_run_counts_no_launch(setup):
     assert tp.policy_rollout.launches == before
 
 
-def test_kernel_matches_plain_on_card(setup):
+@pytest.mark.parametrize("hidden", [64, 128])
+def test_kernel_matches_plain_on_card(setup, hidden):
     """K3 against its plain version on the card, 25 steps through resets:
     rows and record at rtol 2e-4 / atol 2e-5 (the plain version's tanh,
     log and cos are PyTorch's CUDA ops, the kernel's are CUDA's libdevice
-    functions), done counts exact."""
+    functions), done counts exact; at H = 64 and at the run-time-width
+    instance's H = 128."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
     env = tq.make_quadrotor(tq.QuadrotorConfig(**{**CFG, "episode_len_sec": 0.2}), device=dev)
-    fp = tp.FastPolicyRollout(env, 1024, 25, device=dev)
+    fp = tp.FastPolicyRollout(env, 1024, 25, mlp_hidden=hidden, device=dev)
     rows0 = fp.reset(seed=0)
-    ac = setup["ac"].to(dev)
+    ac = (setup["ac"] if hidden == 64 else
+          ActorCritic(12, 4, hidden, "tanh", generator=torch.Generator().manual_seed(0))).to(dev)
     w = fp.pack_weights(ac.actor, ac.critic, ac.logstd)
     seed = torch.tensor([7], dtype=torch.int32, device=dev)
     rows, traj = tp.policy_rollout(fp.params, rows0, w, seed)

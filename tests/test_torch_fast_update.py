@@ -124,6 +124,113 @@ def test_plain_grads_match_jax_kernel_at_ties(clip):
     np.testing.assert_allclose(g1["logstd"].numpy(), np.full(nu, want), rtol=1e-5, atol=1e-7)
 
 
+def _numpy_nets(nx, nu, H, seed):
+    """flax-layout parameter trees of an actor (nu outputs) and a critic from
+    a numpy generator, and the port's MLPs carrying them (utils/convert.py)."""
+    rng = np.random.default_rng(seed)
+
+    def tree(n_out):
+        dims = (nx, H, H, n_out)
+        return {"params": {f"Dense_{i}": {
+            "kernel": (rng.standard_normal((dims[i], dims[i + 1])) / np.sqrt(dims[i])).astype(np.float32),
+            "bias": (0.1 * rng.standard_normal(dims[i + 1])).astype(np.float32)} for i in range(3)}}
+
+    ap, cp = tree(nu), tree(1)
+    ta, tc = TMLP(nx, nu, (H, H)), TMLP(nx, 1, (H, H))
+    convert.load_mlp(ta, ap)
+    convert.load_mlp(tc, cp)
+    return ap, cp, ta, tc
+
+
+@pytest.mark.parametrize("nx,nu,H", [(12, 4, 128), (128, 8, 32)], ids=["h128", "obs128-act8"])
+def test_plain_grads_match_jax_kernel_at_widths(nx, nu, H):
+    """The widths the port's K4 now takes: config 4 at H = 128 and the JAX
+    rule's largest observation and action widths, against the JAX kernel in
+    interpret mode on numpy-seeded weights and a batch spanning both sides
+    of the clip range."""
+    mb, clip = 256, 0.2
+    ap, cp, ta, tc = _numpy_nets(nx, nu, H, seed=H)
+    logstd = np.linspace(-0.7, -0.3, nu).astype(np.float32)
+    b = _batch(mb, nx, nu, seed=7)
+    mean = np.asarray(ta(torch.from_numpy(b["obs"])).detach())
+    b["logp"] = (-0.5 * ((b["act"] - mean) / np.exp(logstd)) ** 2 - logstd - HALF_LOG_2PI32).sum(
+        -1).astype(np.float32) + 0.3 * b["logp"]
+    w = tfu.prep_weights(ta, tc, torch.tensor(logstd))
+    g, sums = tfu.ppo_grads(torch.from_numpy(_pack(b).T.copy()), w, clip=clip, act="tanh")
+
+    fu = jfu.FastPPOUpdate(mb, H, "tanh", clip, chunk=mb, interpret=True, obs_dim=nx, act_dim=nu)
+    mb_T = jnp.asarray(_pack(b).T.reshape(-1, 8, mb // 8))
+    jga, jgc, jgl, jsums = jax.device_get(fu.grads(mb_T, fu.prep_weights(ap, cp, jnp.asarray(logstd))))
+    _assert_trees_close(_flax_grads(g, "a"), jga)
+    _assert_trees_close(_flax_grads(g, "c"), jgc)
+    np.testing.assert_allclose(g["logstd"].numpy(), jgl, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(sums.numpy(), jsums, rtol=2e-4, atol=1e-4)
+
+
+# kernel_scope against the JAX package's use_fast_update="auto" rule
+# (safe_control_gym_tpu/controllers/ppo.py:240-256), case by case:
+# (obs_dim, act_dim, hidden, activation, minibatch, use_clipped_value) ->
+# the JAX rule's answer on a TPU, and the port's where it differs.  The JAX
+# rule checks no hidden width; the port stops at 256.  Its TPU-only chunk
+# terms (mb % 1024 up to 4096, else mb % 4096) are VMEM and Mosaic limits.
+_SCOPE_CASES = {
+    "config4": ((12, 4, 64, "tanh", 131072, False), True, True),
+    "h128": ((12, 4, 128, "tanh", 131072, False), True, True),
+    "h256": ((12, 4, 256, "relu", 4096, False), True, True),
+    "h257": ((12, 4, 257, "tanh", 4096, False), True, False),
+    "obs128-act8": ((128, 8, 64, "tanh", 8192, False), True, True),
+    "obs129": ((129, 4, 64, "tanh", 8192, False), False, False),
+    "act9": ((12, 9, 64, "tanh", 8192, False), False, False),
+    "elu": ((12, 4, 64, "elu", 8192, False), False, False),
+    "clipped-value": ((12, 4, 64, "tanh", 8192, True), False, False),
+    "mb-not-8": ((12, 4, 64, "tanh", 8196, False), False, False),
+    "mb-264-tpu-chunk": ((4, 1, 64, "tanh", 264, False), False, True),
+    "mb-4104-tpu-chunk": ((6, 2, 64, "tanh", 4104, False), False, True),
+}
+
+
+@pytest.mark.parametrize("case", list(_SCOPE_CASES))
+def test_kernel_scope_against_jax_auto_rule(case):
+    args, jax_tpu, port = _SCOPE_CASES[case]
+    nx, nu, H, act, mb, clipped = args
+    jax_rule = (not clipped and act in ("tanh", "relu") and nx <= 128 and nu <= 8 and mb % 8 == 0
+                and (mb % 1024 == 0 if mb <= 4096 else mb % 4096 == 0))
+    assert jax_rule == jax_tpu
+    assert tfu.kernel_scope(*args) == port
+    if jax_tpu:  # the port drops only terms of the TPU, and the width beyond 256
+        assert port or H > 256
+
+
+@pytest.mark.parametrize("hidden,act,mb,clipped_value", [
+    (128, "tanh", 8192, False), (32, "relu", 264, False), (64, "tanh", 8192, True)],
+    ids=["h128", "h32-mb264", "clipped-value"])
+def test_kernel_scope_picks_as_the_jax_package(hidden, act, mb, clipped_value):
+    """The JAX package's own PPO (fast_interpret stands in for the TPU) on
+    config 4 takes its kernel exactly where kernel_scope says yes, except
+    for the TPU-only minibatch chunking (mb 264)."""
+    from safe_control_gym_tpu.controllers.ppo import PPO as JPPO
+    from safe_control_gym_tpu.envs import quadrotor as jq
+
+    env = jq.make_quadrotor(jq.QuadrotorConfig(quad_type=3, episode_len_sec=1))
+    jppo = JPPO(env, seed=0, fast_interpret=True, rollout_batch_size=8, rollout_steps=8,
+                hidden_dim=hidden, activation=act, mini_batch_size=mb,
+                use_clipped_value=clipped_value)
+    port = tfu.kernel_scope(12, 4, hidden, act, mb, clipped_value)
+    tpu_chunks = mb % 1024 == 0 if mb <= 4096 else mb % 4096 == 0
+    assert (jppo._fu is not None) == (port and tpu_chunks)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(hidden=257), dict(obs_dim=129), dict(act_dim=9), dict(act="elu"), dict(mb_size=100),
+    dict(clipped_value=True), dict(hidden=0)],
+    ids=["h257", "obs129", "act9", "elu", "mb100", "clipped-value", "h0"])
+def test_fast_ppo_update_raises_outside_scope(kw):
+    args = dict(mb_size=256, hidden=64, act="tanh", clip_param=0.2, obs_dim=12, act_dim=4)
+    tfu.FastPPOUpdate(**args)  # in scope
+    with pytest.raises(ValueError):
+        tfu.FastPPOUpdate(**{**args, **kw})
+
+
 def test_fast_ppo_update_keys_and_shapes():
     """FastPPOUpdate.grads returns dicts keyed like the modules'
     named_parameters(), with each parameter's shape."""
@@ -144,12 +251,13 @@ def test_fast_ppo_update_keys_and_shapes():
         tfu.FastPPOUpdate(128, H, "elu", 0.2)
 
 
-def test_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("nx,nu,H", [(12, 4, 64), (12, 4, 128), (128, 8, 64), (128, 8, 256)])
+def test_kernel_matches_plain_on_card(nx, nu, H):
     """K4 against its plain version on the card, and two launches on the
     same input bit for bit (no float atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    nx, nu, H, mb = 12, 4, 64, 4096
+    mb = 4096
     _, (ta, tc) = _nets(nx, nu, H, "tanh")
     dev = torch.device("cuda")
     w = tfu.prep_weights(ta.to(dev), tc.to(dev), -0.5 * torch.ones(nu, device=dev))

@@ -152,6 +152,46 @@ def test_update_matches_jax(jax_side, tenv, fast_update, reshuffle):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=2e-3, atol=1e-6, err_msg=k)
 
 
+@pytest.mark.parametrize("fast_update", [False, True], ids=["autograd", "k4-plain"])
+def test_update_matches_jax_at_hidden_128(tenv, fast_update):
+    """The 3-epoch update at hidden width 128, which K4 now takes, from the
+    same weights, batch and permutation as the JAX package's XLA update."""
+    jppo = JPPO(jq.make_quadrotor(jq.QuadrotorConfig(**CFG)), seed=0, hidden_dim=128, **PPO_KW)
+    jupdate = _closure(jppo, reshuffle_each_epoch=False)["update"]
+    batch = _batch(jppo)
+    jstate, jm = jupdate(jppo.state, {k: jnp.asarray(v) for k, v in batch.items()})
+    perm = np.asarray(jax.random.permutation(jax.random.split(jppo.state.key, EPOCHS + 2)[-1],
+                                             B * T // 256))
+    ppo = _port_ppo(tenv, jppo, hidden_dim=128, use_fast_update=fast_update)
+    assert (ppo._fu is not None) == fast_update
+    tm = ppo.update(ppo.state, {k: torch.tensor(v) for k, v in batch.items()},
+                    perm=torch.tensor(perm))
+    ja, jcr, jl = jax.device_get((jstate.ac.actor_params, jstate.ac.critic_params,
+                                  jstate.ac.logstd))
+    ta, tcr, tl = convert.actor_critic_params(ppo.state.ac)
+    for got, want in ((ta, ja), (tcr, jcr)):
+        for x, y in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            np.testing.assert_allclose(x, y, rtol=3e-4, atol=3e-6)
+    np.testing.assert_allclose(tl, jl, rtol=3e-4, atol=3e-6)
+    for k in ("policy_loss", "value_loss", "entropy_loss", "approx_kl"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=2e-3, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("hidden", [128, 129])
+def test_fast_rollout_hidden_width_limit(tenv, hidden):
+    """The policy kernels take hidden widths up to 128, as the JAX package
+    asserts (fast_policy.py:227): a train step at 128 runs (plain K3 and
+    K4); 129 raises."""
+    if hidden > 128:
+        with pytest.raises(ValueError):
+            TPPO(tenv, seed=0, use_fast_rollout=True, hidden_dim=hidden, **PPO_KW)
+        return
+    ppo = TPPO(tenv, seed=0, use_fast_rollout=True, use_fast_update=True, hidden_dim=hidden,
+               **{**PPO_KW, "opt_epochs": 1})
+    state, m = ppo._train_step(ppo.state)
+    assert state.total_steps == B * T and all(np.isfinite(float(v)) for v in m.values()), m
+
+
 def test_kl_gate_zeroes_actor_grads_but_adam_steps(tenv, jax_side):
     """With the gate shut (target_kl tiny, KL of this batch far above it),
     the actor's Adam still counts the step; with zero moments the actor
@@ -230,6 +270,8 @@ def test_options_the_port_refuses(tenv):
         TPPO(tenv, use_fast_rollout=True, norm_obs=True, **PPO_KW)
     with pytest.raises(ValueError):
         TPPO(tenv, use_fast_update=True, use_clipped_value=True, **PPO_KW)
+    with pytest.raises(ValueError):  # K4 stops at hidden width 256
+        TPPO(tenv, use_fast_update=True, hidden_dim=257, **PPO_KW)
     # "auto" means K4 only on a CUDA device.
     assert TPPO(tenv, **PPO_KW)._fu is None
 
