@@ -13,8 +13,9 @@ training on config 4, CartPole stabilization and quad-2D stabilization:
    versions;
 2. holds K1 (``quad3d_substeps``) against its plain PyTorch version at
    B = 4096 on random states, RK4 and Euler;
-3. holds K2 (``quad3d_rollout``) against its plain version at B = 1024 for
-   25 steps with auto-resets: all rows, done counts exactly;
+3. holds K2 (``quad3d_rollout``) against its plain version at B = 1024 and
+   at the ragged B = 1000 (the last block's groups partly past the last
+   env) for 25 steps with auto-resets: all rows, done counts exactly;
 4. holds K2 against the port's general engine (which runs K1) over the same
    25 steps and env seeds;
 5. times config 4's serving path at B = 4096: the general engine for 256
@@ -28,9 +29,9 @@ training on config 4, CartPole stabilization and quad-2D stabilization:
    versions' many small launches) and the plain versions (no yardstick of speed: they
    repeat the kernels' arithmetic op by op);
 6. holds K3 (``quad3d_policy_rollout``, the PPO data collection) against
-   its plain version at B = 1024 for 25 steps through auto-resets, at hidden
-   width 64 and 128 (the run-time-width instance): all rows and the whole
-   record, done counts exactly;
+   its plain version at B = 1024 and 1000 for 25 steps through auto-resets,
+   at hidden width 64 and 128 (the run-time-width instance): all rows and
+   the whole record, done counts exactly;
 7. holds K4 (``ppo_grads``, the PPO minibatch gradients) against its plain
    version and against ``torch.autograd`` of the reference losses at
    mb = 131072, tanh, at the config-4 (nx 12, nu 4), CartPole (4, 1) and
@@ -80,6 +81,9 @@ B_MAIN = 4096
 GENERAL_STEPS = 256
 FAST_STEPS = 8192
 CHECK_B, CHECK_STEPS = 1024, 25
+# K2 and K3 also at a batch that leaves the last block's lane groups partly
+# past the last env.
+RAGGED_B = 1000
 # The whole-rollout kernels against their plain versions on a call of this
 # many steps from the timed call's own rows (the plain versions launch
 # thousands of small PyTorch ops per step, and this many keeps the run
@@ -484,14 +488,16 @@ def phase_k2(dev):
     from safe_control_gym_torch.parallel import fast_env as F
 
     env = make_quadrotor(cfg4(episode_len_sec=0.2), device=dev)
-    fr = F.FastQuadRollout(env, CHECK_B, steps_per_call=CHECK_STEPS, device=dev)
-    rows0 = fr.reset(seed=0)
-    act = fr.prepare_action(np.full(4, float(env.u_goal[0])))
-    out = fr.run(rows0, act)
-    ref = F.quad3d_rollout_plain(fr.params, rows0, act)
-    torch.cuda.synchronize()
-    err = check_rows(f"K2 vs plain (B={CHECK_B}, {CHECK_STEPS} steps)", out, ref, rows0,
-                     K2_LAYOUT)
+    err = 0.0
+    for B in (RAGGED_B, CHECK_B):
+        fr = F.FastQuadRollout(env, B, steps_per_call=CHECK_STEPS, device=dev)
+        rows0 = fr.reset(seed=0)
+        act = fr.prepare_action(np.full(4, float(env.u_goal[0])))
+        out = fr.run(rows0, act)
+        ref = F.quad3d_rollout_plain(fr.params, rows0, act)
+        torch.cuda.synchronize()
+        err = max(err, check_rows(f"K2 vs plain (B={B}, {CHECK_STEPS} steps)", out, ref, rows0,
+                                  K2_LAYOUT))
     return err, env, fr, rows0, out
 
 
@@ -681,7 +687,7 @@ POLICY_WIDTHS = (HIDDEN, 128)
 
 
 def check_policy(tag, fp, kernel, plain, layout, nx, nu, hidden):
-    """A policy kernel against its plain version at B = CHECK_B over
+    """A policy kernel against its plain version at ``fp``'s batch over
     CHECK_STEPS steps from fresh rows, weights of width ``hidden``."""
     import torch
 
@@ -694,7 +700,7 @@ def check_policy(tag, fp, kernel, plain, layout, nx, nu, hidden):
     rows, traj = kernel(fp.params, rows0, w, seed)
     rows_p, traj_p = plain(fp.params, rows0, w, seed)
     torch.cuda.synchronize()
-    return check_record(f"{tag} vs plain (H={hidden}, B={CHECK_B}, {CHECK_STEPS} steps)", rows,
+    return check_record(f"{tag} vs plain (H={hidden}, B={fp.B}, {CHECK_STEPS} steps)", rows,
                         traj, rows_p, traj_p, rows0, layout, nx, nu)
 
 
@@ -703,9 +709,9 @@ def phase_k3(dev):
     from safe_control_gym_torch.parallel import fast_policy as P
 
     env = make_quadrotor(cfg4(episode_len_sec=0.2, normalized_rl_action_space=True), device=dev)
-    errs = [check_policy("K3", P.FastPolicyRollout(env, CHECK_B, CHECK_STEPS, mlp_hidden=h, device=dev),
+    errs = [check_policy("K3", P.FastPolicyRollout(env, B, CHECK_STEPS, mlp_hidden=h, device=dev),
                          P.policy_rollout, P.policy_rollout_plain, K2_LAYOUT, 12, 4, h)
-            for h in POLICY_WIDTHS]
+            for h in POLICY_WIDTHS for B in (CHECK_B, RAGGED_B)]
     return max(e for e, _ in errs), max(d for _, d in errs)
 
 
@@ -1152,12 +1158,13 @@ def bound(nbytes, ops):
             "bound_by": "bytes" if t_b >= t_o else "operations"}
 
 
-def policy_ops(nx, nu):
-    """Per env-step operations of a policy kernel beyond its env step: the
-    two nets' products and biases, the tanh of both hidden layers, the
-    Philox blocks of the sample, Box-Muller, log-prob and the action map."""
+def policy_ops(nx, nu, hidden=HIDDEN):
+    """Per env-step operations of a policy kernel beyond its env step at
+    hidden width ``hidden``: the two nets' products and biases, the tanh of
+    both hidden layers, the Philox blocks of the sample, Box-Muller,
+    log-prob and the action map."""
     blocks = (2 * nu + 3) // 4
-    return (k3_mlp_ops(HIDDEN, nx, nu) + K3_MLP_TRANS_PER_H * HIDDEN + blocks * K3_RNG_OPS // 2
+    return (k3_mlp_ops(hidden, nx, nu) + K3_MLP_TRANS_PER_H * hidden + blocks * K3_RNG_OPS // 2
             + nu * (K68_SAMPLE_OPS + K68_SAMPLE_TRANS))
 
 
@@ -1175,15 +1182,16 @@ def bounds(res, serve_cp, serve_q2, train):
     # The policy kernels at the training paths' shapes: rows in and out, the
     # packed weights read once, the record written once; the env step plus
     # the policy per env-step, the resets of this run's timed call.
-    h2 = 2 * HIDDEN
     steps_t = TRAIN_B * TRAIN_T
 
-    def policy_bytes(n_rows, nx, nu):
+    def policy_bytes(n_rows, nx, nu, hidden=HIDDEN):
+        h2 = 2 * hidden
         n_w = h2 * nx + h2 + h2 * h2 + h2 + 8 * h2 + 8 + nu
         return 4 * (TRAIN_B * 2 * n_rows + n_w + TRAIN_T * (2 * nx + nu + 5) * TRAIN_B)
 
-    k3_ops = (steps_t * (k2_step + policy_ops(12, 4) + K3_ACTION_OPS)
-              + train["config4"]["resets"] * K2_RESET_OPS)
+    def k3_ops(tag, hidden):
+        return (steps_t * (k2_step + policy_ops(12, 4, hidden) + K3_ACTION_OPS)
+                + train[tag]["resets"] * K2_RESET_OPS)
     # K5: config 2, one RK4 substep, the action noise, constant force.
     k5_step = CP_SUBSTEP_OPS + 4 * CP_FC_TRANS + K5_STEP_OPS + K5_STEP_TRANS
     k5_ops = B * CP_FAST_STEPS * (k5_step + K5_NOISE_OPS + K5_NOISE_TRANS) \
@@ -1194,7 +1202,8 @@ def bounds(res, serve_cp, serve_q2, train):
     k7_ops = B * Q2_FAST_STEPS * k7_step + serve_q2["resets"] * K7_RESET_OPS
     k8_ops = steps_t * (k7_step + policy_ops(6, 2)) + train["quad2d"]["resets"] * K7_RESET_OPS
     out = {"k1": bound(k1_bytes, k1_ops), "k2": bound(k2_bytes, k2_ops),
-           "k3": bound(policy_bytes(27, 12, 4), k3_ops),
+           "k3": bound(policy_bytes(27, 12, 4), k3_ops("config4", HIDDEN)),
+           "k3_h128": bound(policy_bytes(27, 12, 4, 128), k3_ops("config4_h128", 128)),
            "k5": bound(B * (2 * 18 + 1) * 4, k5_ops), "k6": bound(policy_bytes(18, 4, 1), k6_ops),
            "k7": bound(B * (2 * 19 + 2) * 4, k7_ops), "k8": bound(policy_bytes(19, 6, 2), k8_ops)}
     # K4 per launch at each of its shapes: the minibatch read once, the
@@ -1244,6 +1253,7 @@ def main():
 
     from safe_control_gym_torch.ops import quad_substeps as K1
     from safe_control_gym_torch.parallel import fast_env as F
+    from safe_control_gym_torch.parallel import fast_policy as P
 
     print(f"general engine: {res['general_env_steps_s']:.6g} env-steps/s "
           f"(B={B_MAIN}, {GENERAL_STEPS} steps in {res['general_s']:.4f} s)")
@@ -1252,8 +1262,8 @@ def main():
     print(f"K1 device time {res['k1_ms'] * 1e3:.4f} us per launch at block {K1.BLOCK} "
           f"(bound {bnd['k1']['bound_ms'] * 1e3:.4f} us); back-to-back from Python "
           f"{res['k1_launch_ms'] * 1e3:.4f} us per launch")
-    print(f"K2 device time {res['k2_ms']:.4f} ms per call of {FAST_STEPS} steps at block "
-          f"{F.BLOCK} (bound {bnd['k2']['bound_ms']:.4f} ms); "
+    print(f"K2 device time {res['k2_ms']:.4f} ms per call of {FAST_STEPS} steps, {F.GROUP} lanes "
+          f"per env, blocks of {F.BLOCK} (bound {bnd['k2']['bound_ms']:.4f} ms); "
           f"{res['fast_resets']:.0f} auto-resets per call")
     gp = res["general_profile"]
     print(f"general engine, 32 steps: wall {gp['wall_ms']:.3f} ms, device busy "
@@ -1279,10 +1289,10 @@ def main():
         print(f"  train step: wall {tp['wall_ms']:.3f} ms, device busy {tp['device_ms']:.3f} ms "
               f"({tp['busy_share']}), {pk} {tp['policy_device_ms']:.3f} ms, K4 "
               f"{tp['k4_device_ms']:.3f} ms, {tp['kernel_launches']} kernel launches; top {tp['top']}")
-        pb = bnd[{"K3": "k3", "K6": "k6", "K8": "k8"}[pk]] if tag != "config4_h128" else None
-        print(f"  {pk} device time {tr['ms']:.4f} ms per call of {TRAIN_T} steps"
-              + (f" (bound {pb['bound_ms']:.4f} ms, {pb['bound_by']})" if pb else "")
-              + f"; plain {tr['plain_ms']:.1f} ms; {tr['resets']:.0f} auto-resets")
+        pb = bnd[{"config4": "k3", "cartpole": "k6", "quad2d": "k8", "config4_h128": "k3_h128"}[tag]]
+        print(f"  {pk} device time {tr['ms']:.4f} ms per call of {TRAIN_T} steps (bound "
+              f"{pb['bound_ms']:.4f} ms, {pb['bound_by']}, {pb['bound_ms'] / tr['ms']:.1%} of it); "
+              f"plain {tr['plain_ms']:.1f} ms; {tr['resets']:.0f} auto-resets")
     for tag, kr in k4.items():
         kb = bnd[f"k4_{tag}"]
         print(f"K4 {tag} (nx {kr['nx']}, nu {kr['nu']}, H {kr['H']}, mb={MB}): "
@@ -1291,6 +1301,13 @@ def main():
               f"{kr['plain_ms'] * 1e3:.2f} us; plan {kr['plan']}")
 
     c4 = train["config4"]
+    # K3 at both widths the training paths run: H = 64 (the entry's own
+    # numbers) and H = 128 (the run-time-width instance).
+    k3_by_width = {str(h): {"launches": train[tag]["policy_launches"], "ms": train[tag]["ms"],
+                            "plain_ms": train[tag]["plain_ms"], "bound_ms": bnd[b]["bound_ms"],
+                            "bound_by": bnd[b]["bound_by"],
+                            "max_abs_err": train[tag]["main_max_abs_err"]}
+                   for h, tag, b in ((HIDDEN, "config4", "k3"), (128, "config4_h128", "k3_h128"))}
     k4_by_path = {tag: {**k4[tag], "launches": train.get(tag, {}).get("k4_launches", 0),
                         "bound_ms": bnd[f"k4_{tag}"]["bound_ms"],
                         "bound_by": bnd[f"k4_{tag}"]["bound_by"]}
@@ -1302,11 +1319,12 @@ def main():
         kernel_entry("quad3d_rollout", "quad3d_rollout.cu", "parallel/fast_env.py:593",
                      res["k2_launches"], max(k2_err, res["k2_main_max_abs_err"]), res["k2_ms"],
                      res["k2_plain_ms"], bnd["k2"], plain_steps=PLAIN_STEPS,
-                     max_abs_err_vs_general_engine=cross_err, block=F.BLOCK),
+                     max_abs_err_vs_general_engine=cross_err, group=F.GROUP, block=F.BLOCK),
         kernel_entry("quad3d_policy_rollout", "quad3d_policy_rollout.cu",
                      "parallel/fast_policy.py:76", c4["policy_launches"],
                      max(k3_err, c4["main_max_abs_err"]), c4["ms"], c4["plain_ms"], bnd["k3"],
-                     share_not_bit_equal=max(k3_differ, c4["main_differ"])),
+                     share_not_bit_equal=max(k3_differ, c4["main_differ"]), group=P.GROUP,
+                     block=P.BLOCK, by_width=k3_by_width),
         kernel_entry("ppo_grads", "ppo_update.cu", "parallel/fast_update.py:44",
                      c4["k4_launches"], k4["config4"]["max_abs_err"], k4["config4"]["ms"],
                      k4["config4"]["plain_ms"], bnd["k4_config4"],

@@ -1,0 +1,289 @@
+// One env over a group of G lanes of a warp: the 3D-quadrotor rollout
+// kernels' grouped control step (K2 quad3d_rollout, K3
+// quad3d_policy_rollout) and K3's grouped dual MLP.
+//
+// Why: with one thread per env, B = 4096 envs are 128 warps for the card's
+// 528 warp schedulers, and each thread's step is one dependent chain.  In
+// that chain each accurate sinf/cosf and each IEEE division is a region of
+// its own (a convergence barrier around its rare slow path), so the six
+// trigonometric calls and six divisions of every rigid-body derivative run
+// one after another.  A group runs them side by side, one angle's sincosf
+// and one division per lane, and hands the results round with __shfl_sync;
+// the MLP's sums split over the lanes.  G lanes per env also make G times
+// as many warps.
+//
+// What does not change: every value is computed by the same float32
+// operations in the same order as in the one-thread code (quad3d.cuh::fc,
+// policy_mlp.cuh::mlp_net / mlp_net_wide), only on another lane, so the
+// results are bit-equal to it and to the plain versions as before.  Every
+// lane of a group holds the env's rows and runs the rest of the step on
+// identical registers.  No lane returns early: a lane past the last env
+// runs env B - 1 (LaneGroup::e) and stores nothing, so every lane of a
+// warp joins every exchange (full-warp masks).
+#pragma once
+
+#include <cstdint>
+
+#include "policy_mlp.cuh"
+#include "quad3d.cuh"
+
+namespace scg {
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// A thread's place: env e (clamped to B - 1), its lane gl in the group, the
+// warp lane of the group's lane 0, and whether e is a real env.  Blocks are
+// whole warps and G divides 32, so a group never straddles two warps.
+struct LaneGroup {
+  int e, gl, base;
+  bool valid;
+};
+
+template <int G>
+__device__ __forceinline__ LaneGroup lane_group(int B) {
+  static_assert(G >= 4 && 32 % G == 0, "a group holds 4, 8, 16 or 32 lanes of one warp");
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  LaneGroup g;
+  g.gl = static_cast<int>(threadIdx.x) % G;
+  g.base = static_cast<int>(threadIdx.x & 31u) - g.gl;
+  g.valid = t / G < B;
+  g.e = g.valid ? t / G : B - 1;
+  return g;
+}
+
+__device__ __forceinline__ float from_lane(float v, const LaneGroup& g, int i) {
+  return __shfl_sync(FULL_MASK, v, g.base + i);
+}
+
+// quad3d.cuh::fc over the group: lane i < 3 takes the sine and cosine of
+// angle i (phi, theta, psi) in one sincosf, lane i < 6 the i-th division (sth/cth,
+// sphi/cth, cphi/cth, then the three body-rate rows), in rounds of G lanes;
+// every lane gets all twelve rows.
+template <int G>
+__device__ __forceinline__ void fc_group(const float* s, const Body& b, float* d, const LaneGroup& g) {
+  const float vx = s[1], vy = s[3], vz = s[5];
+  const float p = s[9], q = s[10], r = s[11];
+  const float f1 = b.f[0], f2 = b.f[1], f3 = b.f[2], f4 = b.f[3];
+
+  const float T = f1 + f2 + f3 + f4;
+  // sincosf gives sinf's and cosf's bits (scripts/ab_kernel.py's check
+  // against the one-thread build) from one range reduction: one region, not
+  // two.
+  const float ang = g.gl == 0 ? s[6] : g.gl == 1 ? s[7] : s[8];
+  float s_own, c_own;
+  sincosf(ang, &s_own, &c_own);
+  const float cphi = from_lane(c_own, g, 0), sphi = from_lane(s_own, g, 0);
+  const float cth = from_lane(c_own, g, 1), sth = from_lane(s_own, g, 1);
+  const float cpsi = from_lane(c_own, g, 2), spsi = from_lane(s_own, g, 2);
+  const float zb_x = cpsi * sth * cphi + spsi * sphi;
+  const float zb_y = spsi * sth * cphi - cpsi * sphi;
+  const float zb_z = cth * cphi;
+  const float ax = (zb_x * T + b.ext[0]) * b.minv;
+  const float ay = (zb_y * T + b.ext[1]) * b.minv;
+  const float az = (zb_z * T + b.ext[2]) * b.minv - b.g;
+
+  const float mx = b.l_sq2 * (f1 + f2 - f3 - f4);
+  const float my = b.l_sq2 * (-f1 + f2 + f3 - f4);
+  const float mz = b.km_over_kf * (f1 - f2 + f3 - f4);
+  const float jx = b.j[0], jy = b.j[1], jz = b.j[2];
+  const float gx = q * (jz * r) - r * (jy * q);
+  const float gy = r * (jx * p) - p * (jz * r);
+  const float gz = p * (jy * q) - q * (jx * p);
+
+  const float num[6] = {sth, sphi, cphi, mx - gx, my - gy, mz - gz};
+  const float den[6] = {cth, cth, cth, jx, jy, jz};
+  float quo[6];
+#pragma unroll
+  for (int r0 = 0; r0 < 6; r0 += G) {
+    // This lane's division of the round (lanes past the last repeat it).
+    float n = num[r0], dd = den[r0];
+#pragma unroll
+    for (int i = 1; i < G && r0 + i < 6; ++i) {
+      n = g.gl >= i ? num[r0 + i] : n;
+      dd = g.gl >= i ? den[r0 + i] : dd;
+    }
+    const float qt = n / dd;
+#pragma unroll
+    for (int i = 0; i < G && r0 + i < 6; ++i) quo[r0 + i] = from_lane(qt, g, i);
+  }
+  const float tth = quo[0];
+  d[0] = vx;
+  d[1] = ax;
+  d[2] = vy;
+  d[3] = ay;
+  d[4] = vz;
+  d[5] = az;
+  d[6] = p + sphi * tth * q + cphi * tth * r;
+  d[7] = cphi * q - sphi * r;
+  d[8] = quo[1] * q + quo[2] * r;
+  d[9] = quo[3];
+  d[10] = quo[4];
+  d[11] = quo[5];
+}
+
+// quad3d.cuh::substeps with the group's derivative.
+template <int G>
+__device__ __forceinline__ void substeps_group(float* s, const Body& b, int n_sub, int euler, float dt,
+                                               float dt_half, float dt_sixth, const LaneGroup& g) {
+  float k1[NX], k2[NX], k3[NX], k4[NX], t[NX];
+  for (int n = 0; n < n_sub; ++n) {
+    if (euler) {
+      fc_group<G>(s, b, k1, g);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) s[i] = s[i] + dt * k1[i];
+    } else {
+      fc_group<G>(s, b, k1, g);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) t[i] = s[i] + dt_half * k1[i];
+      fc_group<G>(t, b, k2, g);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) t[i] = s[i] + dt_half * k2[i];
+      fc_group<G>(t, b, k3, g);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) t[i] = s[i] + dt * k3[i];
+      fc_group<G>(t, b, k4, g);
+#pragma unroll
+      for (int i = 0; i < NX; ++i)
+        s[i] = s[i] + dt_sixth * (k1[i] + 2.0f * k2[i] + 2.0f * k3[i] + k4[i]);
+    }
+  }
+}
+
+// One control step of quad3d.cuh::env_step with the substeps run by the
+// group.  The kernels that call it are launched with P.n_sub = 0 and the
+// real count in n_sub, so env_step, called after the group's substeps,
+// skips them and does the rest of the step (goal, violation, reward, done,
+// statistics, auto-reset) on the state they left.  The impulse and the body
+// are env_step's own expressions.
+template <int G>
+__device__ __forceinline__ void env_step_group(const RolloutParams& P, int n_sub, EnvRows& r,
+                                               const ActionTerms& a, StepOut& o, const LaneGroup& g) {
+  float n = 0.0f;
+  if (P.impulse) {
+    const float peak = r.offset + P.imp_peak_shift;
+    const float po = fabsf(r.step_f - peak);
+    const float dec = po < P.imp_half_dur ? (P.decay_one ? 1.0f : expf(po * P.imp_log_decay)) : 0.0f;
+    n = r.step_f >= r.offset ? P.imp_mag * dec : 0.0f;
+  }
+  Body b;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) b.f[i] = a.f[i];
+  b.g = P.g;
+  b.l_sq2 = P.l_sq2;
+  b.km_over_kf = P.km_over_kf;
+  b.ext[0] = b.ext[1] = b.ext[2] = n;
+  b.minv = 1.0f / r.mass;
+  b.j[0] = r.jd[0];
+  b.j[1] = r.jd[1];
+  b.j[2] = r.jd[2];
+  substeps_group<G>(r.s, b, n_sub, P.euler, P.dt, P.dt_half, P.dt_sixth, g);
+  env_step(P, r, a, o);
+}
+
+// Shared-memory floats of one group's row for a dual MLP of width h: the
+// first and second hidden layers of both nets (4h), at a stride that puts
+// the rows of a warp's groups in different banks (a multiple of 32, plus 4).
+__host__ __device__ constexpr int mlp_group_row(int h) { return 4 * ((h + 7) / 8 * 8) + 4; }
+
+// policy_mlp.cuh::dual_mlp over the group, at the fixed width H or (H = 0)
+// the width h; sh is the group's row of shared memory.  Layer 1: lane gl
+// computes units gl, gl + G, ... of both nets.  Layer 2: lane gl owns the
+// float4 column chunks 4 gl + 4 G m of each net and sums each of their units
+// over k = 0..h-1 in order.  Output layer: lane gl sums outputs gl, gl + G,
+// ... (0..NU-1 the means, NU the value) over j = 0..h-1 in order.  Every
+// lane gets the means and the value.
+template <int OBS, int NU, int H, int G>
+__device__ __forceinline__ void dual_mlp_group(const float* __restrict__ w, int h, const float* obs,
+                                               int relu, float* sh, const LaneGroup& g, float* mean,
+                                               float& value) {
+  constexpr int OBS_PAD = MlpDims<OBS>::OBS_PAD;
+  constexpr int HC = H > 0 ? (H + MLP_CHUNK - 1) / MLP_CHUNK * MLP_CHUNK : MLP_MAX_H;
+  constexpr int NCH = (HC + 4 * G - 1) / (4 * G);  // column chunks a lane owns in a net
+  constexpr int NO = (NU + G) / G;                 // outputs a lane sums
+  const MlpDims<OBS> L(H > 0 ? H : h);
+  const int hh = L.H;
+  float* h1 = sh;
+  float* h2 = sh + 2 * hh;
+
+  for (int u = g.gl; u < 2 * hh; u += G) {
+    float wr[OBS_PAD];
+#pragma unroll
+    for (int c = 0; c < OBS_PAD; c += 4) {
+      const float4 v = ld4(w + L.W1 + u * OBS_PAD + c);
+      wr[c] = v.x;
+      wr[c + 1] = v.y;
+      wr[c + 2] = v.z;
+      wr[c + 3] = v.w;
+    }
+    float z = wr[0] * obs[0];
+#pragma unroll
+    for (int c = 1; c < OBS; ++c) z = z + wr[c] * obs[c];
+    h1[u] = act_fn(z + __ldg(w + L.B1 + u), relu);
+  }
+  __syncwarp();
+
+  // A chunk past the net's width reads chunk 0 instead: no branch in the
+  // k-loop, and its sums are dropped.
+  int col[NCH];
+#pragma unroll
+  for (int m = 0; m < NCH; ++m) col[m] = 4 * g.gl + 4 * G * m < hh ? 4 * g.gl + 4 * G * m : 0;
+#pragma unroll
+  for (int net = 0; net < 2; ++net) {
+    const int base = net * hh;
+    const float* w2 = w + L.W2T + net * L.HP + base * 2 * L.HP;
+    float acc[4 * NCH];
+    {
+      const float x = h1[base];
+#pragma unroll
+      for (int m = 0; m < NCH; ++m) {
+        const float4 v = ld4(w2 + col[m]);
+        acc[4 * m] = v.x * x;
+        acc[4 * m + 1] = v.y * x;
+        acc[4 * m + 2] = v.z * x;
+        acc[4 * m + 3] = v.w * x;
+      }
+    }
+#pragma unroll 4
+    for (int k = 1; k < hh; ++k) {
+      const float x = h1[base + k];
+      const float* row = w2 + k * 2 * L.HP;
+#pragma unroll
+      for (int m = 0; m < NCH; ++m) {
+        const float4 v = ld4(row + col[m]);
+        acc[4 * m] = acc[4 * m] + v.x * x;
+        acc[4 * m + 1] = acc[4 * m + 1] + v.y * x;
+        acc[4 * m + 2] = acc[4 * m + 2] + v.z * x;
+        acc[4 * m + 3] = acc[4 * m + 3] + v.w * x;
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < NCH; ++m) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 4 * g.gl + 4 * G * m + i;
+        if (j < hh) h2[base + j] = act_fn(acc[4 * m + i] + __ldg(w + L.B2 + base + j), relu);
+      }
+    }
+  }
+  __syncwarp();
+
+  float out[NO];
+#pragma unroll
+  for (int m = 0; m < NO; ++m) {
+    const int o = g.gl + G * m;
+    out[m] = 0.0f;
+    if (o <= NU) {
+      const int base = o < NU ? 0 : hh;
+      const float* w3 = w + L.W3T + base * 8 + o;
+      float sum = __ldg(w3) * h2[base];
+#pragma unroll 4
+      for (int j = 1; j < hh; ++j) sum = sum + __ldg(w3 + j * 8) * h2[base + j];
+      out[m] = o < NU ? sum : sum + __ldg(w + L.B3 + NU);  // the means' bias joins in the sample
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NU; ++i) mean[i] = from_lane(out[i / G], g, i % G);
+  value = from_lane(out[NU / G], g, NU % G);
+}
+
+}  // namespace scg

@@ -32,6 +32,10 @@
 // columns only reach sums that are dropped.  Every sum adds its terms in
 // input order, as the plain version's loop does, and the library is built
 // with -fmad=false, so kernel and plain version round alike.
+//
+// K6 and K8 run dual_mlp; K3 runs its lane-group form,
+// lane_group.cuh::dual_mlp_group (the same sums, split over 8 lanes), and
+// gaussian_sample on every lane of the group.
 #pragma once
 
 #include <cstdint>

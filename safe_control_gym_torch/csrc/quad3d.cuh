@@ -310,6 +310,8 @@ struct StepOut {
 };
 
 // One control step in place on r (step_env_core, non-maze, no step noise).
+// K2 and K3 run it through lane_group.cuh::env_step_group, launched with
+// P.n_sub = 0 so that it skips the substeps their lane group has run.
 __device__ __forceinline__ void env_step(const RolloutParams& P, EnvRows& r, const ActionTerms& a,
                                          StepOut& o) {
   // Dynamics disturbance: impulse schedule (fast_env.py:356-366).

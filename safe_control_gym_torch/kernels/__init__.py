@@ -44,12 +44,16 @@ _SIGNATURES = {
     # g, l_sq2, km_over_kf, actuation, block, stream
     "quad3d_substeps": [_P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _I,
                         _F, _F, _F, _I, _I, _P],
-    # params (host struct pointer), rows_in, action, rows_out, B, block, stream
-    "quad3d_rollout": [_P, _P, _P, _P, _I, _I, _P],
+    # params (host struct pointer), rows_in, action, rows_out, B, then the
+    # launch plan (fast_env.launch_plan: group, block, grid), stream
+    "quad3d_rollout": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "quad3d_rollout_params_size": [],
+    "quad3d_rollout_api_version": [],
     # params, normalized, relu, norm_act_scale, hover_thrust, hidden, seed,
-    # wflat, rows_in, rows_out, traj, B, stream
-    "quad3d_policy_rollout": [_P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P, _I, _P],
+    # wflat, rows_in, rows_out, traj, B, then the launch plan
+    # (fast_policy.launch_plan: group, block, grid, smem bytes), stream
+    "quad3d_policy_rollout": [_P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "quad3d_policy_rollout_api_version": [],
     # nx, nu, H, mb, plan (int[8], written)
     "ppo_grads_plan": [_I, _I, _I, _I, _P],
     # plan, nx, nu, H, mb, relu, clip_lo, clip_hi, inv_n, mb_ptr, wflat, wpad,

@@ -55,7 +55,22 @@ _STATS_KEYS = ("ep_return", "ep_length", "ep_violations", "done_count",
 # Counter slot of each reset draw in fast-row order (x0..x11, mass, J, offset).
 _SLOT_MAP = list(range(4, 16)) + [0, 1, 2, 3, 16]
 
-BLOCK = 64  # threads per block: the fastest of 32, 64 and 128, by 2-5% (PERF.md)
+# K2's launch (csrc/quad3d_rollout.cu): GROUP lanes of a warp per env
+# (csrc/lane_group.cuh), BLOCK threads a block.
+GROUP = 4
+BLOCK = 128
+
+
+def launch_plan(B: int, group: int | None = None):
+    """K2's launch for B envs: (lanes per env, threads per block, blocks).
+    Each env is one group of ``group`` lanes (``GROUP`` where None) inside a
+    warp, BLOCK // group envs a block; the lanes of the last block's groups
+    past env B - 1 run env B - 1 and store nothing.  The kernel refuses a
+    group size it was not built with."""
+    g = GROUP if group is None else group
+    if g not in (4, 8, 16, 32):
+        raise ValueError(f"a lane group holds 4, 8, 16 or 32 lanes, not {g}")
+    return g, BLOCK, -(-B // (BLOCK // g))
 
 
 def _spec_scalar(v):
@@ -549,7 +564,7 @@ def quad3d_rollout(p, rows, action):
         raise RuntimeError("RolloutParams differs between fast_env.py and quad3d_rollout.cu")
     code = lib.quad3d_rollout(
         ctypes.addressof(params), rows.data_ptr(), action.data_ptr(), out.data_ptr(),
-        B, BLOCK, kernels.stream_ptr(rows.device))
+        B, *launch_plan(B), kernels.stream_ptr(rows.device))
     kernels.check(code, "quad3d_rollout")
     quad3d_rollout.launches += 1
     return out

@@ -131,6 +131,36 @@ def policy_rollout_plain(p, rows, weights, seed):
 
 
 MLP_CHUNK = 32  # csrc/policy_mlp.cuh: second-layer units a run-time-width kernel sums at a time
+# K3's launch (csrc/quad3d_policy_rollout.cu): GROUP lanes of a warp per env
+# (csrc/lane_group.cuh), BLOCK threads a block, the card's shared memory a
+# block may take.
+GROUP = 8
+BLOCK = 128
+MAX_SMEM = 232448
+
+
+def group_row(hidden: int) -> int:
+    """Shared-memory floats of one env's group (``lane_group.cuh::
+    mlp_group_row``): both nets' two hidden layers, at a stride that puts
+    the groups of a warp in different banks."""
+    return 4 * (-(-hidden // 8) * 8) + 4
+
+
+def launch_plan(B: int, hidden: int, group: int | None = None):
+    """K3's launch for B envs at hidden width ``hidden``: (lanes per env,
+    threads per block, blocks, dynamic shared-memory bytes).  Each env is one
+    group of ``group`` lanes (``GROUP`` where None) inside a warp, BLOCK //
+    group envs a block, each group with its row of shared memory; the lanes
+    of the last block's groups past env B - 1 run env B - 1 and store
+    nothing.  The kernel refuses a group size it was not built with."""
+    g = GROUP if group is None else group
+    if g not in (4, 8, 16, 32):
+        raise ValueError(f"a lane group holds 4, 8, 16 or 32 lanes, not {g}")
+    check_hidden(hidden)
+    smem = BLOCK // g * group_row(hidden) * 4
+    if smem > MAX_SMEM:
+        raise ValueError(f"K3's plan needs {smem} bytes of shared memory a block, over {MAX_SMEM}")
+    return g, BLOCK, -(-B // (BLOCK // g)), smem
 
 
 def kernel_weights(weights):
@@ -194,7 +224,7 @@ def policy_rollout(p, rows, weights, seed):
         ctypes.addressof(params), int(p["normalized"]), int(p["mlp_act"] == "relu"),
         float(p["norm_act_scale"]), float(p["hover_thrust"]), H2 // 2, seed.data_ptr(),
         wflat.data_ptr(), rows.data_ptr(), out.data_ptr(), traj.data_ptr(), B,
-        kernels.stream_ptr(rows.device))
+        *launch_plan(B, H2 // 2), kernels.stream_ptr(rows.device))
     kernels.check(code, "quad3d_policy_rollout")
     policy_rollout.launches += 1
     return out, traj

@@ -8,19 +8,31 @@ other ``csrc`` directory (for example the parent commit's, unpacked with
 its own, beside this tree's kernel library.  All run on the same input,
 BASELINE config 4: K2 one call of 8192 hover steps and K3 one call of 128
 policy steps (the rl_train shapes, the normalized action space, weights
-from a fixed seed) at B = 4096 from rows that have already run two calls;
-K4 one minibatch of 131072 samples at H = 64 (``chip_smoke.k4_inputs``).
-Each round runs the others, this tree twice, then the others in reverse
-(other, this, this, other for one other tree); each call is timed alone
-with CUDA events.  K2 and K3 must leave the same rows (and K3 the same
-record) bit for bit; K4's builds may sum in other orders (the kernel
-before the redesign has no FMA), so each build must repeat its own gradients bit for bit and
-the largest difference from the first other tree's is reported.  Prints
-each call's time, the medians, their ratio to the first other tree, each
-build's registers and, with ``--sass-dir``, the kernel's SASS instruction
-count (``cuobjdump``), and the card as ``nvidia-smi`` names it.
+from a fixed seed, hidden width ``--hidden``) at ``--batch`` envs (4096)
+from rows that have already run two calls; K4 one minibatch of 131072
+samples at H = 64 (``chip_smoke.k4_inputs``).  ``--steps`` sets another
+number of steps a call for K2 and K3.  Each round runs the others, this
+tree twice, then the others in reverse (other, this, this, other for one
+other tree); each call is timed alone with CUDA events.  K2 and K3 must
+leave the same rows (and K3 the same record) bit for bit; K4's builds may
+sum in other orders (the kernel before the redesign has no FMA), so each
+build must repeat its own gradients bit for bit and the largest difference
+from the first other tree's is reported.  Prints each call's time, the
+medians, their ratio to the first other tree, each build's registers, the
+SM clock ``nvidia-smi`` read during the rounds, and the card as
+``nvidia-smi`` names it.  With ``--sass-dir``, also the kernel's SASS
+instruction count (``cuobjdump``) and its loops (each backward branch and
+the instructions it spans), from which instructions per step are read.
+
+K2's and K3's entry points before the lane-group redesign take no launch
+plan; the script tells them apart by ``quad3d_rollout_api_version`` and
+``quad3d_policy_rollout_api_version``, as it tells K4's by
+``ppo_grads_api_version``.  ``--group NAME=G`` launches the tree NAME
+(``this`` or an other's name) with G lanes per env, where its build has
+that instance; else each tree takes its wrapper's plan.
 
     python3 scripts/ab_kernel.py --kernel k2|k3|k4 --other NAME=DIR [--other NAME=DIR ...]
+        [--batch 4096] [--steps N] [--hidden 64] [--group NAME=G ...]
         [--rounds 5] [--sass-dir DIR] [--out results.json]
 
 Needs one CUDA card, ``nvcc`` and, for K2 and K3, the same ``RolloutParams``
@@ -31,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import os
 import re
@@ -43,76 +56,120 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-B = 4096
 # Per kernel: source file, C entry point, the kernel function's name.
 KERNELS = {"k2": ("quad3d_rollout.cu", "quad3d_rollout", "quad3d_rollout_kernel"),
            "k3": ("quad3d_policy_rollout.cu", "quad3d_policy_rollout",
                   "quad3d_policy_rollout_kernel"),
            "k4": ("ppo_update.cu", "ppo_grads", "ppo_grads_kernel")}
 STEPS = {"k2": 8192, "k3": 128, "k4": 131072}  # K4: samples of the minibatch
-# Mangled template arguments of the instance the main path runs.
-PREFER = {"quad3d_policy_rollout_kernel": "ILi64E", "ppo_grads_kernel": "ILi2ELb1E"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # K4's entry points before the redesign (no ppo_grads_api_version): nx, nu,
 # H, mb, *ng, *nblk, *smem_bytes; and nx, nu, H, mb, relu, clip_lo, clip_hi,
 # inv_n, mb_ptr, wflat, partial, out, nblk, smem_bytes, stream.
 K4_V1 = {"ppo_grads_plan": [_I, _I, _I, _I, _P, _P, _P],
          "ppo_grads": [_I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _I, _I, _P]}
+# K2's and K3's entry points before the redesign (one thread per env):
+# params, rows_in, action, rows_out, B, block, stream; and params,
+# normalized, relu, norm_act_scale, hover_thrust, hidden, seed, wflat,
+# rows_in, rows_out, traj, B, stream.
+ROLLOUT_V1 = {"quad3d_rollout": [_P, _P, _P, _P, _I, _I, _P],
+              "quad3d_policy_rollout": [_P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P, _I, _P]}
 
 
-def k4_api(lib) -> int:
-    """2 for the redesigned K4's entry points, 1 for those before it."""
+def api(lib, entry) -> int:
+    """The version ``<entry>_api_version`` reports, 1 where it is absent."""
     try:
-        fn = lib.ppo_grads_api_version
+        fn = getattr(lib, f"{entry}_api_version")
     except AttributeError:
         return 1
     fn.restype = ctypes.c_int
     return fn()
 
 
-def build_other(kernel: str, name: str, csrc: str, out_dir):
-    """The kernel's source of another tree as its own shared library (K3's
-    needs the K2 source beside it for quad3d_rollout_params_size)."""
+def build_others(kernel: str, trees: dict, out_dir) -> dict:
+    """The kernel's source of each other tree (name: csrc directory) as a
+    shared library of its own, all nvcc processes started together (K3's
+    needs the K2 source beside it for quad3d_rollout_params_size).  A
+    library whose sources and flags have not changed since an earlier run
+    in the same directory is reused.  Returns name: (library, path, ptxas
+    lines)."""
     from safe_control_gym_torch import kernels
 
     src, entry, _ = KERNELS[kernel]
     out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / f"lib{kernel}_{name}.so"
-    srcs = [os.path.join(csrc, src)] + ([os.path.join(csrc, "quad3d_rollout.cu")]
-                                        if kernel == "k3" else [])  # K3 and K4 need no other
-    res = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", *srcs, "-o", str(so)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {kernel} of {name}:\n{res.stdout}{res.stderr}")
-    regs = [line.strip() for line in (res.stdout + res.stderr).splitlines()
-            if "registers" in line or "spill" in line or "entry function" in line]
-    lib = ctypes.CDLL(str(so))
-    if kernel == "k4":
-        sigs = kernels._SIGNATURES if k4_api(lib) == 2 else K4_V1
-        entries = ("ppo_grads_plan", "ppo_grads")
-    else:
-        sigs, entries = kernels._SIGNATURES, (entry, "quad3d_rollout_params_size")
-    for name in entries:
-        getattr(lib, name).argtypes = sigs[name]
-        getattr(lib, name).restype = ctypes.c_int
-    return lib, so, regs
+    procs = {}
+    for name, csrc in trees.items():
+        so = out_dir / f"lib{kernel}_{name}.so"
+        srcs = [os.path.join(csrc, src)] + ([os.path.join(csrc, "quad3d_rollout.cu")]
+                                            if kernel == "k3" else [])  # K3 and K4 need no other
+        h = hashlib.sha256(" ".join(kernels.NVCC_FLAGS + tuple(srcs)).encode())
+        for f in sorted(os.listdir(csrc)):
+            h.update(f.encode() + open(os.path.join(csrc, f), "rb").read())
+        stamp = so.with_suffix(".stamp")
+        if so.exists() and stamp.exists() and stamp.read_text() == h.hexdigest():
+            procs[name] = (so, stamp, None, None)
+            continue
+        procs[name] = (so, stamp, h.hexdigest(), subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", *srcs, "-o", str(so)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for name, (so, stamp, digest, proc) in procs.items():
+        log = so.with_suffix(".log")
+        if proc is not None:
+            text, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {kernel} of {name}:\n{text}")
+            log.write_text(text)
+            stamp.write_text(digest)
+        regs = [line.strip() for line in log.read_text().splitlines()
+                if "registers" in line or "spill" in line or "entry function" in line]
+        lib = ctypes.CDLL(str(so))
+        if kernel == "k4":
+            sigs = kernels._SIGNATURES if api(lib, "ppo_grads") == 2 else K4_V1
+            entries = ("ppo_grads_plan", "ppo_grads")
+        else:
+            sigs = kernels._SIGNATURES if api(lib, entry) == 2 else ROLLOUT_V1
+            sigs = {**kernels._SIGNATURES, entry: sigs[entry]}
+            entries = (entry, "quad3d_rollout_params_size")
+        for fn in entries:
+            getattr(lib, fn).argtypes = sigs[fn]
+            getattr(lib, fn).restype = ctypes.c_int
+        out[name] = (lib, so, regs)
+    return out
 
 
-def sass_count(path, kname, out_file) -> int:
-    """Write the SASS of the kernel ``kname`` in ``path`` to ``out_file``;
-    return its number of instructions."""
+def prefer(kernel, hidden) -> str:
+    """Mangled template arguments that begin the name of the instance the
+    main path runs: K2's first (a build holds one group size), K3's at
+    H = 64 or else its run-time-width instance (H = 0), K4's at R = 2 with
+    its weights in shared memory.  A kernel that is no template (K2 before
+    the lane-group redesign) has one instance."""
+    return {"k2": "ILi", "k3": f"ILi{64 if hidden == 64 else 0}E", "k4": "ILi2ELb1E"}[kernel]
+
+
+def sass_count(path, kname, pref, out_file) -> dict:
+    """Write the SASS of the kernel ``kname`` in ``path`` (the instance
+    whose name goes on with ``pref`` where there is one) to ``out_file``;
+    return its number of instructions and its loops (each backward branch:
+    from, to, instructions spanned), the widest first."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
                           check=True).stdout
     funcs = re.split(r"\n\s*Function : ", text)
-    # A templated build: the main path's instance (K3 at H = 64, K4 at R = 2
-    # with its weights in shared memory); else the one kernel of that name.
     names = [f.splitlines()[0] for f in funcs[1:]]
-    want = next((n for n in names if kname + PREFER.get(kname, "") in n), kname)
+    want = next((n for n in names if kname + pref in n), kname)
     body = next(f for f, n in zip(funcs[1:], names) if want in n)
     with open(out_file, "w") as f:
         f.write(body)
-    return len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+[^ ;]", body))
+    ins = [(int(a, 16), t.strip()) for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    index = {a: i for i, (a, _) in enumerate(ins)}
+    loops = []
+    for i, (a, t) in enumerate(ins):
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)\s*$", t)
+        if m and int(m.group(1), 16) <= a and int(m.group(1), 16) in index:
+            loops.append((hex(a), m.group(1), i - index[int(m.group(1), 16)] + 1))
+    loops.sort(key=lambda r: -r[2])
+    return {"instance": want, "instructions": len(ins), "loops": loops[:8]}
 
 
 def k4_launch(dev, stream):
@@ -133,9 +190,9 @@ def k4_launch(dev, stream):
     args = (1.0 - 0.2, 1.0 + 0.2, 1.0 / n)
     plans = {}
 
-    def launch(lib):
+    def launch(lib, group):
         f32 = dict(dtype=torch.float32, device=dev)
-        if k4_api(lib) == 2:
+        if api(lib, "ppo_grads") == 2:
             if id(lib) not in plans:
                 plans[id(lib)] = plan = (ctypes.c_int * 8)()
                 if lib.ppo_grads_plan(nx, nu, 64, n, plan):
@@ -159,9 +216,11 @@ def k4_launch(dev, stream):
     return launch
 
 
-def inputs(kernel, dev):
-    """The kernel's input at the main path's shapes and a function that
-    launches a library's build of it, returning (ms, outputs)."""
+def inputs(kernel, dev, B, steps, hidden):
+    """The kernel's input at the main path's shapes (B envs, ``steps``
+    steps a call, K3 at width ``hidden``) and a function that launches a
+    library's build of it with ``group`` lanes per env (None: the wrapper's
+    plan), returning (ms, outputs)."""
     import torch
 
     from chip_smoke import cfg4, seeded_ac
@@ -175,20 +234,23 @@ def inputs(kernel, dev):
         launch = k4_launch(dev, stream)
     elif kernel == "k2":
         env = make_quadrotor(cfg4(), device=dev)
-        fr = F.FastQuadRollout(env, B, steps_per_call=STEPS[kernel], device=dev)
+        fr = F.FastQuadRollout(env, B, steps_per_call=steps, device=dev)
         act = fr.prepare_action(np.full(4, float(env.u_goal[0])))
         rows_in = fr.run(fr.run(fr.reset(seed=0), act), act)
         params = F.kernel_params(fr.params)
 
-        def launch(lib):
+        def launch(lib, group):
             out = torch.empty_like(rows_in)
-            code = lib.quad3d_rollout(ctypes.addressof(params), rows_in.data_ptr(),
-                                      act.data_ptr(), out.data_ptr(), B, F.BLOCK, stream)
+            args = (ctypes.addressof(params), rows_in.data_ptr(), act.data_ptr(), out.data_ptr(), B)
+            if api(lib, "quad3d_rollout") == 1:
+                code = lib.quad3d_rollout(*args, 64, stream)
+            else:
+                code = lib.quad3d_rollout(*args, *F.launch_plan(B, group), stream)
             return code, (out,)
     else:
         env = make_quadrotor(cfg4(normalized_rl_action_space=True), device=dev)
-        fp = P.FastPolicyRollout(env, B, STEPS[kernel], device=dev)
-        ac = seeded_ac(dev)
+        fp = P.FastPolicyRollout(env, B, steps, mlp_hidden=hidden, device=dev)
+        ac = seeded_ac(dev, hidden=hidden)
         w = P.pack_weights(ac.actor, ac.critic, ac.logstd)
         rows_in = fp.run(fp.run(fp.reset(seed=0), w, seed=1)[0], w, seed=2)[0]
         wflat = P.kernel_weights(w)
@@ -196,21 +258,24 @@ def inputs(kernel, dev):
         params = F.kernel_params(fp.params)
         p = fp.params
 
-        def launch(lib):
+        def launch(lib, group):
             out = torch.empty_like(rows_in)
-            traj = torch.empty((STEPS[kernel], P.TRAJ_ROWS, B), device=dev)
-            code = lib.quad3d_policy_rollout(
-                ctypes.addressof(params), int(p["normalized"]), 0, float(p["norm_act_scale"]),
-                float(p["hover_thrust"]), 64, seed.data_ptr(), wflat.data_ptr(),
-                rows_in.data_ptr(), out.data_ptr(), traj.data_ptr(), B, stream)
+            traj = torch.empty((steps, P.TRAJ_ROWS, B), device=dev)
+            args = (ctypes.addressof(params), int(p["normalized"]), 0, float(p["norm_act_scale"]),
+                    float(p["hover_thrust"]), hidden, seed.data_ptr(), wflat.data_ptr(),
+                    rows_in.data_ptr(), out.data_ptr(), traj.data_ptr(), B)
+            if api(lib, "quad3d_policy_rollout") == 1:
+                code = lib.quad3d_policy_rollout(*args, stream)
+            else:
+                code = lib.quad3d_policy_rollout(*args, *P.launch_plan(B, hidden, group), stream)
             return code, (out, traj)
 
-    def call(lib):
+    def call(lib, group):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         if kernel == "k4":  # keeps the device busy while the timed launch is enqueued
-            launch(lib)
+            launch(lib, group)
         start.record()
-        code, outs = launch(lib)
+        code, outs = launch(lib, group)
         end.record()
         torch.cuda.synchronize()
         kernels.check(code, kernel)
@@ -219,11 +284,30 @@ def inputs(kernel, dev):
     return call
 
 
+def sm_clock_sampler():
+    """Start ``nvidia-smi`` sampling the SM clock (MHz) every 100 ms; the
+    returned function stops it and gives the samples."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+                             "-lms", "100"], stdout=subprocess.PIPE, text=True)
+
+    def stop():
+        proc.terminate()
+        out, _ = proc.communicate()
+        return [float(v) for v in out.split() if v.replace(".", "", 1).isdigit()]
+
+    return stop
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="k2")
     ap.add_argument("--other", action="append", required=True, metavar="NAME=DIR",
                     help="csrc directory of another tree, under a name")
+    ap.add_argument("--batch", type=int, default=4096, help="envs of a K2 or K3 call")
+    ap.add_argument("--steps", type=int, help="steps of a K2 or K3 call (default: the main path's)")
+    ap.add_argument("--hidden", type=int, default=64, help="K3's hidden width")
+    ap.add_argument("--group", action="append", default=[], metavar="NAME=G",
+                    help="lanes per env for the tree NAME's K2 or K3 launch")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--sass-dir", help="write each build's kernel SASS here")
     ap.add_argument("--out", help="also write the results here as JSON")
@@ -240,12 +324,14 @@ def main():
 
     kernel = args.kernel
     src, _, kname = KERNELS[kernel]
+    B, steps = args.batch, args.steps or STEPS[kernel]
+    groups = {k: int(v) for k, v in (g.split("=", 1) for g in args.group)}
     dev = torch.device("cuda")
-    libs, paths, regs = {}, {}, {}
-    for spec in args.other:
-        name, csrc = spec.split("=", 1)
-        libs[name], paths[name], regs[name] = build_other(kernel, name, os.path.abspath(csrc),
-                                                          kernels.BUILD / "ab")
+    trees = {name: os.path.abspath(csrc) for name, csrc in (o.split("=", 1) for o in args.other)}
+    built = build_others(kernel, trees, kernels.BUILD / "ab")
+    libs = {k: v[0] for k, v in built.items()}
+    paths = {k: v[1] for k, v in built.items()}
+    regs = {k: v[2] for k, v in built.items()}
     others = list(libs)
     libs["this"], paths["this"] = kernels.lib(), kernels.BUILD / src.replace(".cu", ".o")
     regs["this"] = [line.strip() for line in (kernels.BUILD / "ptxas.log").read_text()
@@ -258,15 +344,16 @@ def main():
     sass = {}
     if args.sass_dir:
         os.makedirs(args.sass_dir, exist_ok=True)
-        sass = {k: sass_count(p, kname, os.path.join(args.sass_dir, f"{kernel}_{k}.sass"))
+        sass = {k: sass_count(p, kname, prefer(kernel, args.hidden),
+                              os.path.join(args.sass_dir, f"{kernel}_{k}.sass"))
                 for k, p in paths.items()}
 
-    call = inputs(kernel, dev)
+    call = inputs(kernel, dev, B, steps, args.hidden)
 
     def equal(a, b):
         return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
 
-    first = {k: call(lib)[1] for k, lib in libs.items()}  # warm-up of each library
+    first = {k: call(lib, groups.get(k))[1] for k, lib in libs.items()}  # warm-up of each library
     # K2 and K3 builds must leave the first other tree's outputs bit for bit;
     # each K4 build its own first launch's.
     want = {k: first[k] if kernel == "k4" else first[others[0]] for k in libs}
@@ -275,24 +362,32 @@ def main():
                   for x, y in zip(first[k], first[others[0]])) for k in libs}
     order = others + ["this", "this"] + others[::-1]
     ms = {k: [] for k in libs}
+    stop_clock = sm_clock_sampler()
     for _ in range(args.rounds):
         for k in order:
-            t, out = call(libs[k])
+            t, out = call(libs[k], groups.get(k))
             ms[k].append(t)
             same[k] = same[k] and equal(want[k], out)
+    clocks = stop_clock()
     med = {k: statistics.median(v) for k, v in ms.items()}
     base = med[others[0]]
-    res = {"card": card_line(), "kernel": kernel, "B": B, "steps": STEPS[kernel],
+    res = {"card": card_line(), "kernel": kernel, "B": B, "steps": steps,
+           "hidden": args.hidden if kernel == "k3" else None, "groups": groups,
            "rounds": args.rounds, "order": order, "ms": ms, "median_ms": med,
            "over_first_other": {k: v / base for k, v in med.items()},
-           "ptxas": regs, "sass_instructions": sass, "bit_equal": same,
-           "max_abs_err_vs_first_other": err}
+           "sm_clock_mhz": {"median": statistics.median(clocks) if clocks else None,
+                            "min": min(clocks, default=None), "max": max(clocks, default=None),
+                            "samples": len(clocks)},
+           "ptxas": regs, "sass": sass, "bit_equal": same, "max_abs_err_vs_first_other": err}
     print(res["card"])
+    print(f"SM clock during the rounds: {res['sm_clock_mhz']}")
     for k in libs:
-        print(f"{kernel.upper()} {k}: median {med[k]:.4f} ms per call of {STEPS[kernel]} steps "
-              f"({med[k] / base:.4f} of {others[0]}); bit-equal {same[k]}; max_abs_err "
-              f"{err[k]:.3g} from {others[0]}; "
-              f"SASS {sass.get(k, 'not dumped')}; {regs[k]}; calls {[round(t, 4) for t in ms[k]]}")
+        print(f"{kernel.upper()} {k}: median {med[k]:.4f} ms per call of {steps} steps at B={B}"
+              + (f", H={args.hidden}" if kernel == "k3" else "")
+              + (f", G={groups[k]}" if k in groups else "")
+              + f" ({med[k] / base:.4f} of {others[0]}); bit-equal {same[k]}; max_abs_err "
+              f"{err[k]:.3g} from {others[0]}; SASS {sass.get(k, 'not dumped')}; {regs[k]}; "
+              f"calls {[round(t, 4) for t in ms[k]]}")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

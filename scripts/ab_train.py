@@ -6,7 +6,8 @@ from one tree (this one, or another, for example the parent commit
 unpacked with ``git archive <commit>`` into a directory) and drives the
 ``rl_train`` shapes of ``chip_smoke.py`` (B = 4096, T = 128, 10 epochs of 4
 minibatches of 131072, hidden 64, normalized action space) on config 4,
-CartPole stabilization and quad-2D stabilization: two warm-up train steps,
+CartPole stabilization and quad-2D stabilization, and config 4 at hidden
+width 128 (``config4_h128``): two warm-up train steps,
 then ``--steps`` timed ones (host clock, ending in a synchronize), and one
 profiled step (device busy time and kernel launches).  The runs go other,
 this, this, other; the medians and their ratios are printed with the card
@@ -29,7 +30,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FAMILIES = ("config4", "cartpole", "quad2d")
+FAMILIES = ("config4", "cartpole", "quad2d", "config4_h128")
 
 
 def smoke():
@@ -56,10 +57,12 @@ def worker(tree: str, steps: int) -> dict:
     envs = {"config4": lambda: make_quadrotor(S.cfg4(normalized_rl_action_space=True), device=dev),
             "cartpole": lambda: make_cartpole(S.cfg_cartpole_rl(), device=dev),
             "quad2d": lambda: make_quadrotor(S.cfg_quad2d_rl(), device=dev)}
+    envs["config4_h128"] = envs["config4"]
     out = {}
     for fam in FAMILIES:
         ppo = PPO(envs[fam](), seed=0, rollout_batch_size=S.TRAIN_B, rollout_steps=S.TRAIN_T,
-                  opt_epochs=S.EPOCHS, mini_batch_size=S.MB, hidden_dim=S.HIDDEN,
+                  opt_epochs=S.EPOCHS, mini_batch_size=S.MB,
+                  hidden_dim=128 if fam == "config4_h128" else S.HIDDEN,
                   use_fast_rollout=True, reshuffle_each_epoch=False)
         assert ppo._fp is not None and ppo._fu is not None
         for _ in range(2):

@@ -2,6 +2,8 @@
 package (Pallas kernel in interpret mode) and against the port's own
 general engine, through auto-resets."""
 
+import re
+
 import jax
 import numpy as np
 import pytest
@@ -153,13 +155,15 @@ def test_entry_point_defaults_to_cuda():
         tf.FastQuadRollout(tenv, 8)
 
 
-def test_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("batch", [1000, 1])
+def test_kernel_matches_plain_on_card(batch):
     """K2 against its plain version on the card, 25 steps through resets
-    (chip_smoke.py runs the same check at B = 1024)."""
+    (chip_smoke.py runs the same check at B = 1024 and 1000), at batches
+    that leave the last block's lane groups partly past the last env."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     env = tq.make_quadrotor(tq.QuadrotorConfig(**{**CFG4, "episode_len_sec": 0.2}))
-    fr = tf.FastQuadRollout(env, 1000, steps_per_call=25)
+    fr = tf.FastQuadRollout(env, batch, steps_per_call=25)
     rows0 = fr.reset(seed=0)
     act = fr.prepare_action(np.full(4, float(env.u_goal[0])))
     before = tf.quad3d_rollout.launches
@@ -171,6 +175,42 @@ def test_kernel_matches_plain_on_card():
     torch.testing.assert_close(out[:12], ref[:12], rtol=2e-4, atol=2e-5)
     torch.testing.assert_close(out[12:16], ref[12:16], rtol=1e-6, atol=0)  # mass, inertia
     torch.testing.assert_close(out[18:25], ref[18:25], rtol=2e-4, atol=1e-5)  # stats
+
+
+def lane_groups(plan, B):
+    """The envs each thread of a launch stores, as ``csrc/lane_group.cuh::
+    lane_group`` maps threads: thread t is lane t % G of env t // G, and
+    lane 0 of a real env stores it.  Checks that no group straddles a warp."""
+    G, block, grid = plan[:3]
+    t = np.arange(grid * block)
+    lane, env = t % G, t // G
+    first = (t % 32) - lane  # warp lane of the group's lane 0
+    assert block % 32 == 0 and (first >= 0).all() and (first + G <= 32).all()
+    return np.sort(env[(lane == 0) & (env < B)])
+
+
+@pytest.mark.parametrize("batch", [1, 33, 1000, 4096])
+def test_launch_plan_covers_every_env_once(batch):
+    """K2's launch plan stores every env exactly once, from one group inside
+    one warp, at the default group size and at the others the kernel's
+    group code takes."""
+    for group in (None, 4, 8, 16):
+        np.testing.assert_array_equal(lane_groups(tf.launch_plan(batch, group), batch),
+                                      np.arange(batch))
+    with pytest.raises(ValueError):
+        tf.launch_plan(batch, 6)
+
+
+def test_launch_plan_mirrors_cuda_source():
+    """The plan's group size and block fit what csrc/quad3d_rollout.cu was
+    built for (its K2_GROUP and the block its launch bound allows), and its
+    entry point refuses other plans, so the wrapper raises first."""
+    from pathlib import Path
+
+    src = (Path(tf.__file__).parents[1] / "csrc" / "quad3d_rollout.cu").read_text()
+    assert int(re.search(r"#define K2_GROUP (\d+)", src).group(1)) == tf.GROUP
+    assert int(re.search(r"constexpr int BLOCK = (\d+);", src).group(1)) >= tf.BLOCK
+    assert "group != K2_GROUP" in src
 
 
 def test_params_struct_mirrors_cuda_source():

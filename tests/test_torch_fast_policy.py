@@ -199,7 +199,7 @@ def test_plain_k3_matches_jax_policy_at_width(setup, hidden):
                                rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("hidden", [64, 30, 100])
+@pytest.mark.parametrize("hidden", [64, 30, 100, 1, 128])
 def test_kernel_weights_layout(hidden):
     """The flat vector the policy kernels read (csrc/policy_mlp.cuh): at
     H = 64 the packed tuple transposed and concatenated; at other widths
@@ -285,18 +285,20 @@ def test_cpu_run_counts_no_launch(setup):
     assert tp.policy_rollout.launches == before
 
 
+@pytest.mark.parametrize("batch", [1024, 1000])
 @pytest.mark.parametrize("hidden", [64, 128])
-def test_kernel_matches_plain_on_card(setup, hidden):
+def test_kernel_matches_plain_on_card(setup, hidden, batch):
     """K3 against its plain version on the card, 25 steps through resets:
     rows and record at rtol 2e-4 / atol 2e-5 (the plain version's tanh,
     log and cos are PyTorch's CUDA ops, the kernel's are CUDA's libdevice
     functions), done counts exact; at H = 64 and at the run-time-width
-    instance's H = 128."""
+    instance's H = 128, and at a batch (1000) that leaves the last block's
+    lane groups partly past the last env."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
     env = tq.make_quadrotor(tq.QuadrotorConfig(**{**CFG, "episode_len_sec": 0.2}), device=dev)
-    fp = tp.FastPolicyRollout(env, 1024, 25, mlp_hidden=hidden, device=dev)
+    fp = tp.FastPolicyRollout(env, batch, 25, mlp_hidden=hidden, device=dev)
     rows0 = fp.reset(seed=0)
     ac = (setup["ac"] if hidden == 64 else
           ActorCritic(12, 4, hidden, "tanh", generator=torch.Generator().manual_seed(0))).to(dev)
@@ -308,3 +310,50 @@ def test_kernel_matches_plain_on_card(setup, hidden):
     assert torch.equal(rows[21], rows_p[21]) and rows[21].sum() > 0
     torch.testing.assert_close(rows, rows_p, rtol=2e-4, atol=2e-5)
     torch.testing.assert_close(traj, traj_p, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("batch", [1, 33, 1000, 4096])
+def test_launch_plan_covers_every_env_once(batch):
+    """K3's launch plan stores every env exactly once, from one group inside
+    one warp, at H = 64 and 128 and at each group size the kernel's group
+    code takes."""
+    from tests.test_torch_fast_env import lane_groups
+
+    for hidden in (64, 128):
+        for group in (None, 4, 8, 16):
+            np.testing.assert_array_equal(lane_groups(tp.launch_plan(batch, hidden, group), batch),
+                                          np.arange(batch))
+
+
+@pytest.mark.parametrize("group", [None, 4, 8, 16, 32])
+def test_launch_plan_shared_memory(group):
+    """Each group's row of shared memory holds both nets' hidden layers, and
+    a block's rows fit the card's 232,448 bytes at every width 1..128; the
+    plan raises where the kernel would refuse (a group size other than 4,
+    8, 16 or 32, a width past 128)."""
+    for hidden in range(1, tp.MAX_HIDDEN + 1):
+        G = group or tp.GROUP
+        g, block, _, smem = tp.launch_plan(4096, hidden, group)
+        assert g == G and smem == block // G * tp.group_row(hidden) * 4 <= 232448
+        assert tp.group_row(hidden) >= 4 * hidden and tp.group_row(hidden) % 32 == 4
+    for bad in ((4096, 129, group), (4096, 0, group), (4096, 64, 6)):
+        with pytest.raises(ValueError):
+            tp.launch_plan(*bad)
+
+
+def test_launch_plan_mirrors_cuda_source():
+    """The plan's group size, block and group row are those
+    csrc/quad3d_policy_rollout.cu and csrc/lane_group.cuh were built with,
+    and the entry point refuses other plans, so the wrapper raises first."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(tp.__file__).parents[1] / "csrc"
+    src = (csrc / "quad3d_policy_rollout.cu").read_text()
+    assert int(re.search(r"#define K3_GROUP (\d+)", src).group(1)) == tp.GROUP
+    assert int(re.search(r"constexpr int BLOCK = (\d+);", src).group(1)) >= tp.BLOCK
+    assert "group != K3_GROUP" in src
+    row = re.search(r"mlp_group_row\(int h\) \{ return ([^;]+);",
+                    (csrc / "lane_group.cuh").read_text()).group(1)
+    for h in range(1, tp.MAX_HIDDEN + 1):
+        assert eval(row.replace("/", "//"), {"h": h}) == tp.group_row(h)
