@@ -12,7 +12,11 @@ training on config 4, CartPole stabilization and quad-2D stabilization:
    prints the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions;
 2. holds K1 (``quad3d_substeps``) against its plain PyTorch version at
-   B = 4096 on random states, RK4 and Euler;
+   B = 4096 on random states, RK4 and Euler, and K1's float64 instance
+   against its plain version on the same states in float64 (1e-12); a
+   float64 3D env steps on the card through that instance (one launch a
+   step), within 1e-10 of the same env on the CPU, and a float32 env
+   launches K1's float32 instance;
 3. holds K2 (``quad3d_rollout``) against its plain version at B = 1024 and
    at the ragged B = 1000 (the last block's groups partly past the last
    env) for 25 steps with auto-resets: all rows, done counts exactly;
@@ -42,7 +46,10 @@ training on config 4, CartPole stabilization and quad-2D stabilization:
    (``quad_planar_rollout``, 1D and 2D) and K8
    (``quad_planar_policy_rollout``, 1D and 2D) against their plain versions
    at B = 1024 for 25 steps through auto-resets (K6 and K8 at H = 64 and
-   128), and K5 and K7 against the port's general engine;
+   128; K5 and K7, one env over a group of lanes, also at the ragged
+   B = 1000 and at the batches where their launch plans pick their other
+   group sizes, K7 there with and without action noise), and K5 and K7
+   against the port's general engine;
 9. serves config 2 and config 3 at B = 4096: the general engine
    (``make_cartpole`` / ``make_quadrotor`` + ``make_vec_env`` + ``rollout``)
    for 64 steps, then one K5 call of 8192 steps and one K7 call of 4096
@@ -107,6 +114,19 @@ K5_LAYOUT = dict(exact=[7, 8, 12, 17], done=12, seed=16,
                         ("statistics", slice(9, 16), 2e-4, 1e-5)))
 
 
+# The impulse on the cart of K5's checks.
+IMPULSE_CP = {"dynamics": ({"disturbance_func": "impulse", "magnitude": 0.4, "duration": 4,
+                           "decay_rate": 0.8},)}
+
+
+def plan_batches(groups, lanes):
+    """For each group size but the widest, the largest batch at which a K5
+    or K7 launch plan (``fast_cartpole.plan_group``) picks it, less one, so
+    that the last block is ragged: those instances are checked against the
+    plain versions too."""
+    return [lanes // g - 1 for g in sorted(groups)[:-1]]
+
+
 def k7_layout(nx):
     """K7's rows (fast_quad_planar.rows_layout): state | mass | iyy | step |
     offset | stats(7) | seed | ep."""
@@ -116,10 +136,11 @@ def k7_layout(nx):
                        ("mass and inertia", slice(nx, nx + 2), 1e-6, 0.0),
                        ("statistics", slice(st, st + 7), 2e-4, 1e-5)))
 
-# Data-sheet peaks of an H100 SXM: HBM3 bytes/s
-# and float32 operations/s outside the tensor cores.
+# Data-sheet peaks of an H100 SXM: HBM3 bytes/s, and float32 and float64
+# operations/s outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+PEAK_F64_OPS_S = 34e12
 
 # Operation counts by hand from csrc/quad3d.cuh and csrc/quad3d_rollout.cu.
 # Each transcendental (sin, cos, exp, sqrt) counts as one operation, which
@@ -481,6 +502,63 @@ def phase_k1(dev):
     return errs, (x, thr, ext, m, j)
 
 
+def phase_k1_float64(dev, k1_inputs):
+    """K1's float64 instance, the fidelity path: against its plain version
+    on the card in float64 on phase_k1's random states at B = 4096, RK4 and
+    Euler, within 1e-12 of max(1, |ref|), timed by the profiler; then a
+    float64 3D env (config 4's dynamics, no disturbance, 64 envs, 30 steps
+    near hover) steps on the card through it, one K1 launch a step, and
+    agrees with the same env on the CPU (the plain version); a float32 env
+    launches K1 once a step."""
+    import torch
+
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+    from safe_control_gym_torch.ops import quad_substeps as K1
+
+    args = tuple(a.double() for a in k1_inputs)
+    kw = dict(dt=1 / 240, n_sub=4, actuation=True)
+    out = {"max_abs_err": 0.0}
+    fn = lambda: K1.quad3d_substeps(*args, euler=False, **kw)  # noqa: E731
+    out["ms"] = kernel_device_ms(fn, "quad3d_substeps_kernel", 200)
+    out["plain_ms"] = cuda_ms(lambda: K1.quad3d_substeps_plain(*args, euler=False, **kw), 20)
+    for euler in (False, True):
+        got = K1.quad3d_substeps(*args, euler=euler, **kw)
+        ref = K1.quad3d_substeps_plain(*args, euler=euler, **kw)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        rel = float(((got - ref).abs() / ref.abs().clamp_min(1.0)).max())
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        check(f"K1 float64 {'euler' if euler else 'rk4'} vs plain (B={args[0].shape[0]})",
+              got.dtype == torch.float64 and bool(torch.isfinite(got).all()) and rel <= 1e-12,
+              f"max_abs_err {err:.3g}, max err/max(1,|ref|) {rel:.3g} (tolerance 1e-12)")
+
+    B, T = 64, 30
+    seeds = torch.arange(B, dtype=torch.int32)
+    cfg = cfg4(disturbances=None, dtype=torch.float64)
+    thrust = 0.027 * 9.8 / 4 * (1.0 + 0.05 * np.random.default_rng(7).standard_normal((T, B, 4)))
+    xs = {}
+    for where in ("cpu", dev):
+        env = make_quadrotor(cfg, device=where)
+        state, _, _ = env.reset(seeds)
+        before = K1.quad3d_substeps.launches
+        for t in range(T):
+            state, _, _, _, _ = env.step(state, torch.tensor(thrust[t], dtype=torch.float64))
+        xs[str(where)] = (state.x.cpu(), K1.quad3d_substeps.launches - before)
+    err = max_err(xs["cpu"][0], xs[str(dev)][0])
+    out["env_launches"], out["env_vs_cpu_max_abs_err"] = xs[str(dev)][1], err
+    check("float64 3D env on the card: K1's float64 instance",
+          xs[str(dev)][1] == T and xs["cpu"][0].dtype == torch.float64 and err <= 1e-10,
+          f"K1 launches {xs[str(dev)][1]} in {T} steps, max_abs_err {err:.3g} from the CPU env "
+          "(tolerance 1e-10)")
+    env = make_quadrotor(cfg4(), device=dev)
+    state, _, _ = env.reset(seeds)
+    before = K1.quad3d_substeps.launches
+    env.step(state, torch.full((B, 4), float(env.u_goal[0]), device=dev))
+    check("float32 3D env on the card: K1", K1.quad3d_substeps.launches == before + 1,
+          f"K1 launches {K1.quad3d_substeps.launches - before}")
+    return out
+
+
 def phase_k2(dev):
     import torch
 
@@ -839,22 +917,36 @@ def phase_k5_k6(dev):
     from safe_control_gym_torch.parallel import rollout as R
     from safe_control_gym_torch.parallel.vector import make_vec_env
 
-    res = {}
+    res = {"k5_err": 0.0}
     seed = torch.tensor([7], dtype=torch.int32, device=dev)
     # K5 on config 2 itself, its action white noise included (10-step episodes).
     env = make_cartpole(cfg_cartpole(episode_len_sec=0.2), device=dev)
-    fr = FC.FastCartPoleRollout(env, CHECK_B, CHECK_STEPS, device=dev)
-    rows0, act = fr.reset(seed=0), fr.prepare_action(0.3)
-    out = FC.cartpole_rollout(fr.params, rows0, act, seed)
-    ref = FC.cartpole_rollout_plain(fr.params, rows0, act, seed)
-    torch.cuda.synchronize()
-    res["k5_err"] = check_rows(f"K5 vs plain (config 2, B={CHECK_B}, {CHECK_STEPS} steps)", out,
-                               ref, rows0, K5_LAYOUT)
+    for B in (RAGGED_B, CHECK_B, *plan_batches(FC.GROUPS, FC.PLAN_LANES)):
+        fr = FC.FastCartPoleRollout(env, B, CHECK_STEPS, device=dev)
+        rows0, act = fr.reset(seed=0), fr.prepare_action(0.3)
+        out = FC.cartpole_rollout(fr.params, rows0, act, seed)
+        ref = FC.cartpole_rollout_plain(fr.params, rows0, act, seed)
+        torch.cuda.synchronize()
+        res["k5_err"] = max(res["k5_err"], check_rows(
+            f"K5 vs plain (config 2, B={B}, {CHECK_STEPS} steps)", out, ref, rows0, K5_LAYOUT))
+
+    # K5's other branches: the quadratic cost with goal capture on the
+    # square curve, an impulse on the cart, a constant force.
+    env = make_cartpole(cfg_cartpole(
+        episode_len_sec=0.2, cost="quadratic", disturbances=IMPULSE_CP,
+        task_info={"trajectory_type": "square", "trajectory_plane": "xz"}), device=dev)
+    for B in (RAGGED_B, *plan_batches(FC.GROUPS, FC.PLAN_LANES)):
+        fr = FC.FastCartPoleRollout(env, B, CHECK_STEPS, device=dev)
+        rows0, act = fr.reset(seed=0), fr.prepare_action(0.3)
+        out = FC.cartpole_rollout(fr.params, rows0, act, seed)
+        ref = FC.cartpole_rollout_plain(fr.params, rows0, act, seed)
+        torch.cuda.synchronize()
+        res["k5_err"] = max(res["k5_err"], check_rows(
+            f"K5 vs plain (quadratic, square curve, impulse, B={B}, {CHECK_STEPS} steps)",
+            out, ref, rows0, K5_LAYOUT))
 
     # K5 against the general engine, noise-free with an impulse on the cart.
-    impulse = {"dynamics": ({"disturbance_func": "impulse", "magnitude": 0.4, "duration": 4,
-                             "decay_rate": 0.8},)}
-    env = make_cartpole(cfg_cartpole(episode_len_sec=0.2, disturbances=impulse,
+    env = make_cartpole(cfg_cartpole(episode_len_sec=0.2, disturbances=IMPULSE_CP,
                                      randomized_inertial_prop=True), device=dev)
     fr = FC.FastCartPoleRollout(env, CHECK_B, CHECK_STEPS, device=dev)
     vec = make_vec_env(env, CHECK_B)
@@ -923,14 +1015,49 @@ def phase_k7_k8(dev):
         # K7 with the action white noise and the impulse (10-step episodes).
         env = make_quadrotor(cfg_quad2d(quad_type=qt, episode_len_sec=0.2, disturbances=noisy),
                              device=dev)
-        fr = PQ.FastPlanarQuadRollout(env, CHECK_B, CHECK_STEPS, device=dev)
-        rows0 = fr.reset(seed=0)
-        act = fr.prepare_action(np.full(nu, 1.1 * float(env.u_goal[0]), np.float32))
-        out = PQ.planar_rollout(fr.params, rows0, act, seed)
-        ref = PQ.planar_rollout_plain(fr.params, rows0, act, seed)
-        torch.cuda.synchronize()
-        res["k7_err"] = max(res["k7_err"], check_rows(
-            f"K7 {qt}D vs plain (B={CHECK_B}, {CHECK_STEPS} steps)", out, ref, rows0, lay))
+        for B in (RAGGED_B, CHECK_B, *plan_batches(PQ.GROUPS, PQ.PLAN_LANES)):
+            fr = PQ.FastPlanarQuadRollout(env, B, CHECK_STEPS, device=dev)
+            rows0 = fr.reset(seed=0)
+            act = fr.prepare_action(np.full(nu, 1.1 * float(env.u_goal[0]), np.float32))
+            out = PQ.planar_rollout(fr.params, rows0, act, seed)
+            ref = PQ.planar_rollout_plain(fr.params, rows0, act, seed)
+            torch.cuda.synchronize()
+            res["k7_err"] = max(res["k7_err"], check_rows(
+                f"K7 {qt}D vs plain (B={B}, {CHECK_STEPS} steps)", out, ref, rows0, lay))
+
+        # K7 without action noise, as config 3 runs (impulse only,
+        # randomized mass and inertia, 10-step episodes): the constant
+        # command's forces and body held over steps and made again after
+        # each reset, at every group size.
+        env = make_quadrotor(cfg_quad2d(quad_type=qt, episode_len_sec=0.2, disturbances=impulse),
+                             device=dev)
+        for B in (RAGGED_B, *plan_batches(PQ.GROUPS, PQ.PLAN_LANES)):
+            fr = PQ.FastPlanarQuadRollout(env, B, CHECK_STEPS, device=dev)
+            rows0 = fr.reset(seed=0)
+            act = fr.prepare_action(np.full(nu, 1.1 * float(env.u_goal[0]), np.float32))
+            out = PQ.planar_rollout(fr.params, rows0, act, seed)
+            ref = PQ.planar_rollout_plain(fr.params, rows0, act, seed)
+            torch.cuda.synchronize()
+            res["k7_err"] = max(res["k7_err"], check_rows(
+                f"K7 {qt}D vs plain (no action noise, B={B}, {CHECK_STEPS} steps)", out, ref,
+                rows0, lay))
+
+        # K7's other branches: Euler substeps, the quadratic cost on the
+        # circle, action noise and the impulse.
+        env = make_quadrotor(cfg_quad2d(
+            quad_type=qt, episode_len_sec=0.2, disturbances=noisy, physics="dyn",
+            cost="quadratic", task="traj_tracking",
+            task_info={"trajectory_type": "circle", "trajectory_plane": "xz"}), device=dev)
+        for B in (RAGGED_B, *plan_batches(PQ.GROUPS, PQ.PLAN_LANES)):
+            fr = PQ.FastPlanarQuadRollout(env, B, CHECK_STEPS, device=dev)
+            rows0 = fr.reset(seed=0)
+            act = fr.prepare_action(np.full(nu, 1.1 * float(env.u_goal[0]), np.float32))
+            out = PQ.planar_rollout(fr.params, rows0, act, seed)
+            ref = PQ.planar_rollout_plain(fr.params, rows0, act, seed)
+            torch.cuda.synchronize()
+            res["k7_err"] = max(res["k7_err"], check_rows(
+                f"K7 {qt}D vs plain (Euler, quadratic, circle, B={B}, {CHECK_STEPS} steps)",
+                out, ref, rows0, lay))
 
         # K7 against the general engine, noise-free.
         env = make_quadrotor(cfg_quad2d(quad_type=qt, episode_len_sec=0.2, disturbances=impulse),
@@ -1152,8 +1279,8 @@ def phase_train(dev):
     }
 
 
-def bound(nbytes, ops):
-    t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
+def bound(nbytes, ops, peak_ops_s=PEAK_F32_OPS_S):
+    t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops_s * 1e3
     return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations"}
 
@@ -1201,7 +1328,8 @@ def bounds(res, serve_cp, serve_q2, train):
     k7_step = 4 * (Q2_SUBSTEP_OPS + 4 * Q2_FC_TRANS) + K7_STEP_OPS + K7_STEP_TRANS
     k7_ops = B * Q2_FAST_STEPS * k7_step + serve_q2["resets"] * K7_RESET_OPS
     k8_ops = steps_t * (k7_step + policy_ops(6, 2)) + train["quad2d"]["resets"] * K7_RESET_OPS
-    out = {"k1": bound(k1_bytes, k1_ops), "k2": bound(k2_bytes, k2_ops),
+    out = {"k1": bound(k1_bytes, k1_ops), "k1_f64": bound(2 * k1_bytes, k1_ops, PEAK_F64_OPS_S),
+           "k2": bound(k2_bytes, k2_ops),
            "k3": bound(policy_bytes(27, 12, 4), k3_ops("config4", HIDDEN)),
            "k3_h128": bound(policy_bytes(27, 12, 4, 128), k3_ops("config4_h128", 128)),
            "k5": bound(B * (2 * 18 + 1) * 4, k5_ops), "k6": bound(policy_bytes(18, 4, 1), k6_ops),
@@ -1239,7 +1367,8 @@ def main():
     t_start = time.perf_counter()
 
     build_s, ptxas = phase_build()
-    k1_errs, _ = phase_k1(dev)
+    k1_errs, k1_inputs = phase_k1(dev)
+    k1_f64 = phase_k1_float64(dev, k1_inputs)
     k2_err, env_c, fr_c, rows0, rows_k2 = phase_k2(dev)
     cross_err = phase_cross(dev, env_c, fr_c, rows0, rows_k2)
     res = phase_main(dev)
@@ -1252,8 +1381,10 @@ def main():
     bnd = bounds(res, serve_cp, serve_q2, train)
 
     from safe_control_gym_torch.ops import quad_substeps as K1
+    from safe_control_gym_torch.parallel import fast_cartpole as FC
     from safe_control_gym_torch.parallel import fast_env as F
     from safe_control_gym_torch.parallel import fast_policy as P
+    from safe_control_gym_torch.parallel import fast_quad_planar as PQ
 
     print(f"general engine: {res['general_env_steps_s']:.6g} env-steps/s "
           f"(B={B_MAIN}, {GENERAL_STEPS} steps in {res['general_s']:.4f} s)")
@@ -1269,6 +1400,9 @@ def main():
     print(f"general engine, 32 steps: wall {gp['wall_ms']:.3f} ms, device busy "
           f"{gp['device_ms']:.3f} ms ({gp['busy_share']}), {gp['kernel_launches']} "
           f"kernel launches; top {gp['top']}")
+    print(f"K1 float64 device time {k1_f64['ms'] * 1e3:.4f} us per launch (bound "
+          f"{bnd['k1_f64']['bound_ms'] * 1e3:.4f} us, {bnd['k1_f64']['bound_by']}); plain "
+          f"{k1_f64['plain_ms']:.4f} ms per call")
     print(f"launch counters: K1 {res['k1_launches']}, K2 {res['k2_launches']}")
     print(f"plain versions (no yardstick): K1 {res['k1_plain_ms']:.4f} ms per call, "
           f"K2 {res['k2_plain_ms']:.1f} ms per call of {PLAIN_STEPS} steps")
@@ -1315,7 +1449,8 @@ def main():
     kernels_line = {"kernels": [
         kernel_entry("quad3d_substeps", "quad3d_substeps.cu", "ops/pallas_quad.py:109",
                      res["k1_launches"], max(*k1_errs.values(), res["k1_main_max_abs_err"]),
-                     res["k1_ms"], res["k1_plain_ms"], bnd["k1"], block=K1.BLOCK),
+                     res["k1_ms"], res["k1_plain_ms"], bnd["k1"], block=K1.BLOCK,
+                     float64={**k1_f64, **bnd["k1_f64"]}),
         kernel_entry("quad3d_rollout", "quad3d_rollout.cu", "parallel/fast_env.py:593",
                      res["k2_launches"], max(k2_err, res["k2_main_max_abs_err"]), res["k2_ms"],
                      res["k2_plain_ms"], bnd["k2"], plain_steps=PLAIN_STEPS,
@@ -1333,7 +1468,8 @@ def main():
         kernel_entry("cartpole_rollout", "cartpole_rollout.cu", "parallel/fast_cartpole.py:264",
                      serve_cp["launches"]["k5"], max(small["k5_err"], serve_cp["main_max_abs_err"]),
                      serve_cp["ms"], serve_cp["plain_ms"], bnd["k5"], plain_steps=PLAIN_STEPS,
-                     max_abs_err_vs_general_engine=small["k5_cross_err"]),
+                     max_abs_err_vs_general_engine=small["k5_cross_err"],
+                     group=FC.launch_plan(B_MAIN)[0], block=FC.launch_plan(B_MAIN)[1]),
         kernel_entry("cartpole_policy_rollout", "cartpole_policy_rollout.cu",
                      "parallel/fast_cartpole.py:288", train["cartpole"]["policy_launches"],
                      max(small["k6_err"], train["cartpole"]["main_max_abs_err"]),
@@ -1343,7 +1479,9 @@ def main():
                      "parallel/fast_quad_planar.py:339", serve_q2["launches"]["k7"],
                      max(small["k7_err"], serve_q2["main_max_abs_err"]), serve_q2["ms"],
                      serve_q2["plain_ms"], bnd["k7"], plain_steps=PLAIN_STEPS,
-                     max_abs_err_vs_general_engine=small["k7_cross_err"]),
+                     max_abs_err_vs_general_engine=small["k7_cross_err"],
+                     group={"1D": PQ.launch_plan(B_MAIN, 2)[0], "2D": PQ.launch_plan(B_MAIN, 6)[0]},
+                     block={"1D": PQ.launch_plan(B_MAIN, 2)[1], "2D": PQ.launch_plan(B_MAIN, 6)[1]}),
         kernel_entry("quad_planar_policy_rollout", "quad_planar_policy_rollout.cu",
                      "parallel/fast_quad_planar.py:677", train["quad2d"]["policy_launches"],
                      max(small["k8_err"], train["quad2d"]["main_max_abs_err"]),
@@ -1356,7 +1494,8 @@ def main():
         with open(args.out, "w") as f:
             json.dump({"card": card_line(), "torch": torch.__version__,
                        "cuda": torch.version.cuda, "build_s": build_s, "total_s": total_s,
-                       "k1_max_abs_err": k1_errs, "k2_vs_plain_max_abs_err": k2_err,
+                       "k1_max_abs_err": k1_errs, "k1_float64": k1_f64,
+                       "k2_vs_plain_max_abs_err": k2_err,
                        "k2_vs_general_max_abs_err": cross_err, "bounds": bnd,
                        "k3_vs_plain_max_abs_err": k3_err, "k4": k4, "ptxas": ptxas,
                        "small_checks": small, "serve_cartpole": serve_cp, "serve_quad2d": serve_q2,

@@ -1,7 +1,9 @@
 // Shared device functions of the 3D-quadrotor kernels (K1 quad3d_substeps,
 // K2 quad3d_rollout, K3 quad3d_policy_rollout): the rigid-body derivative,
 // the thrust -> force actuation pipeline, the counter-based reset hash, and
-// the whole-rollout engines' control step (env_step).
+// the whole-rollout engines' control step (env_step).  The actuation, the
+// derivative and the substeps are templates on the scalar type: K2, K3 and
+// K1's float32 instance take float, K1's float64 instance double.
 //
 // Every expression keeps the operand order of the JAX package's Pallas
 // kernels (safe_control_gym_tpu/ops/pallas_quad.py::_fc_rows / _actuate,
@@ -27,55 +29,87 @@ constexpr int NX = 12;  // [x, vx, y, vy, z, vz, phi, theta, psi, p, q, r]
 __device__ __forceinline__ float maxp(float a, float b) { return (a > b || a != a) ? a : b; }
 __device__ __forceinline__ float minp(float a, float b) { return (a < b || a != a) ? a : b; }
 __device__ __forceinline__ float clipf(float a, float lo, float hi) { return minp(maxp(a, lo), hi); }
+__device__ __forceinline__ double maxp(double a, double b) { return (a > b || a != a) ? a : b; }
+__device__ __forceinline__ double minp(double a, double b) { return (a < b || a != a) ? a : b; }
+__device__ __forceinline__ double clipf(double a, double lo, double hi) { return minp(maxp(a, lo), hi); }
+
+// The float and double forms of the accurate math functions, so that one
+// template serves both scalar types.
+__device__ __forceinline__ float sin_t(float a) { return sinf(a); }
+__device__ __forceinline__ float cos_t(float a) { return cosf(a); }
+__device__ __forceinline__ float sqrt_t(float a) { return sqrtf(a); }
+__device__ __forceinline__ double sin_t(double a) { return sin(a); }
+__device__ __forceinline__ double cos_t(double a) { return cos(a); }
+__device__ __forceinline__ double sqrt_t(double a) { return sqrt(a); }
+
+// The motor constants in the scalar type T (the float ones are those
+// above; the double ones are the same decimals, as the plain version's
+// Python constants are).
+template <typename T>
+struct Motor;
+template <>
+struct Motor<float> {
+  static constexpr float kf = KF, scale = PWM2RPM_SCALE, offset = PWM2RPM_CONST, lo = MIN_PWM,
+                         hi = MAX_PWM;
+};
+template <>
+struct Motor<double> {
+  static constexpr double kf = 3.16e-10, scale = 0.2685, offset = 4070.3, lo = 20000.0, hi = 65535.0;
+};
 
 // Per-motor thrust command -> realized force: cmd2pwm -> clip -> pwm2rpm ->
 // rpm^2 * KF (pallas_quad.py:98-106).
-__device__ __forceinline__ float actuate(float t) {
-  float pwm = (sqrtf(maxp(t, 0.0f) / KF) - PWM2RPM_CONST) / PWM2RPM_SCALE;
-  pwm = clipf(pwm, MIN_PWM, MAX_PWM);
-  float rpm = PWM2RPM_SCALE * pwm + PWM2RPM_CONST;
-  return rpm * rpm * KF;
+template <typename T>
+__device__ __forceinline__ T actuate(T t) {
+  using M = Motor<T>;
+  T pwm = (sqrt_t(maxp(t, T(0)) / M::kf) - M::offset) / M::scale;
+  pwm = clipf(pwm, M::lo, M::hi);
+  T rpm = M::scale * pwm + M::offset;
+  return rpm * rpm * M::kf;
 }
 
 // Rigid-body physics constants and per-env parameters of one control step.
-struct Body {
-  float f[4];    // per-motor forces
-  float ext[3];  // world-frame external force
-  float minv;    // 1 / mass
-  float j[3];    // inertia diagonal
-  float g, l_sq2, km_over_kf;
+template <typename T>
+struct BodyT {
+  T f[4];    // per-motor forces
+  T ext[3];  // world-frame external force
+  T minv;    // 1 / mass
+  T j[3];    // inertia diagonal
+  T g, l_sq2, km_over_kf;
 };
+using Body = BodyT<float>;
 
 // x' = fc(x): the closed form of pallas_quad.py:49-91 (SDFormat Euler
 // angles, body rates, world-frame velocity).
-__device__ __forceinline__ void fc(const float* s, const Body& b, float* d) {
-  const float vx = s[1], vy = s[3], vz = s[5];
-  const float phi = s[6], theta = s[7], psi = s[8];
-  const float p = s[9], q = s[10], r = s[11];
-  const float f1 = b.f[0], f2 = b.f[1], f3 = b.f[2], f4 = b.f[3];
+template <typename T>
+__device__ __forceinline__ void fc(const T* s, const BodyT<T>& b, T* d) {
+  const T vx = s[1], vy = s[3], vz = s[5];
+  const T phi = s[6], theta = s[7], psi = s[8];
+  const T p = s[9], q = s[10], r = s[11];
+  const T f1 = b.f[0], f2 = b.f[1], f3 = b.f[2], f4 = b.f[3];
 
-  const float T = f1 + f2 + f3 + f4;
-  const float cphi = cosf(phi), sphi = sinf(phi);
-  const float cth = cosf(theta), sth = sinf(theta);
-  const float cpsi = cosf(psi), spsi = sinf(psi);
+  const T tsum = f1 + f2 + f3 + f4;
+  const T cphi = cos_t(phi), sphi = sin_t(phi);
+  const T cth = cos_t(theta), sth = sin_t(theta);
+  const T cpsi = cos_t(psi), spsi = sin_t(psi);
   // Thrust direction = body z-axis in the world frame.
-  const float zb_x = cpsi * sth * cphi + spsi * sphi;
-  const float zb_y = spsi * sth * cphi - cpsi * sphi;
-  const float zb_z = cth * cphi;
-  const float ax = (zb_x * T + b.ext[0]) * b.minv;
-  const float ay = (zb_y * T + b.ext[1]) * b.minv;
-  const float az = (zb_z * T + b.ext[2]) * b.minv - b.g;
+  const T zb_x = cpsi * sth * cphi + spsi * sphi;
+  const T zb_y = spsi * sth * cphi - cpsi * sphi;
+  const T zb_z = cth * cphi;
+  const T ax = (zb_x * tsum + b.ext[0]) * b.minv;
+  const T ay = (zb_y * tsum + b.ext[1]) * b.minv;
+  const T az = (zb_z * tsum + b.ext[2]) * b.minv - b.g;
 
-  const float mx = b.l_sq2 * (f1 + f2 - f3 - f4);
-  const float my = b.l_sq2 * (-f1 + f2 + f3 - f4);
-  const float mz = b.km_over_kf * (f1 - f2 + f3 - f4);
-  const float jx = b.j[0], jy = b.j[1], jz = b.j[2];
+  const T mx = b.l_sq2 * (f1 + f2 - f3 - f4);
+  const T my = b.l_sq2 * (-f1 + f2 + f3 - f4);
+  const T mz = b.km_over_kf * (f1 - f2 + f3 - f4);
+  const T jx = b.j[0], jy = b.j[1], jz = b.j[2];
   // Gyroscopic term pqr x (J pqr).
-  const float gx = q * (jz * r) - r * (jy * q);
-  const float gy = r * (jx * p) - p * (jz * r);
-  const float gz = p * (jy * q) - q * (jx * p);
+  const T gx = q * (jz * r) - r * (jy * q);
+  const T gy = r * (jx * p) - p * (jz * r);
+  const T gz = p * (jy * q) - q * (jx * p);
 
-  const float tth = sth / cth;
+  const T tth = sth / cth;
   d[0] = vx;
   d[1] = ax;
   d[2] = vy;
@@ -92,9 +126,10 @@ __device__ __forceinline__ void fc(const float* s, const Body& b, float* d) {
 
 // One control step's n_sub substeps, RK4 or explicit Euler, in place
 // (pallas_quad.py:126-137).
-__device__ __forceinline__ void substeps(float* s, const Body& b, int n_sub, int euler,
-                                         float dt, float dt_half, float dt_sixth) {
-  float k1[NX], k2[NX], k3[NX], k4[NX], t[NX];
+template <typename T>
+__device__ __forceinline__ void substeps(T* s, const BodyT<T>& b, int n_sub, int euler, T dt,
+                                         T dt_half, T dt_sixth) {
+  T k1[NX], k2[NX], k3[NX], k4[NX], t[NX];
   for (int n = 0; n < n_sub; ++n) {
     if (euler) {
       fc(s, b, k1);
@@ -113,7 +148,7 @@ __device__ __forceinline__ void substeps(float* s, const Body& b, int n_sub, int
       fc(t, b, k4);
 #pragma unroll
       for (int i = 0; i < NX; ++i)
-        s[i] = s[i] + dt_sixth * (k1[i] + 2.0f * k2[i] + 2.0f * k3[i] + k4[i]);
+        s[i] = s[i] + dt_sixth * (k1[i] + T(2) * k2[i] + T(2) * k3[i] + k4[i]);
     }
   }
 }

@@ -21,26 +21,33 @@
 // The (B, 12) state rows are read as each thread's 48 contiguous bytes: a
 // warp's 12 loads together cover its 1.5 KB span, so every sector fetched
 // is used.
+//
+// Float64: the same template on double (quad3d_substeps_f64) serves the
+// fidelity path, a float64 env on the card.  Its every operation is one
+// IEEE double operation in the plain version's order (-fmad=false, the
+// accurate double sin, cos, sqrt and division), so it agrees with the plain
+// version and the NumPy oracle to ~1e-15, where float32 would not.
 #include <cuda_runtime.h>
 
 #include "quad3d.cuh"
 
 namespace {
 
-__global__ void quad3d_substeps_kernel(const float* __restrict__ x, const float* __restrict__ thrust,
-                                       const float* __restrict__ ext, const float* __restrict__ mass,
-                                       const float* __restrict__ jdiag, float* __restrict__ out, int B,
-                                       float dt, float dt_half, float dt_sixth, int n_sub, int euler,
-                                       float g, float l_sq2, float km_over_kf, int actuation) {
+template <typename T>
+__global__ void quad3d_substeps_kernel(const T* __restrict__ x, const T* __restrict__ thrust,
+                                       const T* __restrict__ ext, const T* __restrict__ mass,
+                                       const T* __restrict__ jdiag, T* __restrict__ out, int B,
+                                       T dt, T dt_half, T dt_sixth, int n_sub, int euler, T g,
+                                       T l_sq2, T km_over_kf, int actuation) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= B) return;
-  float s[scg::NX];
+  T s[scg::NX];
 #pragma unroll
   for (int i = 0; i < scg::NX; ++i) s[i] = x[e * scg::NX + i];
-  scg::Body b;
+  scg::BodyT<T> b;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float t = thrust[e * 4 + i];
+    const T t = thrust[e * 4 + i];
     b.f[i] = actuation ? scg::actuate(t) : t;
   }
 #pragma unroll
@@ -48,7 +55,7 @@ __global__ void quad3d_substeps_kernel(const float* __restrict__ x, const float*
     b.ext[i] = ext[e * 3 + i];
     b.j[i] = jdiag[e * 3 + i];
   }
-  b.minv = 1.0f / mass[e];
+  b.minv = T(1) / mass[e];
   b.g = g;
   b.l_sq2 = l_sq2;
   b.km_over_kf = km_over_kf;
@@ -57,17 +64,34 @@ __global__ void quad3d_substeps_kernel(const float* __restrict__ x, const float*
   for (int i = 0; i < scg::NX; ++i) out[e * scg::NX + i] = s[i];
 }
 
+template <typename T>
+int launch(const void* x, const void* thrust, const void* ext, const void* mass, const void* jdiag,
+           void* out, int B, T dt, T dt_half, T dt_sixth, int n_sub, int euler, T g, T l_sq2,
+           T km_over_kf, int actuation, int block, void* stream) {
+  const int grid = (B + block - 1) / block;
+  quad3d_substeps_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(thrust), static_cast<const T*>(ext),
+      static_cast<const T*>(mass), static_cast<const T*>(jdiag), static_cast<T*>(out), B, dt,
+      dt_half, dt_sixth, n_sub, euler, g, l_sq2, km_over_kf, actuation);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int quad3d_substeps(const void* x, const void* thrust, const void* ext, const void* mass,
                                const void* jdiag, void* out, int B, float dt, float dt_half,
                                float dt_sixth, int n_sub, int euler, float g, float l_sq2,
                                float km_over_kf, int actuation, int block, void* stream) {
-  const int grid = (B + block - 1) / block;
-  quad3d_substeps_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(thrust),
-      static_cast<const float*>(ext), static_cast<const float*>(mass),
-      static_cast<const float*>(jdiag), static_cast<float*>(out), B, dt, dt_half, dt_sixth,
-      n_sub, euler, g, l_sq2, km_over_kf, actuation);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(x, thrust, ext, mass, jdiag, out, B, dt, dt_half, dt_sixth, n_sub, euler, g,
+                       l_sq2, km_over_kf, actuation, block, stream);
+}
+
+// The float64 instance: the same arguments, the scalars in double.
+extern "C" int quad3d_substeps_f64(const void* x, const void* thrust, const void* ext,
+                                   const void* mass, const void* jdiag, void* out, int B, double dt,
+                                   double dt_half, double dt_sixth, int n_sub, int euler, double g,
+                                   double l_sq2, double km_over_kf, int actuation, int block,
+                                   void* stream) {
+  return launch<double>(x, thrust, ext, mass, jdiag, out, B, dt, dt_half, dt_sixth, n_sub, euler,
+                        g, l_sq2, km_over_kf, actuation, block, stream);
 }

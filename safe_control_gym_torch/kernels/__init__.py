@@ -39,11 +39,15 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     # x, thrust, ext, mass, j, out, B, dt, dt_half, dt_sixth, n_sub, euler,
     # g, l_sq2, km_over_kf, actuation, block, stream
     "quad3d_substeps": [_P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _I,
                         _F, _F, _F, _I, _I, _P],
+    # the same in float64: the scalars are doubles
+    "quad3d_substeps_f64": [_P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _I,
+                            _D, _D, _D, _I, _I, _P],
     # params (host struct pointer), rows_in, action, rows_out, B, then the
     # launch plan (fast_env.launch_plan: group, block, grid), stream
     "quad3d_rollout": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -60,13 +64,17 @@ _SIGNATURES = {
     # partial, out, stream
     "ppo_grads": [_P, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P],
     "ppo_grads_api_version": [],
-    # params, seed, rows_in, action, rows_out, B, block, stream
-    "cartpole_rollout": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # params, seed, rows_in, action, rows_out, B, then the launch plan
+    # (fast_cartpole.launch_plan: group, block, grid), stream
+    "cartpole_rollout": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cartpole_rollout_api_version": [],
     "cartpole_params_size": [],
     # params, relu, hidden, seed, wflat, rows_in, rows_out, traj, B, stream
     "cartpole_policy_rollout": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
-    # params, nx, seed, rows_in, action, rows_out, B, block, stream
-    "quad_planar_rollout": [_P, _I, _P, _P, _P, _P, _I, _I, _P],
+    # params, nx, seed, rows_in, action, rows_out, B, then the launch plan
+    # (fast_quad_planar.launch_plan: group, block, grid), stream
+    "quad_planar_rollout": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "quad_planar_rollout_api_version": [],
     "quad_planar_params_size": [],
     # params, nx, relu, hidden, seed, wflat, rows_in, rows_out, traj, B, stream
     "quad_planar_policy_rollout": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],

@@ -2,7 +2,9 @@
 
 Port of ``safe_control_gym_tpu/ops/pallas_quad.py`` (TPU kernel
 ``_substeps_kernel``).  :func:`quad3d_substeps` launches the CUDA kernel
-``csrc/quad3d_substeps.cu`` for CUDA float32 tensors and takes the plain
+``csrc/quad3d_substeps.cu`` for CUDA float32 tensors, and its float64
+instance for CUDA float64 tensors (the fidelity path, which the JAX package
+sends to its XLA chain, ``pallas_quad.py:228-242``), and takes the plain
 PyTorch version :func:`quad3d_substeps_plain` for CPU tensors; anything else
 raises.  The plain version repeats the kernel's arithmetic op for op on
 per-component ``(B,)`` rows; it is the CPU path and the kernel's yardstick
@@ -142,7 +144,9 @@ def quad3d_substeps(x, thrust, ext, mass, j_diag, *, dt, n_sub, euler=False,
     """K1: actuation (if ``actuation``) then ``n_sub`` substeps for a batch.
 
     CPU tensors take :func:`quad3d_substeps_plain`; CUDA float32 tensors
-    launch ``csrc/quad3d_substeps.cu``; anything else raises."""
+    launch ``csrc/quad3d_substeps.cu`` and CUDA float64 tensors its float64
+    instance (``quad3d_substeps_f64``, scalars passed in double); anything
+    else raises."""
     args = (x, thrust, ext, mass, j_diag)
     if all(a.device.type == "cpu" for a in args):
         return quad3d_substeps_plain(
@@ -150,24 +154,30 @@ def quad3d_substeps(x, thrust, ext, mass, j_diag, *, dt, n_sub, euler=False,
             arm_l=arm_l, km_over_kf=km_over_kf, actuation=actuation)
     B = x.shape[0]
     shapes = ((B, NX), (B, 4), (B, 3), (B,), (B, 3))
+    dtype = x.dtype
     for a, shp in zip(args, shapes):
-        if a.device != x.device or a.device.type != "cuda" or a.dtype != torch.float32 \
-                or tuple(a.shape) != shp:
+        if a.device != x.device or a.device.type != "cuda" or a.dtype != dtype \
+                or dtype not in (torch.float32, torch.float64) or tuple(a.shape) != shp:
             raise ValueError(
-                "quad3d_substeps takes float32 tensors on one CUDA device with shapes "
-                f"{shapes}; got {[(tuple(t.shape), t.dtype, str(t.device)) for t in args]}")
+                "quad3d_substeps takes float32 or float64 tensors of one dtype on one CUDA "
+                f"device with shapes {shapes}; "
+                f"got {[(tuple(t.shape), t.dtype, str(t.device)) for t in args]}")
     from safe_control_gym_torch import kernels
 
     args = tuple(a.contiguous() for a in args)
     out = torch.empty_like(args[0])
     if B == 0:
         return out
-    code = kernels.lib().quad3d_substeps(
+    if dtype == torch.float32:
+        entry, name, cast = kernels.lib().quad3d_substeps, "quad3d_substeps", _f32
+    else:
+        entry, name, cast = kernels.lib().quad3d_substeps_f64, "quad3d_substeps_f64", float
+    code = entry(
         *(a.data_ptr() for a in args), out.data_ptr(), B,
-        _f32(dt), _f32(dt / 2), _f32(dt / 6), int(n_sub), int(bool(euler)),
-        _f32(g), _f32(arm_l / (2.0**0.5)), _f32(km_over_kf), int(bool(actuation)),
+        cast(dt), cast(dt / 2), cast(dt / 6), int(n_sub), int(bool(euler)),
+        cast(g), cast(arm_l / (2.0**0.5)), cast(km_over_kf), int(bool(actuation)),
         BLOCK, kernels.stream_ptr(x.device))
-    kernels.check(code, "quad3d_substeps")
+    kernels.check(code, name)
     quad3d_substeps.launches += 1
     return out
 

@@ -25,7 +25,8 @@ Step noise: the TPU kernels draw from the TPU core PRNG; here the action
 white noise comes from Philox (``ops/philox.py``) keyed on the call's seed
 and counted by (env, step, block, call site 1), so it matches the JAX
 package and the general engine in distribution only.  Outside the envelope
-(``supports``): observation white noise and the goal-horizon observation.
+(``supports``): the goal-horizon observation, and observation white noise in
+K6 (K5 never reads the observation, so it admits the channel).
 """
 
 from __future__ import annotations
@@ -58,14 +59,44 @@ _EXACT_ROWS = [_R_STEP, _R_OFFSET, _R_STATS + 3, _R_EP]  # step, offset, done co
 # rew/done/trunc/v/logp | terminal obs 4 (fast_policy.unpack_record).
 TRAJ_ROWS = 14
 
-BLOCK = 64  # threads per block, as K2
+# K5's launch (csrc/cartpole_rollout.cu): one env over a group of lanes of a
+# warp (csrc/lane_group_planar.cuh), 32 envs a block.  GROUPS: the group sizes the source builds.  A group pays where
+# one thread per env leaves the card's issue slots idle and loses where its
+# lanes' repeated work fills them, so the plan takes the widest group whose
+# B x G lanes stay within PLAN_LANES (on an H100 the fastest group at
+# B = 4096, 8192, 16384, 32768 and 65536: PERF.md).
+GROUPS = (1, 2, 4)
+PLAN_LANES = 32768
+
+
+def plan_group(B: int, lanes: int = PLAN_LANES, groups=GROUPS) -> int:
+    """The widest of ``groups`` whose B x G lanes stay within ``lanes``
+    (the narrowest where none does)."""
+    fit = [g for g in groups if B * g <= lanes]
+    return max(fit) if fit else min(groups)
+
+
+def launch_plan(B: int, group: int | None = None):
+    """K5's launch for B envs: (lanes per env, threads per block, blocks).
+    Each env is one group of ``group`` lanes (:func:`plan_group` where
+    None) inside a warp, 32 envs a block; the lanes of the last block's
+    groups past env B - 1 run env B - 1 and store nothing.  The kernel
+    refuses a group size it was not built with."""
+    g = plan_group(B) if group is None else group
+    if g not in GROUPS:
+        raise ValueError(f"K5 is built for groups of {GROUPS} lanes, not {g}")
+    return g, 32 * g, -(-B // 32)
 
 
 def supports(cfg, allow_normalized: bool = False) -> bool:
     """True if the CartPole config is in the whole-rollout engines'
-    envelope: the JAX package's (fast_cartpole.py:56) without observation
-    white noise.  ``allow_normalized``: the policy engine maps the
-    normalized action space in-kernel."""
+    envelope: the JAX package's (fast_cartpole.py:56).
+    ``allow_normalized`` asks for the policy
+    engine's envelope: it maps the normalized action space in-kernel and
+    refuses observation white noise, which it does not draw yet.  The
+    constant-action engine (the default) admits a single scalar observation
+    white noise, as the JAX package's does: it never reads the observation,
+    so its rows do not change."""
     ti = {**C._DEFAULT_TASK_INFO, **(cfg.task_info or {})}
     has_d, fl = FE.dist_envelope_flags(cfg)
     return (
@@ -77,7 +108,7 @@ def supports(cfg, allow_normalized: bool = False) -> bool:
         and int(cfg.obs_goal_horizon) == 0
         and (not has_d["dynamics"] or fl["impulse"])
         and (not has_d["action"] or fl["act_noise"])
-        and not has_d["observation"]
+        and (not has_d["observation"] or (not allow_normalized and fl["obs_noise"]))
         and cfg.adversary_disturbance is None
         and not cfg.done_on_violation
         and not cfg.use_constraint_penalty
@@ -87,7 +118,7 @@ def supports(cfg, allow_normalized: bool = False) -> bool:
 
 def build_engine_params(env, steps_per_call: int, allow_normalized: bool = False) -> dict:
     """Static engine-parameter dict from a CartPole env (the JAX package's
-    keys, fast_cartpole.py:380-506)."""
+    keys, fast_cartpole.py:380-506).  The flags are :func:`supports`'."""
     cfg = env.config
     if not supports(cfg, allow_normalized=allow_normalized):
         raise ValueError("config outside the fast-cartpole envelope (supports())")
@@ -475,7 +506,7 @@ def cartpole_rollout(p, rows, action, seed):
     lib = kernels.lib()
     check_params_size(lib, "cartpole", params)
     code = lib.cartpole_rollout(ctypes.addressof(params), seed.data_ptr(), rows.data_ptr(),
-                                action.data_ptr(), out.data_ptr(), B, BLOCK,
+                                action.data_ptr(), out.data_ptr(), B, *launch_plan(B),
                                 kernels.stream_ptr(dev))
     kernels.check(code, "cartpole_rollout")
     cartpole_rollout.launches += 1

@@ -14,11 +14,14 @@ used in arithmetic.  Reset draws come from the counter stream both engines
 share (``ops/ctr_prng.py``), so this engine and the general engine
 (``envs/quadrotor.py`` + ``parallel/vector.py``) agree through auto-resets.
 
-Outside the envelope (``supports``): action and observation white noise,
-the uniform dynamics force, the goal-horizon observation and the maze are
-not supported yet.  The normalized RL action space is the policy engine's
+Outside the envelope (``supports``): action white noise, the uniform
+dynamics force, the goal-horizon observation and the maze are not supported
+yet.  The normalized RL action space is the policy engine's
 (``parallel/fast_policy.py``, ``allow_normalized=True``): a constant-action
-call has no policy output to map.
+call has no policy output to map.  Observation white noise (one scalar std)
+is the constant-action engine's: it never reads the observation, so the
+rows do not change; the policy engine, which would have to draw it, refuses
+it.
 
 :func:`step_rows` is the plain version of the control step both kernels
 share (``scg::env_step`` in ``csrc/quad3d.cuh``).
@@ -119,10 +122,13 @@ def dist_envelope_flags(cfg):
 def supports(cfg, allow_normalized: bool = False, allow_maze: bool = False) -> bool:
     """True if the config is in the whole-rollout engines' envelope.
 
-    ``allow_normalized``: the policy engine (``fast_policy.py``) maps the
-    normalized RL action space to thrust in-kernel; the constant-action
-    engine does not.  The maze envelope (``allow_maze``) is not ported yet
-    and raises."""
+    ``allow_normalized`` asks for the policy engine's (``fast_policy.py``)
+    envelope: it maps the normalized RL action space to thrust in-kernel,
+    and it refuses observation white noise, which it does not draw yet.  The
+    constant-action engine (the default) admits a single scalar observation
+    white noise, as the JAX package's does: it never reads the observation,
+    so its rows do not change.  The maze envelope (``allow_maze``) is not
+    ported yet and raises."""
     if allow_maze:
         raise NotImplementedError("the maze envelope is not ported yet")
     ti = {**Q._DEFAULT_TASK_INFO, **(cfg.task_info or {})}
@@ -140,8 +146,8 @@ def supports(cfg, allow_normalized: bool = False, allow_maze: bool = False) -> b
              or (cfg.task == "traj_tracking"
                  and ti.get("trajectory_type") in ("figure8", "circle", "square")))
         and int(cfg.obs_goal_horizon) == 0
-        # Step-noise channels need the in-kernel Philox stream.
-        and not has_d["observation"]
+        and (not has_d["observation"] or (not allow_normalized and fl["obs_noise"]))
+        # Action noise needs the in-kernel Philox stream of the maze branch.
         and not has_d["action"]
         and (not has_d["dynamics"] or fl["impulse"])
         and cfg.adversary_disturbance is None
@@ -186,7 +192,8 @@ def constraint_box(env, nx: int, nu: int):
 
 def build_engine_params(env, steps_per_call: int, allow_normalized: bool = False) -> dict:
     """Static engine-parameter dict from an env (the JAX package's keys for
-    this envelope; Python floats, rounded to float32 where used)."""
+    this envelope; Python floats, rounded to float32 where used).  The
+    flags are :func:`supports`'."""
     cfg = env.config
     if not supports(cfg, allow_normalized=allow_normalized):
         raise ValueError("config outside the whole-rollout engine's envelope (supports())")

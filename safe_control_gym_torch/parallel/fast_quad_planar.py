@@ -24,8 +24,9 @@ anything else raises.  State rows ``(nx + 13, B)`` at the JAX row indices
 (:func:`rows_layout`): 15 for 1D, 19 for 2D.  The record has
 ``2 nx + nu + 5`` rows: 10 in 1D, 19 in 2D.
 
-Outside the envelope (``supports``): observation white noise and the
-goal-horizon observation rows of the TPU policy kernel (``goal_ext_rows``).
+Outside the envelope (``supports``): the goal-horizon observation rows of
+the TPU policy kernel (``goal_ext_rows``), and observation white noise in K8
+(K7 never reads the observation, so it admits the channel).
 """
 
 from __future__ import annotations
@@ -45,7 +46,27 @@ from safe_control_gym_torch.parallel import fast_env as FE
 from safe_control_gym_torch.parallel import fast_policy as FP
 from safe_control_gym_torch.utils.device import resolve_device
 
-BLOCK = 64  # threads per block, as K2
+# K7's launch (csrc/quad_planar_rollout.cu): one env over a group of lanes of
+# a warp (csrc/lane_group_planar.cuh), 32 envs a block.  GROUPS: the group sizes the source builds for either quad type;
+# the plan takes the widest whose B x G lanes stay within PLAN_LANES
+# (fast_cartpole.plan_group; on an H100 the fastest group within 4% at
+# B = 4096 to 65536 for both quad types: PERF.md).
+GROUPS = (1, 2, 4)
+PLAN_LANES = 16384
+
+
+def launch_plan(B: int, nx: int, group: int | None = None):
+    """K7's launch for B envs of the quad type with ``nx`` states: (lanes
+    per env, threads per block, blocks).  Each env is one group of ``group``
+    lanes (chosen by B where None) inside a warp, 32 envs a block; the
+    lanes of the last block's groups past env B - 1 run env B - 1 and store
+    nothing.  The kernel refuses a group size it was not built with."""
+    if nx not in (2, 6):
+        raise ValueError(f"K7 takes the 1D (nx 2) or 2D (nx 6) quad, not nx {nx}")
+    g = FC.plan_group(B, PLAN_LANES, GROUPS) if group is None else group
+    if g not in GROUPS:
+        raise ValueError(f"K7 is built for groups of {GROUPS} lanes, not {g}")
+    return g, 32 * g, -(-B // 32)
 
 
 def nx_nu(quad_type):
@@ -68,8 +89,13 @@ def exact_rows(nx: int):
 
 def supports(cfg, allow_normalized: bool = False) -> bool:
     """True if the 1D/2D quadrotor config is in the whole-rollout engines'
-    envelope: the JAX package's (fast_quad_planar.py:54) without
-    observation white noise and the goal-horizon observation."""
+    envelope: the JAX package's (fast_quad_planar.py:54) without the
+    goal-horizon observation.  ``allow_normalized`` asks for the policy
+    engine's envelope: it maps the normalized action space in-kernel and
+    refuses observation white noise, which it does not draw yet.  The
+    constant-action engine (the default) admits a single scalar observation
+    white noise, as the JAX package's does: it never reads the observation,
+    so its rows do not change."""
     if int(cfg.quad_type) not in (1, 2):
         return False
     nx, nu = nx_nu(cfg.quad_type)
@@ -88,7 +114,7 @@ def supports(cfg, allow_normalized: bool = False) -> bool:
         and int(cfg.obs_goal_horizon) == 0
         and (not has_d["dynamics"] or fl["impulse"])
         and (not has_d["action"] or fl["act_noise"])
-        and not has_d["observation"]
+        and (not has_d["observation"] or (not allow_normalized and fl["obs_noise"]))
         and cfg.adversary_disturbance is None
         and not (cfg.gates or cfg.obstacles)
         and not cfg.done_on_violation
@@ -101,7 +127,8 @@ def supports(cfg, allow_normalized: bool = False) -> bool:
 
 def build_engine_params(env, steps_per_call: int, allow_normalized: bool = False) -> dict:
     """Static engine-parameter dict from a 1D/2D quadrotor env (the JAX
-    package's keys, fast_quad_planar.py:363-534)."""
+    package's keys, fast_quad_planar.py:363-534).  The flags are
+    :func:`supports`'."""
     cfg = env.config
     if not supports(cfg, allow_normalized=allow_normalized):
         raise ValueError("config outside the fast-planar-quad envelope (supports())")
@@ -469,7 +496,7 @@ def planar_rollout(p, rows, action, seed):
     lib = kernels.lib()
     FC.check_params_size(lib, "quad_planar", params)
     code = lib.quad_planar_rollout(ctypes.addressof(params), nx, seed.data_ptr(), rows.data_ptr(),
-                                   action.data_ptr(), out.data_ptr(), B, BLOCK,
+                                   action.data_ptr(), out.data_ptr(), B, *launch_plan(B, nx),
                                    kernels.stream_ptr(dev))
     kernels.check(code, "quad_planar_rollout")
     planar_rollout.launches += 1

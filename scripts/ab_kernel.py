@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Time K2, K3 or K4 built from several source trees in one run.
+"""Time K2, K3, K4, K5 or K7 built from several source trees in one run.
 
 Builds the kernel's source (``quad3d_rollout.cu`` for K2,
-``quad3d_policy_rollout.cu`` for K3, ``ppo_update.cu`` for K4) of each
+``quad3d_policy_rollout.cu`` for K3, ``ppo_update.cu`` for K4,
+``cartpole_rollout.cu`` for K5, ``quad_planar_rollout.cu`` for K7) of each
 other ``csrc`` directory (for example the parent commit's, unpacked with
 ``git archive <commit> safe_control_gym_torch/csrc``) into a library of
-its own, beside this tree's kernel library.  All run on the same input,
-BASELINE config 4: K2 one call of 8192 hover steps and K3 one call of 128
-policy steps (the rl_train shapes, the normalized action space, weights
-from a fixed seed, hidden width ``--hidden``) at ``--batch`` envs (4096)
-from rows that have already run two calls; K4 one minibatch of 131072
-samples at H = 64 (``chip_smoke.k4_inputs``).  ``--steps`` sets another
-number of steps a call for K2 and K3.  Each round runs the others, this
-tree twice, then the others in reverse (other, this, this, other for one
-other tree); each call is timed alone with CUDA events.  K2 and K3 must
-leave the same rows (and K3 the same record) bit for bit; K4's builds may
+its own, beside this tree's kernel library.  All run on the same input:
+BASELINE config 4 for K2 (one call of 8192 hover steps) and K3 (one call of
+128 policy steps: the rl_train shapes, the normalized action space, weights
+from a fixed seed, hidden width ``--hidden``), config 2 for K5 (one call of
+8192 steps of a zero force under the config's action white noise) and
+config 3 for K7 (one call of 4096 hover steps; ``--quad-type 1`` the 1D
+quad on the same config), at ``--batch`` envs (4096) from rows that have
+already run two calls; K4 one minibatch of 131072 samples at H = 64
+(``chip_smoke.k4_inputs``).  ``--steps`` sets another number of steps a
+call for K2, K3, K5 and K7.  Each round runs the others, this tree twice,
+then the others in reverse (other, this, this, other for one other tree);
+each call is timed alone with CUDA events.  K2, K3, K5 and K7 must leave the
+same rows (and K3 the same record) bit for bit; K4's builds may
 sum in other orders (the kernel before the redesign has no FMA), so each
 build must repeat its own gradients bit for bit and the largest difference
 from the first other tree's is reported.  Prints each call's time, the
@@ -24,19 +28,20 @@ SM clock ``nvidia-smi`` read during the rounds, and the card as
 instruction count (``cuobjdump``) and its loops (each backward branch and
 the instructions it spans), from which instructions per step are read.
 
-K2's and K3's entry points before the lane-group redesign take no launch
-plan; the script tells them apart by ``quad3d_rollout_api_version`` and
-``quad3d_policy_rollout_api_version``, as it tells K4's by
-``ppo_grads_api_version``.  ``--group NAME=G`` launches the tree NAME
-(``this`` or an other's name) with G lanes per env, where its build has
-that instance; else each tree takes its wrapper's plan.
+K2's, K3's, K5's and K7's entry points before their lane-group redesigns
+take no launch plan; the script tells them apart by
+``quad3d_rollout_api_version``, ``quad3d_policy_rollout_api_version``,
+``cartpole_rollout_api_version`` and ``quad_planar_rollout_api_version``,
+as it tells K4's by ``ppo_grads_api_version``.  ``--group NAME=G`` launches
+the tree NAME (``this`` or an other's name) with G lanes per env, where its
+build has that instance; else each tree takes its wrapper's plan.
 
-    python3 scripts/ab_kernel.py --kernel k2|k3|k4 --other NAME=DIR [--other NAME=DIR ...]
-        [--batch 4096] [--steps N] [--hidden 64] [--group NAME=G ...]
+    python3 scripts/ab_kernel.py --kernel k2|k3|k4|k5|k7 --other NAME=DIR [--other NAME=DIR ...]
+        [--batch 4096] [--steps N] [--hidden 64] [--quad-type 2] [--group NAME=G ...]
         [--rounds 5] [--sass-dir DIR] [--out results.json]
 
-Needs one CUDA card, ``nvcc`` and, for K2 and K3, the same ``RolloutParams``
-size in every tree (checked).
+Needs one CUDA card, ``nvcc`` and, for K2, K3, K5 and K7, the same
+parameter-struct size in every tree (checked).
 """
 
 from __future__ import annotations
@@ -60,20 +65,29 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = {"k2": ("quad3d_rollout.cu", "quad3d_rollout", "quad3d_rollout_kernel"),
            "k3": ("quad3d_policy_rollout.cu", "quad3d_policy_rollout",
                   "quad3d_policy_rollout_kernel"),
-           "k4": ("ppo_update.cu", "ppo_grads", "ppo_grads_kernel")}
-STEPS = {"k2": 8192, "k3": 128, "k4": 131072}  # K4: samples of the minibatch
+           "k4": ("ppo_update.cu", "ppo_grads", "ppo_grads_kernel"),
+           "k5": ("cartpole_rollout.cu", "cartpole_rollout", "cartpole_rollout_kernel"),
+           "k7": ("quad_planar_rollout.cu", "quad_planar_rollout", "quad_planar_rollout_kernel")}
+STEPS = {"k2": 8192, "k3": 128, "k4": 131072, "k5": 8192, "k7": 4096}  # K4: samples
+# The entry point that reports the size of a rollout kernel's parameter struct.
+PARAMS_SIZE = {"k2": "quad3d_rollout_params_size", "k3": "quad3d_rollout_params_size",
+               "k5": "cartpole_params_size", "k7": "quad_planar_params_size"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # K4's entry points before the redesign (no ppo_grads_api_version): nx, nu,
 # H, mb, *ng, *nblk, *smem_bytes; and nx, nu, H, mb, relu, clip_lo, clip_hi,
 # inv_n, mb_ptr, wflat, partial, out, nblk, smem_bytes, stream.
 K4_V1 = {"ppo_grads_plan": [_I, _I, _I, _I, _P, _P, _P],
          "ppo_grads": [_I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _I, _I, _P]}
-# K2's and K3's entry points before the redesign (one thread per env):
-# params, rows_in, action, rows_out, B, block, stream; and params,
+# K2's, K3's, K5's and K7's entry points before their redesigns (one thread
+# per env): params, rows_in, action, rows_out, B, block, stream; params,
 # normalized, relu, norm_act_scale, hover_thrust, hidden, seed, wflat,
-# rows_in, rows_out, traj, B, stream.
+# rows_in, rows_out, traj, B, stream; params, seed, rows_in, action,
+# rows_out, B, block, stream; and params, nx, seed, rows_in, action,
+# rows_out, B, block, stream.
 ROLLOUT_V1 = {"quad3d_rollout": [_P, _P, _P, _P, _I, _I, _P],
-              "quad3d_policy_rollout": [_P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P, _I, _P]}
+              "quad3d_policy_rollout": [_P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P, _I, _P],
+              "cartpole_rollout": [_P, _P, _P, _P, _P, _I, _I, _P],
+              "quad_planar_rollout": [_P, _I, _P, _P, _P, _P, _I, _I, _P]}
 
 
 def api(lib, entry) -> int:
@@ -130,7 +144,7 @@ def build_others(kernel: str, trees: dict, out_dir) -> dict:
         else:
             sigs = kernels._SIGNATURES if api(lib, entry) == 2 else ROLLOUT_V1
             sigs = {**kernels._SIGNATURES, entry: sigs[entry]}
-            entries = (entry, "quad3d_rollout_params_size")
+            entries = (entry, PARAMS_SIZE[kernel])
         for fn in entries:
             getattr(lib, fn).argtypes = sigs[fn]
             getattr(lib, fn).restype = ctypes.c_int
@@ -138,26 +152,30 @@ def build_others(kernel: str, trees: dict, out_dir) -> dict:
     return out
 
 
-def prefer(kernel, hidden) -> str:
+def prefer(kernel, hidden, nx, nu, group) -> list:
     """Mangled template arguments that begin the name of the instance the
-    main path runs: K2's first (a build holds one group size), K3's at
-    H = 64 or else its run-time-width instance (H = 0), K4's at R = 2 with
-    its weights in shared memory.  A kernel that is no template (K2 before
-    the lane-group redesign) has one instance."""
-    return {"k2": "ILi", "k3": f"ILi{64 if hidden == 64 else 0}E", "k4": "ILi2ELb1E"}[kernel]
+    main path runs, the most specific first: K2's first (a build holds one
+    group size), K3's at H = 64 or else its run-time-width instance
+    (H = 0), K4's at R = 2 with its weights in shared memory, K5's at the
+    group size ``group``, K7's at (nx, nu) and ``group``.  A kernel that is
+    no template (K2 and K5 before their redesigns) has one instance."""
+    return {"k2": ["ILi"], "k3": [f"ILi{64 if hidden == 64 else 0}E"], "k4": ["ILi2ELb1E"],
+            "k5": [f"ILi{group}E"],
+            "k7": [f"ILi{nx}ELi{nu}ELi{group}E", f"ILi{nx}ELi{nu}E"]}[kernel]
 
 
-def sass_count(path, kname, pref, out_file) -> dict:
+def sass_count(path, kname, prefs, out_file) -> dict:
     """Write the SASS of the kernel ``kname`` in ``path`` (the instance
-    whose name goes on with ``pref`` where there is one) to ``out_file``;
-    return its number of instructions and its loops (each backward branch:
-    from, to, instructions spanned), the widest first."""
+    whose name goes on with the first of ``prefs`` that one has) to
+    ``out_file``; return its number of instructions, its convergence
+    regions (``BSSY``) and its loops (each backward branch: from, to,
+    instructions spanned), the widest first."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
                           check=True).stdout
     funcs = re.split(r"\n\s*Function : ", text)
     names = [f.splitlines()[0] for f in funcs[1:]]
-    want = next((n for n in names if kname + pref in n), kname)
+    want = next((n for pref in prefs for n in names if kname + pref in n), kname)
     body = next(f for f, n in zip(funcs[1:], names) if want in n)
     with open(out_file, "w") as f:
         f.write(body)
@@ -169,7 +187,8 @@ def sass_count(path, kname, pref, out_file) -> dict:
         if m and int(m.group(1), 16) <= a and int(m.group(1), 16) in index:
             loops.append((hex(a), m.group(1), i - index[int(m.group(1), 16)] + 1))
     loops.sort(key=lambda r: -r[2])
-    return {"instance": want, "instructions": len(ins), "loops": loops[:8]}
+    return {"instance": want, "instructions": len(ins),
+            "bssy": sum(1 for _, t in ins if t.startswith("BSSY")), "loops": loops[:8]}
 
 
 def k4_launch(dev, stream):
@@ -216,11 +235,12 @@ def k4_launch(dev, stream):
     return launch
 
 
-def inputs(kernel, dev, B, steps, hidden):
+def inputs(kernel, dev, B, steps, hidden, quad_type):
     """The kernel's input at the main path's shapes (B envs, ``steps``
-    steps a call, K3 at width ``hidden``) and a function that launches a
-    library's build of it with ``group`` lanes per env (None: the wrapper's
-    plan), returning (ms, outputs)."""
+    steps a call, K3 at width ``hidden``, K7 on the quad type
+    ``quad_type``) and a function that launches a library's build of it
+    with ``group`` lanes per env (None: the wrapper's plan), returning (ms,
+    outputs)."""
     import torch
 
     from chip_smoke import cfg4, seeded_ac
@@ -232,6 +252,8 @@ def inputs(kernel, dev, B, steps, hidden):
     stream = kernels.stream_ptr(dev)
     if kernel == "k4":
         launch = k4_launch(dev, stream)
+    elif kernel in ("k5", "k7"):
+        launch = planar_launch(kernel, dev, B, steps, quad_type, stream)
     elif kernel == "k2":
         env = make_quadrotor(cfg4(), device=dev)
         fr = F.FastQuadRollout(env, B, steps_per_call=steps, device=dev)
@@ -284,6 +306,60 @@ def inputs(kernel, dev, B, steps, hidden):
     return call
 
 
+def planar_launch(kernel, dev, B, steps, quad_type, stream):
+    """K5 on config 2 (a zero force under its action white noise) or K7 on
+    config 3 (hover thrust, quad type ``quad_type``), from rows that have
+    run two calls, and a launch of any library's build through the entry
+    point of its API version."""
+    import torch
+
+    from chip_smoke import cfg_cartpole, cfg_quad2d
+    from safe_control_gym_torch.envs.cartpole import make_cartpole
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+    from safe_control_gym_torch.parallel import fast_cartpole as FC
+    from safe_control_gym_torch.parallel import fast_quad_planar as PQ
+
+    if kernel == "k5":
+        fr = FC.FastCartPoleRollout(make_cartpole(cfg_cartpole(), device=dev), B,
+                                    steps_per_call=steps, device=dev)
+        act = fr.prepare_action(0.0)
+        params, entry, nx_arg, plan = FC.kernel_params(fr.params), "cartpole_rollout", (), \
+            (lambda g: FC.launch_plan(B, g))
+    else:
+        env = make_quadrotor(cfg_quad2d(quad_type=quad_type), device=dev)
+        fr = PQ.FastPlanarQuadRollout(env, B, steps_per_call=steps, device=dev)
+        act = fr.prepare_action(np.full(fr.nu, float(env.u_goal[0]), np.float32))
+        params, entry, nx_arg = PQ.kernel_params(fr.params), "quad_planar_rollout", (fr.nx,)
+        plan = lambda g: PQ.launch_plan(B, fr.nx, g)  # noqa: E731
+    rows_in = fr.run(fr.run(fr.reset(seed=0), act, seed=1), act, seed=2)
+    seed = torch.tensor([3], dtype=torch.int32, device=dev)
+
+    def launch(lib, group):
+        out = torch.empty_like(rows_in)
+        args = (ctypes.addressof(params), *nx_arg, seed.data_ptr(), rows_in.data_ptr(),
+                act.data_ptr(), out.data_ptr(), B)
+        if api(lib, entry) == 1:
+            code = getattr(lib, entry)(*args, 64, stream)
+        else:
+            code = getattr(lib, entry)(*args, *plan(group), stream)
+        return code, (out,)
+
+    return launch
+
+
+def default_group(kernel, nx, B):
+    """The group size of the wrapper's plan at B envs for K5 and K7 (the
+    instance whose SASS is dumped), None for the others."""
+    from safe_control_gym_torch.parallel import fast_cartpole as FC
+    from safe_control_gym_torch.parallel import fast_quad_planar as PQ
+
+    if kernel == "k5":
+        return FC.launch_plan(B)[0]
+    if kernel == "k7":
+        return PQ.launch_plan(B, nx)[0]
+    return None
+
+
 def sm_clock_sampler():
     """Start ``nvidia-smi`` sampling the SM clock (MHz) every 100 ms; the
     returned function stops it and gives the samples."""
@@ -306,6 +382,8 @@ def main():
     ap.add_argument("--batch", type=int, default=4096, help="envs of a K2 or K3 call")
     ap.add_argument("--steps", type=int, help="steps of a K2 or K3 call (default: the main path's)")
     ap.add_argument("--hidden", type=int, default=64, help="K3's hidden width")
+    ap.add_argument("--quad-type", type=int, choices=(1, 2), default=2,
+                    help="K7's quad type (config 3 is the 2D quad)")
     ap.add_argument("--group", action="append", default=[], metavar="NAME=G",
                     help="lanes per env for the tree NAME's K2 or K3 launch")
     ap.add_argument("--rounds", type=int, default=5)
@@ -338,17 +416,19 @@ def main():
                     .split(f"== {src}")[1].split("==")[0].splitlines()
                     if "registers" in line or "spill" in line]
     if kernel != "k4":
-        sizes = {k: lib.quad3d_rollout_params_size() for k, lib in libs.items()}
+        sizes = {k: getattr(lib, PARAMS_SIZE[kernel])() for k, lib in libs.items()}
         if len(set(sizes.values())) != 1:
-            raise RuntimeError(f"RolloutParams differ in size between the trees: {sizes}")
+            raise RuntimeError(f"parameter structs differ in size between the trees: {sizes}")
+    nx, nu = {1: (2, 1), 2: (6, 2)}[args.quad_type]
     sass = {}
     if args.sass_dir:
         os.makedirs(args.sass_dir, exist_ok=True)
-        sass = {k: sass_count(p, kname, prefer(kernel, args.hidden),
+        sass = {k: sass_count(p, kname, prefer(kernel, args.hidden, nx, nu,
+                                               groups.get(k) or default_group(kernel, nx, B)),
                               os.path.join(args.sass_dir, f"{kernel}_{k}.sass"))
                 for k, p in paths.items()}
 
-    call = inputs(kernel, dev, B, steps, args.hidden)
+    call = inputs(kernel, dev, B, steps, args.hidden, args.quad_type)
 
     def equal(a, b):
         return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
@@ -372,7 +452,8 @@ def main():
     med = {k: statistics.median(v) for k, v in ms.items()}
     base = med[others[0]]
     res = {"card": card_line(), "kernel": kernel, "B": B, "steps": steps,
-           "hidden": args.hidden if kernel == "k3" else None, "groups": groups,
+           "hidden": args.hidden if kernel == "k3" else None,
+           "quad_type": args.quad_type if kernel == "k7" else None, "groups": groups,
            "rounds": args.rounds, "order": order, "ms": ms, "median_ms": med,
            "over_first_other": {k: v / base for k, v in med.items()},
            "sm_clock_mhz": {"median": statistics.median(clocks) if clocks else None,
@@ -384,6 +465,7 @@ def main():
     for k in libs:
         print(f"{kernel.upper()} {k}: median {med[k]:.4f} ms per call of {steps} steps at B={B}"
               + (f", H={args.hidden}" if kernel == "k3" else "")
+              + (f", {args.quad_type}D" if kernel == "k7" else "")
               + (f", G={groups[k]}" if k in groups else "")
               + f" ({med[k] / base:.4f} of {others[0]}); bit-equal {same[k]}; max_abs_err "
               f"{err[k]:.3g} from {others[0]}; SASS {sass.get(k, 'not dumped')}; {regs[k]}; "

@@ -30,6 +30,7 @@ from safe_control_gym_tpu.envs import cartpole as jc
 from safe_control_gym_tpu.ops import ctr_prng as jp
 from safe_control_gym_tpu.parallel import fast_cartpole as jf
 from safe_control_gym_tpu.parallel.vector import make_vec_env as j_make_vec_env
+from test_torch_fast_env import lane_groups  # csrc/lane_group_planar.cuh maps threads alike
 
 B, T, SEED = 128, 8, 3
 BOX = ({"constraint_form": "default_constraint", "constrained_variable": "state"},
@@ -44,6 +45,7 @@ CFG2 = dict(ctrl_freq=50, pyb_freq=50, episode_len_sec=10, task="traj_tracking",
             disturbances={"action": ({"disturbance_func": "white_noise", "std": 0.2},)})
 IMPULSE = {"dynamics": ({"disturbance_func": "impulse", "magnitude": 0.4, "duration": 4,
                          "decay_rate": 0.8},)}
+OBS_NOISE = {"observation": ({"disturbance_func": "white_noise", "std": 0.1},)}
 # Noise-free configs for the step-exact comparisons.
 _K5_VARIANTS = {
     "config1_short_episodes": (dict(CFG1, episode_len_sec=0.3), 1.5),
@@ -73,7 +75,8 @@ def test_supports_envelope():
     assert tf.supports(tc.CartPoleConfig(**dict(CFG1, disturbances=IMPULSE)))
     bad = [dict(adversary_disturbance="dynamics"), dict(obs_goal_horizon=2),
            dict(done_on_violation=True), dict(normalized_rl_action_space=True),
-           dict(disturbances={"observation": ({"disturbance_func": "white_noise", "std": 0.1},)}),
+           dict(disturbances={"observation": ({"disturbance_func": "white_noise",
+                                                "std": [0.1, 0.1, 0.1, 0.1]},)}),
            dict(constraints=({"constraint_form": "linear_constraint",
                               "constrained_variable": "state", "A": [[1.0, 0, 1, 0]],
                               "b": [1.0]},))]
@@ -81,6 +84,33 @@ def test_supports_envelope():
         assert not tf.supports(tc.CartPoleConfig(**{**CFG1, **kw})), kw
     assert tf.supports(tc.CartPoleConfig(**CFG1, normalized_rl_action_space=True),
                        allow_normalized=True)
+    # Scalar observation white noise: K5 admits it, K6 (allow_normalized=True) does not.
+    noisy = tc.CartPoleConfig(**CFG1, disturbances=OBS_NOISE)
+    assert tf.supports(noisy)
+    assert not tf.supports(noisy, allow_normalized=True)
+
+
+def test_obs_noise_leaves_k5_rows_unchanged():
+    """Config 2 with and without scalar observation white noise: K5 never
+    reads the observation, so the plain rows are bit-equal after 25 steps
+    through resets and action noise."""
+    rows = []
+    for dist in (CFG2["disturbances"], {**CFG2["disturbances"], **OBS_NOISE}):
+        env = tc.make_cartpole(tc.CartPoleConfig(**dict(CFG2, episode_len_sec=0.2,
+                                                        disturbances=dist)), device="cpu")
+        fr = tf.FastCartPoleRollout(env, B, steps_per_call=25, device="cpu")
+        rows.append(fr.run(fr.reset(seed=0), 0.5, seed=7))
+    assert float(rows[0][tf._R_STATS + 3].sum()) > 0
+    assert torch.equal(rows[0].view(torch.int32), rows[1].view(torch.int32))
+
+
+def test_k6_refuses_obs_noise():
+    """K6 feeds the observation to the policy: it keeps refusing the
+    channel until it draws it in-kernel."""
+    env = tc.make_cartpole(tc.CartPoleConfig(**CFG1, normalized_rl_action_space=True,
+                                             disturbances=OBS_NOISE), device="cpu")
+    with pytest.raises(ValueError, match="envelope"):
+        tf.FastCartPolePolicyRollout(env, 8, 2, device="cpu")
 
 
 def test_engine_params_and_reset_rows_match_jax():
@@ -393,3 +423,41 @@ def test_engine_takes_config2_and_refuses_the_goal_horizon():
     horizon = tc.make_cartpole(tc.CartPoleConfig(**{**CFG2, "obs_goal_horizon": 1}), device="cpu")
     with pytest.raises(ValueError):
         tf.build_engine_params(horizon, 3)
+
+
+@pytest.mark.parametrize("batch", [1, 33, 1000, 4096, 16384])
+def test_launch_plan_covers_every_env_once(batch):
+    """K5's launch plan stores every env exactly once, from one group inside
+    one warp, at the group the plan picks and at each the source builds."""
+    for group in (None, *tf.GROUPS):
+        np.testing.assert_array_equal(lane_groups(tf.launch_plan(batch, group), batch),
+                                      np.arange(batch))
+    with pytest.raises(ValueError):
+        tf.launch_plan(batch, 3)
+
+
+def test_launch_plan_group_fits_the_lane_budget():
+    """The plan takes the widest built group whose B x G lanes stay within
+    PLAN_LANES: 4 lanes an env at the main path's B = 4096, one thread an
+    env at B = 65536."""
+    for B in (1, 1000, 4096, 5000, 8192, 16384, 65536):
+        g = tf.launch_plan(B)[0]
+        assert B * g <= tf.PLAN_LANES or g == min(tf.GROUPS), B
+        assert all(B * h > tf.PLAN_LANES for h in tf.GROUPS if h > g), B
+    assert tf.launch_plan(4096)[0] == 4 and tf.launch_plan(65536)[0] == 1
+
+
+def test_launch_plan_mirrors_cuda_source():
+    """The plan's group sizes are the instances csrc/cartpole_rollout.cu
+    builds, its blocks fit the source's launch bound, and the entry point
+    that takes the plan reports API version 2 (scripts/ab_kernel.py tells
+    the one-thread entry point apart by it)."""
+    src = (Path(tf.__file__).parents[1] / "csrc" / "cartpole_rollout.cu").read_text()
+    built = re.findall(r"if \(group == (\d+)\) return launch<(\d+)>", src)
+    assert all(a == b for a, b in built) and sorted(int(a) for a, _ in built) == list(tf.GROUPS)
+    block = int(re.search(r"constexpr int BLOCK = (\d+);", src).group(1))
+    assert all(tf.launch_plan(4096, g)[1] <= block for g in tf.GROUPS)
+    assert re.search(r"cartpole_rollout_api_version\(\) \{ return 2; \}", src)
+    from safe_control_gym_torch import kernels
+
+    assert len(kernels._SIGNATURES["cartpole_rollout"]) == 10  # ..., B, group, block, grid, stream

@@ -32,6 +32,7 @@ CFG4 = dict(
                                 "duration": 10, "decay_rate": 0.8},)},
     done_on_out_of_bound=True,
 )
+OBS_NOISE = {"observation": ({"disturbance_func": "white_noise", "std": 0.1},)}
 _STATE_ROWS = slice(0, 12)
 _EXACT_ROWS = [16, 17, 21, 26]  # step, offset, done count, episode index
 
@@ -52,7 +53,9 @@ def test_supports_envelope():
     assert tf.supports(ok)
     bad = [dict(quad_type=2), dict(cost="competition"), dict(normalized_rl_action_space=True),
            dict(done_on_collision=True),
-           dict(disturbances={"observation": ({"disturbance_func": "white_noise", "std": 0.1},)}),
+           dict(disturbances={"observation": ({"disturbance_func": "white_noise", "std": 0.1},
+                                              {"disturbance_func": "white_noise", "std": 0.1})}),
+           dict(disturbances={"action": ({"disturbance_func": "white_noise", "std": 0.1},)}),
            dict(disturbances={"dynamics": ({"disturbance_func": "uniform"},)}),
            dict(gates=((0.5, -1.0, 0, 0, 0, 0, 0),))]
     for kw in bad:
@@ -62,6 +65,25 @@ def test_supports_envelope():
     has, flags = tf.dist_envelope_flags(ok)
     jhas, jflags = jf.dist_envelope_flags(jq.QuadrotorConfig(**CFG4))
     assert (has, flags) == (jhas, jflags)
+    # Scalar observation white noise: K2 admits it, as the JAX K2 does; the
+    # policy engine (allow_normalized=True) does not.
+    dist = {**CFG4["disturbances"], **OBS_NOISE}
+    noisy = tq.QuadrotorConfig(**{**CFG4, "disturbances": dist})
+    assert tf.supports(noisy) and jf.supports(jq.QuadrotorConfig(**{**CFG4, "disturbances": dist}))
+    assert not tf.supports(noisy, allow_normalized=True)
+
+
+def test_obs_noise_leaves_k2_rows_unchanged():
+    """Config 4 with and without scalar observation white noise: K2 never
+    reads the observation, so the plain rows are bit-equal after 25 steps
+    through resets."""
+    rows = []
+    for dist in (CFG4["disturbances"], {**CFG4["disturbances"], **OBS_NOISE}):
+        _, tenv = _envs(episode_len_sec=0.2, disturbances=dist)
+        fr = tf.FastQuadRollout(tenv, 64, steps_per_call=25, device="cpu")
+        rows.append(fr.run(fr.reset(seed=0), np.full(4, float(tenv.u_goal[0]))))
+    assert float(rows[0][21].sum()) > 0
+    assert torch.equal(rows[0].view(torch.int32), rows[1].view(torch.int32))
 
 
 def test_engine_params_and_reset_rows_match_jax():

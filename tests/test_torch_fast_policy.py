@@ -259,6 +259,17 @@ def test_philox_uniform_statistics():
     assert float((u[0] == u[4]).double().mean()) < 0.01
 
 
+def test_k3_refuses_obs_noise():
+    """K3 feeds the observation to the policy: it keeps refusing scalar
+    observation white noise, which K2 admits, until it draws the channel
+    in-kernel."""
+    noisy = dataclasses.replace(tq.QuadrotorConfig(**CFG), disturbances={
+        **CFG["disturbances"],
+        "observation": ({"disturbance_func": "white_noise", "std": 0.01},)})
+    with pytest.raises(ValueError, match="envelope"):
+        tp.FastPolicyRollout(tq.make_quadrotor(noisy, device="cpu"), 8, 2, device="cpu")
+
+
 def test_supports_normalized_envelope():
     cfg = tq.QuadrotorConfig(**CFG)
     assert tf.supports(cfg, allow_normalized=True) and not tf.supports(cfg)

@@ -6,6 +6,9 @@ through auto-resets; the CUDA kernels against the plain versions on a card.
 Noise-free configs for the step-exact comparisons; the JAX side of the K8
 checks is handed the port's recorded observations and actions."""
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +27,7 @@ from safe_control_gym_tpu.envs import quadrotor as jq
 from safe_control_gym_tpu.ops import ctr_prng as jp
 from safe_control_gym_tpu.parallel import fast_quad_planar as jf
 from safe_control_gym_tpu.parallel.vector import make_vec_env as j_make_vec_env
+from test_torch_fast_env import lane_groups  # csrc/lane_group_planar.cuh maps threads alike
 
 B, T, SEED = 128, 8, 3
 BOX = ({"constraint_form": "default_constraint", "constrained_variable": "state"},)
@@ -33,6 +37,7 @@ CFG3 = dict(quad_type=2, ctrl_freq=50, pyb_freq=200, episode_len_sec=10, task="s
             done_on_out_of_bound=True)
 IMPULSE = {"dynamics": ({"disturbance_func": "impulse", "magnitude": 0.02, "duration": 4,
                          "decay_rate": 0.8},)}
+OBS_NOISE = {"observation": ({"disturbance_func": "white_noise", "std": 0.1},)}
 _K7_VARIANTS = {
     "config3_short_episodes": (dict(CFG3, episode_len_sec=0.3), 1.1),
     "2d_euler_impulse_input_box": (dict(CFG3, physics="dyn", disturbances=IMPULSE, constraints=BOX + (
@@ -63,11 +68,44 @@ def test_supports_envelope():
     bad = [dict(quad_type=3), dict(obs_goal_horizon=2), dict(physics="pyb_gnd"),
            dict(normalized_rl_action_space=True), dict(done_on_collision=True),
            dict(rew_act_weight=[1e-4, 2e-4]),
-           dict(disturbances={"observation": ({"disturbance_func": "white_noise", "std": 0.1},)})]
+           dict(disturbances={"observation": ({"disturbance_func": "white_noise", "std": 0.1,
+                                                "mask": [1, 0, 1, 0, 1, 0]},)})]
     for kw in bad:
         assert not tf.supports(tq.QuadrotorConfig(**{**CFG3, **kw})), kw
     assert tf.supports(tq.QuadrotorConfig(**CFG3, normalized_rl_action_space=True),
                        allow_normalized=True)
+    # Scalar observation white noise: K7 admits it, K8 (allow_normalized=True) does not.
+    noisy = tq.QuadrotorConfig(**CFG3, disturbances=OBS_NOISE)
+    assert tf.supports(noisy)
+    assert not tf.supports(noisy, allow_normalized=True)
+
+
+@pytest.mark.parametrize("quad_type", [1, 2])
+def test_obs_noise_leaves_k7_rows_unchanged(quad_type):
+    """Config 3 (and the 1D quad) with action noise, with and without
+    scalar observation white noise: K7 never reads the observation, so the
+    plain rows are bit-equal after 25 steps through resets."""
+    act_noise = {"action": ({"disturbance_func": "white_noise", "std": 0.001},)}
+    rows = []
+    for dist in (act_noise, {**act_noise, **OBS_NOISE}):
+        env = tq.make_quadrotor(tq.QuadrotorConfig(**dict(
+            CFG3, quad_type=quad_type, episode_len_sec=0.2, disturbances=dist)), device="cpu")
+        fr = tf.FastPlanarQuadRollout(env, B, steps_per_call=25, device="cpu")
+        act = fr.prepare_action(np.full(fr.params["nu"], float(env.u_goal[0]), np.float32))
+        rows.append(fr.run(fr.reset(seed=0), act, seed=7))
+    assert float(rows[0][tf.exact_rows(fr.params["nx"])].sum()) > 0
+    assert torch.equal(rows[0].view(torch.int32), rows[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("quad_type", [1, 2])
+def test_k8_refuses_obs_noise(quad_type):
+    """K8 feeds the observation to the policy: it keeps refusing the
+    channel until it draws it in-kernel."""
+    env = tq.make_quadrotor(tq.QuadrotorConfig(**dict(
+        CFG3, quad_type=quad_type, normalized_rl_action_space=True, disturbances=OBS_NOISE)),
+        device="cpu")
+    with pytest.raises(ValueError, match="envelope"):
+        tf.FastPlanarQuadPolicyRollout(env, 8, 2, device="cpu")
 
 
 @pytest.mark.parametrize("quad_type", [1, 2])
@@ -327,3 +365,37 @@ def test_kernels_match_plain_on_card(policy_setup, hidden):
     rows_p, traj_p = tf.planar_policy_rollout_plain(fp.params, rows0, w, seed)
     torch.testing.assert_close(rows, rows_p, rtol=2e-4, atol=2e-5)
     torch.testing.assert_close(traj, traj_p, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("batch", [1, 33, 1000, 4096, 16384])
+@pytest.mark.parametrize("nx", [2, 6])
+def test_launch_plan_covers_every_env_once(batch, nx):
+    """K7's launch plan for each quad type stores every env exactly once,
+    from one group inside one warp, at the group the plan picks and at each
+    the source builds."""
+    for group in (None, *tf.GROUPS):
+        np.testing.assert_array_equal(lane_groups(tf.launch_plan(batch, nx, group), batch),
+                                      np.arange(batch))
+    assert tf.launch_plan(batch, nx)[0] == tf.FC.plan_group(batch, tf.PLAN_LANES, tf.GROUPS)
+    with pytest.raises(ValueError):
+        tf.launch_plan(batch, nx, 3)
+    with pytest.raises(ValueError):
+        tf.launch_plan(batch, 12)
+
+
+def test_launch_plan_mirrors_cuda_source():
+    """Each quad type's group sizes are the instances
+    csrc/quad_planar_rollout.cu builds, its blocks fit the source's launch
+    bound, and the entry point that takes the plan reports API version 2
+    (scripts/ab_kernel.py tells the one-thread entry point apart by it)."""
+    src = (Path(tf.__file__).parents[1] / "csrc" / "quad_planar_rollout.cu").read_text()
+    built = re.findall(r"nx == (\d+) && group == (\d+)\) return launch<(\d+), \d+, (\d+)>", src)
+    assert all(a == c and b == d for a, b, c, d in built)
+    assert sorted((int(a), int(b)) for a, b, _, _ in built) == \
+        [(nx, g) for nx in (2, 6) for g in tf.GROUPS]
+    block = int(re.search(r"constexpr int BLOCK = (\d+);", src).group(1))
+    assert all(tf.launch_plan(4096, 6, g)[1] <= block for g in tf.GROUPS)
+    assert re.search(r"quad_planar_rollout_api_version\(\) \{ return 2; \}", src)
+    from safe_control_gym_torch import kernels
+
+    assert len(kernels._SIGNATURES["quad_planar_rollout"]) == 11  # ..., group, block, grid, stream
