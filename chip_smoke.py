@@ -45,11 +45,12 @@ training on config 4, CartPole stabilization and quad-2D stabilization:
 8. holds K5 (``cartpole_rollout``) and K6 (``cartpole_policy_rollout``), K7
    (``quad_planar_rollout``, 1D and 2D) and K8
    (``quad_planar_policy_rollout``, 1D and 2D) against their plain versions
-   at B = 1024 for 25 steps through auto-resets (K6 and K8 at H = 64 and
-   128; K5 and K7, one env over a group of lanes, also at the ragged
-   B = 1000 and at the batches where their launch plans pick their other
-   group sizes, K7 there with and without action noise), and K5 and K7
-   against the port's general engine;
+   at B = 1024 for 25 steps through auto-resets (all four, one env over a
+   group of lanes, also at the ragged B = 1000 and at the batches where
+   their launch plans pick their other group sizes, K7 there with and
+   without action noise; K6 and K8 at H = 64 and 128, at every group they
+   are built for, on the rl configs and on the circle with action white
+   noise and an impulse), and K5 and K7 against the port's general engine;
 9. serves config 2 and config 3 at B = 4096: the general engine
    (``make_cartpole`` / ``make_quadrotor`` + ``make_vec_env`` + ``rollout``)
    for 64 steps, then one K5 call of 8192 steps and one K7 call of 4096
@@ -114,16 +115,20 @@ K5_LAYOUT = dict(exact=[7, 8, 12, 17], done=12, seed=16,
                         ("statistics", slice(9, 16), 2e-4, 1e-5)))
 
 
-# The impulse on the cart of K5's checks.
+# The impulse on the cart of K5's and K6's checks, config 2's action white
+# noise, and the circle K6 and K8 track in theirs.
 IMPULSE_CP = {"dynamics": ({"disturbance_func": "impulse", "magnitude": 0.4, "duration": 4,
                            "decay_rate": 0.8},)}
+ACT_NOISE_CP = {"action": ({"disturbance_func": "white_noise", "std": 0.2},)}
+TRACK_CIRCLE = dict(task="traj_tracking",
+                    task_info={"trajectory_type": "circle", "trajectory_plane": "xz"})
 
 
 def plan_batches(groups, lanes):
-    """For each group size but the widest, the largest batch at which a K5
-    or K7 launch plan (``fast_cartpole.plan_group``) picks it, less one, so
-    that the last block is ragged: those instances are checked against the
-    plain versions too."""
+    """For each group size but the widest, the largest batch at which a K5,
+    K6, K7 or K8 launch plan (``fast_cartpole.plan_group``) picks it, less
+    one, so that the last block is ragged: those instances are checked
+    against the plain versions too."""
     return [lanes // g - 1 for g in sorted(groups)[:-1]]
 
 
@@ -764,9 +769,11 @@ def check_record(tag, rows, traj, rows_p, traj_p, rows_in, layout, nx, nu):
 POLICY_WIDTHS = (HIDDEN, 128)
 
 
-def check_policy(tag, fp, kernel, plain, layout, nx, nu, hidden):
+def check_policy(tag, fp, kernel, plain, layout, nx, nu, hidden, group=None):
     """A policy kernel against its plain version at ``fp``'s batch over
-    CHECK_STEPS steps from fresh rows, weights of width ``hidden``."""
+    CHECK_STEPS steps from fresh rows, weights of width ``hidden``, with
+    ``group`` lanes per env where the kernel takes a group (None: its
+    plan's)."""
     import torch
 
     from safe_control_gym_torch.parallel import fast_policy as P
@@ -775,11 +782,26 @@ def check_policy(tag, fp, kernel, plain, layout, nx, nu, hidden):
     ac = seeded_ac(rows0.device, nx=nx, nu=nu, hidden=hidden)
     w = P.pack_weights(ac.actor, ac.critic, ac.logstd)
     seed = torch.tensor([7], dtype=torch.int32, device=rows0.device)
-    rows, traj = kernel(fp.params, rows0, w, seed)
+    rows, traj = kernel(fp.params, rows0, w, seed, **({} if group is None else {"group": group}))
     rows_p, traj_p = plain(fp.params, rows0, w, seed)
     torch.cuda.synchronize()
-    return check_record(f"{tag} vs plain (H={hidden}, B={fp.B}, {CHECK_STEPS} steps)", rows,
+    g = "" if group is None else f", G={group}"
+    return check_record(f"{tag} vs plain (H={hidden}, B={fp.B}{g}, {CHECK_STEPS} steps)", rows,
                         traj, rows_p, traj_p, rows0, layout, nx, nu)
+
+
+def check_policy_groups(tag, make_fp, kernel, plain, layout, nx, nu, groups, lanes):
+    """A grouped policy kernel (K6, K8) against its plain version at both
+    widths of POLICY_WIDTHS: at every built group at RAGGED_B, and at the
+    planned group at RAGGED_B, CHECK_B and the batches where the plan picks
+    its other groups (plan_batches).  Returns (largest absolute difference,
+    largest share of record entries not bit-equal)."""
+    errs = []
+    for h in POLICY_WIDTHS:
+        for B, group in ([(RAGGED_B, g) for g in groups]
+                         + [(B, None) for B in (RAGGED_B, CHECK_B, *plan_batches(groups, lanes))]):
+            errs.append(check_policy(tag, make_fp(B, h), kernel, plain, layout, nx, nu, h, group))
+    return max(e for e, _ in errs), max(d for _, d in errs)
 
 
 def phase_k3(dev):
@@ -962,12 +984,20 @@ def phase_k5_k6(dev):
     torch.cuda.synchronize()
     res["k5_cross_err"] = check_cross("K5", rows, carry, 4, [7, 8, 12, 17], "pole_length", 4)
 
-    # K6 on cartpole_stab (10-step episodes).
-    env = make_cartpole(cfg_cartpole_rl(episode_len_sec=0.2), device=dev)
-    errs = [check_policy("K6", FC.FastCartPolePolicyRollout(env, CHECK_B, CHECK_STEPS, mlp_hidden=h,
-                                                            device=dev),
-                         FC.cartpole_policy_rollout, FC.cartpole_policy_rollout_plain, K5_LAYOUT, 4,
-                         1, h) for h in POLICY_WIDTHS]
+    # K6 on cartpole_stab (10-step episodes), then tracking the circle with
+    # config 2's action white noise and an impulse on the cart: at every
+    # group the kernel is built for and every batch its plan takes apart.
+    errs = []
+    for tag, cfg in (("K6", cfg_cartpole_rl(episode_len_sec=0.2)),
+                     ("K6 (action noise, impulse, circle)", cfg_cartpole_rl(
+                         episode_len_sec=0.2, disturbances={**IMPULSE_CP, **ACT_NOISE_CP},
+                         **TRACK_CIRCLE))):
+        env = make_cartpole(cfg, device=dev)
+        errs.append(check_policy_groups(
+            tag, lambda B, h: FC.FastCartPolePolicyRollout(env, B, CHECK_STEPS, mlp_hidden=h,
+                                                           device=dev),
+            FC.cartpole_policy_rollout, FC.cartpole_policy_rollout_plain, K5_LAYOUT, 4, 1,
+            FC.POLICY_GROUPS, FC.POLICY_PLAN_LANES))
     res["k6_err"], res["k6_differ"] = max(e for e, _ in errs), max(d for _, d in errs)
     return res
 
@@ -1009,6 +1039,7 @@ def phase_k7_k8(dev):
     impulse = {"dynamics": ({"disturbance_func": "impulse", "magnitude": 0.02, "duration": 4,
                              "decay_rate": 0.8},)}
     noisy = {**impulse, "action": ({"disturbance_func": "white_noise", "std": 0.001},)}
+    noisy_k8 = {**impulse, "action": ({"disturbance_func": "white_noise", "std": 0.01},)}
     for qt in (1, 2):
         nx, nu = PQ.nx_nu(qt)
         lay = k7_layout(nx)
@@ -1077,12 +1108,21 @@ def phase_k7_k8(dev):
         res["k7_cross_err"] = max(res["k7_cross_err"], check_cross(
             f"K7 {qt}D", rows, carry, nx, lay["exact"], "mass", nx))
 
-        # K8 on quad stabilization with the normalized action space.
-        env = make_quadrotor(cfg_quad2d_rl(quad_type=qt, episode_len_sec=0.2), device=dev)
-        for h in POLICY_WIDTHS:
-            fp = PQ.FastPlanarQuadPolicyRollout(env, CHECK_B, CHECK_STEPS, mlp_hidden=h, device=dev)
-            err, differ = check_policy(f"K8 {qt}D", fp, PQ.planar_policy_rollout,
-                                       PQ.planar_policy_rollout_plain, lay, nx, nu, h)
+        # K8 on quad stabilization with the normalized action space, then
+        # tracking the circle with action white noise and the impulse (the
+        # noise terms drawn ahead, the thrusts actuated every step): at
+        # every group the kernel is built for and every batch its plan
+        # takes apart.
+        for tag, cfg in ((f"K8 {qt}D", cfg_quad2d_rl(quad_type=qt, episode_len_sec=0.2)),
+                         (f"K8 {qt}D (action noise, impulse, circle)", cfg_quad2d_rl(
+                             quad_type=qt, episode_len_sec=0.2, disturbances=noisy_k8,
+                             **TRACK_CIRCLE))):
+            env = make_quadrotor(cfg, device=dev)
+            err, differ = check_policy_groups(
+                tag, lambda B, h: PQ.FastPlanarQuadPolicyRollout(env, B, CHECK_STEPS, mlp_hidden=h,
+                                                                 device=dev),
+                PQ.planar_policy_rollout, PQ.planar_policy_rollout_plain, lay, nx, nu,
+                PQ.POLICY_GROUPS, PQ.POLICY_PLAN_LANES)
             res["k8_err"], res["k8_differ"] = max(res["k8_err"], err), max(res["k8_differ"], differ)
     return res
 
@@ -1343,6 +1383,17 @@ def bounds(res, serve_cp, serve_q2, train):
     return out
 
 
+def policy_instance(ptxas, kname, quad, plan):
+    """The group, block, registers and spill bytes of the policy kernel's
+    instance that the training path launches (``quad``: the mangled quad
+    type of K8's, "Li6ELi2E" for the 2D quad; H = 64) under ``plan``."""
+    group, block = plan[:2]
+    name = next(n for n in ptxas if f"{kname}I{quad}Li{HIDDEN}ELi{group}E" in n)
+    r = ptxas[name]
+    return {"group": group, "block": block, "registers": r["registers"],
+            "spill_bytes": r["spill_stores"] + r["spill_loads"]}
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
     return {"name": name, "route": "cuda", "source": f"safe_control_gym_torch/csrc/{source}",
             "replaces": f"safe_control_gym_tpu/{replaces}", "launches": launches,
@@ -1474,7 +1525,9 @@ def main():
                      "parallel/fast_cartpole.py:288", train["cartpole"]["policy_launches"],
                      max(small["k6_err"], train["cartpole"]["main_max_abs_err"]),
                      train["cartpole"]["ms"], train["cartpole"]["plain_ms"], bnd["k6"],
-                     share_not_bit_equal=max(small["k6_differ"], train["cartpole"]["main_differ"])),
+                     share_not_bit_equal=max(small["k6_differ"], train["cartpole"]["main_differ"]),
+                     **policy_instance(ptxas, "cartpole_policy_rollout_kernel", "",
+                                       FC.policy_launch_plan(TRAIN_B, HIDDEN))),
         kernel_entry("quad_planar_rollout", "quad_planar_rollout.cu",
                      "parallel/fast_quad_planar.py:339", serve_q2["launches"]["k7"],
                      max(small["k7_err"], serve_q2["main_max_abs_err"]), serve_q2["ms"],
@@ -1486,7 +1539,9 @@ def main():
                      "parallel/fast_quad_planar.py:677", train["quad2d"]["policy_launches"],
                      max(small["k8_err"], train["quad2d"]["main_max_abs_err"]),
                      train["quad2d"]["ms"], train["quad2d"]["plain_ms"], bnd["k8"],
-                     share_not_bit_equal=max(small["k8_differ"], train["quad2d"]["main_differ"])),
+                     share_not_bit_equal=max(small["k8_differ"], train["quad2d"]["main_differ"]),
+                     **policy_instance(ptxas, "quad_planar_policy_rollout_kernel", "Li6ELi2E",
+                                       PQ.policy_launch_plan(TRAIN_B, HIDDEN, 6))),
     ]}
     total_s = time.perf_counter() - t_start
     if args.out:

@@ -5,7 +5,7 @@
 // _policy_rollout_kernel (:288): per control step, the dual actor+critic
 // MLP on the 4 state rows (obs 4 -> 2H -> 2H -> mean, value), a Box-Muller
 // Gaussian sample from Philox, its log-prob, the normalized action map, the
-// shared step (scg::cp::env_step, also K5's) and one record of the
+// grouped step (scg::grp::cp_step, also K5's) and one record of the
 // trajectory.  Plain version: safe_control_gym_torch/parallel/
 // fast_cartpole.py::cartpole_policy_rollout_plain.  The observation white
 // noise of the TPU kernel is not ported (fast_cartpole.supports refuses it).
@@ -16,21 +16,32 @@
 // record rows (fast_cartpole.py:636-641) with the batch last so that each
 // store coalesces.  Weights: csrc/policy_mlp.cuh's flat layout at OBS = 4.
 //
-// Design: one thread per env, its rows in registers for the whole call; the
-// MLP as K3's (policy_mlp.cuh).  The TPU's double-buffered record DMA is not
-// needed: a store does not stall the thread.
+// Design: one env over a group of G lanes of a warp, as K3
+// (quad3d_policy_rollout.cu), its 18 rows in every lane's registers for the
+// whole call.  The dual MLP splits over the group
+// (lane_group.cuh::dual_mlp_group, each group with its row of shared
+// memory; one lane an env runs policy_mlp.cuh::dual_mlp in registers), the
+// sample and the action map run on every lane alike, the step is K5's
+// grouped one with its record (grp::cp_step<G, true>), and the group's lane
+// 0 stores the record.  The launch plan
+// (fast_cartpole.py::policy_launch_plan) takes 8 lanes up to B = 16384 and
+// one above (PERF.md).  The TPU's double-buffered record DMA is not needed:
+// a store does not stall the thread.
 //
 // Bound on an H100: operations.  Per env-step the two forwards are
 // 2*(4*2H + 2*H*H + H*(1+1)) flops plus biases and tanh, ~18.5k operations
 // with the step at H = 64; at B = 4096 and T = 128 that is ~9.7e9
 // operations (0.145 ms at 67 TFLOP/s) against 30 MB of record (9 us at
-// 3.35 TB/s).  128 warps on 528 schedulers hide no latency, so a call runs
-// far below that bound, as K3 (PERF.md).
+// 3.35 TB/s).  One thread per env made 128 warps for 528 schedulers, each
+// running the MLP as one serial chain; the group makes G times as many
+// warps, each lane with 1/G of the MLP's sums (PERF.md).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "cartpole.cuh"
+#include "lane_group.cuh"
+#include "lane_group_planar.cuh"
 #include "policy_mlp.cuh"
 
 namespace {
@@ -41,66 +52,115 @@ constexpr int OBS = scg::cp::NX, NU = 1;
 constexpr int TRAJ_ROWS = 2 * OBS + NU + 5;
 constexpr int T_ACT = OBS, T_REW = OBS + NU, T_DONE = T_REW + 1, T_TRUNC = T_REW + 2;
 constexpr int T_V = T_REW + 3, T_LOGP = T_REW + 4, T_TERM = T_REW + 5;
-constexpr int BLOCK = 64;
 
 // H: the hidden width, 64, or 0 for a width h read at run time (1..128).
-template <int H>
-__global__ void __launch_bounds__(BLOCK) cartpole_policy_rollout_kernel(
+// G: lanes per env, 8 or 1.  The launch bound names a block of 32 envs:
+// at 8 lanes one block an SM, as K3's; at one lane an env 16 blocks an SM,
+// which holds a thread to 128 registers, so that B = 65536 runs in one wave
+// as the one-thread kernel did (at 162 registers K6 was 1.34x slower there;
+// at 128 its H = 64 instance keeps three statistics rows in local memory,
+// 28 bytes, and runs at the one-thread kernel's time: PERF.md).
+template <int H, int G>
+__global__ void __launch_bounds__(32 * G, G == 1 ? 16 : 1) cartpole_policy_rollout_kernel(
     const CartPoleParams P, int relu, const int* __restrict__ seed_ptr, const float* __restrict__ w,
     int h, const float* __restrict__ rows_in, float* __restrict__ rows_out, float* __restrict__ traj,
     int B) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= B) return;
+  extern __shared__ float smem[];
+  const scg::LaneGroup g = scg::lane_group<G>(B);
+  float* sh = smem + (threadIdx.x / G) * scg::mlp_group_row(H > 0 ? H : h);
   const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
+  const bool store = g.valid && g.gl == 0;
   scg::cp::Rows r;
-  scg::cp::load_rows(rows_in, B, e, r);
+  scg::cp::load_rows(rows_in, B, g.e, r);
   scg::cp::StepOut o;
+  float nz = 0.0f;
 
   for (int it = 0; it < P.steps; ++it) {
-    float obs[OBS];
-#pragma unroll
-    for (int k = 0; k < OBS; ++k) obs[k] = r.s[k];
     float mean[NU], value, act[NU], logp;
-    scg::dual_mlp<OBS, NU, H>(w, h, obs, relu, mean, value);
-    scg::gaussian_sample<OBS, NU, H>(w, h, mean, e, it, seed, act, logp);
-    scg::cp::env_step(P, r, scg::cp::preprocess(P, act[0]), act[0], e, it, seed, o);
-
-    float* rec = traj + static_cast<size_t>(it) * TRAJ_ROWS * B + e;
+    if constexpr (G == 1) {
+      scg::dual_mlp<OBS, NU, H>(w, h, r.s, relu, mean, value);  // in registers, no row
+    } else {
+      scg::dual_mlp_group<OBS, NU, H, G>(w, h, r.s, relu, sh, g, mean, value);
+    }
+    scg::gaussian_sample<OBS, NU, H>(w, h, mean, g.e, it, seed, act, logp);
+    // The record's rows known before the step (the observation is the state
+    // the step starts from) are stored before it, so that they hold no
+    // registers across it.
+    if (store) {
+      float* rec = traj + static_cast<size_t>(it) * TRAJ_ROWS * B + g.e;
 #pragma unroll
-    for (int k = 0; k < OBS; ++k) rec[k * B] = obs[k];
-    rec[T_ACT * B] = act[0];
-    const float truncf = o.trunc ? 1.0f : 0.0f;
-    rec[T_REW * B] = o.rew;
-    rec[T_DONE * B] = o.done ? 1.0f : 0.0f;
-    rec[T_TRUNC * B] = truncf;
-    rec[T_V * B] = value;
-    rec[T_LOGP * B] = logp;
+      for (int k = 0; k < OBS; ++k) rec[k * B] = r.s[k];
+      rec[T_ACT * B] = act[0];
+      rec[T_V * B] = value;
+      rec[T_LOGP * B] = logp;
+    }
+    scg::grp::cp_step<G, true>(P, r, scg::cp::preprocess(P, act[0]), act[0], it, seed, nz, g, o);
+    if (store) {
+      float* rec = traj + static_cast<size_t>(it) * TRAJ_ROWS * B + g.e;
+      const float truncf = o.trunc ? 1.0f : 0.0f;
+      rec[T_REW * B] = o.rew;
+      rec[T_DONE * B] = o.done ? 1.0f : 0.0f;
+      rec[T_TRUNC * B] = truncf;
 #pragma unroll
-    for (int k = 0; k < OBS; ++k) rec[(T_TERM + k) * B] = o.s_post[k] * truncf;
+      for (int k = 0; k < OBS; ++k) rec[(T_TERM + k) * B] = o.s_post[k] * truncf;
+    }
   }
-  scg::cp::store_rows(rows_out, B, e, r);
+  if (store) scg::cp::store_rows(rows_out, B, g.e, r);
+}
+
+// One launch's arguments, in the kernel's order.
+struct Args {
+  CartPoleParams P;
+  int relu;
+  const int* sd;
+  const float* wp;
+  int h;
+  const float* ri;
+  float* ro;
+  float* tr;
+  int B;
+};
+
+template <int H, int G>
+int launch(const Args& a, int block, int grid, int smem, cudaStream_t st) {
+  auto kern = cartpole_policy_rollout_kernel<H, G>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kern<<<grid, block, smem, st>>>(a.P, a.relu, a.sd, a.wp, a.h, a.ri, a.ro, a.tr, a.B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instance of width a.h (64 has its own) and G lanes per env.
+template <int G>
+int launch_width(const Args& a, int block, int grid, int smem, cudaStream_t st) {
+  return a.h == 64 ? launch<64, G>(a, block, grid, smem, st)
+                   : launch<0, G>(a, block, grid, smem, st);
 }
 
 }  // namespace
 
+// 2: the entry takes the launch plan (fast_cartpole.py::policy_launch_plan).
+extern "C" int cartpole_policy_rollout_api_version() { return 2; }
+
 extern "C" int cartpole_policy_rollout(const void* params, int relu, int hidden, const void* seed,
                                        const void* wflat, const void* rows_in, void* rows_out,
-                                       void* traj, int B, void* stream) {
-  const CartPoleParams P = *static_cast<const CartPoleParams*>(params);
-  if (hidden < 1 || hidden > scg::MLP_MAX_H) return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = (B + BLOCK - 1) / BLOCK;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* sd = static_cast<const int*>(seed);
-  const float* wp = static_cast<const float*>(wflat);
-  const float* ri = static_cast<const float*>(rows_in);
-  float* ro = static_cast<float*>(rows_out);
-  float* tr = static_cast<float*>(traj);
-  if (hidden == 64) {
-    cartpole_policy_rollout_kernel<64><<<grid, BLOCK, 0, st>>>(P, relu, sd, wp, hidden, ri, ro, tr,
-                                                               B);
-  } else {
-    cartpole_policy_rollout_kernel<0><<<grid, BLOCK, 0, st>>>(P, relu, sd, wp, hidden, ri, ro, tr,
-                                                              B);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                       void* traj, int B, int group, int block, int grid, int smem,
+                                       void* stream) {
+  // The plan's block is 32 envs (the launch bounds), each group of 8 lanes
+  // with its row of shared memory.
+  if (hidden < 1 || hidden > scg::MLP_MAX_H || block != 32 * group ||
+      static_cast<long long>(grid) * 32 < B ||
+      smem < (group > 1 ? 32 * scg::mlp_group_row(hidden) : 0) * static_cast<int>(sizeof(float)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{*static_cast<const CartPoleParams*>(params), relu, static_cast<const int*>(seed),
+               static_cast<const float*>(wflat), hidden, static_cast<const float*>(rows_in),
+               static_cast<float*>(rows_out), static_cast<float*>(traj), B};
+  const auto st = static_cast<cudaStream_t>(stream);
+  // The group sizes fast_cartpole.py::policy_launch_plan picks from.
+  if (group == 1) return launch_width<1>(a, block, grid, smem, st);
+  if (group == 8) return launch_width<8>(a, block, grid, smem, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,11 +2,10 @@
 // launch.
 //
 // Replaces safe_control_gym_tpu/parallel/fast_cartpole.py::_rollout_kernel
-// (:264): per control step, the grouped step scg::grp::cp_step, the
-// operations of K6's one-thread scg::cp::env_step (action white noise,
-// impulse, RK4 on the cart-pole ODE, closed-form x-axis reference,
-// reward, out-of-bound done and the non-finite freeze, box violations,
-// statistics and the counter-PRNG auto-reset).  Plain version:
+// (:264): per control step, the grouped step scg::grp::cp_step (action
+// white noise, impulse, RK4 on the cart-pole ODE, closed-form x-axis
+// reference, reward, out-of-bound done and the non-finite freeze, box
+// violations, statistics and the counter-PRNG auto-reset), also K6's.  Plain version:
 // safe_control_gym_torch/parallel/fast_cartpole.py::cartpole_rollout_plain.
 //
 // Layout: state rows (18, B) with row r of env b at r*B + b, at the JAX
@@ -50,7 +49,7 @@ template <int G>
 __global__ void __launch_bounds__(BLOCK, 1) cartpole_rollout_kernel(
     const CartPoleParams P, const int* __restrict__ seed_ptr, const float* __restrict__ rows_in,
     const float* __restrict__ action, float* __restrict__ rows_out, int B) {
-  const scg::LaneGroup g = scg::grp::lanes<G>(B);
+  const scg::LaneGroup g = scg::lane_group<G>(B);
   const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
   scg::cp::Rows r;
   scg::cp::load_rows(rows_in, B, g.e, r);
@@ -58,7 +57,9 @@ __global__ void __launch_bounds__(BLOCK, 1) cartpole_rollout_kernel(
   const float act = action[g.e];
   const float force = scg::cp::preprocess(P, act);
   float nz = 0.0f;
-  for (int it = 0; it < P.steps; ++it) scg::grp::cp_step<G>(P, r, force, act, it, seed, nz, g);
+  scg::cp::StepOut unused;  // K5 records nothing
+  for (int it = 0; it < P.steps; ++it)
+    scg::grp::cp_step<G>(P, r, force, act, it, seed, nz, g, unused);
   if (g.valid && g.gl == 0) scg::cp::store_rows(rows_out, B, g.e, r);
 }
 

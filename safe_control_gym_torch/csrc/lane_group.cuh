@@ -1,6 +1,8 @@
-// One env over a group of G lanes of a warp: the 3D-quadrotor rollout
+// One env over a group of G lanes of a warp: the lane group every grouped
+// kernel takes its place from (lane_group, from), the 3D-quadrotor rollout
 // kernels' grouped control step (K2 quad3d_rollout, K3
-// quad3d_policy_rollout) and K3's grouped dual MLP.
+// quad3d_policy_rollout) and the policy kernels' grouped dual MLP (K3, K6
+// cartpole_policy_rollout, K8 quad_planar_policy_rollout).
 //
 // Why: with one thread per env, B = 4096 envs are 128 warps for the card's
 // 528 warp schedulers, and each thread's step is one dependent chain.  In
@@ -33,7 +35,8 @@ constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // A thread's place: env e (clamped to B - 1), its lane gl in the group, the
 // warp lane of the group's lane 0, and whether e is a real env.  Blocks are
-// whole warps and G divides 32, so a group never straddles two warps.
+// whole warps and G divides 32, so a group never straddles two warps; G = 1
+// is one thread per env.
 struct LaneGroup {
   int e, gl, base;
   bool valid;
@@ -41,7 +44,7 @@ struct LaneGroup {
 
 template <int G>
 __device__ __forceinline__ LaneGroup lane_group(int B) {
-  static_assert(G >= 4 && 32 % G == 0, "a group holds 4, 8, 16 or 32 lanes of one warp");
+  static_assert(G >= 1 && 32 % G == 0, "a group holds 1, 2, 4, 8, 16 or 32 lanes of one warp");
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   LaneGroup g;
   g.gl = static_cast<int>(threadIdx.x) % G;
@@ -51,8 +54,14 @@ __device__ __forceinline__ LaneGroup lane_group(int B) {
   return g;
 }
 
-__device__ __forceinline__ float from_lane(float v, const LaneGroup& g, int i) {
-  return __shfl_sync(FULL_MASK, v, g.base + i);
+// Lane i's value of v (a plain read in a group of one).
+template <int G>
+__device__ __forceinline__ float from(float v, const LaneGroup& g, int i) {
+  if constexpr (G == 1) {
+    return v;
+  } else {
+    return __shfl_sync(FULL_MASK, v, g.base + i);
+  }
 }
 
 // quad3d.cuh::fc over the group: lane i < 3 takes the sine and cosine of
@@ -61,6 +70,7 @@ __device__ __forceinline__ float from_lane(float v, const LaneGroup& g, int i) {
 // every lane gets all twelve rows.
 template <int G>
 __device__ __forceinline__ void fc_group(const float* s, const Body& b, float* d, const LaneGroup& g) {
+  static_assert(G >= 4, "lanes 0..2 take the three angles");
   const float vx = s[1], vy = s[3], vz = s[5];
   const float p = s[9], q = s[10], r = s[11];
   const float f1 = b.f[0], f2 = b.f[1], f3 = b.f[2], f4 = b.f[3];
@@ -72,9 +82,9 @@ __device__ __forceinline__ void fc_group(const float* s, const Body& b, float* d
   const float ang = g.gl == 0 ? s[6] : g.gl == 1 ? s[7] : s[8];
   float s_own, c_own;
   sincosf(ang, &s_own, &c_own);
-  const float cphi = from_lane(c_own, g, 0), sphi = from_lane(s_own, g, 0);
-  const float cth = from_lane(c_own, g, 1), sth = from_lane(s_own, g, 1);
-  const float cpsi = from_lane(c_own, g, 2), spsi = from_lane(s_own, g, 2);
+  const float cphi = from<G>(c_own, g, 0), sphi = from<G>(s_own, g, 0);
+  const float cth = from<G>(c_own, g, 1), sth = from<G>(s_own, g, 1);
+  const float cpsi = from<G>(c_own, g, 2), spsi = from<G>(s_own, g, 2);
   const float zb_x = cpsi * sth * cphi + spsi * sphi;
   const float zb_y = spsi * sth * cphi - cpsi * sphi;
   const float zb_z = cth * cphi;
@@ -104,7 +114,7 @@ __device__ __forceinline__ void fc_group(const float* s, const Body& b, float* d
     }
     const float qt = n / dd;
 #pragma unroll
-    for (int i = 0; i < G && r0 + i < 6; ++i) quo[r0 + i] = from_lane(qt, g, i);
+    for (int i = 0; i < G && r0 + i < 6; ++i) quo[r0 + i] = from<G>(qt, g, i);
   }
   const float tth = quo[0];
   d[0] = vx;
@@ -282,8 +292,8 @@ __device__ __forceinline__ void dual_mlp_group(const float* __restrict__ w, int 
     }
   }
 #pragma unroll
-  for (int i = 0; i < NU; ++i) mean[i] = from_lane(out[i / G], g, i % G);
-  value = from_lane(out[NU / G], g, NU % G);
+  for (int i = 0; i < NU; ++i) mean[i] = from<G>(out[i / G], g, i % G);
+  value = from<G>(out[NU / G], g, NU % G);
 }
 
 }  // namespace scg

@@ -1,6 +1,8 @@
 // One env over a group of G lanes of a warp: the grouped control steps of
-// the CartPole and planar-quadrotor whole-rollout kernels (K5
-// cartpole_rollout, K7 quad_planar_rollout).
+// the CartPole and planar-quadrotor kernels, the whole-rollout kernels (K5
+// cartpole_rollout, K7 quad_planar_rollout) and the policy kernels (K6
+// cartpole_policy_rollout, K8 quad_planar_policy_rollout).  These are the
+// only implementations of those steps.
 //
 // Why: with one thread per env, B = 4096 envs are 128 warps for the card's
 // 528 warp schedulers, and each thread's step is one dependent chain in
@@ -20,21 +22,25 @@
 //   pair (theta, theta_dot) evolves by adds and multiplies alone.  The
 //   group computes the angles of G RK4 stages (or Euler substeps) ahead and
 //   their sincosf side by side, one a lane; the x-z chain that is left has
-//   no region.  Actuation, 1/mass and theta_dd run once a call and after a
-//   reset when the command is constant, and the noisy actuation of G / NU
-//   steps is drawn in one round.
+//   no region.  Under a constant command (K7) actuation, 1/mass and
+//   theta_dd run once a call and after a reset, and the noisy actuation of
+//   G / NU steps is drawn in one round.  Under a policy (K6, K8: POLICY)
+//   the command changes every step: the noise terms of G / NU steps are
+//   drawn in one round, and every step actuates its own thrusts (one input
+//   a lane) and makes its body.
 //
 // The group pays where one thread per env leaves the card's issue slots
 // idle (B = 4096: 128 warps for 528 schedulers) and loses where the lanes'
-// repeated work fills them, so the kernels are built for groups of 1, 2 and
-// 4 lanes and the host's launch plan picks one by B (PERF.md).  A group of
-// fewer lanes than a round's values takes the round in turns.
+// repeated work fills them, so the kernels are built for several group
+// sizes and the host's launch plan picks one by B (PERF.md).  A group of
+// fewer lanes than a round's values takes the round in turns; a group of
+// more lanes repeats the round's last value on the lanes past it.
 //
 // What does not change: every value is computed by the same float32
-// operations in the same order as in the one-thread steps
-// (cartpole.cuh::env_step, quad_planar.cuh::env_step, which K6 and K8 keep),
-// only on another lane, so the rows are bit-equal to theirs and to the
-// plain versions.  Lanes exchange finished values (__shfl_sync), never
+// operations in the same order as the one-thread steps that K5-K8 ran
+// before (and as the plain versions, fast_cartpole.py::step_rows and
+// fast_quad_planar.py::step_rows), only on another lane, so the rows are
+// bit-equal to theirs.  Lanes exchange finished values (__shfl_sync), never
 // partial sums, and every lane of a group holds the env's rows and runs the
 // rest of the step on identical registers.  No lane returns early: a lane
 // past the last env runs env B - 1 (LaneGroup::e) and stores nothing, so
@@ -52,30 +58,6 @@
 
 namespace scg {
 namespace grp {
-
-// A thread's place in a group of G lanes, as lane_group.cuh::lane_group;
-// G = 1 is one thread per env.  The kernels are built for 1, 2 and 4.
-template <int G>
-__device__ __forceinline__ LaneGroup lanes(int B) {
-  static_assert(G == 1 || G == 2 || G == 4, "the kernels are built for groups of 1, 2 or 4 lanes");
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  LaneGroup g;
-  g.gl = static_cast<int>(threadIdx.x) % G;
-  g.base = static_cast<int>(threadIdx.x & 31u) - g.gl;
-  g.valid = t / G < B;
-  g.e = g.valid ? t / G : B - 1;
-  return g;
-}
-
-// Lane i's value of v.
-template <int G>
-__device__ __forceinline__ float from(float v, const LaneGroup& g, int i) {
-  if constexpr (G == 1) {
-    return v;
-  } else {
-    return __shfl_sync(FULL_MASK, v, g.base + i);
-  }
-}
 
 // v[min(i, N - 1)] without indexing by a run-time value.
 template <int N>
@@ -130,8 +112,9 @@ __device__ __forceinline__ uint32_t word(const Philox4& u, int k) {
   return k == 0 ? u.w[0] : k == 1 ? u.w[1] : k == 2 ? u.w[2] : u.w[3];
 }
 
-// The action white noise of input i at step it of env e, std * rad * cos of
-// the one-thread steps (Box-Muller on Philox call site 1; NU inputs a block).
+// The action white noise of input i at step it of env e, std * rad * cos
+// (Box-Muller on Philox call site 1; NU inputs a block), the term the plain
+// versions add (fast_cartpole.py / fast_quad_planar.py::step_rows).
 template <int NU>
 __device__ __forceinline__ float noise_term(int e, int it, int i, uint32_t seed, float std) {
   const Philox4 u = philox4x32_10(e, it, 0, SITE_ACTION, seed, 0);
@@ -141,8 +124,11 @@ __device__ __forceinline__ float noise_term(int e, int it, int i, uint32_t seed,
   return std * rad * c;
 }
 
-// curve.cuh::axis_goal with the sine and cosine of the curve angle given
-// (the figure-8 and circle use them; the square has none).
+// Position and velocity on the world axis that curve component `sel` (0 or
+// 1) lands on, offset by the plane offset of that component, zeros for any
+// other sel (fast_cartpole.py:167-174, fast_quad_planar.py:128-133), with
+// the sine and cosine of the curve angle given (the figure-8 and circle use
+// them; the square has none).
 __device__ __forceinline__ void axis_goal_sc(const CurveParams& C, const float* plane_off,
                                              float ctrl_dt, float step_f, int sel, float sw,
                                              float cw, float& pos, float& vel) {
@@ -163,19 +149,20 @@ __device__ __forceinline__ void axis_goal_sc(const CurveParams& C, const float* 
     a_v = C.traj_neg_sc_w * sw;
     b_v = C.traj_sc_w * cw;
   } else {
-    eval_curve(C, step_f * ctrl_dt, a_p, b_p, a_v, b_v);
+    square_curve(C, step_f * ctrl_dt, a_p, b_p, a_v, b_v);
   }
   pos = sel == 0 ? a_p + plane_off[0] : b_p + plane_off[1];
   vel = sel == 0 ? a_v : b_v;
 }
 
-// The curve angle traj_w * t of a step (eval_curve's first product).
+// The curve angle traj_w * t of a step (fast_env.py::eval_curve's first
+// product).
 __device__ __forceinline__ float curve_angle(const CurveParams& C, float ctrl_dt, float step_f) {
   return C.traj_w * (step_f * ctrl_dt);
 }
 
-// The statistics rows and the time limit of a step (the one-thread steps'
-// code after the freeze); returns the final done flag.
+// The statistics rows and the time limit of a step (after the freeze);
+// returns the final done flag.
 __device__ __forceinline__ bool step_stats(float* st, float step_f, float max_steps, float rew,
                                            float violf, bool done, float& new_step) {
   new_step = step_f + 1.0f;
@@ -298,7 +285,7 @@ __device__ __forceinline__ void cp_substep(const cp::CartPoleParams& P, float* s
   }
   const float xdd4 = temp4 - q11[0];
 
-  // The stage derivatives k1..k4 of the one-thread substep, then its combine.
+  // The stage derivatives k1..k4 of the substep, then its combine.
   const float t1 = s[1] + P.dt_half * xdd1;
   const float u1 = s[1] + P.dt_half * xdd2;
   const float v1 = s[1] + P.dt * xdd3;
@@ -310,13 +297,19 @@ __device__ __forceinline__ void cp_substep(const cp::CartPoleParams& P, float* s
   for (int i = 0; i < 4; ++i) s[i] = s[i] + P.dt_sixth * (k1[i] + 2.0f * k2[i] + 2.0f * k3[i] + k4[i]);
 }
 
-// One control step of cartpole.cuh::env_step in place on r over the group.
-// nz: this lane's action-noise term of the current chunk of G steps (lane i
-// holds step it - it % G + i's), redrawn here when it % G == 0.
-template <int G>
+// One CartPole control step in place on r over the group (the JAX
+// package's step_env_core, fast_cartpole.py:100-261): action white noise,
+// impulse, RK4, goal, violation, reward, done and the non-finite freeze,
+// statistics, counter-PRNG auto-reset.  force_pre: the preprocessed force
+// (pre noise); act_raw: the commanded action; nz: this lane's action-noise
+// term of the current chunk of G steps (lane i holds step it - it % G +
+// i's), redrawn here when it % G == 0.  With REC (the policy kernel) o
+// receives the step's reward, done and truncation flags and the state after
+// the freeze, before the reset; without, o is not written.
+template <int G, bool REC = false>
 __device__ __forceinline__ void cp_step(const cp::CartPoleParams& P, cp::Rows& r, float force_pre,
                                         float act_raw, int it, uint32_t seed, float& nz,
-                                        const LaneGroup& g) {
+                                        const LaneGroup& g, cp::StepOut& o) {
   const float act_err = force_pre - P.u_goal;
   float force = force_pre;
   if (P.act_noise) {
@@ -352,7 +345,6 @@ __device__ __forceinline__ void cp_step(const cp::CartPoleParams& P, cp::Rows& r
     goal[2] = goal[3] = 0.0f;
   }
 
-  // The rest is cartpole.cuh::env_step's.
   bool viol = false;
 #pragma unroll
   for (int k = 0; k < cp::NX; ++k) viol = viol || (s[k] < P.s_low[k]) || (s[k] > P.s_high[k]);
@@ -399,9 +391,21 @@ __device__ __forceinline__ void cp_step(const cp::CartPoleParams& P, cp::Rows& r
     rew = 0.0f;
     done = true;
   }
+  if constexpr (REC) {
+#pragma unroll
+    for (int k = 0; k < cp::NX; ++k) o.s_post[k] = r.s[k];
+    o.rew = rew;
+  }
 
   float new_step;
+  const bool done_pre = done;
   done = step_stats(r.st, r.step_f, P.max_steps, rew, violf, done, new_step);
+  if constexpr (REC) {
+    o.done = done;
+    o.trunc = done && !done_pre;  // the time limit alone ended the episode
+  }
+  // Masked auto-reset from the counter stream: slots 0..2 inertia, 3..6
+  // initial state, 7 impulse offset (cartpole._reset_core).
   if (done) {
     const uint32_t base = episode_base(r.seed_bits, static_cast<uint32_t>(static_cast<int>(r.ep) + 1));
 #pragma unroll
@@ -421,13 +425,14 @@ __device__ __forceinline__ void cp_step(const cp::CartPoleParams& P, cp::Rows& r
 // ---------------------------------------------------------------------------
 
 // What the step's derivative holds fixed: the thrust sum, 1/mass and the
-// 2D quad's theta_dd (quad_planar.cuh::env_step's Tsum, minv, theta_dd).
+// 2D quad's theta_dd.
 struct PlanarBody {
   float Tsum, minv, theta_dd;
 };
 
 // The body from the motor forces fm and the env's mass and iyy: 1/mass and
 // the first division of theta_dd side by side, then theta_dd's second.
+// Every lane of the warp calls it (it exchanges values).
 template <int NX, int NU, int G>
 __device__ __forceinline__ PlanarBody planar_body(const pq::PlanarParams& P, const float* fm,
                                                   float mass, float iyy, const LaneGroup& g) {
@@ -460,7 +465,8 @@ __device__ __forceinline__ void fc_2d(const float* sv, float sn, float cs, const
   d[5] = b.theta_dd;
 }
 
-// The one-thread substep loop of quad_planar.cuh::env_step on s in place.
+// The substep loop of a planar-quad step (quad_fc_1d / quad_fc_2d) on s in
+// place.
 // 2D: the angles of a substep's four RK4 stage evaluations, or of G Euler
 // substeps, are computed ahead from (theta, theta_dot) alone, by the adds
 // and multiplies that the substeps do on them, and their sincosf run one a
@@ -564,46 +570,104 @@ __device__ __forceinline__ void constant_forces(const pq::PlanarParams& P, const
     fs.f[q] = pq::actuate(pick<NU>(thr, (q * G + g.gl) % NU), P.n_motor);
 }
 
-// One control step of quad_planar.cuh::env_step in place on r over the
-// group, with the body b held from an earlier step (a constant command) or
-// made here.  fs: the group's motor forces (ForceSlots); with action noise
-// they are redrawn for the next S steps when it % S == 0.  Returns the done
-// flag (the env was reset).
-template <int NX, int NU, int G>
+// One input's realized motor force a lane, in rounds of G lanes: fm[i] =
+// actuate(t[i]) for i < NU on every lane.
+template <int NU, int G>
+__device__ __forceinline__ void actuate_round(const pq::PlanarParams& P, const float (&t)[NU],
+                                              float (&fm)[NU], const LaneGroup& g) {
+#pragma unroll
+  for (int r0 = 0; r0 < NU; r0 += G) {
+    float x = t[r0];
+#pragma unroll
+    for (int i = 1; i < G && r0 + i < NU; ++i) x = g.gl >= i ? t[r0 + i] : x;
+    const float f = pq::actuate(x, P.n_motor);
+#pragma unroll
+    for (int i = 0; i < G && r0 + i < NU; ++i) fm[r0 + i] = from<G>(f, g, i);
+  }
+}
+
+// One planar-quad control step in place on r over the group (the JAX
+// package's step_env_core, fast_quad_planar.py:161-336): action white
+// noise, motor-grouped actuation, impulse, RK4 or Euler substeps, goal,
+// violation, reward, done and the non-finite freeze, statistics,
+// counter-PRNG auto-reset.  thr_pre: the preprocessed thrusts (pre noise);
+// act: the commanded action.
+//
+// A constant command (K7): the body b is held from an earlier step and made
+// again where the noise moved the forces or an env of the warp was reset
+// (fresh, the previous step's return).  fs holds the group's motor forces
+// (ForceSlots), with action noise redrawn for the next S steps when
+// it % S == 0.
+//
+// POLICY (K8): the command changes every step.  fs holds the action-noise
+// terms of the next S steps (drawn when it % S == 0, state-free); the step
+// adds this step's terms to its thrusts, actuates them one input a lane and
+// makes b; fresh is not read.  o receives the step's reward, done and
+// truncation flags and the state after the freeze, before the reset;
+// without POLICY, o is not written.  Returns the done flag (the env was
+// reset).
+template <int NX, int NU, int G, bool POLICY = false>
 __device__ __forceinline__ bool pq_step(const pq::PlanarParams& P, pq::Rows<NX>& r,
                                         const float (&thr_pre)[NU], const float (&act)[NU], int it,
                                         uint32_t seed, ForceSlots<NU, G>& fs, bool fresh,
-                                        PlanarBody& b, const LaneGroup& g) {
+                                        PlanarBody& b, const LaneGroup& g, pq::StepOut<NX>& o) {
   using FS = ForceSlots<NU, G>;
   float act_err[NU];
 #pragma unroll
   for (int i = 0; i < NU; ++i) act_err[i] = thr_pre[i] - P.u_goal;
-  int src = 0;  // the slot of this step's input 0
-  if (P.act_noise) {
-    if (it % FS::S == 0) {
+  if constexpr (POLICY) {
+    float t[NU];
 #pragma unroll
-      for (int q = 0; q < FS::R; ++q) {
-        const int k = q * G + g.gl, i = k % NU;
-        fs.f[q] = pq::actuate(
-            pick<NU>(thr_pre, i) + noise_term<NU>(g.e, it + k / NU, i, seed, P.act_noise_std),
-            P.n_motor);
+    for (int i = 0; i < NU; ++i) t[i] = thr_pre[i];
+    if (P.act_noise) {
+      if (it % FS::S == 0) {
+#pragma unroll
+        for (int q = 0; q < FS::R; ++q) {
+          const int k = q * G + g.gl;
+          fs.f[q] = noise_term<NU>(g.e, it + k / NU, k % NU, seed, P.act_noise_std);
+        }
+      }
+      const int src = (it % FS::S) * NU;  // the slot of this step's input 0
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+        if constexpr (FS::R == 1) {
+          t[i] = t[i] + from<G>(fs.f[0], g, src + i);
+        } else {
+          t[i] = t[i] + from<G>(fs.f[i / G], g, i % G);
+        }
       }
     }
-    src = (it % FS::S) * NU;
-  }
-  // A new body where the noise moved the forces, or (warp-wide, since it
-  // exchanges values) where an env of the warp was reset.
-  if (P.act_noise || __any_sync(FULL_MASK, fresh)) {
     float fm[NU];
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      if constexpr (FS::R == 1) {
-        fm[i] = from<G>(fs.f[0], g, src + i);
-      } else {
-        fm[i] = from<G>(fs.f[i / G], g, i % G);
-      }
-    }
+    actuate_round<NU, G>(P, t, fm, g);
     b = planar_body<NX, NU, G>(P, fm, r.mass, r.iyy, g);
+  } else {
+    int src = 0;  // the slot of this step's input 0
+    if (P.act_noise) {
+      if (it % FS::S == 0) {
+#pragma unroll
+        for (int q = 0; q < FS::R; ++q) {
+          const int k = q * G + g.gl, i = k % NU;
+          fs.f[q] = pq::actuate(
+              pick<NU>(thr_pre, i) + noise_term<NU>(g.e, it + k / NU, i, seed, P.act_noise_std),
+              P.n_motor);
+        }
+      }
+      src = (it % FS::S) * NU;
+    }
+    // A new body where the noise moved the forces, or (warp-wide, since it
+    // exchanges values) where an env of the warp was reset.
+    if (P.act_noise || __any_sync(FULL_MASK, fresh)) {
+      float fm[NU];
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+        if constexpr (FS::R == 1) {
+          fm[i] = from<G>(fs.f[0], g, src + i);
+        } else {
+          fm[i] = from<G>(fs.f[i / G], g, i % G);
+        }
+      }
+      b = planar_body<NX, NU, G>(P, fm, r.mass, r.iyy, g);
+    }
   }
   const float ext = P.impulse ? cp::impulse_force(r.step_f, r.offset, P.imp_peak_shift, P.imp_half_dur,
                                                   P.decay_one, P.imp_log_decay, P.imp_mag)
@@ -629,7 +693,6 @@ __device__ __forceinline__ bool pq_step(const pq::PlanarParams& P, pq::Rows<NX>&
     }
   }
 
-  // The rest is quad_planar.cuh::env_step's.
   bool viol = false;
 #pragma unroll
   for (int k = 0; k < NX; ++k) viol = viol || (s[k] < P.c_low[k]) || (s[k] > P.c_high[k]);
@@ -685,9 +748,21 @@ __device__ __forceinline__ bool pq_step(const pq::PlanarParams& P, pq::Rows<NX>&
     rew = 0.0f;
     done = true;
   }
+  if constexpr (POLICY) {
+#pragma unroll
+    for (int k = 0; k < NX; ++k) o.s_post[k] = r.s[k];
+    o.rew = rew;
+  }
 
   float new_step;
+  const bool done_pre = done;
   done = step_stats(r.st, r.step_f, P.max_steps, rew, violf, done, new_step);
+  if constexpr (POLICY) {
+    o.done = done;
+    o.trunc = done && !done_pre;  // the time limit alone ended the episode
+  }
+  // Masked auto-reset from the counter stream: slots 0..3 inertia (M, Ixx,
+  // Iyy, Izz), 4..4+NX-1 initial state, 4+NX impulse offset.
   if (done) {
     const uint32_t base = episode_base(r.seed_bits, static_cast<uint32_t>(static_cast<int>(r.ep) + 1));
 #pragma unroll

@@ -33,9 +33,12 @@
 // input order, as the plain version's loop does, and the library is built
 // with -fmad=false, so kernel and plain version round alike.
 //
-// K6 and K8 run dual_mlp; K3 runs its lane-group form,
-// lane_group.cuh::dual_mlp_group (the same sums, split over 8 lanes), and
-// gaussian_sample on every lane of the group.
+// K3, K6 and K8 run its lane-group form, lane_group.cuh::dual_mlp_group
+// (the same sums, split over 8 lanes), and gaussian_sample on every lane of
+// the group.  K6 and K8 at one lane an env (their plans' pick at large B)
+// run dual_mlp itself: there the group form's shared-memory row (1,040
+// bytes an env at H = 64) capped the envs an SM holds, 1.38-2.47x slower
+// than this (PERF.md).
 #pragma once
 
 #include <cstdint>

@@ -1,9 +1,10 @@
-// The planar-quadrotor whole-rollout kernels' control step (K7
-// quad_planar_rollout, K8 quad_planar_policy_rollout), templated on the
-// quad type: NX/NU = 2/1 (1D, z) or 6/2 (2D, x-z).  The JAX package's
-// step_env_core (safe_control_gym_tpu/parallel/fast_quad_planar.py:161-336).
-// Plain version: safe_control_gym_torch/parallel/fast_quad_planar.py::
-// step_rows.
+// The planar-quadrotor kernels' state (K7 quad_planar_rollout, K8
+// quad_planar_policy_rollout), templated on the quad type: NX/NU = 2/1 (1D,
+// z) or 6/2 (2D, x-z): parameters, rows, the action map and the actuation.
+// Their control step, the JAX package's step_env_core
+// (safe_control_gym_tpu/parallel/fast_quad_planar.py:161-336), is
+// lane_group_planar.cuh::pq_step.  Plain version:
+// safe_control_gym_torch/parallel/fast_quad_planar.py::step_rows.
 //
 // Every expression keeps the operand order of the plain version, and the
 // library is compiled with -fmad=false, so each + and * rounds once, as the
@@ -14,7 +15,6 @@
 
 #include "cartpole.cuh"
 #include "curve.cuh"
-#include "philox.cuh"
 #include "quad3d.cuh"
 
 namespace scg {
@@ -108,186 +108,6 @@ struct StepOut {
   bool done, trunc;
   float s_post[NX];  // post-step state after the freeze, before the reset
 };
-
-// One control step in place on r.  thr: the preprocessed thrusts (pre
-// noise); act: the commanded action; e, it, seed key the action white noise
-// (Philox call site 1).
-template <int NX, int NU>
-__device__ __forceinline__ void env_step(const PlanarParams& P, Rows<NX>& r, const float* thr_pre,
-                                         const float* act, int e, int it, uint32_t seed,
-                                         StepOut<NX>& o) {
-  float act_err[NU], thr[NU];
-#pragma unroll
-  for (int i = 0; i < NU; ++i) {
-    act_err[i] = thr_pre[i] - P.u_goal;
-    thr[i] = thr_pre[i];
-  }
-  if (P.act_noise) {
-    const Philox4 u = philox4x32_10(e, it, 0, SITE_ACTION, seed, 0);
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      const float rad = sqrtf(-2.0f * logf(1.0f - bits_to_unit(u.w[i])));
-      thr[i] = thr[i] + P.act_noise_std * rad * cosf(TWO_PI * bits_to_unit(u.w[NU + i]));
-    }
-  }
-  float fm[NU];
-#pragma unroll
-  for (int i = 0; i < NU; ++i) fm[i] = actuate(thr[i], P.n_motor);
-  const float ext = P.impulse ? cp::impulse_force(r.step_f, r.offset, P.imp_peak_shift, P.imp_half_dur,
-                                                  P.decay_one, P.imp_log_decay, P.imp_mag)
-                              : 0.0f;
-
-  const float minv = 1.0f / r.mass;
-  float Tsum, theta_dd = 0.0f;
-  if constexpr (NX == 2) {
-    Tsum = (fm[0] + fm[0]) + fm[0] + fm[0];  // 4 motors, one command
-  } else {
-    const float T1 = fm[0] + fm[0], T2 = fm[1] + fm[1];  // motors (T1, T2, T2, T1)
-    Tsum = T1 + T2;
-    theta_dd = P.arm_l * (T2 - T1) / r.iyy / P.sqrt2;
-  }
-  // x' = fc(x) of quad_fc_1d / quad_fc_2d.
-  auto fc = [&](const float* sv, float* d) {
-    if constexpr (NX == 2) {
-      d[0] = sv[1];
-      d[1] = Tsum * minv - P.g + ext * minv;
-    } else {
-      d[0] = sv[1];
-      d[1] = sinf(sv[4]) * Tsum * minv + ext * minv;
-      d[2] = sv[3];
-      d[3] = cosf(sv[4]) * Tsum * minv - P.g + ext * minv;
-      d[4] = sv[5];
-      d[5] = theta_dd;
-    }
-  };
-  float s[NX], k1[NX], k2[NX], k3[NX], k4[NX], t[NX];
-#pragma unroll
-  for (int k = 0; k < NX; ++k) s[k] = r.s[k];
-  for (int n = 0; n < P.n_sub; ++n) {
-    fc(s, k1);
-    if (P.euler) {
-#pragma unroll
-      for (int i = 0; i < NX; ++i) s[i] = s[i] + P.dt * k1[i];
-      continue;
-    }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) t[i] = s[i] + P.dt_half * k1[i];
-    fc(t, k2);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) t[i] = s[i] + P.dt_half * k2[i];
-    fc(t, k3);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) t[i] = s[i] + P.dt * k3[i];
-    fc(t, k4);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) s[i] = s[i] + P.dt_sixth * (k1[i] + 2.0f * k2[i] + 2.0f * k3[i] + k4[i]);
-  }
-
-  // Goal rows: the static goal, or the curve on the axes the state reads.
-  float goal[NX];
-  if (P.task == 0) {
-#pragma unroll
-    for (int k = 0; k < NX; ++k) goal[k] = P.x_goal[k];
-  } else if constexpr (NX == 2) {
-    axis_goal(P.curve, P.plane_off, P.ctrl_dt, r.step_f, P.z_sel, goal[0], goal[1]);
-  } else {
-    axis_goal(P.curve, P.plane_off, P.ctrl_dt, r.step_f, P.x_sel, goal[0], goal[1]);
-    axis_goal(P.curve, P.plane_off, P.ctrl_dt, r.step_f, P.z_sel, goal[2], goal[3]);
-    goal[4] = goal[5] = 0.0f;
-  }
-
-  bool viol = false;
-#pragma unroll
-  for (int k = 0; k < NX; ++k) viol = viol || (s[k] < P.c_low[k]) || (s[k] > P.c_high[k]);
-  if (P.u_check) {
-#pragma unroll
-    for (int i = 0; i < NU; ++i) viol = viol || (act[i] < P.u_low[i]) || (act[i] > P.u_high[i]);
-  }
-  const float violf = (P.count_viol && viol) ? 1.0f : 0.0f;
-
-  float rew, dist = 0.0f;
-  if (P.cost == 1) {
-#pragma unroll
-    for (int i = 0; i < NU; ++i) dist = dist + P.r_half[i] * act_err[i] * act_err[i];
-#pragma unroll
-    for (int k = 0; k < NX; ++k) {
-      const float d = s[k] - goal[k];
-      dist = dist + P.q_half[k] * d * d;
-    }
-    rew = -dist;
-  } else {
-#pragma unroll
-    for (int i = 0; i < NU; ++i) dist = dist + P.rew_act_w * act_err[i] * act_err[i];
-#pragma unroll
-    for (int k = 0; k < NX; ++k) {
-      const float d = s[k] - goal[k];
-      dist = dist + P.rew_state_w[k] * d * d;
-    }
-    rew = P.rew_exp ? expf(-dist) : -dist;
-  }
-
-  bool done = false;
-  if (P.cost == 1 && P.task == 0) {
-    float d2 = 0.0f;
-#pragma unroll
-    for (int k = 0; k < NX; ++k) {
-      const float d = s[k] - goal[k];
-      d2 = d2 + d * d;
-    }
-    done = sqrtf(d2) < P.stab_tol;
-  }
-  if (P.done_oob) {
-#pragma unroll
-    for (int k = 0; k < NX; ++k)
-      if (P.oob_mask[k]) done = done || (s[k] < P.s_low[k]) || (s[k] > P.s_high[k]);
-  }
-  // Non-finite safety net: freeze the last finite state, zero the reward.
-  bool finite = true;
-#pragma unroll
-  for (int k = 0; k < NX; ++k) finite = finite && cp::finite_row(s[k]);
-  if (finite) {
-#pragma unroll
-    for (int k = 0; k < NX; ++k) r.s[k] = s[k];
-  } else {
-    rew = 0.0f;
-    done = true;
-  }
-#pragma unroll
-  for (int k = 0; k < NX; ++k) o.s_post[k] = r.s[k];
-
-  float new_step = r.step_f + 1.0f;
-  const bool timeout = new_step >= P.max_steps;
-  o.trunc = timeout && !done;
-  done = done || timeout;
-  o.done = done;
-  o.rew = rew;
-
-  const float donef = done ? 1.0f : 0.0f;
-  const float ep_ret = r.st[0] + rew;
-  const float ep_len = r.st[1] + 1.0f;
-  const float ep_vio = r.st[2] + violf;
-  r.st[0] = ep_ret * (1.0f - donef);
-  r.st[1] = ep_len * (1.0f - donef);
-  r.st[2] = ep_vio * (1.0f - donef);
-  r.st[3] = r.st[3] + donef;
-  r.st[4] = r.st[4] + donef * ep_ret;
-  r.st[5] = r.st[5] + donef * ep_len;
-  r.st[6] = r.st[6] + donef * ep_vio;
-
-  // Masked auto-reset from the counter stream: slots 0..3 inertia (M, Ixx,
-  // Iyy, Izz), 4..4+NX-1 initial state, 4+NX impulse offset.
-  if (done) {
-    const uint32_t base = episode_base(r.seed_bits, static_cast<uint32_t>(static_cast<int>(r.ep) + 1));
-#pragma unroll
-    for (int k = 0; k < NX; ++k) r.s[k] = P.rand_a[4 + k] + slot_uniform(base, 4 + k) * P.rand_b[4 + k];
-    r.mass = P.rand_a[0] + slot_uniform(base, 0) * P.rand_b[0];
-    r.iyy = P.rand_a[2] + slot_uniform(base, 2) * P.rand_b[2];
-    r.offset = floorf(slot_uniform(base, 4 + NX) * P.max_steps);
-    new_step = 0.0f;
-    r.ep = r.ep + 1.0f;
-  }
-  r.step_f = new_step;
-}
 
 }  // namespace pq
 }  // namespace scg

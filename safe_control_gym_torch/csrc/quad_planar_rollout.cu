@@ -2,12 +2,11 @@
 // steps per launch.
 //
 // Replaces safe_control_gym_tpu/parallel/fast_quad_planar.py::_rollout_kernel
-// (:339): per control step, the grouped step scg::grp::pq_step, the
-// operations of K8's one-thread scg::pq::env_step (action white noise,
-// motor-grouped actuation, impulse, RK4 or Euler substeps of
+// (:339): per control step, the grouped step scg::grp::pq_step (action
+// white noise, motor-grouped actuation, impulse, RK4 or Euler substeps of
 // quad_fc_1d / quad_fc_2d, closed-form goal, reward, out-of-bound done and
 // the non-finite freeze, box violations, statistics and the counter-PRNG
-// auto-reset over slots 0..4+nx).  Plain version:
+// auto-reset over slots 0..4+nx), also K8's.  Plain version:
 // safe_control_gym_torch/parallel/fast_quad_planar.py::planar_rollout_plain.
 //
 // Layout: state rows (nx + 13, B) = (15, B) or (19, B), row r of env b at
@@ -50,7 +49,7 @@ template <int NX, int NU, int G>
 __global__ void __launch_bounds__(BLOCK, 1) quad_planar_rollout_kernel(
     const PlanarParams P, const int* __restrict__ seed_ptr, const float* __restrict__ rows_in,
     const float* __restrict__ action, float* __restrict__ rows_out, int B) {
-  const scg::LaneGroup g = scg::grp::lanes<G>(B);
+  const scg::LaneGroup g = scg::lane_group<G>(B);
   const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
   scg::pq::Rows<NX> r;
   scg::pq::load_rows<NX>(rows_in, B, g.e, r);
@@ -66,8 +65,9 @@ __global__ void __launch_bounds__(BLOCK, 1) quad_planar_rollout_kernel(
   if (!P.act_noise) scg::grp::constant_forces<NU, G>(P, thr, fs, g);
   scg::grp::PlanarBody b{};
   bool fresh = true;
+  scg::pq::StepOut<NX> unused;  // K7 records nothing
   for (int it = 0; it < P.steps; ++it)
-    fresh = scg::grp::pq_step<NX, NU, G>(P, r, thr, act, it, seed, fs, fresh, b, g);
+    fresh = scg::grp::pq_step<NX, NU, G>(P, r, thr, act, it, seed, fs, fresh, b, g, unused);
   if (g.valid && g.gl == 0) scg::pq::store_rows<NX>(rows_out, B, g.e, r);
 }
 

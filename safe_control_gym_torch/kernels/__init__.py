@@ -69,15 +69,20 @@ _SIGNATURES = {
     "cartpole_rollout": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cartpole_rollout_api_version": [],
     "cartpole_params_size": [],
-    # params, relu, hidden, seed, wflat, rows_in, rows_out, traj, B, stream
-    "cartpole_policy_rollout": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    # params, relu, hidden, seed, wflat, rows_in, rows_out, traj, B, then the
+    # launch plan (fast_cartpole.policy_launch_plan: group, block, grid, smem
+    # bytes), stream
+    "cartpole_policy_rollout": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "cartpole_policy_rollout_api_version": [],
     # params, nx, seed, rows_in, action, rows_out, B, then the launch plan
     # (fast_quad_planar.launch_plan: group, block, grid), stream
     "quad_planar_rollout": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "quad_planar_rollout_api_version": [],
     "quad_planar_params_size": [],
-    # params, nx, relu, hidden, seed, wflat, rows_in, rows_out, traj, B, stream
-    "quad_planar_policy_rollout": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    # params, nx, relu, hidden, seed, wflat, rows_in, rows_out, traj, B, then
+    # the launch plan (fast_quad_planar.policy_launch_plan), stream
+    "quad_planar_policy_rollout": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "quad_planar_policy_rollout_api_version": [],
 }
 
 _lib = None

@@ -1,8 +1,8 @@
 """Whole-rollout engines for CartPole: many env steps per launch.
 
 Port of ``safe_control_gym_tpu/parallel/fast_cartpole.py`` (BASELINE
-configs 1 and 2).  Two kernels share one control step (``scg::cp::env_step``
-in ``csrc/cartpole.cuh``; plain version :func:`step_rows`): action
+configs 1 and 2).  Two kernels share one control step (``scg::grp::cp_step``
+in ``csrc/lane_group_planar.cuh``; plain version :func:`step_rows`): action
 preprocessing, action white noise, the impulse force on the cart, RK4 on the
 cart-pole ODE, the closed-form x-axis reference, the reward, the x/theta
 out-of-bound done and the non-finite freeze, box violations, the
@@ -86,6 +86,37 @@ def launch_plan(B: int, group: int | None = None):
     if g not in GROUPS:
         raise ValueError(f"K5 is built for groups of {GROUPS} lanes, not {g}")
     return g, 32 * g, -(-B // 32)
+
+
+# K6's launch (csrc/cartpole_policy_rollout.cu): one env over a group of
+# lanes of a warp, 32 envs a block.  A group of 8 splits the dual MLP's sums
+# (csrc/lane_group.cuh::dual_mlp_group, a row of shared memory an env); one
+# lane an env runs the one-thread MLP in registers.  The group pays while
+# the card has idle issue slots and loses once its lanes' repeated step and
+# its rows of shared memory fill the card: on an H100 8 lanes an env were
+# fastest or within 6% of the fastest at B = 4096-16384, one lane from
+# 32768 (H = 64 and 128, PERF.md).  So the plan takes 8 lanes while B x 8
+# lanes stay within POLICY_PLAN_LANES, one above.
+POLICY_GROUPS = (1, 8)
+POLICY_PLAN_LANES = 131072
+
+
+def policy_launch_plan(B: int, hidden: int, group: int | None = None):
+    """A policy kernel's launch (K6; K8 through ``fast_quad_planar``) for B
+    envs at hidden width ``hidden``: (lanes per env, threads per block,
+    blocks, dynamic shared-memory bytes).  Each env is one group of
+    ``group`` lanes (:func:`plan_group` over POLICY_GROUPS within
+    POLICY_PLAN_LANES where None) inside a warp, 32 envs a block, each group
+    of 8 lanes with its row of shared memory (``fast_policy.group_row``, at
+    most 66,048 bytes a block); the lanes of the last block's groups past
+    env B - 1 run env B - 1 and store nothing.  The kernel refuses a group
+    size it was not built with."""
+    g = plan_group(B, POLICY_PLAN_LANES, POLICY_GROUPS) if group is None else group
+    if g not in POLICY_GROUPS:
+        raise ValueError(f"the policy kernels are built for groups of {POLICY_GROUPS} lanes, "
+                         f"not {g}")
+    FP.check_hidden(hidden)
+    return g, 32 * g, -(-B // 32), 32 * FP.group_row(hidden) * 4 if g > 1 else 0
 
 
 def supports(cfg, allow_normalized: bool = False) -> bool:
@@ -537,11 +568,12 @@ def check_policy_inputs(name, rows, n_rows, weights, seed, obs_dim, nu, act):
             f"{[tuple(t.shape) for t in weights]}, act {act!r}")
 
 
-def cartpole_policy_rollout(p, rows, weights, seed):
+def cartpole_policy_rollout(p, rows, weights, seed, group=None):
     """K6: the rollout of :func:`cartpole_policy_rollout_plain`.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/cartpole_policy_rollout.cu``; anything else raises."""
+    ``csrc/cartpole_policy_rollout.cu`` with ``group`` lanes per env
+    (:func:`policy_launch_plan`'s pick where None); anything else raises."""
     if all(t.device.type == "cpu" for t in (rows, seed, *weights)):
         return cartpole_policy_rollout_plain(p, rows, weights, seed)
     check_policy_inputs("cartpole_policy_rollout", rows, _NROWS, weights, seed, _NX, 1,
@@ -558,11 +590,11 @@ def cartpole_policy_rollout(p, rows, weights, seed):
     lib = kernels.lib()
     check_params_size(lib, "cartpole", params)
     wflat = FP.kernel_weights(weights)
+    hidden = weights[0].shape[0] // 2
     code = lib.cartpole_policy_rollout(
-        ctypes.addressof(params), int(p["mlp_act"] == "relu"), weights[0].shape[0] // 2,
-        seed.data_ptr(),
+        ctypes.addressof(params), int(p["mlp_act"] == "relu"), hidden, seed.data_ptr(),
         wflat.data_ptr(), rows.data_ptr(), out.data_ptr(), traj.data_ptr(), B,
-        kernels.stream_ptr(rows.device))
+        *policy_launch_plan(B, hidden, group), kernels.stream_ptr(rows.device))
     kernels.check(code, "cartpole_policy_rollout")
     cartpole_policy_rollout.launches += 1
     return out, traj

@@ -1,8 +1,8 @@
 """Whole-rollout engines for the planar quadrotors (1D and 2D).
 
 Port of ``safe_control_gym_tpu/parallel/fast_quad_planar.py`` (BASELINE
-config 3).  Two kernels share one control step (``scg::pq::env_step`` in
-``csrc/quad_planar.cuh``, templated on the quad type; plain version
+config 3).  Two kernels share one control step (``scg::grp::pq_step`` in
+``csrc/lane_group_planar.cuh``, templated on the quad type; plain version
 :func:`step_rows`): action white noise, the motor-grouped actuation
 (``envs/quadrotor.py::motor_force``), the impulse force, RK4 or Euler substeps of the 1D or 2D
 body, the closed-form goal (:func:`goal_rows`), the reward, the out-of-bound
@@ -53,6 +53,12 @@ from safe_control_gym_torch.utils.device import resolve_device
 # B = 4096 to 65536 for both quad types: PERF.md).
 GROUPS = (1, 2, 4)
 PLAN_LANES = 16384
+# K8's launch (csrc/quad_planar_policy_rollout.cu) is K6's plan
+# (fast_cartpole.policy_launch_plan) for both quad types: on an H100 8 lanes
+# an env were fastest or within 6% of the fastest at B = 4096-16384 for K6
+# and K8 alike, one lane from 32768 (PERF.md).
+POLICY_GROUPS = FC.POLICY_GROUPS
+POLICY_PLAN_LANES = FC.POLICY_PLAN_LANES
 
 
 def launch_plan(B: int, nx: int, group: int | None = None):
@@ -67,6 +73,15 @@ def launch_plan(B: int, nx: int, group: int | None = None):
     if g not in GROUPS:
         raise ValueError(f"K7 is built for groups of {GROUPS} lanes, not {g}")
     return g, 32 * g, -(-B // 32)
+
+
+def policy_launch_plan(B: int, hidden: int, nx: int, group: int | None = None):
+    """K8's launch for B envs of the quad type with ``nx`` states at hidden
+    width ``hidden``: (lanes per env, threads per block, blocks, dynamic
+    shared-memory bytes), K6's plan (``fast_cartpole.policy_launch_plan``)."""
+    if nx not in (2, 6):
+        raise ValueError(f"K8 takes the 1D (nx 2) or 2D (nx 6) quad, not nx {nx}")
+    return FC.policy_launch_plan(B, hidden, group)
 
 
 def nx_nu(quad_type):
@@ -506,11 +521,12 @@ def planar_rollout(p, rows, action, seed):
 planar_rollout.launches = 0
 
 
-def planar_policy_rollout(p, rows, weights, seed):
+def planar_policy_rollout(p, rows, weights, seed, group=None):
     """K8: the rollout of :func:`planar_policy_rollout_plain`.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/quad_planar_policy_rollout.cu``; anything else raises."""
+    ``csrc/quad_planar_policy_rollout.cu`` with ``group`` lanes per env
+    (:func:`policy_launch_plan`'s pick where None); anything else raises."""
     if all(t.device.type == "cpu" for t in (rows, seed, *weights)):
         return planar_policy_rollout_plain(p, rows, weights, seed)
     nx, nu = p["nx"], p["nu"]
@@ -528,11 +544,11 @@ def planar_policy_rollout(p, rows, weights, seed):
     lib = kernels.lib()
     FC.check_params_size(lib, "quad_planar", params)
     wflat = FP.kernel_weights(weights)
+    hidden = weights[0].shape[0] // 2
     code = lib.quad_planar_policy_rollout(
-        ctypes.addressof(params), nx, int(p["mlp_act"] == "relu"), weights[0].shape[0] // 2,
-        seed.data_ptr(),
+        ctypes.addressof(params), nx, int(p["mlp_act"] == "relu"), hidden, seed.data_ptr(),
         wflat.data_ptr(), rows.data_ptr(), out.data_ptr(), traj.data_ptr(), B,
-        kernels.stream_ptr(rows.device))
+        *policy_launch_plan(B, hidden, nx, group), kernels.stream_ptr(rows.device))
     kernels.check(code, "quad_planar_policy_rollout")
     planar_policy_rollout.launches += 1
     return out, traj

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Time K2, K3, K4, K5 or K7 built from several source trees in one run.
+"""Time K2, K3, K4, K5, K6, K7 or K8 built from several source trees in one run.
 
 Builds the kernel's source (``quad3d_rollout.cu`` for K2,
 ``quad3d_policy_rollout.cu`` for K3, ``ppo_update.cu`` for K4,
-``cartpole_rollout.cu`` for K5, ``quad_planar_rollout.cu`` for K7) of each
+``cartpole_rollout.cu`` for K5, ``cartpole_policy_rollout.cu`` for K6,
+``quad_planar_rollout.cu`` for K7, ``quad_planar_policy_rollout.cu`` for
+K8) of each
 other ``csrc`` directory (for example the parent commit's, unpacked with
 ``git archive <commit> safe_control_gym_torch/csrc``) into a library of
 its own, beside this tree's kernel library.  All run on the same input:
@@ -12,13 +14,16 @@ BASELINE config 4 for K2 (one call of 8192 hover steps) and K3 (one call of
 from a fixed seed, hidden width ``--hidden``), config 2 for K5 (one call of
 8192 steps of a zero force under the config's action white noise) and
 config 3 for K7 (one call of 4096 hover steps; ``--quad-type 1`` the 1D
-quad on the same config), at ``--batch`` envs (4096) from rows that have
+quad on the same config), cartpole_stab for K6 and quad2d_stab for K8 (one
+call of 128 policy steps each, the rl_train shapes as K3's; ``--quad-type
+1`` the 1D quad; ``--disturbed`` adds action white noise and an impulse
+and tracks the circle), at ``--batch`` envs (4096) from rows that have
 already run two calls; K4 one minibatch of 131072 samples at H = 64
 (``chip_smoke.k4_inputs``).  ``--steps`` sets another number of steps a
-call for K2, K3, K5 and K7.  Each round runs the others, this tree twice,
+call for K2, K3, K5-K8.  Each round runs the others, this tree twice,
 then the others in reverse (other, this, this, other for one other tree);
-each call is timed alone with CUDA events.  K2, K3, K5 and K7 must leave the
-same rows (and K3 the same record) bit for bit; K4's builds may
+each call is timed alone with CUDA events.  K2, K3, K5-K8 must leave the
+same rows (and K3, K6 and K8 the same record) bit for bit; K4's builds may
 sum in other orders (the kernel before the redesign has no FMA), so each
 build must repeat its own gradients bit for bit and the largest difference
 from the first other tree's is reported.  Prints each call's time, the
@@ -28,19 +33,18 @@ SM clock ``nvidia-smi`` read during the rounds, and the card as
 instruction count (``cuobjdump``) and its loops (each backward branch and
 the instructions it spans), from which instructions per step are read.
 
-K2's, K3's, K5's and K7's entry points before their lane-group redesigns
-take no launch plan; the script tells them apart by
-``quad3d_rollout_api_version``, ``quad3d_policy_rollout_api_version``,
-``cartpole_rollout_api_version`` and ``quad_planar_rollout_api_version``,
-as it tells K4's by ``ppo_grads_api_version``.  ``--group NAME=G`` launches
+The one-thread entry points of K2, K3, K5-K8 (before their lane-group
+redesigns) take no launch plan; the script tells them apart by
+``<entry>_api_version`` (absent: 1), as it tells K4's by
+``ppo_grads_api_version``.  ``--group NAME=G`` launches
 the tree NAME (``this`` or an other's name) with G lanes per env, where its
 build has that instance; else each tree takes its wrapper's plan.
 
-    python3 scripts/ab_kernel.py --kernel k2|k3|k4|k5|k7 --other NAME=DIR [--other NAME=DIR ...]
-        [--batch 4096] [--steps N] [--hidden 64] [--quad-type 2] [--group NAME=G ...]
-        [--rounds 5] [--sass-dir DIR] [--out results.json]
+    python3 scripts/ab_kernel.py --kernel k2|k3|k4|k5|k6|k7|k8 --other NAME=DIR [--other ...]
+        [--batch 4096] [--steps N] [--hidden 64] [--quad-type 2] [--disturbed]
+        [--group NAME=G ...] [--rounds 5] [--sass-dir DIR] [--out results.json]
 
-Needs one CUDA card, ``nvcc`` and, for K2, K3, K5 and K7, the same
+Needs one CUDA card, ``nvcc`` and, for every kernel but K4, the same
 parameter-struct size in every tree (checked).
 """
 
@@ -67,27 +71,40 @@ KERNELS = {"k2": ("quad3d_rollout.cu", "quad3d_rollout", "quad3d_rollout_kernel"
                   "quad3d_policy_rollout_kernel"),
            "k4": ("ppo_update.cu", "ppo_grads", "ppo_grads_kernel"),
            "k5": ("cartpole_rollout.cu", "cartpole_rollout", "cartpole_rollout_kernel"),
-           "k7": ("quad_planar_rollout.cu", "quad_planar_rollout", "quad_planar_rollout_kernel")}
-STEPS = {"k2": 8192, "k3": 128, "k4": 131072, "k5": 8192, "k7": 4096}  # K4: samples
-# The entry point that reports the size of a rollout kernel's parameter struct.
+           "k6": ("cartpole_policy_rollout.cu", "cartpole_policy_rollout",
+                  "cartpole_policy_rollout_kernel"),
+           "k7": ("quad_planar_rollout.cu", "quad_planar_rollout", "quad_planar_rollout_kernel"),
+           "k8": ("quad_planar_policy_rollout.cu", "quad_planar_policy_rollout",
+                  "quad_planar_policy_rollout_kernel")}
+STEPS = {"k2": 8192, "k3": 128, "k4": 131072, "k5": 8192, "k6": 128, "k7": 4096,
+         "k8": 128}  # K4: samples
+# The entry point that reports the size of a rollout kernel's parameter
+# struct, and the source that defines it where that is another file.
 PARAMS_SIZE = {"k2": "quad3d_rollout_params_size", "k3": "quad3d_rollout_params_size",
-               "k5": "cartpole_params_size", "k7": "quad_planar_params_size"}
+               "k5": "cartpole_params_size", "k6": "cartpole_params_size",
+               "k7": "quad_planar_params_size", "k8": "quad_planar_params_size"}
+PARAMS_SOURCE = {"k3": "quad3d_rollout.cu", "k6": "cartpole_rollout.cu",
+                 "k8": "quad_planar_rollout.cu"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # K4's entry points before the redesign (no ppo_grads_api_version): nx, nu,
 # H, mb, *ng, *nblk, *smem_bytes; and nx, nu, H, mb, relu, clip_lo, clip_hi,
 # inv_n, mb_ptr, wflat, partial, out, nblk, smem_bytes, stream.
 K4_V1 = {"ppo_grads_plan": [_I, _I, _I, _I, _P, _P, _P],
          "ppo_grads": [_I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _I, _I, _P]}
-# K2's, K3's, K5's and K7's entry points before their redesigns (one thread
-# per env): params, rows_in, action, rows_out, B, block, stream; params,
-# normalized, relu, norm_act_scale, hover_thrust, hidden, seed, wflat,
-# rows_in, rows_out, traj, B, stream; params, seed, rows_in, action,
-# rows_out, B, block, stream; and params, nx, seed, rows_in, action,
-# rows_out, B, block, stream.
+# The rollout kernels' entry points before their redesigns (one thread per
+# env), K2, K3, K5, K6, K7, K8: params, rows_in, action, rows_out, B,
+# block, stream; params, normalized, relu, norm_act_scale, hover_thrust,
+# hidden, seed, wflat, rows_in, rows_out, traj, B, stream; params, seed,
+# rows_in, action, rows_out, B, block, stream; params, relu, hidden, seed,
+# wflat, rows_in, rows_out, traj, B, stream; params, nx, seed, rows_in,
+# action, rows_out, B, block, stream; and params, nx, relu, hidden, seed,
+# wflat, rows_in, rows_out, traj, B, stream.
 ROLLOUT_V1 = {"quad3d_rollout": [_P, _P, _P, _P, _I, _I, _P],
               "quad3d_policy_rollout": [_P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P, _I, _P],
               "cartpole_rollout": [_P, _P, _P, _P, _P, _I, _I, _P],
-              "quad_planar_rollout": [_P, _I, _P, _P, _P, _P, _I, _I, _P]}
+              "cartpole_policy_rollout": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+              "quad_planar_rollout": [_P, _I, _P, _P, _P, _P, _I, _I, _P],
+              "quad_planar_policy_rollout": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]}
 
 
 def api(lib, entry) -> int:
@@ -102,20 +119,25 @@ def api(lib, entry) -> int:
 
 def build_others(kernel: str, trees: dict, out_dir) -> dict:
     """The kernel's source of each other tree (name: csrc directory) as a
-    shared library of its own, all nvcc processes started together (K3's
-    needs the K2 source beside it for quad3d_rollout_params_size).  A
-    library whose sources and flags have not changed since an earlier run
-    in the same directory is reused.  Returns name: (library, path, ptxas
-    lines)."""
+    shared library of its own, all nvcc processes started together (K3, K6
+    and K8 need K2's, K5's and K7's source beside them for the parameter
+    struct's size, PARAMS_SOURCE); a directory given under several names is
+    built once.  A library whose sources and flags have not changed since
+    an earlier run in the same directory is reused.  Returns name:
+    (library, path, ptxas lines)."""
     from safe_control_gym_torch import kernels
 
     src, entry, _ = KERNELS[kernel]
     out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, first = {}, {}
     for name, csrc in trees.items():
+        if csrc in first:  # the same tree under another name: one build
+            procs[name] = procs[first[csrc]]
+            continue
+        first[csrc] = name
         so = out_dir / f"lib{kernel}_{name}.so"
-        srcs = [os.path.join(csrc, src)] + ([os.path.join(csrc, "quad3d_rollout.cu")]
-                                            if kernel == "k3" else [])  # K3 and K4 need no other
+        srcs = [os.path.join(csrc, src)] + ([os.path.join(csrc, PARAMS_SOURCE[kernel])]
+                                            if kernel in PARAMS_SOURCE else [])
         h = hashlib.sha256(" ".join(kernels.NVCC_FLAGS + tuple(srcs)).encode())
         for f in sorted(os.listdir(csrc)):
             h.update(f.encode() + open(os.path.join(csrc, f), "rb").read())
@@ -129,7 +151,7 @@ def build_others(kernel: str, trees: dict, out_dir) -> dict:
     out = {}
     for name, (so, stamp, digest, proc) in procs.items():
         log = so.with_suffix(".log")
-        if proc is not None:
+        if proc is not None and proc.returncode is None:
             text, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {kernel} of {name}:\n{text}")
@@ -157,11 +179,15 @@ def prefer(kernel, hidden, nx, nu, group) -> list:
     main path runs, the most specific first: K2's first (a build holds one
     group size), K3's at H = 64 or else its run-time-width instance
     (H = 0), K4's at R = 2 with its weights in shared memory, K5's at the
-    group size ``group``, K7's at (nx, nu) and ``group``.  A kernel that is
-    no template (K2 and K5 before their redesigns) has one instance."""
-    return {"k2": ["ILi"], "k3": [f"ILi{64 if hidden == 64 else 0}E"], "k4": ["ILi2ELb1E"],
-            "k5": [f"ILi{group}E"],
-            "k7": [f"ILi{nx}ELi{nu}ELi{group}E", f"ILi{nx}ELi{nu}E"]}[kernel]
+    group size ``group``, K7's at (nx, nu) and ``group``, K6's and K8's at
+    the width and ``group`` (before their redesigns: at the width).  A
+    kernel that is no template (K2 and K5 before their redesigns) has one
+    instance."""
+    h = 64 if hidden == 64 else 0
+    return {"k2": ["ILi"], "k3": [f"ILi{h}E"], "k4": ["ILi2ELb1E"],
+            "k5": [f"ILi{group}E"], "k6": [f"ILi{h}ELi{group}E", f"ILi{h}E"],
+            "k7": [f"ILi{nx}ELi{nu}ELi{group}E", f"ILi{nx}ELi{nu}E"],
+            "k8": [f"ILi{nx}ELi{nu}ELi{h}ELi{group}E", f"ILi{nx}ELi{nu}ELi{h}E"]}[kernel]
 
 
 def sass_count(path, kname, prefs, out_file) -> dict:
@@ -235,12 +261,12 @@ def k4_launch(dev, stream):
     return launch
 
 
-def inputs(kernel, dev, B, steps, hidden, quad_type):
+def inputs(kernel, dev, B, steps, hidden, quad_type, disturbed=False):
     """The kernel's input at the main path's shapes (B envs, ``steps``
-    steps a call, K3 at width ``hidden``, K7 on the quad type
-    ``quad_type``) and a function that launches a library's build of it
-    with ``group`` lanes per env (None: the wrapper's plan), returning (ms,
-    outputs)."""
+    steps a call, K3, K6 and K8 at width ``hidden``, K7 and K8 on the quad
+    type ``quad_type``, K6 and K8 ``disturbed`` or not) and a function that
+    launches a library's build of it with ``group`` lanes per env (None:
+    the wrapper's plan), returning (ms, outputs)."""
     import torch
 
     from chip_smoke import cfg4, seeded_ac
@@ -254,6 +280,8 @@ def inputs(kernel, dev, B, steps, hidden, quad_type):
         launch = k4_launch(dev, stream)
     elif kernel in ("k5", "k7"):
         launch = planar_launch(kernel, dev, B, steps, quad_type, stream)
+    elif kernel in ("k6", "k8"):
+        launch = planar_policy_launch(kernel, dev, B, steps, hidden, quad_type, disturbed, stream)
     elif kernel == "k2":
         env = make_quadrotor(cfg4(), device=dev)
         fr = F.FastQuadRollout(env, B, steps_per_call=steps, device=dev)
@@ -347,17 +375,71 @@ def planar_launch(kernel, dev, B, steps, quad_type, stream):
     return launch
 
 
-def default_group(kernel, nx, B):
-    """The group size of the wrapper's plan at B envs for K5 and K7 (the
+def planar_policy_launch(kernel, dev, B, steps, hidden, quad_type, disturbed, stream):
+    """K6 on cartpole_stab or K8 on quad2d_stab (quad type ``quad_type``) at
+    the rl_train shapes, weights of width ``hidden`` from a fixed seed, from
+    rows that have run two calls; ``disturbed`` adds action white noise and
+    an impulse and tracks the circle.  Returns a launch of any library's
+    build through the entry point of its API version."""
+    import torch
+
+    from chip_smoke import cfg_cartpole_rl, cfg_quad2d_rl, seeded_ac
+    from safe_control_gym_torch.envs.cartpole import make_cartpole
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+    from safe_control_gym_torch.parallel import fast_cartpole as FC
+    from safe_control_gym_torch.parallel import fast_policy as P
+    from safe_control_gym_torch.parallel import fast_quad_planar as PQ
+
+    kw = dict(task="traj_tracking", task_info={"trajectory_type": "circle",
+                                                "trajectory_plane": "xz"}) if disturbed else {}
+    if kernel == "k6":
+        if disturbed:
+            kw["disturbances"] = {"dynamics": ({"disturbance_func": "impulse", "magnitude": 0.4,
+                                                "duration": 4, "decay_rate": 0.8},),
+                                  "action": ({"disturbance_func": "white_noise", "std": 0.2},)}
+        fp = FC.FastCartPolePolicyRollout(make_cartpole(cfg_cartpole_rl(**kw), device=dev), B,
+                                          steps, mlp_hidden=hidden, device=dev)
+        params, entry, nx_arg = FC.kernel_params(fp.params), "cartpole_policy_rollout", ()
+        plan = lambda g: FC.policy_launch_plan(B, hidden, g)  # noqa: E731
+    else:
+        if disturbed:
+            kw["disturbances"] = {"dynamics": ({"disturbance_func": "impulse", "magnitude": 0.02,
+                                                "duration": 4, "decay_rate": 0.8},),
+                                  "action": ({"disturbance_func": "white_noise", "std": 0.01},)}
+        env = make_quadrotor(cfg_quad2d_rl(quad_type=quad_type, **kw), device=dev)
+        fp = PQ.FastPlanarQuadPolicyRollout(env, B, steps, mlp_hidden=hidden, device=dev)
+        params, entry, nx_arg = PQ.kernel_params(fp.params), "quad_planar_policy_rollout", \
+            (fp.nx,)
+        plan = lambda g: PQ.policy_launch_plan(B, hidden, fp.nx, g)  # noqa: E731
+    ac = seeded_ac(dev, nx=fp.obs_dim, nu=fp.nu, hidden=hidden)
+    w = P.pack_weights(ac.actor, ac.critic, ac.logstd)
+    rows_in = fp.run(fp.run(fp.reset(seed=0), w, seed=1)[0], w, seed=2)[0]
+    wflat = P.kernel_weights(w)
+    seed = torch.tensor([3], dtype=torch.int32, device=dev)
+
+    def launch(lib, group):
+        out = torch.empty_like(rows_in)
+        traj = torch.empty((steps, fp.traj_rows, B), device=dev)
+        args = (ctypes.addressof(params), *nx_arg, 0, hidden, seed.data_ptr(), wflat.data_ptr(),
+                rows_in.data_ptr(), out.data_ptr(), traj.data_ptr(), B)
+        if api(lib, entry) == 1:
+            code = getattr(lib, entry)(*args, stream)
+        else:
+            code = getattr(lib, entry)(*args, *plan(group), stream)
+        return code, (out, traj)
+
+    return launch
+
+
+def default_group(kernel, nx, B, hidden):
+    """The group size of the wrapper's plan at B envs for K5-K8 (the
     instance whose SASS is dumped), None for the others."""
     from safe_control_gym_torch.parallel import fast_cartpole as FC
     from safe_control_gym_torch.parallel import fast_quad_planar as PQ
 
-    if kernel == "k5":
-        return FC.launch_plan(B)[0]
-    if kernel == "k7":
-        return PQ.launch_plan(B, nx)[0]
-    return None
+    return {"k5": lambda: FC.launch_plan(B)[0], "k7": lambda: PQ.launch_plan(B, nx)[0],
+            "k6": lambda: FC.policy_launch_plan(B, hidden)[0],
+            "k8": lambda: PQ.policy_launch_plan(B, hidden, nx)[0]}.get(kernel, lambda: None)()
 
 
 def sm_clock_sampler():
@@ -379,13 +461,15 @@ def main():
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="k2")
     ap.add_argument("--other", action="append", required=True, metavar="NAME=DIR",
                     help="csrc directory of another tree, under a name")
-    ap.add_argument("--batch", type=int, default=4096, help="envs of a K2 or K3 call")
-    ap.add_argument("--steps", type=int, help="steps of a K2 or K3 call (default: the main path's)")
-    ap.add_argument("--hidden", type=int, default=64, help="K3's hidden width")
+    ap.add_argument("--batch", type=int, default=4096, help="envs of a call")
+    ap.add_argument("--steps", type=int, help="steps of a call (default: the main path's)")
+    ap.add_argument("--hidden", type=int, default=64, help="K3's, K6's and K8's hidden width")
     ap.add_argument("--quad-type", type=int, choices=(1, 2), default=2,
-                    help="K7's quad type (config 3 is the 2D quad)")
+                    help="K7's and K8's quad type (config 3 is the 2D quad)")
+    ap.add_argument("--disturbed", action="store_true",
+                    help="K6 and K8 with action white noise and an impulse, tracking the circle")
     ap.add_argument("--group", action="append", default=[], metavar="NAME=G",
-                    help="lanes per env for the tree NAME's K2 or K3 launch")
+                    help="lanes per env for the tree NAME's launch")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--sass-dir", help="write each build's kernel SASS here")
     ap.add_argument("--out", help="also write the results here as JSON")
@@ -424,18 +508,19 @@ def main():
     if args.sass_dir:
         os.makedirs(args.sass_dir, exist_ok=True)
         sass = {k: sass_count(p, kname, prefer(kernel, args.hidden, nx, nu,
-                                               groups.get(k) or default_group(kernel, nx, B)),
+                                               groups.get(k)
+                                               or default_group(kernel, nx, B, args.hidden)),
                               os.path.join(args.sass_dir, f"{kernel}_{k}.sass"))
                 for k, p in paths.items()}
 
-    call = inputs(kernel, dev, B, steps, args.hidden, args.quad_type)
+    call = inputs(kernel, dev, B, steps, args.hidden, args.quad_type, args.disturbed)
 
     def equal(a, b):
         return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
 
     first = {k: call(lib, groups.get(k))[1] for k, lib in libs.items()}  # warm-up of each library
-    # K2 and K3 builds must leave the first other tree's outputs bit for bit;
-    # each K4 build its own first launch's.
+    # The rollout kernels' builds must leave the first other tree's outputs
+    # bit for bit; each K4 build its own first launch's.
     want = {k: first[k] if kernel == "k4" else first[others[0]] for k in libs}
     same = {k: equal(want[k], first[k]) for k in libs}
     err = {k: max(float((x.double() - y.double()).abs().nan_to_num(0.0).max())  # NaN seed bits
@@ -452,8 +537,9 @@ def main():
     med = {k: statistics.median(v) for k, v in ms.items()}
     base = med[others[0]]
     res = {"card": card_line(), "kernel": kernel, "B": B, "steps": steps,
-           "hidden": args.hidden if kernel == "k3" else None,
-           "quad_type": args.quad_type if kernel == "k7" else None, "groups": groups,
+           "hidden": args.hidden if kernel in ("k3", "k6", "k8") else None,
+           "quad_type": args.quad_type if kernel in ("k7", "k8") else None,
+           "disturbed": args.disturbed if kernel in ("k6", "k8") else None, "groups": groups,
            "rounds": args.rounds, "order": order, "ms": ms, "median_ms": med,
            "over_first_other": {k: v / base for k, v in med.items()},
            "sm_clock_mhz": {"median": statistics.median(clocks) if clocks else None,
@@ -464,8 +550,9 @@ def main():
     print(f"SM clock during the rounds: {res['sm_clock_mhz']}")
     for k in libs:
         print(f"{kernel.upper()} {k}: median {med[k]:.4f} ms per call of {steps} steps at B={B}"
-              + (f", H={args.hidden}" if kernel == "k3" else "")
-              + (f", {args.quad_type}D" if kernel == "k7" else "")
+              + (f", H={args.hidden}" if kernel in ("k3", "k6", "k8") else "")
+              + (f", {args.quad_type}D" if kernel in ("k7", "k8") else "")
+              + (", disturbed" if args.disturbed and kernel in ("k6", "k8") else "")
               + (f", G={groups[k]}" if k in groups else "")
               + f" ({med[k] / base:.4f} of {others[0]}); bit-equal {same[k]}; max_abs_err "
               f"{err[k]:.3g} from {others[0]}; SASS {sass.get(k, 'not dumped')}; {regs[k]}; "

@@ -11,9 +11,10 @@ width 128 (``config4_h128``): two warm-up train steps,
 then ``--steps`` timed ones (host clock, ending in a synchronize), and one
 profiled step (device busy time and kernel launches).  The runs go other,
 this, this, other; the medians and their ratios are printed with the card
-as ``nvidia-smi`` names it.
+as ``nvidia-smi`` names it.  ``--families`` runs only the families named.
 
-    python3 scripts/ab_train.py --other DIR [--steps 5] [--out results.json]
+    python3 scripts/ab_train.py --other DIR [--steps 5] [--families cartpole,quad2d]
+        [--out results.json]
 
 Needs one CUDA card and ``nvcc``; each tree builds its own kernels.
 """
@@ -42,7 +43,7 @@ def smoke():
     return mod
 
 
-def worker(tree: str, steps: int) -> dict:
+def worker(tree: str, steps: int, families=FAMILIES) -> dict:
     sys.path.insert(0, tree)
     import torch
 
@@ -59,7 +60,7 @@ def worker(tree: str, steps: int) -> dict:
             "quad2d": lambda: make_quadrotor(S.cfg_quad2d_rl(), device=dev)}
     envs["config4_h128"] = envs["config4"]
     out = {}
-    for fam in FAMILIES:
+    for fam in families:
         ppo = PPO(envs[fam](), seed=0, rollout_batch_size=S.TRAIN_B, rollout_steps=S.TRAIN_T,
                   opt_epochs=S.EPOCHS, mini_batch_size=S.MB,
                   hidden_dim=128 if fam == "config4_h128" else S.HIDDEN,
@@ -84,6 +85,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", help="root of the other tree")
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--families", default=",".join(FAMILIES),
+                    help=f"comma-separated, of {', '.join(FAMILIES)}")
     ap.add_argument("--out", help="also write the results here as JSON")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -93,8 +96,11 @@ def main():
     if not torch.cuda.is_available():
         print("ab_train: CUDA is not available", file=sys.stderr)
         return 2
+    families = args.families.split(",")
+    if not set(families) <= set(FAMILIES):
+        ap.error(f"--families takes {FAMILIES}")
     if args.worker:
-        print(json.dumps(worker(args.worker, args.steps)))
+        print(json.dumps(worker(args.worker, args.steps, families)))
         return 0
     if not args.other:
         ap.error("--other is required")
@@ -102,13 +108,14 @@ def main():
     runs = {"other": [], "this": []}
     for name in ("other", "this", "this", "other"):
         res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", trees[name],
-                              "--steps", str(args.steps)], capture_output=True, text=True)
+                              "--steps", str(args.steps), "--families", args.families],
+                             capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"ab_train worker on {name} failed:\n{res.stdout}{res.stderr}")
         runs[name].append(json.loads(next(line for line in res.stdout.splitlines()
                                           if line.startswith("{"))))
     summary = {}
-    for fam in FAMILIES:
+    for fam in families:
         med = {k: statistics.median(w for r in rs for w in r[fam]["wall_ms"]) for k, rs in runs.items()}
         dev_ms = {k: statistics.median(r[fam]["device_ms"] for r in rs) for k, rs in runs.items()}
         summary[fam] = {"median_wall_ms": med, "device_ms": dev_ms,

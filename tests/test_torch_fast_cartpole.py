@@ -387,11 +387,13 @@ def test_wrappers_reject_tensors_off_cpu_and_cuda(policy_setup):
                                    m(1, dt=torch.int32))
 
 
+@pytest.mark.parametrize("group", tf.POLICY_GROUPS)
 @pytest.mark.parametrize("hidden", [64, 128])
-def test_kernels_match_plain_on_card(policy_setup, hidden):
+def test_kernels_match_plain_on_card(policy_setup, hidden, group):
     """K5 and K6 against their plain versions on the card, 25 steps through
     resets, config 2 with its action white noise: rows and record at rtol
-    2e-4 / atol 2e-5, done counts exact; K6 at H = 64 and 128."""
+    2e-4 / atol 2e-5, done counts exact; K6 at H = 64 and 128, at every
+    group size it is built for."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -409,9 +411,10 @@ def test_kernels_match_plain_on_card(policy_setup, hidden):
     ac = (policy_setup["ac"] if hidden == 64 else
           ActorCritic(4, 1, hidden, "tanh", generator=torch.Generator().manual_seed(0))).to(dev)
     w = fp.pack_weights(ac.actor, ac.critic, ac.logstd)
-    rows, traj = tf.cartpole_policy_rollout(fp.params, rows0, w, seed)
+    assert fp.params["act_noise_std"] == 0.2
+    rows, traj = tf.cartpole_policy_rollout(fp.params, rows0, w, seed, group=group)
     rows_p, traj_p = tf.cartpole_policy_rollout_plain(fp.params, rows0, w, seed)
-    assert torch.equal(rows[12], rows_p[12])
+    assert torch.equal(rows[12], rows_p[12]) and torch.equal(traj[:, 6:8], traj_p[:, 6:8])
     torch.testing.assert_close(rows, rows_p, rtol=2e-4, atol=2e-5)
     torch.testing.assert_close(traj, traj_p, rtol=2e-4, atol=2e-5)
 
@@ -461,3 +464,69 @@ def test_launch_plan_mirrors_cuda_source():
     from safe_control_gym_torch import kernels
 
     assert len(kernels._SIGNATURES["cartpole_rollout"]) == 10  # ..., B, group, block, grid, stream
+
+
+@pytest.mark.parametrize("batch", [1, 33, 1000, 4096, 16384])
+def test_policy_launch_plan_covers_every_env_once(batch):
+    """K6's launch plan stores every env exactly once, from one group inside
+    one warp, at the group the plan picks and at each the source builds."""
+    for group in (None, *tf.POLICY_GROUPS):
+        np.testing.assert_array_equal(lane_groups(tf.policy_launch_plan(batch, 64, group), batch),
+                                      np.arange(batch))
+    with pytest.raises(ValueError):
+        tf.policy_launch_plan(batch, 64, 3)
+    with pytest.raises(ValueError):
+        tf.policy_launch_plan(batch, 129)
+
+
+def test_policy_launch_plan_group_fits_the_lane_budget():
+    """K6's plan takes the widest built group whose B x G lanes stay within
+    POLICY_PLAN_LANES: 8 lanes an env at the training path's B = 4096, one
+    thread an env at B = 65536."""
+    for B in (1, 1000, 4096, 5000, 8192, 16384, 32768, 65536):
+        g = tf.policy_launch_plan(B, 64)[0]
+        assert B * g <= tf.POLICY_PLAN_LANES or g == min(tf.POLICY_GROUPS), B
+        assert all(B * h > tf.POLICY_PLAN_LANES for h in tf.POLICY_GROUPS if h > g), B
+    assert tf.policy_launch_plan(4096, 64)[0] == 8 and tf.policy_launch_plan(65536, 64)[0] == 1
+
+
+@pytest.mark.parametrize("hidden", [1, 63, 64, 128])
+def test_policy_launch_plan_shared_memory_fits(hidden):
+    """A group of lanes gets a shared-memory row per env
+    (lane_group.cuh::mlp_group_row, what the entry point checks) within
+    MAX_SMEM, the widest width included; one lane an env needs none."""
+    for group in tf.POLICY_GROUPS:
+        G, block, _, smem = tf.policy_launch_plan(4096, hidden, group)
+        assert smem == (block // G * tf.FP.group_row(hidden) * 4 if G > 1 else 0)
+        assert smem <= tf.FP.MAX_SMEM
+
+
+def test_policy_launch_plan_mirrors_cuda_source():
+    """The plan's group sizes are the instances csrc/cartpole_policy_rollout.cu
+    builds, its blocks are the source's launch bound (32 envs), and the
+    entry point that takes the plan reports API version 2
+    (scripts/ab_kernel.py tells the one-thread entry point apart by it)."""
+    src = (Path(tf.__file__).parents[1] / "csrc" / "cartpole_policy_rollout.cu").read_text()
+    built = re.findall(r"if \(group == (\d+)\) return launch_width<(\d+)>", src)
+    assert all(a == b for a, b in built) and sorted(int(a) for a, _ in built) == \
+        list(tf.POLICY_GROUPS)
+    assert "__launch_bounds__(32 * G," in src and "block != 32 * group" in src
+    assert all(tf.policy_launch_plan(4096, 128, g)[1] == 32 * g for g in tf.POLICY_GROUPS)
+    assert re.search(r"cartpole_policy_rollout_api_version\(\) \{ return 2; \}", src)
+    from safe_control_gym_torch import kernels
+
+    # ..., B, group, block, grid, smem, stream
+    assert len(kernels._SIGNATURES["cartpole_policy_rollout"]) == 14
+
+
+def test_one_thread_steps_are_gone():
+    """The CartPole and planar-quad steps exist once, as the grouped steps
+    of csrc/lane_group_planar.cuh: no source defines or calls the one-thread
+    cp::env_step or pq::env_step."""
+    csrc = Path(tf.__file__).parents[1] / "csrc"
+    for name in ("cartpole.cuh", "quad_planar.cuh", "lane_group_planar.cuh"):
+        assert not re.search(r"\benv_step\s*\(", (csrc / name).read_text()), name
+    for path in csrc.iterdir():
+        assert not re.search(r"\b(cp|pq)::env_step\b", path.read_text()), path.name
+    src = (csrc / "lane_group_planar.cuh").read_text()
+    assert re.search(r"void cp_step\(", src) and re.search(r"bool pq_step\(", src)

@@ -336,11 +336,13 @@ def test_params_struct_mirrors_cuda_source():
     assert got == want
 
 
+@pytest.mark.parametrize("group", tf.POLICY_GROUPS)
 @pytest.mark.parametrize("hidden", [64, 128])
-def test_kernels_match_plain_on_card(policy_setup, hidden):
+def test_kernels_match_plain_on_card(policy_setup, hidden, group):
     """K7 and K8 against their plain versions on the card, 25 steps through
     resets: rows and record at rtol 2e-4 / atol 2e-5, done counts exact; K8
-    at H = 64 and 128."""
+    at H = 64 and 128 with action white noise (drawn ahead, actuated every
+    step), at every group size it is built for."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -356,13 +358,18 @@ def test_kernels_match_plain_on_card(policy_setup, hidden):
     ex = tf.exact_rows(nx)
     assert torch.equal(out[ex], ref[ex])
     torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
-    penv = tq.make_quadrotor(tq.QuadrotorConfig(**cfg, normalized_rl_action_space=True), device=dev)
+    noise = {"action": ({"disturbance_func": "white_noise", "std": 0.01},)}
+    penv = tq.make_quadrotor(tq.QuadrotorConfig(**cfg, normalized_rl_action_space=True,
+                                                disturbances=noise), device=dev)
     fp = tf.FastPlanarQuadPolicyRollout(penv, 1024, 25, mlp_hidden=hidden, device=dev)
     ac = (s["ac"] if hidden == 64 else
           ActorCritic(nx, nu, hidden, "tanh", generator=torch.Generator().manual_seed(0))).to(dev)
     w = fp.pack_weights(ac.actor, ac.critic, ac.logstd)
-    rows, traj = tf.planar_policy_rollout(fp.params, rows0, w, seed)
+    assert fp.params["act_noise_std"] == 0.01
+    rows, traj = tf.planar_policy_rollout(fp.params, rows0, w, seed, group=group)
     rows_p, traj_p = tf.planar_policy_rollout_plain(fp.params, rows0, w, seed)
+    flags = [nx + nu + 1, nx + nu + 2]  # done and truncation records
+    assert torch.equal(rows[ex], rows_p[ex]) and torch.equal(traj[:, flags], traj_p[:, flags])
     torch.testing.assert_close(rows, rows_p, rtol=2e-4, atol=2e-5)
     torch.testing.assert_close(traj, traj_p, rtol=2e-4, atol=2e-5)
 
@@ -399,3 +406,57 @@ def test_launch_plan_mirrors_cuda_source():
     from safe_control_gym_torch import kernels
 
     assert len(kernels._SIGNATURES["quad_planar_rollout"]) == 11  # ..., group, block, grid, stream
+
+
+@pytest.mark.parametrize("batch", [1, 33, 1000, 4096, 16384])
+@pytest.mark.parametrize("nx", [2, 6])
+def test_policy_launch_plan_covers_every_env_once(batch, nx):
+    """K8's launch plan for each quad type stores every env exactly once,
+    from one group inside one warp, at the group the plan picks and at each
+    the source builds."""
+    for group in (None, *tf.POLICY_GROUPS):
+        np.testing.assert_array_equal(
+            lane_groups(tf.policy_launch_plan(batch, 64, nx, group), batch), np.arange(batch))
+    assert tf.policy_launch_plan(batch, 64, nx)[0] == \
+        tf.FC.plan_group(batch, tf.POLICY_PLAN_LANES, tf.POLICY_GROUPS)
+    with pytest.raises(ValueError):
+        tf.policy_launch_plan(batch, 64, nx, 3)
+    with pytest.raises(ValueError):
+        tf.policy_launch_plan(batch, 64, 12)
+
+
+def test_policy_launch_plan_group_fits_the_lane_budget():
+    """K8's plan takes the widest built group whose B x G lanes stay within
+    POLICY_PLAN_LANES, and every group's shared-memory rows fit MAX_SMEM at
+    the widest width."""
+    for B in (1, 1000, 4096, 5000, 8192, 16384, 32768, 65536):
+        for nx in (2, 6):
+            g = tf.policy_launch_plan(B, 64, nx)[0]
+            assert B * g <= tf.POLICY_PLAN_LANES or g == min(tf.POLICY_GROUPS), B
+            assert all(B * h > tf.POLICY_PLAN_LANES for h in tf.POLICY_GROUPS if h > g), B
+    assert tf.policy_launch_plan(4096, 64, 6)[0] == 8
+    for group in tf.POLICY_GROUPS:
+        G, block, _, smem = tf.policy_launch_plan(4096, 128, 6, group)
+        assert smem == (block // G * tf.FP.group_row(128) * 4 if G > 1 else 0)
+        assert smem <= tf.FP.MAX_SMEM
+
+
+def test_policy_launch_plan_mirrors_cuda_source():
+    """Each quad type's group sizes are the instances
+    csrc/quad_planar_policy_rollout.cu builds, its blocks are the source's
+    launch bound (32 envs), and the entry point that takes the plan reports
+    API version 2 (scripts/ab_kernel.py tells the one-thread entry point
+    apart by it)."""
+    src = (Path(tf.__file__).parents[1] / "csrc" / "quad_planar_policy_rollout.cu").read_text()
+    built = re.findall(r"nx == (\d+) && group == (\d+)\) return launch_width<(\d+), \d+, (\d+)>",
+                       src)
+    assert all(a == c and b == d for a, b, c, d in built)
+    assert sorted((int(a), int(b)) for a, b, _, _ in built) == \
+        [(nx, g) for nx in (2, 6) for g in tf.POLICY_GROUPS]
+    assert "__launch_bounds__(32 * G," in src and "block != 32 * group" in src
+    assert all(tf.policy_launch_plan(4096, 64, 6, g)[1] == 32 * g for g in tf.POLICY_GROUPS)
+    assert re.search(r"quad_planar_policy_rollout_api_version\(\) \{ return 2; \}", src)
+    from safe_control_gym_torch import kernels
+
+    # ..., B, group, block, grid, smem, stream
+    assert len(kernels._SIGNATURES["quad_planar_policy_rollout"]) == 15
