@@ -1,27 +1,30 @@
 // One env over a group of G lanes of a warp: the lane group every grouped
-// kernel takes its place from (lane_group, from), the 3D-quadrotor rollout
-// kernels' grouped control step (K2 quad3d_rollout, K3
-// quad3d_policy_rollout) and the policy kernels' grouped dual MLP (K3, K6
-// cartpole_policy_rollout, K8 quad_planar_policy_rollout).
+// kernel takes its place from (lane_group, from), its rounds of divisions
+// and sines (div_round, sincos_round), the 3D quadrotor's grouped
+// derivative and substeps (fc_group, substeps_group: K1 quad3d_substeps in
+// float and double, and the control step of K2 quad3d_rollout and K3
+// quad3d_policy_rollout, env_step_group), and the policy kernels' grouped
+// dual MLP (K3, K6 cartpole_policy_rollout, K8 quad_planar_policy_rollout).
 //
 // Why: with one thread per env, B = 4096 envs are 128 warps for the card's
 // 528 warp schedulers, and each thread's step is one dependent chain.  In
 // that chain each accurate sinf/cosf and each IEEE division is a region of
 // its own (a convergence barrier around its rare slow path), so the six
 // trigonometric calls and six divisions of every rigid-body derivative run
-// one after another.  A group runs them side by side, one angle's sincosf
+// one after another.  A group runs them side by side, one angle's sincos
 // and one division per lane, and hands the results round with __shfl_sync;
 // the MLP's sums split over the lanes.  G lanes per env also make G times
-// as many warps.
+// as many warps.  A group of fewer lanes than a round's values takes the
+// round in turns (G = 1 is one thread per env, one sincos per angle).
 //
-// What does not change: every value is computed by the same float32
-// operations in the same order as in the one-thread code (quad3d.cuh::fc,
-// policy_mlp.cuh::mlp_net / mlp_net_wide), only on another lane, so the
-// results are bit-equal to it and to the plain versions as before.  Every
-// lane of a group holds the env's rows and runs the rest of the step on
-// identical registers.  No lane returns early: a lane past the last env
-// runs env B - 1 (LaneGroup::e) and stores nothing, so every lane of a
-// warp joins every exchange (full-warp masks).
+// What does not change: every value is computed by the same operations in
+// the same order as in the one-thread forms (the derivative as
+// pallas_quad.py writes it, policy_mlp.cuh::mlp_net / mlp_net_wide), only
+// on another lane, so the results are bit-equal to them and to the plain
+// versions.  Every lane of a group holds the env's rows and runs
+// the rest of the step on identical registers.  No lane returns early: a
+// lane past the last env runs env B - 1 (LaneGroup::e) and stores nothing,
+// so every lane of a warp joins every exchange (full-warp masks).
 #pragma once
 
 #include <cstdint>
@@ -54,9 +57,9 @@ __device__ __forceinline__ LaneGroup lane_group(int B) {
   return g;
 }
 
-// Lane i's value of v (a plain read in a group of one).
-template <int G>
-__device__ __forceinline__ float from(float v, const LaneGroup& g, int i) {
+// Lane i's value of v (a plain read in a group of one), float or double.
+template <int G, typename T>
+__device__ __forceinline__ T from(T v, const LaneGroup& g, int i) {
   if constexpr (G == 1) {
     return v;
   } else {
@@ -64,59 +67,84 @@ __device__ __forceinline__ float from(float v, const LaneGroup& g, int i) {
   }
 }
 
-// quad3d.cuh::fc over the group: lane i < 3 takes the sine and cosine of
-// angle i (phi, theta, psi) in one sincosf, lane i < 6 the i-th division (sth/cth,
-// sphi/cth, cphi/cth, then the three body-rate rows), in rounds of G lanes;
-// every lane gets all twelve rows.
-template <int G>
-__device__ __forceinline__ void fc_group(const float* s, const Body& b, float* d, const LaneGroup& g) {
-  static_assert(G >= 4, "lanes 0..2 take the three angles");
-  const float vx = s[1], vy = s[3], vz = s[5];
-  const float p = s[9], q = s[10], r = s[11];
-  const float f1 = b.f[0], f2 = b.f[1], f3 = b.f[2], f4 = b.f[3];
-
-  const float T = f1 + f2 + f3 + f4;
-  // sincosf gives sinf's and cosf's bits (scripts/ab_kernel.py's check
-  // against the one-thread build) from one range reduction: one region, not
-  // two.
-  const float ang = g.gl == 0 ? s[6] : g.gl == 1 ? s[7] : s[8];
-  float s_own, c_own;
-  sincosf(ang, &s_own, &c_own);
-  const float cphi = from<G>(c_own, g, 0), sphi = from<G>(s_own, g, 0);
-  const float cth = from<G>(c_own, g, 1), sth = from<G>(s_own, g, 1);
-  const float cpsi = from<G>(c_own, g, 2), spsi = from<G>(s_own, g, 2);
-  const float zb_x = cpsi * sth * cphi + spsi * sphi;
-  const float zb_y = spsi * sth * cphi - cpsi * sphi;
-  const float zb_z = cth * cphi;
-  const float ax = (zb_x * T + b.ext[0]) * b.minv;
-  const float ay = (zb_y * T + b.ext[1]) * b.minv;
-  const float az = (zb_z * T + b.ext[2]) * b.minv - b.g;
-
-  const float mx = b.l_sq2 * (f1 + f2 - f3 - f4);
-  const float my = b.l_sq2 * (-f1 + f2 + f3 - f4);
-  const float mz = b.km_over_kf * (f1 - f2 + f3 - f4);
-  const float jx = b.j[0], jy = b.j[1], jz = b.j[2];
-  const float gx = q * (jz * r) - r * (jy * q);
-  const float gy = r * (jx * p) - p * (jz * r);
-  const float gz = p * (jy * q) - q * (jx * p);
-
-  const float num[6] = {sth, sphi, cphi, mx - gx, my - gy, mz - gz};
-  const float den[6] = {cth, cth, cth, jx, jy, jz};
-  float quo[6];
+// q[k] = num[k] / den[k] for k < N, lane i of a round taking the i-th
+// division of the round, in rounds of G lanes; every lane gets all N.
+template <int G, int N, typename T>
+__device__ __forceinline__ void div_round(const T (&num)[N], const T (&den)[N], T (&q)[N],
+                                          const LaneGroup& g) {
 #pragma unroll
-  for (int r0 = 0; r0 < 6; r0 += G) {
-    // This lane's division of the round (lanes past the last repeat it).
-    float n = num[r0], dd = den[r0];
+  for (int r0 = 0; r0 < N; r0 += G) {
+    T n = num[r0], d = den[r0];
 #pragma unroll
-    for (int i = 1; i < G && r0 + i < 6; ++i) {
+    for (int i = 1; i < G && r0 + i < N; ++i) {
       n = g.gl >= i ? num[r0 + i] : n;
-      dd = g.gl >= i ? den[r0 + i] : dd;
+      d = g.gl >= i ? den[r0 + i] : d;
     }
-    const float qt = n / dd;
+    const T qt = n / d;
 #pragma unroll
-    for (int i = 0; i < G && r0 + i < 6; ++i) quo[r0 + i] = from<G>(qt, g, i);
+    for (int i = 0; i < G && r0 + i < N; ++i) q[r0 + i] = from<G>(qt, g, i);
   }
-  const float tth = quo[0];
+}
+
+// sn[k], cs[k] = sin, cos of a[k] for k < N, one sincos a lane per round.
+template <int G, int N, typename T>
+__device__ __forceinline__ void sincos_round(const T (&a)[N], T (&sn)[N], T (&cs)[N],
+                                             const LaneGroup& g) {
+#pragma unroll
+  for (int r0 = 0; r0 < N; r0 += G) {
+    T x = a[r0];
+#pragma unroll
+    for (int i = 1; i < G && r0 + i < N; ++i) x = g.gl >= i ? a[r0 + i] : x;
+    T s, c;
+    sincos_t(x, &s, &c);
+#pragma unroll
+    for (int i = 0; i < G && r0 + i < N; ++i) {
+      sn[r0 + i] = from<G>(s, g, i);
+      cs[r0 + i] = from<G>(c, g, i);
+    }
+  }
+}
+
+// x' = fc(x), the closed form of pallas_quad.py:49-91 (SDFormat Euler
+// angles, body rates, world-frame velocity), over the group: lane i takes
+// the sine and cosine of angle i (phi, theta, psi) in one sincos, and the
+// i-th division (sth/cth, sphi/cth, cphi/cth, then the three body-rate
+// rows), in rounds of G lanes; every lane gets all twelve rows.
+template <int G, typename T>
+__device__ __forceinline__ void fc_group(const T* s, const BodyT<T>& b, T* d, const LaneGroup& g) {
+  const T vx = s[1], vy = s[3], vz = s[5];
+  const T p = s[9], q = s[10], r = s[11];
+  const T f1 = b.f[0], f2 = b.f[1], f3 = b.f[2], f4 = b.f[3];
+
+  const T tsum = f1 + f2 + f3 + f4;
+  const T ang[3] = {s[6], s[7], s[8]};
+  T sn[3], cs[3];
+  sincos_round<G, 3>(ang, sn, cs, g);
+  const T cphi = cs[0], sphi = sn[0];
+  const T cth = cs[1], sth = sn[1];
+  const T cpsi = cs[2], spsi = sn[2];
+  // Thrust direction = body z-axis in the world frame.
+  const T zb_x = cpsi * sth * cphi + spsi * sphi;
+  const T zb_y = spsi * sth * cphi - cpsi * sphi;
+  const T zb_z = cth * cphi;
+  const T ax = (zb_x * tsum + b.ext[0]) * b.minv;
+  const T ay = (zb_y * tsum + b.ext[1]) * b.minv;
+  const T az = (zb_z * tsum + b.ext[2]) * b.minv - b.g;
+
+  const T mx = b.l_sq2 * (f1 + f2 - f3 - f4);
+  const T my = b.l_sq2 * (-f1 + f2 + f3 - f4);
+  const T mz = b.km_over_kf * (f1 - f2 + f3 - f4);
+  const T jx = b.j[0], jy = b.j[1], jz = b.j[2];
+  // Gyroscopic term pqr x (J pqr).
+  const T gx = q * (jz * r) - r * (jy * q);
+  const T gy = r * (jx * p) - p * (jz * r);
+  const T gz = p * (jy * q) - q * (jx * p);
+
+  const T num[6] = {sth, sphi, cphi, mx - gx, my - gy, mz - gz};
+  const T den[6] = {cth, cth, cth, jx, jy, jz};
+  T quo[6];
+  div_round<G, 6>(num, den, quo, g);
+  const T tth = quo[0];
   d[0] = vx;
   d[1] = ax;
   d[2] = vy;
@@ -131,11 +159,12 @@ __device__ __forceinline__ void fc_group(const float* s, const Body& b, float* d
   d[11] = quo[5];
 }
 
-// quad3d.cuh::substeps with the group's derivative.
-template <int G>
-__device__ __forceinline__ void substeps_group(float* s, const Body& b, int n_sub, int euler, float dt,
-                                               float dt_half, float dt_sixth, const LaneGroup& g) {
-  float k1[NX], k2[NX], k3[NX], k4[NX], t[NX];
+// One control step's n_sub substeps, RK4 or explicit Euler, in place
+// (pallas_quad.py:126-137), with the group's derivative.
+template <int G, typename T>
+__device__ __forceinline__ void substeps_group(T* s, const BodyT<T>& b, int n_sub, int euler, T dt,
+                                               T dt_half, T dt_sixth, const LaneGroup& g) {
+  T k1[NX], k2[NX], k3[NX], k4[NX], t[NX];
   for (int n = 0; n < n_sub; ++n) {
     if (euler) {
       fc_group<G>(s, b, k1, g);
@@ -154,19 +183,17 @@ __device__ __forceinline__ void substeps_group(float* s, const Body& b, int n_su
       fc_group<G>(t, b, k4, g);
 #pragma unroll
       for (int i = 0; i < NX; ++i)
-        s[i] = s[i] + dt_sixth * (k1[i] + 2.0f * k2[i] + 2.0f * k3[i] + k4[i]);
+        s[i] = s[i] + dt_sixth * (k1[i] + T(2) * k2[i] + T(2) * k3[i] + k4[i]);
     }
   }
 }
 
-// One control step of quad3d.cuh::env_step with the substeps run by the
-// group.  The kernels that call it are launched with P.n_sub = 0 and the
-// real count in n_sub, so env_step, called after the group's substeps,
-// skips them and does the rest of the step (goal, violation, reward, done,
-// statistics, auto-reset) on the state they left.  The impulse and the body
-// are env_step's own expressions.
+// One control step (step_env_core, non-maze, no step noise) over the
+// group: the impulse schedule (fast_env.py:356-366) and the substeps, then
+// quad3d.cuh::env_step, the rest of the step (goal, violation, reward,
+// done, statistics, auto-reset) on the state they left.
 template <int G>
-__device__ __forceinline__ void env_step_group(const RolloutParams& P, int n_sub, EnvRows& r,
+__device__ __forceinline__ void env_step_group(const RolloutParams& P, EnvRows& r,
                                                const ActionTerms& a, StepOut& o, const LaneGroup& g) {
   float n = 0.0f;
   if (P.impulse) {
@@ -186,7 +213,7 @@ __device__ __forceinline__ void env_step_group(const RolloutParams& P, int n_sub
   b.j[0] = r.jd[0];
   b.j[1] = r.jd[1];
   b.j[2] = r.jd[2];
-  substeps_group<G>(r.s, b, n_sub, P.euler, P.dt, P.dt_half, P.dt_sixth, g);
+  substeps_group<G, float>(r.s, b, P.n_sub, P.euler, P.dt, P.dt_half, P.dt_sixth, g);
   env_step(P, r, a, o);
 }
 

@@ -68,46 +68,6 @@ __device__ __forceinline__ float pick(const float (&v)[N], int i) {
   return r;
 }
 
-// q[k] = num[k] / den[k] for k < N, lane i of a round taking the i-th
-// division of the round, in rounds of G lanes; every lane gets all N.
-template <int G, int N>
-__device__ __forceinline__ void div_round(const float (&num)[N], const float (&den)[N], float (&q)[N],
-                                          const LaneGroup& g) {
-#pragma unroll
-  for (int r0 = 0; r0 < N; r0 += G) {
-    float n = num[r0], d = den[r0];
-#pragma unroll
-    for (int i = 1; i < G && r0 + i < N; ++i) {
-      n = g.gl >= i ? num[r0 + i] : n;
-      d = g.gl >= i ? den[r0 + i] : d;
-    }
-    const float qt = n / d;
-#pragma unroll
-    for (int i = 0; i < G && r0 + i < N; ++i) q[r0 + i] = from<G>(qt, g, i);
-  }
-}
-
-// sn[k], cs[k] = sin, cos of a[k] for k < N, one sincosf a lane per round
-// (sincosf gives sinf's and cosf's bits from one range reduction: one
-// region, not two).
-template <int G, int N>
-__device__ __forceinline__ void sincos_round(const float (&a)[N], float (&sn)[N], float (&cs)[N],
-                                             const LaneGroup& g) {
-#pragma unroll
-  for (int r0 = 0; r0 < N; r0 += G) {
-    float x = a[r0];
-#pragma unroll
-    for (int i = 1; i < G && r0 + i < N; ++i) x = g.gl >= i ? a[r0 + i] : x;
-    float s, c;
-    sincosf(x, &s, &c);
-#pragma unroll
-    for (int i = 0; i < G && r0 + i < N; ++i) {
-      sn[r0 + i] = from<G>(s, g, i);
-      cs[r0 + i] = from<G>(c, g, i);
-    }
-  }
-}
-
 __device__ __forceinline__ uint32_t word(const Philox4& u, int k) {
   return k == 0 ? u.w[0] : k == 1 ? u.w[1] : k == 2 ? u.w[2] : u.w[3];
 }

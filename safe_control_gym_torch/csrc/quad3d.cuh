@@ -1,9 +1,12 @@
 // Shared device functions of the 3D-quadrotor kernels (K1 quad3d_substeps,
-// K2 quad3d_rollout, K3 quad3d_policy_rollout): the rigid-body derivative,
-// the thrust -> force actuation pipeline, the counter-based reset hash, and
-// the whole-rollout engines' control step (env_step).  The actuation, the
-// derivative and the substeps are templates on the scalar type: K2, K3 and
-// K1's float32 instance take float, K1's float64 instance double.
+// K2 quad3d_rollout, K3 quad3d_policy_rollout): the thrust -> force
+// actuation pipeline, the rigid body's parameters, the counter-based reset
+// hash, and the rest of the whole-rollout engines' control step after its
+// substeps (env_step).  The rigid-body derivative and the substeps are
+// lane_group.cuh's fc_group / substeps_group, which all three kernels run.
+// The math functions, the actuation and the body are templates on the
+// scalar type: K2, K3 and K1's float32 instances take float, K1's float64
+// instances double.
 //
 // Every expression keeps the operand order of the JAX package's Pallas
 // kernels (safe_control_gym_tpu/ops/pallas_quad.py::_fc_rows / _actuate,
@@ -34,12 +37,13 @@ __device__ __forceinline__ double minp(double a, double b) { return (a < b || a 
 __device__ __forceinline__ double clipf(double a, double lo, double hi) { return minp(maxp(a, lo), hi); }
 
 // The float and double forms of the accurate math functions, so that one
-// template serves both scalar types.
-__device__ __forceinline__ float sin_t(float a) { return sinf(a); }
-__device__ __forceinline__ float cos_t(float a) { return cosf(a); }
+// template serves both scalar types.  sincosf gives sinf's and cosf's bits,
+// and sincos sin's and cos's (scripts/ab_kernel.py's checks against the
+// one-thread builds that called them apart), from one range reduction: one
+// convergence region, not two.
+__device__ __forceinline__ void sincos_t(float a, float* s, float* c) { sincosf(a, s, c); }
 __device__ __forceinline__ float sqrt_t(float a) { return sqrtf(a); }
-__device__ __forceinline__ double sin_t(double a) { return sin(a); }
-__device__ __forceinline__ double cos_t(double a) { return cos(a); }
+__device__ __forceinline__ void sincos_t(double a, double* s, double* c) { sincos(a, s, c); }
 __device__ __forceinline__ double sqrt_t(double a) { return sqrt(a); }
 
 // The motor constants in the scalar type T (the float ones are those
@@ -58,14 +62,21 @@ struct Motor<double> {
 };
 
 // Per-motor thrust command -> realized force: cmd2pwm -> clip -> pwm2rpm ->
-// rpm^2 * KF (pallas_quad.py:98-106).
+// rpm^2 * KF (pallas_quad.py:98-106).  actuate_ratio takes the first
+// division's quotient max(t, 0) / KF, so that K1's group can take another
+// division beside it (quad3d_substeps.cu).
 template <typename T>
-__device__ __forceinline__ T actuate(T t) {
+__device__ __forceinline__ T actuate_ratio(T ratio) {
   using M = Motor<T>;
-  T pwm = (sqrt_t(maxp(t, T(0)) / M::kf) - M::offset) / M::scale;
+  T pwm = (sqrt_t(ratio) - M::offset) / M::scale;
   pwm = clipf(pwm, M::lo, M::hi);
   T rpm = M::scale * pwm + M::offset;
   return rpm * rpm * M::kf;
+}
+
+template <typename T>
+__device__ __forceinline__ T actuate(T t) {
+  return actuate_ratio(maxp(t, T(0)) / Motor<T>::kf);
 }
 
 // Rigid-body physics constants and per-env parameters of one control step.
@@ -78,80 +89,6 @@ struct BodyT {
   T g, l_sq2, km_over_kf;
 };
 using Body = BodyT<float>;
-
-// x' = fc(x): the closed form of pallas_quad.py:49-91 (SDFormat Euler
-// angles, body rates, world-frame velocity).
-template <typename T>
-__device__ __forceinline__ void fc(const T* s, const BodyT<T>& b, T* d) {
-  const T vx = s[1], vy = s[3], vz = s[5];
-  const T phi = s[6], theta = s[7], psi = s[8];
-  const T p = s[9], q = s[10], r = s[11];
-  const T f1 = b.f[0], f2 = b.f[1], f3 = b.f[2], f4 = b.f[3];
-
-  const T tsum = f1 + f2 + f3 + f4;
-  const T cphi = cos_t(phi), sphi = sin_t(phi);
-  const T cth = cos_t(theta), sth = sin_t(theta);
-  const T cpsi = cos_t(psi), spsi = sin_t(psi);
-  // Thrust direction = body z-axis in the world frame.
-  const T zb_x = cpsi * sth * cphi + spsi * sphi;
-  const T zb_y = spsi * sth * cphi - cpsi * sphi;
-  const T zb_z = cth * cphi;
-  const T ax = (zb_x * tsum + b.ext[0]) * b.minv;
-  const T ay = (zb_y * tsum + b.ext[1]) * b.minv;
-  const T az = (zb_z * tsum + b.ext[2]) * b.minv - b.g;
-
-  const T mx = b.l_sq2 * (f1 + f2 - f3 - f4);
-  const T my = b.l_sq2 * (-f1 + f2 + f3 - f4);
-  const T mz = b.km_over_kf * (f1 - f2 + f3 - f4);
-  const T jx = b.j[0], jy = b.j[1], jz = b.j[2];
-  // Gyroscopic term pqr x (J pqr).
-  const T gx = q * (jz * r) - r * (jy * q);
-  const T gy = r * (jx * p) - p * (jz * r);
-  const T gz = p * (jy * q) - q * (jx * p);
-
-  const T tth = sth / cth;
-  d[0] = vx;
-  d[1] = ax;
-  d[2] = vy;
-  d[3] = ay;
-  d[4] = vz;
-  d[5] = az;
-  d[6] = p + sphi * tth * q + cphi * tth * r;
-  d[7] = cphi * q - sphi * r;
-  d[8] = sphi / cth * q + cphi / cth * r;
-  d[9] = (mx - gx) / jx;
-  d[10] = (my - gy) / jy;
-  d[11] = (mz - gz) / jz;
-}
-
-// One control step's n_sub substeps, RK4 or explicit Euler, in place
-// (pallas_quad.py:126-137).
-template <typename T>
-__device__ __forceinline__ void substeps(T* s, const BodyT<T>& b, int n_sub, int euler, T dt,
-                                         T dt_half, T dt_sixth) {
-  T k1[NX], k2[NX], k3[NX], k4[NX], t[NX];
-  for (int n = 0; n < n_sub; ++n) {
-    if (euler) {
-      fc(s, b, k1);
-#pragma unroll
-      for (int i = 0; i < NX; ++i) s[i] = s[i] + dt * k1[i];
-    } else {
-      fc(s, b, k1);
-#pragma unroll
-      for (int i = 0; i < NX; ++i) t[i] = s[i] + dt_half * k1[i];
-      fc(t, b, k2);
-#pragma unroll
-      for (int i = 0; i < NX; ++i) t[i] = s[i] + dt_half * k2[i];
-      fc(t, b, k3);
-#pragma unroll
-      for (int i = 0; i < NX; ++i) t[i] = s[i] + dt * k3[i];
-      fc(t, b, k4);
-#pragma unroll
-      for (int i = 0; i < NX; ++i)
-        s[i] = s[i] + dt_sixth * (k1[i] + T(2) * k2[i] + T(2) * k3[i] + k4[i]);
-    }
-  }
-}
 
 // Counter-based reset hash (ops/ctr_prng.py), native uint32 arithmetic.
 constexpr uint32_t SLOT_GOLD = 0x9E3779B9u;
@@ -344,31 +281,13 @@ struct StepOut {
   float s_post[NX];
 };
 
-// One control step in place on r (step_env_core, non-maze, no step noise).
-// K2 and K3 run it through lane_group.cuh::env_step_group, launched with
-// P.n_sub = 0 so that it skips the substeps their lane group has run.
+// The rest of one control step in place on r (step_env_core, non-maze, no
+// step noise), on the state that the step's substeps left: goal,
+// violation, reward, done, statistics, auto-reset.  K2 and K3 run the whole
+// step as lane_group.cuh::env_step_group, which runs the impulse and the
+// substeps over the group and then this.
 __device__ __forceinline__ void env_step(const RolloutParams& P, EnvRows& r, const ActionTerms& a,
                                          StepOut& o) {
-  // Dynamics disturbance: impulse schedule (fast_env.py:356-366).
-  float n = 0.0f;
-  if (P.impulse) {
-    const float peak = r.offset + P.imp_peak_shift;
-    const float po = fabsf(r.step_f - peak);
-    const float dec = po < P.imp_half_dur ? (P.decay_one ? 1.0f : expf(po * P.imp_log_decay)) : 0.0f;
-    n = r.step_f >= r.offset ? P.imp_mag * dec : 0.0f;
-  }
-  Body b;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) b.f[i] = a.f[i];
-  b.g = P.g;
-  b.l_sq2 = P.l_sq2;
-  b.km_over_kf = P.km_over_kf;
-  b.ext[0] = b.ext[1] = b.ext[2] = n;
-  b.minv = 1.0f / r.mass;
-  b.j[0] = r.jd[0];
-  b.j[1] = r.jd[1];
-  b.j[2] = r.jd[2];
-  substeps(r.s, b, P.n_sub, P.euler, P.dt, P.dt_half, P.dt_sixth);
 #pragma unroll
   for (int k = 0; k < NX; ++k) o.s_post[k] = r.s[k];
 

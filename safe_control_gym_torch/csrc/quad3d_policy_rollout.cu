@@ -5,7 +5,7 @@
 // _policy_rollout_kernel (:76): per control step, the dual actor+critic MLP
 // forward on the observation, a Box-Muller Gaussian sample from the
 // in-kernel generator, its log-prob, the normalized-action map, the shared
-// env step (scg::env_step, also K2's) and one record of the trajectory.
+// env step (scg::env_step_group, also K2's) and one record of the trajectory.
 // Plain version: safe_control_gym_torch/parallel/fast_policy.py::
 // policy_rollout_plain.  Envelope: that of K2 plus the normalized action
 // space; the observation white noise and the goal-horizon observation rows
@@ -72,12 +72,11 @@ struct PolicyParams {
 };
 
 // H: the hidden width, 64, or 0 for a width h read at run time (1..128).
-// G: lanes per env.  P.n_sub is 0: the group runs the n_sub substeps.  The
-// launch bound names one block an SM: with the block size alone ptxas held
+// G: lanes per env.  The launch bound names one block an SM: with the block size alone ptxas held
 // the H = 64 instance at 128 registers and spilled (PERF.md).
 template <int H, int G>
 __global__ void __launch_bounds__(BLOCK, 1) quad3d_policy_rollout_kernel(
-    const RolloutParams P, int n_sub, const PolicyParams Q, const int* __restrict__ seed_ptr,
+    const RolloutParams P, const PolicyParams Q, const int* __restrict__ seed_ptr,
     const float* __restrict__ w, int h, const float* __restrict__ rows_in,
     float* __restrict__ rows_out, float* __restrict__ traj, int B) {
   extern __shared__ float smem[];
@@ -108,7 +107,7 @@ __global__ void __launch_bounds__(BLOCK, 1) quad3d_policy_rollout_kernel(
 
     // -- shared env step (dynamics, reward, done, statistics, auto-reset).
     const scg::ActionTerms a = scg::action_terms(P, thr, act);
-    scg::env_step_group<G>(P, n_sub, r, a, o, g);
+    scg::env_step_group<G>(P, r, a, o, g);
 
     // -- one record column.
     if (store) {
@@ -131,7 +130,7 @@ __global__ void __launch_bounds__(BLOCK, 1) quad3d_policy_rollout_kernel(
 }
 
 template <int H, int G>
-int launch(const RolloutParams& P, int n_sub, const PolicyParams& Q, const int* sd, const float* wp,
+int launch(const RolloutParams& P, const PolicyParams& Q, const int* sd, const float* wp,
            int h, const float* ri, float* ro, float* tr, int B, int block, int grid, int smem,
            cudaStream_t st) {
   auto kern = quad3d_policy_rollout_kernel<H, G>;
@@ -140,7 +139,7 @@ int launch(const RolloutParams& P, int n_sub, const PolicyParams& Q, const int* 
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kern<<<grid, block, smem, st>>>(P, n_sub, Q, sd, wp, h, ri, ro, tr, B);
+  kern<<<grid, block, smem, st>>>(P, Q, sd, wp, h, ri, ro, tr, B);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -158,9 +157,7 @@ extern "C" int quad3d_policy_rollout(const void* params, int normalized, int rel
       block % 32 != 0 || static_cast<long long>(grid) * (block / group) < B ||
       smem < (block / group) * scg::mlp_group_row(hidden) * static_cast<int>(sizeof(float)))
     return static_cast<int>(cudaErrorInvalidValue);
-  RolloutParams P = *static_cast<const RolloutParams*>(params);
-  const int n_sub = P.n_sub;
-  P.n_sub = 0;
+  const RolloutParams P = *static_cast<const RolloutParams*>(params);
   const PolicyParams Q{normalized, relu, norm_act_scale, hover_thrust};
   const auto* sd = static_cast<const int*>(seed);
   const auto* wp = static_cast<const float*>(wflat);
@@ -169,6 +166,6 @@ extern "C" int quad3d_policy_rollout(const void* params, int normalized, int rel
   auto* tr = static_cast<float*>(traj);
   const auto st = static_cast<cudaStream_t>(stream);
   return hidden == 64
-             ? launch<64, K3_GROUP>(P, n_sub, Q, sd, wp, hidden, ri, ro, tr, B, block, grid, smem, st)
-             : launch<0, K3_GROUP>(P, n_sub, Q, sd, wp, hidden, ri, ro, tr, B, block, grid, smem, st);
+             ? launch<64, K3_GROUP>(P, Q, sd, wp, hidden, ri, ro, tr, B, block, grid, smem, st)
+             : launch<0, K3_GROUP>(P, Q, sd, wp, hidden, ri, ro, tr, B, block, grid, smem, st);
 }

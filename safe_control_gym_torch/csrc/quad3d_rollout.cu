@@ -19,7 +19,8 @@
 // whole call, a loop over `steps` in place of the TPU's fori_loop.  Device
 // memory is touched once in and once out per call.  The group runs each
 // rigid-body derivative's six sin/cos calls and six divisions side by side
-// (scg::fc_group) and the rest of the step (scg::env_step, shared with K3)
+// (scg::fc_group, shared with K1 and K3) and the rest of the step
+// (scg::env_step, shared with K3)
 // on identical registers in every lane.
 //
 // Bound on an H100: arithmetic.  At B = 4096 and 8192 steps a call moves
@@ -49,12 +50,11 @@ using scg::RolloutParams;
 
 constexpr int BLOCK = 128;  // the largest block the launch plan asks for
 
-// P.n_sub is 0: the group runs the n_sub substeps (scg::env_step_group).
 // The launch bound names one block an SM: with the block size alone ptxas
 // held the kernel at 96 registers and spilled (PERF.md).
 template <int G>
 __global__ void __launch_bounds__(BLOCK, 1) quad3d_rollout_kernel(
-    const RolloutParams P, int n_sub, const float* __restrict__ rows_in,
+    const RolloutParams P, const float* __restrict__ rows_in,
     const float* __restrict__ action, float* __restrict__ rows_out, int B) {
   const scg::LaneGroup g = scg::lane_group<G>(B);
   scg::EnvRows r;
@@ -70,7 +70,7 @@ __global__ void __launch_bounds__(BLOCK, 1) quad3d_rollout_kernel(
   }
   const scg::ActionTerms a = scg::action_terms(P, thr, act);
   scg::StepOut o;
-  for (int it = 0; it < P.steps; ++it) scg::env_step_group<G>(P, n_sub, r, a, o, g);
+  for (int it = 0; it < P.steps; ++it) scg::env_step_group<G>(P, r, a, o, g);
   if (g.valid && g.gl == 0) scg::store_rows(rows_out, B, g.e, r);
 }
 
@@ -87,11 +87,9 @@ extern "C" int quad3d_rollout(const void* params, const void* rows_in, const voi
   if (group != K2_GROUP || block < 32 || block > BLOCK || block % 32 != 0 ||
       static_cast<long long>(grid) * (block / group) < B)
     return static_cast<int>(cudaErrorInvalidValue);
-  RolloutParams P = *static_cast<const RolloutParams*>(params);
-  const int n_sub = P.n_sub;
-  P.n_sub = 0;
+  const RolloutParams P = *static_cast<const RolloutParams*>(params);
   quad3d_rollout_kernel<K2_GROUP><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      P, n_sub, static_cast<const float*>(rows_in), static_cast<const float*>(action),
+      P, static_cast<const float*>(rows_in), static_cast<const float*>(action),
       static_cast<float*>(rows_out), B);
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,12 +42,14 @@ _F = ctypes.c_float
 _D = ctypes.c_double
 _SIGNATURES = {
     # x, thrust, ext, mass, j, out, B, dt, dt_half, dt_sixth, n_sub, euler,
-    # g, l_sq2, km_over_kf, actuation, block, stream
+    # g, l_sq2, km_over_kf, actuation, then the launch plan
+    # (quad_substeps.launch_plan: group, block, grid), stream
     "quad3d_substeps": [_P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _I,
-                        _F, _F, _F, _I, _I, _P],
+                        _F, _F, _F, _I, _I, _I, _I, _P],
     # the same in float64: the scalars are doubles
     "quad3d_substeps_f64": [_P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _I,
-                            _D, _D, _D, _I, _I, _P],
+                            _D, _D, _D, _I, _I, _I, _I, _P],
+    "quad3d_substeps_api_version": [],
     # params (host struct pointer), rows_in, action, rows_out, B, then the
     # launch plan (fast_env.launch_plan: group, block, grid), stream
     "quad3d_rollout": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

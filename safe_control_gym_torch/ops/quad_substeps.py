@@ -10,9 +10,11 @@ raises.  The plain version repeats the kernel's arithmetic op for op on
 per-component ``(B,)`` rows; it is the CPU path and the kernel's yardstick
 of correctness, not of speed.
 
-On the card the kernel is bound by launch latency: at B = 4096 it moves
-0.57 MB and does ~2k flops per env, work the card finishes in well under a
-microsecond (see the source note in ``csrc/quad3d_substeps.cu``).
+On the card the kernel is bound neither by its bytes nor by its flops (at
+B = 4096, 0.57 MB and ~2k flops per env: 0.17 us of the card) but by each
+env's chain of accurate sin/cos, sqrt and divisions; one env runs over a
+group of lanes that takes them side by side (:func:`launch_plan`, the
+source note in ``csrc/quad3d_substeps.cu``, PERF.md).
 """
 
 from __future__ import annotations
@@ -31,7 +33,39 @@ MIN_PWM = 20000.0
 MAX_PWM = 65535.0
 
 NX = 12  # [x, vx, y, vy, z, vz, phi, theta, psi, p, q, r]
-BLOCK = 64  # threads per block: 32 and 64 tie, 128 is ~10% slower (PERF.md)
+
+# K1's launch (csrc/quad3d_substeps.cu): one env over a group of lanes of a
+# warp, BLOCK threads a block.  GROUPS: the group sizes the source builds,
+# for float32 and float64.  A group pays while the card has idle issue
+# slots and loses once its lanes' repeated arithmetic fills them, so the
+# plan takes the widest group whose largest batch in PLAN_MAX_B is at
+# least B, one lane above them all.  On an H100 that was the fastest group
+# at every B measured from 256 to 65536, both scalar types, and blocks of
+# 32-256 threads were within 2% of each other (PERF.md).
+GROUPS = (1, 2, 4, 8)
+BLOCK = 64
+PLAN_MAX_B = {torch.float32: {8: 2048, 4: 8192, 2: 32768},
+              torch.float64: {8: 2048, 4: 8192, 2: 16384}}
+
+
+def plan_group(B: int, dtype=torch.float32) -> int:
+    """The widest group whose largest batch in PLAN_MAX_B of ``dtype`` is
+    at least B; one lane above them all."""
+    fit = [g for g, most in PLAN_MAX_B[dtype].items() if B <= most]
+    return max(fit, default=1)
+
+
+def launch_plan(B: int, dtype=torch.float32, group: int | None = None):
+    """K1's launch for B envs of ``dtype``: (lanes per env, threads per
+    block, blocks).  Each env is one group of ``group`` lanes
+    (:func:`plan_group` where None) inside a warp, BLOCK // group envs a
+    block; the lanes of the last block's groups past env B - 1 run env
+    B - 1 and store nothing.  The kernel refuses a group size it was not
+    built with."""
+    g = plan_group(B, dtype) if group is None else group
+    if g not in GROUPS:
+        raise ValueError(f"K1 is built for groups of {GROUPS} lanes, not {g}")
+    return g, BLOCK, -(-B // (BLOCK // g))
 
 
 def _f32(v) -> float:
@@ -140,12 +174,13 @@ def quad3d_substeps_plain(x, thrust, ext, mass, j_diag, *, dt, n_sub, euler=Fals
 
 def quad3d_substeps(x, thrust, ext, mass, j_diag, *, dt, n_sub, euler=False,
                     g=GRAVITY, arm_l=ARM_L, km_over_kf=KM_OVER_KF,
-                    actuation=False):
+                    actuation=False, group=None):
     """K1: actuation (if ``actuation``) then ``n_sub`` substeps for a batch.
 
     CPU tensors take :func:`quad3d_substeps_plain`; CUDA float32 tensors
     launch ``csrc/quad3d_substeps.cu`` and CUDA float64 tensors its float64
-    instance (``quad3d_substeps_f64``, scalars passed in double); anything
+    instance (``quad3d_substeps_f64``, scalars passed in double), with
+    ``group`` lanes per env (None: :func:`launch_plan`'s pick); anything
     else raises."""
     args = (x, thrust, ext, mass, j_diag)
     if all(a.device.type == "cpu" for a in args):
@@ -176,7 +211,7 @@ def quad3d_substeps(x, thrust, ext, mass, j_diag, *, dt, n_sub, euler=False,
         *(a.data_ptr() for a in args), out.data_ptr(), B,
         cast(dt), cast(dt / 2), cast(dt / 6), int(n_sub), int(bool(euler)),
         cast(g), cast(arm_l / (2.0**0.5)), cast(km_over_kf), int(bool(actuation)),
-        BLOCK, kernels.stream_ptr(x.device))
+        *launch_plan(B, dtype, group), kernels.stream_ptr(x.device))
     kernels.check(code, name)
     quad3d_substeps.launches += 1
     return out

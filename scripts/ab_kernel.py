@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time K2, K3, K4, K5, K6, K7 or K8 built from several source trees in one run.
+"""Time K1-K8 built from several source trees in one run.
 
-Builds the kernel's source (``quad3d_rollout.cu`` for K2,
+Builds the kernel's source (``quad3d_substeps.cu`` for K1,
+``quad3d_rollout.cu`` for K2,
 ``quad3d_policy_rollout.cu`` for K3, ``ppo_update.cu`` for K4,
 ``cartpole_rollout.cu`` for K5, ``cartpole_policy_rollout.cu`` for K6,
 ``quad_planar_rollout.cu`` for K7, ``quad_planar_policy_rollout.cu`` for
@@ -9,7 +10,11 @@ K8) of each
 other ``csrc`` directory (for example the parent commit's, unpacked with
 ``git archive <commit> safe_control_gym_torch/csrc``) into a library of
 its own, beside this tree's kernel library.  All run on the same input:
-BASELINE config 4 for K2 (one call of 8192 hover steps) and K3 (one call of
+K1 one launch of config 4's substeps (dt 1/240, 4 RK4 substeps, actuation
+on; ``--euler``, ``--no-actuation`` change them) on random states, thrusts
+through both PWM clip limits and small external forces, in ``--dtype``
+float32 or float64 (the float64 instance); BASELINE config 4 for K2 (one
+call of 8192 hover steps) and K3 (one call of
 128 policy steps: the rl_train shapes, the normalized action space, weights
 from a fixed seed, hidden width ``--hidden``), config 2 for K5 (one call of
 8192 steps of a zero force under the config's action white noise) and
@@ -22,7 +27,12 @@ already run two calls; K4 one minibatch of 131072 samples at H = 64
 (``chip_smoke.k4_inputs``).  ``--steps`` sets another number of steps a
 call for K2, K3, K5-K8.  Each round runs the others, this tree twice,
 then the others in reverse (other, this, this, other for one other tree);
-each call is timed alone with CUDA events.  K2, K3, K5-K8 must leave the
+each call is timed alone with CUDA events, but K1's by the profiler's
+device time over ``--launches`` (200) launches (CUDA events around
+back-to-back launches from Python would time the host's ctypes launch
+once K1 runs faster than it), beside an empty kernel's at the grid and
+block of each build's launch (the floor of a launch).  K1, K2, K3, K5-K8
+must leave the
 same rows (and K3, K6 and K8 the same record) bit for bit; K4's builds may
 sum in other orders (the kernel before the redesign has no FMA), so each
 build must repeat its own gradients bit for bit and the largest difference
@@ -33,19 +43,23 @@ SM clock ``nvidia-smi`` read during the rounds, and the card as
 instruction count (``cuobjdump``) and its loops (each backward branch and
 the instructions it spans), from which instructions per step are read.
 
-The one-thread entry points of K2, K3, K5-K8 (before their lane-group
+The one-thread entry points of K1, K2, K3, K5-K8 (before their lane-group
 redesigns) take no launch plan; the script tells them apart by
 ``<entry>_api_version`` (absent: 1), as it tells K4's by
 ``ppo_grads_api_version``.  ``--group NAME=G`` launches
 the tree NAME (``this`` or an other's name) with G lanes per env, where its
 build has that instance; else each tree takes its wrapper's plan.
+``--block NAME=N`` launches K1 of the tree NAME with N threads a block in
+place of its plan's (a sweep of the plan's block size).
 
-    python3 scripts/ab_kernel.py --kernel k2|k3|k4|k5|k6|k7|k8 --other NAME=DIR [--other ...]
+    python3 scripts/ab_kernel.py --kernel k1|k2|k3|k4|k5|k6|k7|k8 --other NAME=DIR [--other ...]
         [--batch 4096] [--steps N] [--hidden 64] [--quad-type 2] [--disturbed]
-        [--group NAME=G ...] [--rounds 5] [--sass-dir DIR] [--out results.json]
+        [--dtype float32|float64] [--euler] [--no-actuation] [--launches 200]
+        [--group NAME=G ...] [--block NAME=N ...] [--rounds 5] [--sass-dir DIR]
+        [--out results.json]
 
-Needs one CUDA card, ``nvcc`` and, for every kernel but K4, the same
-parameter-struct size in every tree (checked).
+Needs one CUDA card, ``nvcc`` and, for every kernel but K1 and K4, the
+same parameter-struct size in every tree (checked).
 """
 
 from __future__ import annotations
@@ -66,7 +80,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Per kernel: source file, C entry point, the kernel function's name.
-KERNELS = {"k2": ("quad3d_rollout.cu", "quad3d_rollout", "quad3d_rollout_kernel"),
+KERNELS = {"k1": ("quad3d_substeps.cu", "quad3d_substeps", "quad3d_substeps_kernel"),
+           "k2": ("quad3d_rollout.cu", "quad3d_rollout", "quad3d_rollout_kernel"),
            "k3": ("quad3d_policy_rollout.cu", "quad3d_policy_rollout",
                   "quad3d_policy_rollout_kernel"),
            "k4": ("ppo_update.cu", "ppo_grads", "ppo_grads_kernel"),
@@ -76,8 +91,8 @@ KERNELS = {"k2": ("quad3d_rollout.cu", "quad3d_rollout", "quad3d_rollout_kernel"
            "k7": ("quad_planar_rollout.cu", "quad_planar_rollout", "quad_planar_rollout_kernel"),
            "k8": ("quad_planar_policy_rollout.cu", "quad_planar_policy_rollout",
                   "quad_planar_policy_rollout_kernel")}
-STEPS = {"k2": 8192, "k3": 128, "k4": 131072, "k5": 8192, "k6": 128, "k7": 4096,
-         "k8": 128}  # K4: samples
+STEPS = {"k1": 4, "k2": 8192, "k3": 128, "k4": 131072, "k5": 8192, "k6": 128, "k7": 4096,
+         "k8": 128}  # K1: substeps; K4: samples
 # The entry point that reports the size of a rollout kernel's parameter
 # struct, and the source that defines it where that is another file.
 PARAMS_SIZE = {"k2": "quad3d_rollout_params_size", "k3": "quad3d_rollout_params_size",
@@ -85,7 +100,23 @@ PARAMS_SIZE = {"k2": "quad3d_rollout_params_size", "k3": "quad3d_rollout_params_
                "k7": "quad_planar_params_size", "k8": "quad_planar_params_size"}
 PARAMS_SOURCE = {"k3": "quad3d_rollout.cu", "k6": "cartpole_rollout.cu",
                  "k8": "quad_planar_rollout.cu"}
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+# K1's entry points before the lane-group redesign (no
+# quad3d_substeps_api_version): x, thrust, ext, mass, j, out, B, dt,
+# dt_half, dt_sixth, n_sub, euler, g, l_sq2, km_over_kf, actuation, block,
+# stream, the scalars in float or (the float64 instance) double.
+K1_V1 = {"quad3d_substeps": [_P] * 6 + [_I, _F, _F, _F, _I, _I, _F, _F, _F, _I, _I, _P],
+         "quad3d_substeps_f64": [_P] * 6 + [_I, _D, _D, _D, _I, _I, _D, _D, _D, _I, _I, _P]}
+K1_V1_BLOCK = 64
+# An empty kernel: the floor of one launch at a grid and block.
+EMPTY_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void ab_empty_kernel() {}
+extern "C" int ab_empty(int grid, int block, void* stream) {
+  ab_empty_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 # K4's entry points before the redesign (no ppo_grads_api_version): nx, nu,
 # H, mb, *ng, *nblk, *smem_bytes; and nx, nu, H, mb, relu, clip_lo, clip_hi,
 # inv_n, mb_ptr, wflat, partial, out, nblk, smem_bytes, stream.
@@ -105,6 +136,16 @@ ROLLOUT_V1 = {"quad3d_rollout": [_P, _P, _P, _P, _I, _I, _P],
               "cartpole_policy_rollout": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
               "quad_planar_rollout": [_P, _I, _P, _P, _P, _P, _I, _I, _P],
               "quad_planar_policy_rollout": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]}
+
+
+class Named:
+    """A library under one name of several: attribute reads go to it."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
 
 
 def api(lib, entry) -> int:
@@ -163,6 +204,9 @@ def build_others(kernel: str, trees: dict, out_dir) -> dict:
         if kernel == "k4":
             sigs = kernels._SIGNATURES if api(lib, "ppo_grads") == 2 else K4_V1
             entries = ("ppo_grads_plan", "ppo_grads")
+        elif kernel == "k1":
+            sigs = kernels._SIGNATURES if api(lib, entry) == 2 else K1_V1
+            entries = ("quad3d_substeps", "quad3d_substeps_f64")
         else:
             sigs = kernels._SIGNATURES if api(lib, entry) == 2 else ROLLOUT_V1
             sigs = {**kernels._SIGNATURES, entry: sigs[entry]}
@@ -174,9 +218,11 @@ def build_others(kernel: str, trees: dict, out_dir) -> dict:
     return out
 
 
-def prefer(kernel, hidden, nx, nu, group) -> list:
+def prefer(kernel, hidden, nx, nu, group, dtype="float32") -> list:
     """Mangled template arguments that begin the name of the instance the
-    main path runs, the most specific first: K2's first (a build holds one
+    main path runs, the most specific first: K1's at the scalar type and
+    the group size ``group`` (before its redesign: at the scalar type),
+    K2's first (a build holds one
     group size), K3's at H = 64 or else its run-time-width instance
     (H = 0), K4's at R = 2 with its weights in shared memory, K5's at the
     group size ``group``, K7's at (nx, nu) and ``group``, K6's and K8's at
@@ -184,7 +230,9 @@ def prefer(kernel, hidden, nx, nu, group) -> list:
     kernel that is no template (K2 and K5 before their redesigns) has one
     instance."""
     h = 64 if hidden == 64 else 0
-    return {"k2": ["ILi"], "k3": [f"ILi{h}E"], "k4": ["ILi2ELb1E"],
+    t = {"float32": "f", "float64": "d"}[dtype]
+    return {"k1": [f"I{t}Li{group}E", f"I{t}E"], "k2": ["ILi"], "k3": [f"ILi{h}E"],
+            "k4": ["ILi2ELb1E"],
             "k5": [f"ILi{group}E"], "k6": [f"ILi{h}ELi{group}E", f"ILi{h}E"],
             "k7": [f"ILi{nx}ELi{nu}ELi{group}E", f"ILi{nx}ELi{nu}E"],
             "k8": [f"ILi{nx}ELi{nu}ELi{h}ELi{group}E", f"ILi{nx}ELi{nu}ELi{h}E"]}[kernel]
@@ -261,12 +309,66 @@ def k4_launch(dev, stream):
     return launch
 
 
-def inputs(kernel, dev, B, steps, hidden, quad_type, disturbed=False):
+def k1_launch(dev, B, n_sub, dtype, euler, actuation, stream, blocks=None):
+    """K1's input at B envs (random states, thrusts through both PWM clip
+    limits, small external forces; chip_smoke.phase_k1's distributions) in
+    ``dtype``, and a launch of any library's build through the entry point
+    of its API version, with ``group`` lanes per env (None: this tree's
+    plan) and ``blocks[lib]`` threads a block where given.  Returns the
+    launch and the (grid, block) it takes for a build of API version 1 and
+    2 at a group."""
+    import torch
+
+    from safe_control_gym_torch.ops import quad_substeps as Q
+
+    rng = np.random.default_rng(0)
+    tdt = {"float32": torch.float32, "float64": torch.float64}[dtype]
+    x = torch.tensor(rng.standard_normal((B, 12)) * 0.2, dtype=tdt, device=dev)
+    thr = torch.tensor(rng.uniform(0.0, 0.16, (B, 4)), dtype=tdt, device=dev)
+    ext = torch.tensor(rng.standard_normal((B, 3)) * 1e-3, dtype=tdt, device=dev)
+    m = torch.full((B,), 0.027, dtype=tdt, device=dev)
+    j = torch.tensor([1.4e-5, 1.4e-5, 2.17e-5], dtype=tdt, device=dev).repeat(B, 1)
+    dt = 1 / 240
+    cast = Q._f32 if dtype == "float32" else float
+    scalars = (cast(dt), cast(dt / 2), cast(dt / 6), n_sub, int(euler), cast(Q.GRAVITY),
+               cast(Q.ARM_L / (2.0**0.5)), cast(Q.KM_OVER_KF), int(actuation))
+    entry = "quad3d_substeps" if dtype == "float32" else "quad3d_substeps_f64"
+    ins = (x, thr, ext, m, j)  # held by the closures below: their memory must stay theirs
+    out = torch.empty_like(x)
+
+    def plan(lib, group):
+        g, block, grid = Q.launch_plan(B, tdt, group)
+        block = (blocks or {}).get(id(lib), block)
+        return g, block, -(-B // (block // g))
+
+    def geometry(lib, group):
+        if api(lib, "quad3d_substeps") == 1:
+            return -(-B // K1_V1_BLOCK), K1_V1_BLOCK
+        _, block, grid = plan(lib, group)
+        return grid, block
+
+    def launch(lib, group):
+        if api(lib, "quad3d_substeps") == 1:
+            code = getattr(lib, entry)(*(a.data_ptr() for a in ins), out.data_ptr(), B, *scalars,
+                                       K1_V1_BLOCK, stream)
+        else:
+            code = getattr(lib, entry)(*(a.data_ptr() for a in ins), out.data_ptr(), B, *scalars,
+                                       *plan(lib, group), stream)
+        return code, (out,)
+
+    return launch, geometry
+
+
+def inputs(kernel, dev, B, steps, hidden, quad_type, disturbed=False, dtype="float32",
+           euler=False, actuation=True, launches=200, blocks=None):
     """The kernel's input at the main path's shapes (B envs, ``steps``
     steps a call, K3, K6 and K8 at width ``hidden``, K7 and K8 on the quad
     type ``quad_type``, K6 and K8 ``disturbed`` or not) and a function that
     launches a library's build of it with ``group`` lanes per env (None:
-    the wrapper's plan), returning (ms, outputs)."""
+    the wrapper's plan), returning (ms, outputs); K1 on its own input
+    (:func:`k1_launch`, ``steps`` substeps), its ms the profiler's mean
+    device time over ``launches`` launches, ``blocks`` the threads a block
+    by library where not the plan's."""
     import torch
 
     from chip_smoke import cfg4, seeded_ac
@@ -276,6 +378,21 @@ def inputs(kernel, dev, B, steps, hidden, quad_type, disturbed=False):
     from safe_control_gym_torch.parallel import fast_policy as P
 
     stream = kernels.stream_ptr(dev)
+    if kernel == "k1":
+        from chip_smoke import kernel_device_ms
+
+        launch, _ = k1_launch(dev, B, steps, dtype, euler, actuation, stream, blocks)
+
+        def call(lib, group):
+            def fn():
+                kernels.check(launch(lib, group)[0], kernel)
+
+            ms = kernel_device_ms(fn, KERNELS["k1"][2], launches)
+            _, outs = launch(lib, group)
+            torch.cuda.synchronize()
+            return ms, tuple(o.clone() for o in outs)
+
+        return call
     if kernel == "k4":
         launch = k4_launch(dev, stream)
     elif kernel in ("k5", "k7"):
@@ -431,15 +548,49 @@ def planar_policy_launch(kernel, dev, B, steps, hidden, quad_type, disturbed, st
     return launch
 
 
-def default_group(kernel, nx, B, hidden):
-    """The group size of the wrapper's plan at B envs for K5-K8 (the
+def default_group(kernel, nx, B, hidden, dtype="float32"):
+    """The group size of the wrapper's plan at B envs for K1 and K5-K8 (the
     instance whose SASS is dumped), None for the others."""
+    import torch
+
+    from safe_control_gym_torch.ops import quad_substeps as Q
     from safe_control_gym_torch.parallel import fast_cartpole as FC
     from safe_control_gym_torch.parallel import fast_quad_planar as PQ
 
-    return {"k5": lambda: FC.launch_plan(B)[0], "k7": lambda: PQ.launch_plan(B, nx)[0],
+    return {"k1": lambda: Q.launch_plan(B, getattr(torch, dtype))[0],
+            "k5": lambda: FC.launch_plan(B)[0], "k7": lambda: PQ.launch_plan(B, nx)[0],
             "k6": lambda: FC.policy_launch_plan(B, hidden)[0],
             "k8": lambda: PQ.policy_launch_plan(B, hidden, nx)[0]}.get(kernel, lambda: None)()
+
+
+def empty_floor(dev, B, n_sub, args, libs, groups, blocks) -> dict:
+    """The profiler's mean device time of an empty kernel (EMPTY_SOURCE,
+    built here) at the grid and block of each build's K1 launch at B envs:
+    {name: {"grid", "block", "ms"}}."""
+    from chip_smoke import kernel_device_ms
+    from safe_control_gym_torch import kernels
+
+    out_dir = kernels.BUILD / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, so = out_dir / "ab_empty.cu", out_dir / "libab_empty.so"
+    src.write_text(EMPTY_SOURCE)
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", str(src), "-o", str(so)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.ab_empty.argtypes, lib.ab_empty.restype = [_I, _I, _P], ctypes.c_int
+    stream = kernels.stream_ptr(dev)
+    _, geometry = k1_launch(dev, B, n_sub, args.dtype, args.euler, not args.no_actuation, stream,
+                            blocks)
+    out = {}
+    for k, klib in libs.items():
+        grid, block = geometry(klib, groups.get(k))
+
+        def fn(grid=grid, block=block):
+            kernels.check(lib.ab_empty(grid, block, stream), "ab_empty")
+
+        ms = kernel_device_ms(fn, "ab_empty_kernel", args.launches)
+        out[k] = {"grid": grid, "block": block, "ms": ms}
+    return out
 
 
 def sm_clock_sampler():
@@ -468,8 +619,17 @@ def main():
                     help="K7's and K8's quad type (config 3 is the 2D quad)")
     ap.add_argument("--disturbed", action="store_true",
                     help="K6 and K8 with action white noise and an impulse, tracking the circle")
+    ap.add_argument("--dtype", choices=("float32", "float64"), default="float32",
+                    help="K1's instance")
+    ap.add_argument("--euler", action="store_true", help="K1 with Euler substeps, not RK4")
+    ap.add_argument("--no-actuation", action="store_true",
+                    help="K1 takes the thrusts as forces")
+    ap.add_argument("--launches", type=int, default=200,
+                    help="K1's launches a timed call (the profiler's mean)")
     ap.add_argument("--group", action="append", default=[], metavar="NAME=G",
                     help="lanes per env for the tree NAME's launch")
+    ap.add_argument("--block", action="append", default=[], metavar="NAME=N",
+                    help="K1: threads a block for the tree NAME's launch (default: the plan's)")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--sass-dir", help="write each build's kernel SASS here")
     ap.add_argument("--out", help="also write the results here as JSON")
@@ -499,7 +659,11 @@ def main():
     regs["this"] = [line.strip() for line in (kernels.BUILD / "ptxas.log").read_text()
                     .split(f"== {src}")[1].split("==")[0].splitlines()
                     if "registers" in line or "spill" in line]
-    if kernel != "k4":
+    if kernel == "k1":  # this tree's K1 entry points by API version too
+        sigs = kernels._SIGNATURES if api(libs["this"], "quad3d_substeps") == 2 else K1_V1
+        for fn in ("quad3d_substeps", "quad3d_substeps_f64"):
+            getattr(libs["this"], fn).argtypes = sigs[fn]
+    if kernel in PARAMS_SIZE:
         sizes = {k: getattr(lib, PARAMS_SIZE[kernel])() for k, lib in libs.items()}
         if len(set(sizes.values())) != 1:
             raise RuntimeError(f"parameter structs differ in size between the trees: {sizes}")
@@ -509,11 +673,21 @@ def main():
         os.makedirs(args.sass_dir, exist_ok=True)
         sass = {k: sass_count(p, kname, prefer(kernel, args.hidden, nx, nu,
                                                groups.get(k)
-                                               or default_group(kernel, nx, B, args.hidden)),
+                                               or default_group(kernel, nx, B, args.hidden,
+                                                                args.dtype),
+                                               args.dtype),
                               os.path.join(args.sass_dir, f"{kernel}_{k}.sass"))
                 for k, p in paths.items()}
 
-    call = inputs(kernel, dev, B, steps, args.hidden, args.quad_type, args.disturbed)
+    # A library built once for several names is one object: key the
+    # blocks by name through a wrapper per name.
+    blocks = {}
+    for name, n in (b.split("=", 1) for b in args.block):
+        libs[name] = Named(libs[name])
+        blocks[id(libs[name])] = int(n)
+    call = inputs(kernel, dev, B, steps, args.hidden, args.quad_type, args.disturbed, args.dtype,
+                  args.euler, not args.no_actuation, args.launches, blocks)
+    floor = empty_floor(dev, B, steps, args, libs, groups, blocks) if kernel == "k1" else {}
 
     def equal(a, b):
         return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
@@ -540,6 +714,9 @@ def main():
            "hidden": args.hidden if kernel in ("k3", "k6", "k8") else None,
            "quad_type": args.quad_type if kernel in ("k7", "k8") else None,
            "disturbed": args.disturbed if kernel in ("k6", "k8") else None, "groups": groups,
+           "k1": {"dtype": args.dtype, "euler": args.euler, "actuation": not args.no_actuation,
+                  "launches": args.launches, "blocks": args.block,
+                  "empty_kernel_ms": floor} if kernel == "k1" else None,
            "rounds": args.rounds, "order": order, "ms": ms, "median_ms": med,
            "over_first_other": {k: v / base for k, v in med.items()},
            "sm_clock_mhz": {"median": statistics.median(clocks) if clocks else None,
@@ -548,12 +725,18 @@ def main():
            "ptxas": regs, "sass": sass, "bit_equal": same, "max_abs_err_vs_first_other": err}
     print(res["card"])
     print(f"SM clock during the rounds: {res['sm_clock_mhz']}")
+    if floor:
+        print(f"empty kernel at each build's grid and block: {floor}")
+    what = "substeps, " + args.dtype + (", Euler" if args.euler else ", RK4") + \
+        ("" if not args.no_actuation else ", no actuation") if kernel == "k1" else "steps"
     for k in libs:
-        print(f"{kernel.upper()} {k}: median {med[k]:.4f} ms per call of {steps} steps at B={B}"
+        print(f"{kernel.upper()} {k}: median {med[k]:.6f} ms per call of {steps} {what} at B={B}"
               + (f", H={args.hidden}" if kernel in ("k3", "k6", "k8") else "")
               + (f", {args.quad_type}D" if kernel in ("k7", "k8") else "")
               + (", disturbed" if args.disturbed and kernel in ("k6", "k8") else "")
               + (f", G={groups[k]}" if k in groups else "")
+              + "".join(f", block {b.split('=', 1)[1]}" for b in args.block
+                        if b.split("=", 1)[0] == k)
               + f" ({med[k] / base:.4f} of {others[0]}); bit-equal {same[k]}; max_abs_err "
               f"{err[k]:.3g} from {others[0]}; SASS {sass.get(k, 'not dumped')}; {regs[k]}; "
               f"calls {[round(t, 4) for t in ms[k]]}")

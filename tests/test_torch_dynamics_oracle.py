@@ -26,18 +26,18 @@ sys.path.insert(0, os.path.dirname(__file__))
 from oracles import numpy_reference as oracle  # noqa: E402
 
 
-def _quad_cfg(quad_type):
+def _quad_cfg(quad_type, dtype=torch.float64):
     return tq.QuadrotorConfig(
         quad_type=quad_type, ctrl_freq=60, pyb_freq=240, episode_len_sec=2,
         task="stabilization", cost="quadratic", randomized_init=True,
-        randomized_inertial_prop=True, done_on_out_of_bound=False, dtype=torch.float64)
+        randomized_inertial_prop=True, done_on_out_of_bound=False, dtype=dtype)
 
 
-def _quad_rollout(quad_type, device):
-    """30 steps of one float64 quad from env seed 42: (states (31, 12 or
-    fewer), thrusts (30, nu), mass, inertia diagonal)."""
+def _quad_rollout(quad_type, device, dtype=torch.float64):
+    """30 steps of one quad (float64 unless ``dtype``) from env seed 42:
+    (states (31, 12 or fewer), thrusts (30, nu), mass, inertia diagonal)."""
     nu = {1: 1, 2: 2, 3: 4}[quad_type]
-    env = tq.make_quadrotor(_quad_cfg(quad_type), device=device)
+    env = tq.make_quadrotor(_quad_cfg(quad_type, dtype), device=device)
     state, _, _ = env.reset(torch.tensor([42], dtype=torch.int32))
     mass = float(state.mass[0])
     j_diag = state.j_diag[0].cpu().numpy()
@@ -48,7 +48,7 @@ def _quad_rollout(quad_type, device):
     thrusts = np.clip(thrusts, env.spaces.action_low, env.spaces.action_high)
     xs = [state.x[0].cpu().numpy()]
     for t in range(T):
-        state, _, _, _, _ = env.step(state, torch.tensor(thrusts[t][None], dtype=torch.float64))
+        state, _, _, _, _ = env.step(state, torch.tensor(thrusts[t][None], dtype=dtype))
         xs.append(state.x[0].cpu().numpy())
     return np.stack(xs), thrusts, mass, j_diag
 
@@ -82,7 +82,8 @@ def test_cartpole_env_trajectory_matches_oracle():
 
 def test_k1_float64_entry_mirrors_cuda_source():
     """K1's float64 entry point exists in the CUDA source with the float32
-    entry's arguments, its scalars in double, as its ctypes signature says."""
+    entry's arguments, its scalars in double, as its ctypes signature says;
+    both end in the launch plan (group, block, grid) and the stream."""
     import ctypes
 
     from safe_control_gym_torch import kernels
@@ -96,6 +97,7 @@ def test_k1_float64_entry_mirrors_cuda_source():
 
     f32, f64 = params("quad3d_substeps"), params("quad3d_substeps_f64")
     assert f64 == [{"float": "double"}.get(t, t) for t in f32] and "double" in f64
+    assert f32[-4:] == ["int", "int", "int", "void*"]
     sig32 = kernels._SIGNATURES["quad3d_substeps"]
     sig64 = kernels._SIGNATURES["quad3d_substeps_f64"]
     assert len(sig64) == len(f64) == len(sig32)
@@ -104,19 +106,23 @@ def test_k1_float64_entry_mirrors_cuda_source():
         assert t64 is (ctypes.c_double if t32 is ctypes.c_float else t32)
 
 
-def test_float64_3d_env_steps_on_card_through_k1():
-    """On a card a float64 3D env steps through K1's float64 instance (one
-    launch a step) and stays within 1e-12 of the oracle; a float32 env
-    launches K1's float32 instance."""
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("group", K1.GROUPS)
+def test_float64_3d_env_steps_on_card_through_k1(group, dtype, monkeypatch):
+    """On a card a 3D env steps through K1 (one launch a step) at every
+    group the source builds, a float64 env through K1's float64 instance:
+    its states are bit-equal to the same env's on the card through K1's
+    plain version, and a float64 env stays within 1e-12 of the oracle."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1's float64 instance runs only there")
+        pytest.skip("needs a CUDA card: K1's instances run only there")
+    monkeypatch.setattr(K1, "plan_group", lambda B, dtype=None: group)
     before = K1.quad3d_substeps.launches
-    got, thrusts, mass, j_diag = _quad_rollout(3, "cuda")
+    got, thrusts, mass, j_diag = _quad_rollout(3, "cuda", dtype)
     assert K1.quad3d_substeps.launches == before + len(thrusts)
-    want = oracle.quad_rollout(3, got[0], thrusts, 1.0 / 240, 4, mass, j_diag)
-    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
-    env = tq.make_quadrotor(tq.QuadrotorConfig(quad_type=3), device="cuda")
-    state, _, _ = env.reset(torch.arange(8, dtype=torch.int32))
-    before = K1.quad3d_substeps.launches
-    env.step(state, torch.full((8, 4), float(env.u_goal[0])))
-    assert K1.quad3d_substeps.launches == before + 1
+    assert got.dtype == {torch.float64: np.float64, torch.float32: np.float32}[dtype]
+    monkeypatch.setattr(tq, "quad3d_substeps", K1.quad3d_substeps_plain)
+    plain, _, _, _ = _quad_rollout(3, "cuda", dtype)
+    np.testing.assert_array_equal(got, plain)
+    if dtype == torch.float64:
+        want = oracle.quad_rollout(3, got[0], thrusts, 1.0 / 240, 4, mass, j_diag)
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
