@@ -3,10 +3,13 @@
 
 Drives the port's paths on one CUDA card: BASELINE config 4 (3D quadrotor,
 figure-8 tracking, box constraints, impulse disturbance, randomized inertia
-and initial state, out-of-bound done, masked auto-reset), config 2
-(CartPole tracking with box constraints and action white noise), config 3
-(2D quadrotor stabilization with randomized mass and inertia), and PPO
-training on config 4, CartPole stabilization and quad-2D stabilization:
+and initial state, out-of-bound done, masked auto-reset), config 5 (the
+level-2 competition maze: 4 randomized gates and obstacles, the
+competition cost, collision done, action white noise and a uniform
+dynamics force), config 2 (CartPole tracking with box constraints and
+action white noise), config 3 (2D quadrotor stabilization with randomized
+mass and inertia), and PPO training on config 4, CartPole stabilization and
+quad-2D stabilization (the configs: ``safe_control_gym_torch/baseline.py``):
 
 1. builds the kernels (K1-K8) from ``safe_control_gym_torch/csrc`` and
    prints the card (``nvidia-smi`` name and power limit), torch and CUDA
@@ -24,6 +27,14 @@ training on config 4, CartPole stabilization and quad-2D stabilization:
    env) for 25 steps with auto-resets: all rows, done counts exactly;
 4. holds K2 against the port's general engine (which runs K1) over the same
    25 steps and env seeds;
+4b. holds K2's maze instance (config 5, 4 s episodes, step noise on)
+   against its plain version bit for bit, every row, at B = 1000 and 4096
+   over MAZE_CHECK_STEPS steps through collision resets and pose redraws;
+   and one step of it from 1024 scattered states (some placed in their
+   current gate's aperture and some at the goal, one step from completion;
+   noise off) against the general engine: done exact, reward atol 1e-4, the
+   states of the envs not done rtol 2e-4 / atol 2e-5, their maze counters
+   exact, 0.5-90% done;
 5. times config 4's serving path at B = 4096: the general engine for 256
    hover steps and the whole-rollout engine for one call of 8192 steps,
    after two warm-ups, with launch counters zeroed just before and read just
@@ -54,12 +65,14 @@ training on config 4, CartPole stabilization and quad-2D stabilization:
    without action noise; K6 and K8 at H = 64 and 128, at every group they
    are built for, on the rl configs and on the circle with action white
    noise and an impulse), and K5 and K7 against the port's general engine;
-9. serves config 2 and config 3 at B = 4096: the general engine
+9. serves config 5, config 2 and config 3 at B = 4096: the general engine
    (``make_cartpole`` / ``make_quadrotor`` + ``make_vec_env`` + ``rollout``)
-   for 64 steps, then one K5 call of 8192 steps and one K7 call of 4096
-   steps, timed after two warm-ups with the launch counters zeroed just
-   before and read just after; K5 and K7 against their plain versions on a
-   512-step call from the timed call's own rows;
+   for 64 steps (config 5's runs K1 once a step), then one K2 call of 8192
+   steps (the maze instance), one K5 call of 8192 steps and one K7 call of
+   4096 steps, timed after two warm-ups with the launch counters zeroed just
+   before and read just after; K2's maze instance, K5 and K7 against their
+   plain versions on a call from the timed call's own rows (K2: every row
+   bit for bit);
 10. drives the training paths, PPO at the ``rl_train`` shapes (B = 4096,
    T = 128, 10 epochs of 4 minibatches of 131072) on config 4, CartPole
    stabilization and quad-2D stabilization at H = 64, and config 4 at
@@ -70,7 +83,8 @@ training on config 4, CartPole stabilization and quad-2D stabilization:
    its plain version on the timed call's own input, and timed alone;
 11. prints each kernel's registers and spills (``ptxas -v``), one JSON line
    of per-kernel results (K1 with its plan's group and block and every
-   instance's registers and spill bytes), then the final status line.
+   instance's registers and spill bytes; K2 with its maze instance's time,
+   bound, registers and spill bytes), then the final status line.
 
 Any failure raises and exits non-zero; nothing falls back to the CPU.
 
@@ -88,6 +102,10 @@ import time
 
 import numpy as np
 
+# The BASELINE configs, defined once for this script and scripts/bench_port.py.
+from safe_control_gym_torch.baseline import (
+    cfg4, cfg5, cfg_cartpole, cfg_cartpole_rl, cfg_quad2d, cfg_quad2d_rl)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B_MAIN = 4096
 GENERAL_STEPS = 256
@@ -101,6 +119,14 @@ RAGGED_B = 1000
 # thousands of small PyTorch ops per step, and this many keeps the run
 # near 100-150 s).
 PLAIN_STEPS = 512
+# K2's maze instance against its plain version: steps through collision
+# resets and pose redraws, and the steps of the call from the timed call's
+# rows; the one-step cross-check's batch.
+MAZE_CHECK_STEPS, MAZE_PLAIN_STEPS, MAZE_CROSS_B = 120, 256, 1024
+# tests/test_fast_maze.py's spawns, scattered over the arena.
+MAZE_SCATTER = {"init_x": {"distrib": "uniform", "low": -2.0, "high": 2.0},
+                "init_y": {"distrib": "uniform", "low": -2.5, "high": 2.0},
+                "init_z": {"distrib": "uniform", "low": 0.1, "high": 1.4}}
 CP_FAST_STEPS, Q2_FAST_STEPS = 8192, 4096  # one K5 call (config 2), one K7 call (config 3)
 SERVE_GENERAL_STEPS = 64  # general-engine steps of the config 2 and 3 serving paths
 # Row layouts for a whole-rollout kernel's check against its plain version:
@@ -114,6 +140,8 @@ K2_CLOSE_ROWS = (("states", slice(0, 12), 2e-4, 2e-5),
                  ("mass and inertia", slice(12, 16), 1e-6, 0.0),
                  ("statistics", slice(18, 25), 2e-4, 1e-5))
 K2_LAYOUT = dict(exact=K2_EXACT_ROWS, done=21, seed=25, close=K2_CLOSE_ROWS)
+# K2's maze instance: every row bit for bit, the maze rows included.
+K2_MAZE_LAYOUT = dict(K2_LAYOUT, bitwise=True)
 K5_LAYOUT = dict(exact=[7, 8, 12, 17], done=12, seed=16,
                  close=(("states", slice(0, 4), 2e-4, 2e-5), ("inertia", slice(4, 7), 1e-6, 0.0),
                         ("statistics", slice(9, 16), 2e-4, 1e-5)))
@@ -203,6 +231,24 @@ def k3_mlp_ops(h, nx=12, nu=4):
 K3_MLP_TRANS_PER_H = 4  # tanh of both hidden layers of both nets
 K3_RNG_OPS = 2 * 10 * 9
 K3_ACTION_OPS = 4 * (ACTUATE_OPS + ACTUATE_TRANS) + 16
+# K2's maze instance per env-step of config 5 beyond its two RK4 substeps
+# (csrc/maze.cuh, counted by hand): the action noise (two Philox blocks,
+# per motor 6 operations and a log, sqrt and cos, and the actuation), the
+# uniform force (one block and 3 x 3), per gate the frame and leg tests (31
+# and a sqrt) and the current-gate test and select (5), the current gate's
+# 7-ray fan alone (5 and 7 x 13: the step keeps no other gate's hit, though
+# the kernel, as the JAX kernel, computes every gate's), per obstacle 9 and
+# a sqrt, gate progress, at-goal and completion (21 and a sqrt), 1/mass,
+# the violation and done tests (36 + 5), the competition reward (8), the
+# statistics (16) and the step counter (3); the goal is constant.  A reset
+# adds K2's and the poses' 20 counter draws and affines and 4 sincos.
+MAZE_NOISE_OPS = K3_RNG_OPS + 4 * (6 + ACTUATE_OPS) + K3_RNG_OPS // 2 + 9
+MAZE_NOISE_TRANS = 4 * (3 + ACTUATE_TRANS)
+MAZE_GATE_OPS, MAZE_FAN_OPS, MAZE_OBST_OPS = 31 + 5, 5 + 7 * 13, 9
+MAZE_STEP_OPS = (MAZE_NOISE_OPS + 4 * MAZE_GATE_OPS + MAZE_FAN_OPS + 4 * MAZE_OBST_OPS + 21 + 1
+                 + 36 + 5 + 8 + 16 + 3)
+MAZE_STEP_TRANS = MAZE_NOISE_TRANS + 4 + 4 + 1
+K2_MAZE_RESET_OPS = K2_RESET_OPS + 20 * 12 + 4
 # K4 operations per sample, counted from csrc/ppo_update.cu as written:
 # forward of both nets (multiply-add of three layers, biases, tanh), the
 # backward into both hidden layers (tanh' = 1 - a^2), and one multiply-add
@@ -236,80 +282,6 @@ K7_RESET_OPS = 200  # 11 counter hashes and affine draws
 # Per action of a policy kernel: Box-Muller, log-prob and the action map
 # (~20 operations), and a log, sqrt, cos and exp.
 K68_SAMPLE_OPS, K68_SAMPLE_TRANS = 20, 4
-
-
-def cfg4(**kw):
-    """BASELINE config 4 (bench.py build())."""
-    from safe_control_gym_torch.envs.quadrotor import QuadrotorConfig
-
-    base = dict(
-        quad_type=3, ctrl_freq=60, pyb_freq=240, episode_len_sec=6,
-        task="traj_tracking",
-        task_info={"trajectory_type": "figure8", "trajectory_plane": "xy",
-                   "trajectory_position_offset": [0.0, 0.0], "trajectory_scale": 1.0,
-                   "num_cycles": 1, "proj_point": [0, 0, 0.5], "proj_normal": [0, 1, 1]},
-        cost="rl_reward", randomized_inertial_prop=True, randomized_init=True,
-        constraints=({"constraint_form": "default_constraint", "constrained_variable": "state"},
-                     {"constraint_form": "default_constraint", "constrained_variable": "input"}),
-        disturbances={"dynamics": ({"disturbance_func": "impulse", "magnitude": 0.005,
-                                    "duration": 10, "decay_rate": 0.8},)},
-        done_on_out_of_bound=True,
-    )
-    base.update(kw)
-    return QuadrotorConfig(**base)
-
-
-def cfg_cartpole(**kw):
-    """BASELINE config 2 (bench.py:226-260): CartPole tracking, box state and
-    input constraints, action white noise of std 0.2, out-of-bound done."""
-    from safe_control_gym_torch.envs.cartpole import CartPoleConfig
-
-    base = dict(
-        ctrl_freq=50, pyb_freq=50, episode_len_sec=10, task="traj_tracking", randomized_init=True,
-        constraints=({"constraint_form": "default_constraint", "constrained_variable": "state"},
-                     {"constraint_form": "default_constraint", "constrained_variable": "input"}),
-        disturbances={"action": ({"disturbance_func": "white_noise", "std": 0.2},)},
-        done_on_out_of_bound=True,
-    )
-    base.update(kw)
-    return CartPoleConfig(**base)
-
-
-def cfg_quad2d(**kw):
-    """BASELINE config 3 (bench.py:275-308): 2D quadrotor stabilization at
-    [0, 1], randomized inertia and initial state, state box, out-of-bound
-    done."""
-    from safe_control_gym_torch.envs.quadrotor import QuadrotorConfig
-
-    base = dict(
-        quad_type=2, ctrl_freq=50, pyb_freq=200, episode_len_sec=10, task="stabilization",
-        task_info={"stabilization_goal": [0, 1], "stabilization_goal_tolerance": 0.05},
-        randomized_init=True, randomized_inertial_prop=True,
-        constraints=({"constraint_form": "default_constraint", "constrained_variable": "state"},),
-        done_on_out_of_bound=True,
-    )
-    base.update(kw)
-    return QuadrotorConfig(**base)
-
-
-def cfg_cartpole_rl(**kw):
-    """cartpole_stab (benchmarks/rl_convergence.py:34-41)."""
-    from safe_control_gym_torch.envs.cartpole import CartPoleConfig
-
-    base = dict(ctrl_freq=50, pyb_freq=50, episode_len_sec=5.0, task="stabilization",
-                cost="rl_reward", randomized_init=True, normalized_rl_action_space=True)
-    base.update(kw)
-    return CartPoleConfig(**base)
-
-
-def cfg_quad2d_rl(**kw):
-    """quad2d_stab_reference_task (benchmarks/rl_convergence.py:44-54)."""
-    from safe_control_gym_torch.envs.quadrotor import QuadrotorConfig
-
-    base = dict(quad_type=2, ctrl_freq=60, pyb_freq=240, episode_len_sec=5, task="stabilization",
-                cost="rl_reward", randomized_init=True, normalized_rl_action_space=True)
-    base.update(kw)
-    return QuadrotorConfig(**base)
 
 
 def counters():
@@ -431,6 +403,10 @@ def check_rows(tag, out, ref, rows_in, layout):
     seed = rows_in[layout["seed"]].view(torch.int32)
     check(f"{tag}: seed row bits", torch.equal(out[layout["seed"]].view(torch.int32), seed)
           and torch.equal(ref[layout["seed"]].view(torch.int32), seed), "copied through unchanged")
+    if layout.get("bitwise"):
+        differ = (out.view(torch.int32) != ref.view(torch.int32)).any(1).nonzero().flatten()
+        check(f"{tag}: every row bit for bit", differ.numel() == 0,
+              f"{out.shape[0]} rows; rows that differ: {differ.tolist()}")
     errs = []
     for what, rs, rtol, atol in layout["close"]:
         err = max_err(out[rs], ref[rs])
@@ -655,6 +631,107 @@ def phase_cross(dev, env, fr, rows0, rows_k2):
     return err
 
 
+def phase_k2_maze(dev):
+    """K2's maze instance against its plain version, every row bit for bit,
+    at the ragged B = 1000 and at B = 4096: config 5 with 4 s episodes and
+    its step noise, MAZE_CHECK_STEPS hover steps through collision resets
+    (and the pose redraws that follow them)."""
+    import torch
+
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+    from safe_control_gym_torch.parallel import fast_env as F
+
+    env = make_quadrotor(cfg5(episode_len_sec=4), device=dev)
+    err = 0.0
+    for B in (RAGGED_B, B_MAIN):
+        fr = F.FastQuadRollout(env, B, steps_per_call=MAZE_CHECK_STEPS, device=dev)
+        rows0 = fr.reset(seed=0)
+        act = fr.prepare_action(np.full(4, float(env.u_goal[0])))
+        seed = torch.tensor([5], dtype=torch.int32, device=dev)
+        out = F.quad3d_rollout(fr.params, rows0, act, seed)
+        ref = F.quad3d_rollout_plain(fr.params, rows0, act, seed)
+        torch.cuda.synchronize()
+        tag = f"K2 maze instance vs plain (config 5, B={B}, {MAZE_CHECK_STEPS} steps)"
+        err = max(err, check_rows(tag, out, ref, rows0, K2_MAZE_LAYOUT))
+        g = slice(27, 27 + 4 * fr.params["n_gates"])
+        moved = int((out[g] != rows0[g]).any(0).sum())
+        check(f"{tag}: pose redraws", moved > B // 2, f"{moved} of {B} envs' gates redrawn")
+    return err
+
+
+def phase_maze_cross(dev):
+    """One K2 step of config 5 against the general engine (K1) from
+    MAZE_CROSS_B scattered spawns at step 40 (tests/test_fast_maze.py's
+    check): envs 0-63 placed in their current gate's aperture, envs 64-95
+    at the goal past the last gate one step from completion; no step noise.
+    K2 against its plain version on the same rows, bit for bit."""
+    import torch
+
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+    from safe_control_gym_torch.parallel import fast_env as F
+    from safe_control_gym_torch.parallel.vector import make_vec_env
+
+    B = MAZE_CROSS_B
+    env = make_quadrotor(cfg5(episode_len_sec=4, disturbances=None, randomized_inertial_prop=False,
+                              init_state_randomization_info=MAZE_SCATTER, done_on_completion=True),
+                         device=dev)
+    state, _, _ = make_vec_env(env, B).reset(seed=3)
+    x, cur, at_goal = state.x.clone(), state.current_gate.clone(), state.steps_at_goal.clone()
+    x[:96] = 0.0
+    x[:64, 0], x[:64, 2], x[:64, 4] = (state.gates_eff[:64, 0, k] for k in (0, 1, 3))
+    x[64:96, 0], x[64:96, 2], x[64:96, 4] = (float(env.x_goal[k]) for k in (0, 2, 4))
+    cur[64:96], at_goal[64:96] = len(env.config.gates), 2 * env.config.ctrl_freq
+    full = torch.full_like(cur, 40)
+    state = state.replace(x=x, ctrl_step=full, pyb_step=2 * full, current_gate=cur,
+                          steps_at_goal=at_goal)
+    fr = F.FastQuadRollout(env, B, steps_per_call=1, device=dev)
+    hover = np.full(4, float(env.u_goal[0]), np.float32)
+    rows_in, act = fr.pack(state), fr.prepare_action(hover)
+    seed = torch.tensor([1], dtype=torch.int32, device=dev)
+    rows = F.quad3d_rollout(fr.params, rows_in, act, seed)
+    s1, _, rew, done, _ = env.step(state, torch.as_tensor(np.tile(hover, (B, 1)), device=dev))
+    torch.cuda.synchronize()
+    check_rows(f"K2 maze instance vs plain (placed and scattered, B={B}, 1 step)", rows,
+               F.quad3d_rollout_plain(fr.params, rows_in, act, seed), rows_in, K2_MAZE_LAYOUT)
+    done_k = rows[21] > 0.5
+    check("K2 maze vs general engine: done", torch.equal(done_k, done),
+          f"{int(done_k.sum())} vs {int(done.sum())} of {B} done")
+    rew_err = max_err(rows[18] + rows[22], rew)
+    check("K2 maze vs general engine: reward", rew_err <= 1e-4, f"max_abs_err {rew_err:.3g} (1e-4)")
+    live = ~done
+    err = max_err(rows[:12, live].T, s1.x[live])
+    close = bool(torch.isclose(rows[:12, live].T, s1.x[live], rtol=2e-4, atol=2e-5).all())
+    check("K2 maze vs general engine: states of the envs not done", close,
+          f"max_abs_err {err:.3g} (rtol 2e-4, atol 2e-5)")
+    mz = 27 + 4 * fr.params["n_gates"] + 2 * fr.params["n_obstacles"]
+    same = (torch.equal(rows[mz, live], s1.current_gate[live].float())
+            and torch.equal(rows[mz + 1, live], s1.steps_at_goal[live].float()))
+    passed = int(s1.stepped_through_gate[:64].sum())
+    check("K2 maze vs general engine: gate and goal counters", same and passed == 64
+          and bool(s1.task_completed[64:96].all()) and bool(done_k[64:96].all()),
+          f"exact; {passed} of 64 placed envs passed their gate, 32 completed")
+    share = float(done.double().mean())
+    check("K2 maze vs general engine: done share", 0.005 < share < 0.9, f"{share:.4f}")
+    return err
+
+
+def phase_serve_maze(dev):
+    """Config 5 served at B = 4096: the general engine (K1 once a step), then
+    K2's maze instance, 8192 steps a call."""
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+    from safe_control_gym_torch.parallel import fast_env as F
+
+    env = make_quadrotor(cfg5(), device=dev)
+    fr = F.FastQuadRollout(env, B_MAIN, FAST_STEPS, device=dev)
+    res = serve(dev, "config 5", env, fr, fr.prepare_action(np.full(4, float(env.u_goal[0]))),
+                F.quad3d_rollout, F.quad3d_rollout_plain, "quad3d_rollout", "k2", K2_MAZE_LAYOUT,
+                21, plain_steps=MAZE_PLAIN_STEPS)
+    gl = res["general_launches"]
+    check("config 5 general engine went through K1", gl["k1"] == SERVE_GENERAL_STEPS
+          and sum(gl.values()) == gl["k1"], f"launches {gl} in {SERVE_GENERAL_STEPS} steps")
+    return res
+
+
 def phase_main(dev):
     import torch
 
@@ -760,9 +837,9 @@ def phase_main(dev):
     res["k1_plain_ms"] = cuda_ms(lambda: K1.quad3d_substeps_plain(*k1_args, **k1_kw), 20)
     res["k2_ms"] = device_ms(lambda: F.quad3d_rollout(fr.params, rows_in, act), 3)
 
-    # -- K2 and its plain version on a PLAIN_STEPS-step call from the timed
-    # call's own rows and action: K2's check at the main path's width, and
-    # the plain version's time (PERF.md keeps the 8192-step agreement).
+    # -- K2 and its plain version on a PLAIN_STEPS-step call from the
+    # timed call's own rows and action: K2's check at the main path's width,
+    # and the plain version's time (PERF.md keeps the 8192-step agreement).
     p_short = dict(fr.params, steps=PLAIN_STEPS)
     rows_k = F.quad3d_rollout(p_short, rows_in, act)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1171,12 +1248,13 @@ def phase_k7_k8(dev):
     return res
 
 
-def serve(dev, tag, env, fr, act, kernel, plain, kname, key, layout, done_row):
+def serve(dev, tag, env, fr, act, kernel, plain, kname, key, layout, done_row,
+          plain_steps=PLAIN_STEPS):
     """One serving path at B = 4096: the general engine for
     SERVE_GENERAL_STEPS steps of ``act``'s command, then the whole-rollout
     engine's timed call after two warm-ups, the kernel against its plain
-    version on a PLAIN_STEPS-step call from the timed call's rows, and the
-    kernel's device time."""
+    version on a ``plain_steps``-step call from the timed call's rows, and
+    the kernel's device time."""
     import torch
 
     from safe_control_gym_torch.parallel import rollout as R
@@ -1219,7 +1297,7 @@ def serve(dev, tag, env, fr, act, kernel, plain, kname, key, layout, done_row):
     res["fast_call_ms"] = t_fast * 1e3
     res["resets"] = float(rows[done_row].sum() - rows_in[done_row].sum())
 
-    p_short = dict(fr.params, steps=PLAIN_STEPS)
+    p_short = dict(fr.params, steps=plain_steps)
     out = kernel(p_short, rows_in, act, seed)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1228,9 +1306,10 @@ def serve(dev, tag, env, fr, act, kernel, plain, kname, key, layout, done_row):
     torch.cuda.synchronize()
     res["plain_ms"] = start.elapsed_time(end)
     res["main_max_abs_err"] = check_rows(
-        f"{kname} vs plain from the main path's rows (B={B_MAIN}, {PLAIN_STEPS} steps)", out, ref,
+        f"{kname} vs plain from the main path's rows (B={B_MAIN}, {plain_steps} steps)", out, ref,
         rows_in, layout)
     res["ms"] = device_ms(lambda: kernel(fr.params, rows_in, act, seed), 5)
+    res["plain_steps"] = plain_steps
     return res
 
 
@@ -1379,7 +1458,7 @@ def policy_ops(nx, nu, hidden=HIDDEN):
             + nu * (K68_SAMPLE_OPS + K68_SAMPLE_TRANS))
 
 
-def bounds(res, serve_cp, serve_q2, train):
+def bounds(res, serve_cp, serve_q2, serve_mz, train):
     """Least time the card could take for each kernel's main-path work."""
     B = B_MAIN
     k1_bytes = B * (12 + 4 + 3 + 1 + 3 + 12) * 4
@@ -1412,8 +1491,14 @@ def bounds(res, serve_cp, serve_q2, train):
     k7_step = 4 * (Q2_SUBSTEP_OPS + 4 * Q2_FC_TRANS) + K7_STEP_OPS + K7_STEP_TRANS
     k7_ops = B * Q2_FAST_STEPS * k7_step + serve_q2["resets"] * K7_RESET_OPS
     k8_ops = steps_t * (k7_step + policy_ops(6, 2)) + train["quad2d"]["resets"] * K7_RESET_OPS
+    # K2's maze instance on config 5's serving call: 55 rows in and out, two
+    # RK4 substeps a step, the maze and the noise, this run's resets, and
+    # the gates' sincos at the call's start.
+    k2_maze_ops = (env_steps * (2 * (RK4_SUBSTEP_OPS + 4 * FC_TRANS) + MAZE_STEP_OPS
+                                + MAZE_STEP_TRANS)
+                   + serve_mz["resets"] * K2_MAZE_RESET_OPS + B * 4)
     out = {"k1": bound(k1_bytes, k1_ops), "k1_f64": bound(2 * k1_bytes, k1_ops, PEAK_F64_OPS_S),
-           "k2": bound(k2_bytes, k2_ops),
+           "k2": bound(k2_bytes, k2_ops), "k2_maze": bound(B * (2 * 55 + 4) * 4, k2_maze_ops),
            "k3": bound(policy_bytes(27, 12, 4), k3_ops("config4", HIDDEN)),
            "k3_h128": bound(policy_bytes(27, 12, 4, 128), k3_ops("config4_h128", 128)),
            "k5": bound(B * (2 * 18 + 1) * 4, k5_ops), "k6": bound(policy_bytes(18, 4, 1), k6_ops),
@@ -1452,6 +1537,13 @@ def k1_instances(ptxas):
     return out
 
 
+def k2_instance(ptxas, maze):
+    """Registers and spill bytes of K2's instance for config 4 (``maze``
+    False) or its maze instance."""
+    r = next(r for n, r in ptxas.items() if f"quad3d_rollout_kernelILi4ELb{int(maze)}E" in n)
+    return {"registers": r["registers"], "spill_bytes": r["spill_stores"] + r["spill_loads"]}
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
     return {"name": name, "route": "cuda", "source": f"safe_control_gym_torch/csrc/{source}",
             "replaces": f"safe_control_gym_tpu/{replaces}", "launches": launches,
@@ -1480,14 +1572,17 @@ def main():
     k1_f64 = phase_k1_float64(dev, k1_inputs)
     k2_err, env_c, fr_c, rows0, rows_k2 = phase_k2(dev)
     cross_err = phase_cross(dev, env_c, fr_c, rows0, rows_k2)
+    maze_err = phase_k2_maze(dev)
+    maze_cross_err = phase_maze_cross(dev)
     res = phase_main(dev)
     k3_err, k3_differ = phase_k3(dev)
     k4 = phase_k4(dev)
     small = {**phase_k5_k6(dev), **phase_k7_k8(dev)}
     serve_cp = phase_serve_cartpole(dev)
     serve_q2 = phase_serve_quad2d(dev)
+    serve_mz = phase_serve_maze(dev)
     train = phase_train(dev)
-    bnd = bounds(res, serve_cp, serve_q2, train)
+    bnd = bounds(res, serve_cp, serve_q2, serve_mz, train)
 
     from safe_control_gym_torch.ops import quad_substeps as K1
     from safe_control_gym_torch.parallel import fast_cartpole as FC
@@ -1518,13 +1613,16 @@ def main():
     print(f"launch counters: K1 {res['k1_launches']}, K2 {res['k2_launches']}")
     print(f"plain versions (no yardstick): K1 {res['k1_plain_ms']:.4f} ms per call, "
           f"K2 {res['k2_plain_ms']:.1f} ms per call of {PLAIN_STEPS} steps")
-    for tag, sv, kn, steps, b in (("config 2", serve_cp, "K5", CP_FAST_STEPS, bnd["k5"]),
+    for tag, sv, kn, steps, b in (("config 5", serve_mz, "K2 maze instance", FAST_STEPS,
+                                   bnd["k2_maze"]),
+                                  ("config 2", serve_cp, "K5", CP_FAST_STEPS, bnd["k5"]),
                                   ("config 3", serve_q2, "K7", Q2_FAST_STEPS, bnd["k7"])):
         print(f"{tag}: general engine {sv['general_env_steps_s']:.6g} env-steps/s "
               f"({SERVE_GENERAL_STEPS} steps); whole-rollout {sv['fast_env_steps_s']:.6g} "
               f"env-steps/s (B={B_MAIN}, {steps} steps in {sv['fast_call_ms']:.4f} ms); {kn} device "
               f"time {sv['ms']:.4f} ms (bound {b['bound_ms']:.4f} ms, {b['bound_by']}); "
-              f"{sv['resets']:.0f} auto-resets; plain {sv['plain_ms']:.1f} ms per {PLAIN_STEPS} steps")
+              f"{sv['resets']:.0f} auto-resets; plain {sv['plain_ms']:.1f} ms per "
+              f"{sv['plain_steps']} steps; {card_line()}")
     for tag, pk in (("config4", "K3"), ("cartpole", "K6"), ("quad2d", "K8"), ("config4_h128", "K3")):
         tr, tp = train[tag], train[tag]["profile"]
         print(f"PPO train step {tag} (B={TRAIN_B}, T={TRAIN_T}, {EPOCHS} epochs x {N_MINI} "
@@ -1568,7 +1666,16 @@ def main():
         kernel_entry("quad3d_rollout", "quad3d_rollout.cu", "parallel/fast_env.py:593",
                      res["k2_launches"], max(k2_err, res["k2_main_max_abs_err"]), res["k2_ms"],
                      res["k2_plain_ms"], bnd["k2"], plain_steps=PLAIN_STEPS,
-                     max_abs_err_vs_general_engine=cross_err, group=F.GROUP, block=F.BLOCK),
+                     max_abs_err_vs_general_engine=cross_err, group=F.GROUP, block=F.BLOCK,
+                     **k2_instance(ptxas, False),
+                     maze={"config": 5, "launches": serve_mz["launches"]["k2"],
+                           "max_abs_err": max(maze_err, serve_mz["main_max_abs_err"]),
+                           "max_abs_err_vs_general_engine": maze_cross_err, "ms": serve_mz["ms"],
+                           "plain_ms": serve_mz["plain_ms"], "plain_steps": MAZE_PLAIN_STEPS,
+                           "bound_ms": bnd["k2_maze"]["bound_ms"],
+                           "bound_by": bnd["k2_maze"]["bound_by"],
+                           "env_steps_s": serve_mz["fast_env_steps_s"],
+                           **k2_instance(ptxas, True)}),
         kernel_entry("quad3d_policy_rollout", "quad3d_policy_rollout.cu",
                      "parallel/fast_policy.py:76", c4["policy_launches"],
                      max(k3_err, c4["main_max_abs_err"]), c4["ms"], c4["plain_ms"], bnd["k3"],
@@ -1614,7 +1721,10 @@ def main():
                        "cuda": torch.version.cuda, "build_s": build_s, "total_s": total_s,
                        "k1_max_abs_err": k1_errs, "k1_float64": k1_f64,
                        "k2_vs_plain_max_abs_err": k2_err,
-                       "k2_vs_general_max_abs_err": cross_err, "bounds": bnd,
+                       "k2_vs_general_max_abs_err": cross_err,
+                       "k2_maze_vs_plain_max_abs_err": maze_err,
+                       "k2_maze_vs_general_max_abs_err": maze_cross_err, "serve_maze": serve_mz,
+                       "bounds": bnd,
                        "k3_vs_plain_max_abs_err": k3_err, "k4": k4, "ptxas": ptxas,
                        "small_checks": small, "serve_cartpole": serve_cp, "serve_quad2d": serve_q2,
                        "train": train, **res, **kernels_line}, f, indent=1, default=str)

@@ -3,8 +3,9 @@
 // and sines (div_round, sincos_round), the 3D quadrotor's grouped
 // derivative and substeps (fc_group, substeps_group: K1 quad3d_substeps in
 // float and double, and the control step of K2 quad3d_rollout and K3
-// quad3d_policy_rollout, env_step_group), and the policy kernels' grouped
-// dual MLP (K3, K6 cartpole_policy_rollout, K8 quad_planar_policy_rollout).
+// quad3d_policy_rollout, env_step_group; K2's maze instance adds
+// maze.cuh), and the policy kernels' grouped dual MLP (K3, K6
+// cartpole_policy_rollout, K8 quad_planar_policy_rollout).
 //
 // Why: with one thread per env, B = 4096 envs are 128 warps for the card's
 // 528 warp schedulers, and each thread's step is one dependent chain.  In
@@ -188,13 +189,9 @@ __device__ __forceinline__ void substeps_group(T* s, const BodyT<T>& b, int n_su
   }
 }
 
-// One control step (step_env_core, non-maze, no step noise) over the
-// group: the impulse schedule (fast_env.py:356-366) and the substeps, then
-// quad3d.cuh::env_step, the rest of the step (goal, violation, reward,
-// done, statistics, auto-reset) on the state they left.
-template <int G>
-__device__ __forceinline__ void env_step_group(const RolloutParams& P, EnvRows& r,
-                                               const ActionTerms& a, StepOut& o, const LaneGroup& g) {
+// The impulse schedule's force at the step (fast_env.py:356-366), 0 where
+// the config has none.
+__device__ __forceinline__ float impulse_force(const RolloutParams& P, const EnvRows& r) {
   float n = 0.0f;
   if (P.impulse) {
     const float peak = r.offset + P.imp_peak_shift;
@@ -202,19 +199,43 @@ __device__ __forceinline__ void env_step_group(const RolloutParams& P, EnvRows& 
     const float dec = po < P.imp_half_dur ? (P.decay_one ? 1.0f : expf(po * P.imp_log_decay)) : 0.0f;
     n = r.step_f >= r.offset ? P.imp_mag * dec : 0.0f;
   }
+  return n;
+}
+
+// One control step's substeps over the group, in place on r.s, with the
+// motors' forces f and the world-frame force ext.
+template <int G>
+__device__ __forceinline__ void step_substeps_group(const RolloutParams& P, EnvRows& r, const float* f,
+                                                    const float* ext, const LaneGroup& g) {
   Body b;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) b.f[i] = a.f[i];
+  for (int i = 0; i < 4; ++i) b.f[i] = f[i];
   b.g = P.g;
   b.l_sq2 = P.l_sq2;
   b.km_over_kf = P.km_over_kf;
-  b.ext[0] = b.ext[1] = b.ext[2] = n;
+  b.ext[0] = ext[0];
+  b.ext[1] = ext[1];
+  b.ext[2] = ext[2];
   b.minv = 1.0f / r.mass;
   b.j[0] = r.jd[0];
   b.j[1] = r.jd[1];
   b.j[2] = r.jd[2];
   substeps_group<G, float>(r.s, b, P.n_sub, P.euler, P.dt, P.dt_half, P.dt_sixth, g);
-  env_step(P, r, a, o);
+}
+
+// One control step without the maze and the step noise (K3, and K2's
+// instance for such configs) over the group: the impulse schedule and the
+// substeps, then quad3d.cuh::env_step, the rest of the step (goal,
+// violation, reward, done, statistics, auto-reset) on the state they left.
+// K2's maze instance runs maze.cuh::env_step_maze instead.
+template <int G>
+__device__ __forceinline__ void env_step_group(const RolloutParams& P, EnvRows& r,
+                                               const ActionTerms& a, StepOut& o, const LaneGroup& g) {
+  const float n = impulse_force(P, r);
+  const float ext[3] = {n, n, n};
+  step_substeps_group<G>(P, r, a.f, ext, g);
+  MazeCounters none;
+  env_step(P, r, a, o, none);
 }
 
 // Shared-memory floats of one group's row for a dual MLP of width h: the

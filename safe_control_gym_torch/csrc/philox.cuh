@@ -14,6 +14,7 @@ namespace scg {
 constexpr uint32_t SITE_POLICY = 0;  // the policy's Gaussian sample
 constexpr uint32_t SITE_ACTION = 1;  // action white noise
 constexpr uint32_t SITE_OBS = 2;     // observation white noise
+constexpr uint32_t SITE_DYNAMICS = 3;  // per-step draws on the dynamics channel (uniform force)
 constexpr float TWO_PI = 6.283185307179586476925286766559f;
 
 struct Philox4 {

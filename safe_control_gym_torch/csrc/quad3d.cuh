@@ -118,8 +118,9 @@ __device__ __forceinline__ float slot_uniform(uint32_t base, uint32_t slot) {
 // ---------------------------------------------------------------------------
 // The whole-rollout engines' control step (K2 quad3d_rollout, K3
 // quad3d_policy_rollout): the JAX package's step_env_core
-// (safe_control_gym_tpu/parallel/fast_env.py:297-590) without the maze and
-// the step-noise channels; plain version parallel/fast_env.py::step_rows.
+// (safe_control_gym_tpu/parallel/fast_env.py:297-590); plain version
+// parallel/fast_env.py::step_rows.  The maze and the step noise are K2's
+// maze instance's (maze.cuh); K3 and K2's other instance compile them out.
 // ---------------------------------------------------------------------------
 
 // Row indices (fast_env.py:48-57).
@@ -131,7 +132,7 @@ constexpr int R_SEED = 25, R_EP = 26, NROWS = 27;
 // is the float32 rounding of the expression the plain version evaluates.
 struct RolloutParams {
   int steps, n_sub, euler;
-  int cost;       // 0 rl_reward, 1 quadratic
+  int cost;       // 0 rl_reward, 1 quadratic, 2 competition
   int task;       // 0 stabilization, 1 trajectory
   int traj_type;  // 0 figure8, 1 circle, 2 square
   int impulse, decay_one, u_check, done_oob, count_viol, rew_exp;
@@ -147,6 +148,21 @@ struct RolloutParams {
   float x_goal[12], rew_state_w[12], q_half[12], r_half[4];
   float s_low[12], s_high[12], c_low[12], c_high[12], u_low[4], u_high[4];
   float rand_a[16], rand_b[16];  // reset affine: a + u * b, fast-row order
+  // The maze envelope (maze.cuh), after the fields of the other instances,
+  // so that their struct is a prefix of this one.
+  int maze, n_gates, n_obst, act_noise, dyn_uniform, done_collision, done_completion;
+  float act_noise_std, n_sub_f, settle, goal_tol, completion_steps;
+  float dyn_lo[3], dyn_span[3], goal_xyz[3];
+  float gate_h[8];                // nominal gate heights
+  float pose_a[40], pose_b[40];  // pose reset affine: 3 a gate, then 2 an obstacle from 24
+};
+
+// The maze's counters (one row each) and one step's flags of its geometry
+// (maze.cuh::maze_geometry_group), which env_step's reward, done and reset
+// read.
+struct MazeCounters {
+  float cur_gate, steps_goal, completed, prev_viol;
+  bool collided, stepped, at_goal;
 };
 
 // Closed-form planar reference curve at time t (fast_env.py:232-267).
@@ -281,13 +297,17 @@ struct StepOut {
   float s_post[NX];
 };
 
-// The rest of one control step in place on r (step_env_core, non-maze, no
-// step noise), on the state that the step's substeps left: goal,
-// violation, reward, done, statistics, auto-reset.  K2 and K3 run the whole
-// step as lane_group.cuh::env_step_group, which runs the impulse and the
-// substeps over the group and then this.
+// The rest of one control step in place on r (step_env_core), on the state
+// that the step's substeps left: goal, violation, reward, done, statistics,
+// auto-reset.  K2 and K3 run the whole step as
+// lane_group.cuh::env_step_group, which runs the step noise, the dynamics
+// force and the substeps over the group (and in MAZE, the maze's geometry
+// into mc) and then this.  MAZE adds the competition reward, collision and
+// completion done, and the counters' reset (the poses' redraw is the
+// group's, maze.cuh::redraw_maze).
+template <bool MAZE = false>
 __device__ __forceinline__ void env_step(const RolloutParams& P, EnvRows& r, const ActionTerms& a,
-                                         StepOut& o) {
+                                         StepOut& o, MazeCounters& mc) {
 #pragma unroll
   for (int k = 0; k < NX; ++k) o.s_post[k] = r.s[k];
 
@@ -303,7 +323,12 @@ __device__ __forceinline__ void env_step(const RolloutParams& P, EnvRows& r, con
   }
   o.violf = (P.count_viol && viol) ? 1.0f : 0.0f;
 
-  if (P.cost == 1) {
+  if (MAZE && P.cost == 2) {
+    // The sparse competition reward; its violation term is the previous
+    // step's flag (fast_env.py:470-476).
+    o.rew = 100.0f * (mc.stepped ? 1.0f : 0.0f) + 100.0f * (mc.at_goal ? 1.0f : 0.0f) -
+            1000.0f * (mc.collided ? 1.0f : 0.0f) - 100.0f * mc.prev_viol;
+  } else if (P.cost == 1) {
     float dist = a.quad_act;
 #pragma unroll
     for (int k = 0; k < NX; ++k) {
@@ -334,6 +359,10 @@ __device__ __forceinline__ void env_step(const RolloutParams& P, EnvRows& r, con
     }
     done = done || (d2 < P.stab_tol2);
   }
+  if (MAZE && P.maze) {
+    if (P.done_collision) done = done || mc.collided;
+    if (P.done_completion) done = done || (mc.completed > 0.5f);
+  }
   o.trunc = timeout && !done;  // fast_env.py:509, before the time limit joins done
   done = done || timeout;
   o.done = done;
@@ -363,8 +392,14 @@ __device__ __forceinline__ void env_step(const RolloutParams& P, EnvRows& r, con
     r.offset = floorf(slot_uniform(base, 16) * P.max_steps);
     new_step = 0.0f;
     r.ep = r.ep + 1.0f;
+    if (MAZE) {
+      mc.cur_gate = 0.0f;
+      mc.steps_goal = 0.0f;
+      mc.completed = 0.0f;
+    }
   }
   r.step_f = new_step;
+  if (MAZE) mc.prev_viol = o.violf;  // the next step's "previous violation" flag
 }
 
 }  // namespace scg

@@ -1,24 +1,25 @@
-"""Batched disturbance injection (impulse, step and white_noise kinds).
+"""Batched disturbance injection (impulse, step, uniform and white_noise kinds).
 
 Port of ``safe_control_gym_tpu/envs/disturbances.py`` for the two
-deterministic kinds (``disturbances.py:138-163``) and ``white_noise``
-(:171-175, :243-250).  A channel's YAML list compiles to a
-``CompiledDisturbances`` program, a function of the per-episode offsets,
-the step counter and, for white noise, the env's identity.  A randomized
-offset is drawn at reset from the counter PRNG (``envs/quadrotor.py``), so
-it needs no carried random stream.
+deterministic kinds (``disturbances.py:138-163``), ``uniform`` (:164-170,
+:234-242) and ``white_noise`` (:171-175, :243-250).  A channel's YAML list
+compiles to a ``CompiledDisturbances`` program, a function of the
+per-episode offsets, the step counter and, for the noisy kinds, the env's
+identity.  A randomized offset is drawn at reset from the counter PRNG
+(``envs/quadrotor.py``), so it needs no carried random stream.
 
-White noise: the JAX package draws it from a threefry key carried in the
-env state, whose bits the port cannot reproduce.  The port draws it from
+Noisy kinds: the JAX package draws them from a threefry key carried in the
+env state, whose bits the port cannot reproduce.  The port draws them from
 Philox (``ops/philox.py``) keyed on ``(env_seed, episode_idx)`` and counted
 by ``(ctrl_step, entry, block, site)``, where ``entry`` is the entry's index
 in the channel's list and ``site`` the channel's call site (action 1,
-observation 2), Box-Muller on each pair of draws.  The noise is then a pure
-function of the env's identity and step, with no generator to carry, and
-the CPU and CUDA give the same stream.  It matches the JAX package's in
-distribution only.  White noise on the dynamics channel has no call site
-yet and raises, as do the other noisy kinds (uniform, periodic, brownian)
-and state_dependent, when the env is built.
+observation 2, dynamics 3): white noise is Box-Muller on each pair of
+draws, uniform ``u * (high - low) + low`` on one draw a dim.  The noise is
+then a pure function of the env's identity and step, with no generator to
+carry, and the CPU and CUDA give the same stream.  It matches the JAX
+package's in distribution only.  White noise on the dynamics channel is not
+ported yet and raises, as do the other noisy kinds (periodic, brownian) and
+state_dependent, when the env is built.
 """
 
 from __future__ import annotations
@@ -31,13 +32,16 @@ import torch
 
 from safe_control_gym_torch.ops import philox
 
-# Call site (4th Philox counter word) of each channel's white noise.
-NOISE_SITES = {"action": philox.SITE_ACTION, "observation": philox.SITE_OBS}
+# Call site (4th Philox counter word) of each channel's noisy kinds.
+NOISE_SITES = {"action": philox.SITE_ACTION, "observation": philox.SITE_OBS,
+               "dynamics": philox.SITE_DYNAMICS}
+# The channels whose white noise is ported.
+WHITE_NOISE_CHANNELS = ("action", "observation")
 
 
 @dataclasses.dataclass(frozen=True)
 class _Dist:
-    kind: str  # impulse | step | white_noise
+    kind: str  # impulse | step | uniform | white_noise
     dim: int
     mask: Optional[np.ndarray]
     magnitude: float = 1.0
@@ -45,6 +49,8 @@ class _Dist:
     duration: int = 1
     decay_rate: float = 1.0
     std: Optional[np.ndarray] = None  # white noise, (dim,)
+    low: Optional[np.ndarray] = None  # uniform, (dim,)
+    high: Optional[np.ndarray] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +60,7 @@ class CompiledDisturbances:
     dists: Sequence[_Dist]
     dim: int
     max_step: int  # EPISODE_LEN_SEC / CTRL_TIMESTEP (disturbances.py:112)
-    site: Optional[int] = None  # the channel's Philox call site (white noise)
+    site: Optional[int] = None  # the channel's Philox call site (noisy kinds)
 
     @property
     def num_scheduled(self) -> int:
@@ -67,11 +73,23 @@ class CompiledDisturbances:
 
         offsets: (B, num_scheduled) int32; ctrl_step: (B,) int32;
         target: (B, dim); identity: the envs' ``(env_seed, episode_idx)``
-        int32 tensors, which key the white noise."""
+        int32 tensors, which key the noisy kinds."""
         dtype = target.dtype
         out = target
         si = 0
         for entry, d in enumerate(self.dists):
+            if d.kind == "uniform":
+                # uniform(sub, (dim,)) * (high - low) + low (disturbances.py:234-242).
+                env_seed, episode_idx = identity
+                u = philox.block_uniforms(ctrl_step, entry, self.site, env_seed, episode_idx,
+                                          d.dim).T.to(dtype)
+                lo = torch.as_tensor(d.low, dtype=dtype, device=target.device)
+                hi = torch.as_tensor(d.high, dtype=dtype, device=target.device)
+                noise = u * (hi - lo) + lo
+                if d.mask is not None:
+                    noise = noise * torch.as_tensor(d.mask, dtype=dtype, device=target.device)
+                out = out + noise
+                continue
             if d.kind == "white_noise":
                 # jax.random.normal(sub, (dim,)) * std (disturbances.py:171-175).
                 env_seed, episode_idx = identity
@@ -153,13 +171,18 @@ def build_disturbances(
                 magnitude=float(spec.get("magnitude", 1.0)),
                 step_offset=spec.get("step_offset"),
             )
-        elif kind == "white_noise" and channel in NOISE_SITES:
+        elif kind == "uniform" and channel in NOISE_SITES:
+            d = _Dist(kind="uniform", dim=dim, mask=mask,
+                      low=np.broadcast_to(np.asarray(spec.get("low", 0.0), float), (dim,)).copy(),
+                      high=np.broadcast_to(np.asarray(spec.get("high", 1.0), float), (dim,)).copy())
+        elif kind == "white_noise" and channel in WHITE_NOISE_CHANNELS:
             d = _Dist(kind="white_noise", dim=dim, mask=mask, std=np.broadcast_to(
                 np.asarray(spec.get("std", 1.0), float), (dim,)).copy())
         else:
             raise NotImplementedError(
                 f"disturbance_func {kind!r} on the {channel} channel is not ported yet "
-                "(impulse and step, and white_noise on the action and observation channels)")
+                "(impulse, step and uniform, and white_noise on the action and observation "
+                "channels)")
         dists.append(d)
     return CompiledDisturbances(
         dists=tuple(dists), dim=dim, max_step=int(episode_len_sec * ctrl_freq),

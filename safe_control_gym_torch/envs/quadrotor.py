@@ -3,18 +3,19 @@
 Port of ``safe_control_gym_tpu/envs/quadrotor.py``: the thrust -> PWM ->
 RPM -> force actuation (with the 1D/2D motor grouping of ``cmd2pwm``),
 ``pyb`` (RK4) and ``dyn`` (explicit Euler) physics, stabilization and
-figure8/circle/square trajectory tracking, ``rl_reward`` and ``quadratic``
-costs, box constraints, impulse, step and white-noise disturbances,
-out-of-bound / collision / completion done flags, time-limit truncation and
-the non-finite freeze.  The 3D physics runs through the K1 substep kernel
+figure8/circle/square trajectory tracking, ``rl_reward``, ``quadratic`` and
+``competition`` costs, box constraints, impulse, step, uniform and
+white-noise disturbances, the competition maze (gates and obstacles with
+their per-episode pose randomization, collision, gate progress and
+completion, ``envs/gates.py``), out-of-bound / collision / completion done
+flags, time-limit truncation and the non-finite freeze.  The 3D physics runs through the K1 substep kernel
 (``ops/quad_substeps.py``); the 1D and 2D bodies (``quad_fc_1d`` /
 ``quad_fc_2d``), which had no TPU kernel, are plain PyTorch.  Every env of a
 batch carries its own randomized inertia and initial state, drawn from the
 counter PRNG (``ops/ctr_prng.py``) exactly as the JAX package draws them.
 
 Not ported yet (``make_quadrotor`` raises ``NotImplementedError``): the
-aero physics modes, the competition cost and maze (gates, obstacles), the
-adversary channel, and the ``symbolic`` model.
+aero physics modes, the adversary channel, and the ``symbolic`` model.
 """
 
 from __future__ import annotations
@@ -185,7 +186,7 @@ class QuadState:
     # Per-channel randomized impulse/step offsets, (B, n_scheduled) int32.
     dist_offsets: dict
     cnstr_violation: torch.Tensor  # bool
-    # Competition maze state (empty gate/obstacle axes until the maze lands).
+    # Competition maze state (empty gate/obstacle axes without a maze).
     gates_eff: torch.Tensor  # (B, NG, 4): x, y, yaw, aperture height
     obstacles_eff: torch.Tensor  # (B, NO, 2)
     current_gate: torch.Tensor  # int32
@@ -272,18 +273,21 @@ def _weights_vec(w, dim):
     return w
 
 
+def maze_nominal(cfg: QuadrotorConfig):
+    """The config's nominal gates (NG, 7: x, y, z, r, p, yaw, type) and
+    obstacles (NO, 6) (quadrotor.py:505-509)."""
+    return (np.asarray(cfg.gates if cfg.gates else np.zeros((0, 7)), float).reshape(-1, 7),
+            np.asarray(cfg.obstacles if cfg.obstacles else np.zeros((0, 6)), float).reshape(-1, 6))
+
+
 def _unsupported(cfg: QuadrotorConfig):
     """Why the port cannot build this config yet, or None."""
     if int(cfg.quad_type) not in TYPE_NX_NU:
         return f"quad_type {cfg.quad_type}"
     if cfg.physics in ("pyb_gnd", "pyb_drag", "pyb_dw", "pyb_gnd_drag_dw"):
         return f"physics {cfg.physics!r} (only 'pyb' and 'dyn' are ported)"
-    if cfg.cost == Cost.COMPETITION:
-        return "the competition cost"
     if cfg.adversary_disturbance is not None:
         return "the adversary channel"
-    if cfg.gates or cfg.obstacles:
-        return "the competition maze (gates, obstacles)"
     return None
 
 
@@ -446,6 +450,20 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
     else:
         goal_xyz = x_goal_t[0, [0, 2, 4]] if three_d else None
 
+    # Competition maze: nominal poses (quadrotor.py:505-512).
+    gates_nom, obstacles_nom = maze_nominal(cfg)
+    NG, NO = gates_nom.shape[0], obstacles_nom.shape[0]
+    gate_types = gates_nom[:, 6].astype(int)
+    gate_types_t = dev(gate_types, torch.int32)
+    g_xy_nom = dev(gates_nom[:, :2])
+    g_yaw_nom = dev(gates_nom[:, 5])
+    g_h_nom = dev(np.array([gate_geom.GATE_HEIGHTS[t] for t in gate_types], float))
+    o_xy_nom = dev(obstacles_nom[:, :2])
+    gates_pose_nom = dev(gates_nom[:, :6])
+    go_rand = cfg.gates_and_obstacles_randomization_info or {}
+    g_rand = go_rand.get("gates", {"low": -0.15, "high": 0.15})
+    o_rand = go_rand.get("obstacles", {"low": -0.15, "high": 0.15})
+
     def _goal_rows(steps):
         """Trajectory reference row(s) for step indices (clipped gather)."""
         return x_goal_t[torch.clamp(steps.long(), 0, x_goal_t.shape[0] - 1)]
@@ -489,15 +507,38 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
                                                for n in labels], np.float32)
     rand_a = dev(nominal + rand_lo)
     rand_b = dev(rand_hi - rand_lo)
-    n_slots = 4 + nx + 1
+    m0 = 4 + nx + 1
+    n_slots = m0 + 3 * NG + 2 * NO
+
+    def _maze_poses(u_all, B):
+        """Per-env gate (x, y, yaw, height) and obstacle (x, y) poses: the
+        nominal ones, or with ``randomized_gates_and_obstacles`` the nominal
+        plus ``low + u * (high - low)`` from slots m0.. (3 a gate, 2 an
+        obstacle), float32 sums as in quadrotor.py:680-698."""
+        g_xy, g_yaw = g_xy_nom.expand(B, NG, 2), g_yaw_nom.expand(B, NG)
+        o_xy = o_xy_nom.expand(B, NO, 2)
+        if cfg.randomized_gates_and_obstacles:
+            if NG:
+                ug = u_all[m0:m0 + 3 * NG].T.reshape(B, NG, 3)
+                glo, ghi = float(g_rand["low"]), float(g_rand["high"])
+                g_xy = g_xy + glo + ug[..., :2] * (ghi - glo)
+                g_yaw = g_yaw + glo + ug[..., 2] * (ghi - glo)
+            if NO:
+                uo = u_all[m0 + 3 * NG:n_slots].T.reshape(B, NO, 2)
+                olo, ohi = float(o_rand["low"]), float(o_rand["high"])
+                o_xy = o_xy + olo + uo * (ohi - olo)
+        gates_eff = torch.cat([g_xy, g_yaw[..., None], g_h_nom.expand(B, NG)[..., None]], -1)
+        return gates_eff.contiguous(), o_xy.contiguous()
 
     def _reset_core(env_seed, episode_idx):
         """Counter-based reset draws: slots 0..3 inertia, 4..4+nx-1 initial
-        state, 4+nx the impulse offset (quadrotor.py:660-744)."""
+        state, 4+nx the impulse offset, then 3 per gate (x, y, yaw) and 2 per
+        obstacle (x, y) (quadrotor.py:660-744)."""
         B = env_seed.shape[0]
         base = ctr_prng.episode_base(env_seed, episode_idx)
         u_all = ctr_prng.uniform_slots(base, n_slots).to(dtype)  # (n_slots, B)
         drawn = rand_a + u_all[: 4 + nx].T * rand_b
+        gates_eff, obstacles_eff = _maze_poses(u_all, B)
         offsets = {}
         for ch, prog in dist_progs.items():
             n = prog.num_scheduled if prog is not None else 0
@@ -517,8 +558,8 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
             j_diag=drawn[:, 1:4].contiguous(),
             dist_offsets=offsets,
             cnstr_violation=zb,
-            gates_eff=torch.zeros((B, 0, 4), dtype=dtype, device=device),
-            obstacles_eff=torch.zeros((B, 0, 2), dtype=dtype, device=device),
+            gates_eff=gates_eff,
+            obstacles_eff=obstacles_eff,
             current_gate=zi,
             stepped_through_gate=zb,
             currently_collided=zb,
@@ -577,19 +618,50 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
         else:
             x = _planar_substeps(state.x, thrust, ext, state.mass, state.j_diag)
 
+        # Competition info: collision, gate progress (quadrotor.py:884-962).
         info = {}
         pos = _pos3d(x)
+        ge, oe = state.gates_eff, state.obstacles_eff
         collided = gate_geom.ground_collision(pos)
+        if NG:
+            collided = collided | gate_geom.gate_collision(
+                pos, ge[..., :2], ge[..., 2], ge[..., 3]).any(-1)
+        if NO:
+            collided = collided | gate_geom.obstacle_collision(pos, oe).any(-1)
         info["collision"] = collided
-        full = torch.full((B,), -1, dtype=torch.int32, device=device)
-        info["current_target_gate_id"] = full
-        info["current_target_gate_in_range"] = torch.zeros(B, dtype=torch.bool, device=device)
-        info["current_target_gate_pos"] = torch.zeros((B, 6), dtype=dtype, device=device)
-        info["current_target_gate_type"] = full
-        # At-goal / task completion (quadrotor.py:1114-1133), 3D only; no
-        # gates, so every env is past them.
+        stepped = torch.zeros(B, dtype=torch.bool, device=device)
+        new_gate = state.current_gate
+        if NG:
+            # Gate progress after the settling window (quadrotor.py:1060).
+            active = (state.pyb_step > 0.5 * cfg.pyb_freq) & (state.current_gate < NG)
+            hits = gate_geom.gate_pass_hit(pos, ge[..., :2], ge[..., 2], ge[..., 3])
+            cur = torch.clamp(state.current_gate, 0, NG - 1).long()[:, None]
+            stepped = active & hits.gather(-1, cur)[:, 0]
+            new_gate = state.current_gate + stepped.to(torch.int32)
+            in_range = gate_geom.gate_in_range(pos, ge[..., :2], ge[..., 3])
+            cg = torch.clamp(new_gate, 0, NG - 1).long()
+            has_gate = new_gate < NG
+            rows = torch.arange(B, device=device)
+            info["current_target_gate_id"] = torch.where(has_gate, new_gate,
+                                                         torch.full_like(new_gate, -1))
+            info["current_target_gate_in_range"] = has_gate & in_range[rows, cg]
+            # [x, y, z, r, p, yaw]: effective when in range, nominal otherwise.
+            eff = ge[rows, cg]
+            zero = torch.zeros_like(eff[:, 0])
+            eff_pose = torch.stack([eff[:, 0], eff[:, 1], eff[:, 3], zero, zero, eff[:, 2]], -1)
+            info["current_target_gate_pos"] = torch.where(
+                info["current_target_gate_in_range"][:, None], eff_pose, gates_pose_nom[cg])
+            info["current_target_gate_type"] = torch.where(
+                has_gate, gate_types_t[cg], torch.full_like(new_gate, -1))
+        else:
+            full = torch.full((B,), -1, dtype=torch.int32, device=device)
+            info["current_target_gate_id"] = full
+            info["current_target_gate_in_range"] = torch.zeros(B, dtype=torch.bool, device=device)
+            info["current_target_gate_pos"] = torch.zeros((B, 6), dtype=dtype, device=device)
+            info["current_target_gate_type"] = full
+        # At-goal / task completion (quadrotor.py:1114-1133), 3D only.
         if three_d:
-            at_goal = torch.linalg.norm(pos - goal_xyz, dim=-1) < goal_tol
+            at_goal = (new_gate >= NG) & (torch.linalg.norm(pos - goal_xyz, dim=-1) < goal_tol)
             steps_at_goal = torch.where(at_goal, state.steps_at_goal + 1,
                                         torch.zeros_like(state.steps_at_goal))
             completed = state.task_completed | (steps_at_goal > cfg.ctrl_freq * 2)
@@ -621,9 +693,14 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
             dist = (rew_state_w * state_err * state_err).sum(-1) + (
                 rew_act_w * act_err * act_err).sum(-1)
             rew = torch.exp(-dist) if cfg.rew_exponential else -dist
-        else:
+        elif cost == Cost.QUADRATIC:
             dx = x - goal
             rew = -(((0.5 * dx) @ Q * dx).sum(-1) + ((0.5 * act_err) @ R * act_err).sum(-1))
+        else:
+            # Competition (quadrotor.py:990-1001): the violation term reads
+            # the previous step's flag, as the reference's order does.
+            rew = (100.0 * stepped.to(dtype) + 100.0 * at_goal.to(dtype)
+                   - 1000.0 * collided.to(dtype) - 100.0 * state.cnstr_violation.to(dtype))
 
         err = (x - goal) * mse_w
         info["mse"] = (err * err).sum(-1)
@@ -656,6 +733,8 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
             ctrl_step=new_ctrl,
             pyb_step=state.pyb_step + n_sub,
             cnstr_violation=violated,
+            current_gate=new_gate,
+            stepped_through_gate=stepped,
             currently_collided=collided,
             at_goal_pos=at_goal,
             steps_at_goal=steps_at_goal,

@@ -50,9 +50,9 @@ _SIGNATURES = {
     "quad3d_substeps_f64": [_P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _I,
                             _D, _D, _D, _I, _I, _I, _I, _P],
     "quad3d_substeps_api_version": [],
-    # params (host struct pointer), rows_in, action, rows_out, B, then the
-    # launch plan (fast_env.launch_plan: group, block, grid), stream
-    "quad3d_rollout": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # params (host struct pointer), seed, rows_in, action, rows_out, B, then
+    # the launch plan (fast_env.launch_plan: group, block, grid), stream
+    "quad3d_rollout": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "quad3d_rollout_params_size": [],
     "quad3d_rollout_api_version": [],
     # params, normalized, relu, norm_act_scale, hover_thrust, hidden, seed,

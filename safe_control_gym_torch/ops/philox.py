@@ -8,9 +8,11 @@ constants), keyed on the call's seed and counted by (env, step, draw
 block, call site): draw ``i`` at call site ``c`` of env ``e`` at step ``t``
 of a call with seed ``s`` is word ``i % 4`` of
 ``philox4x32_10(ctr=(e, t, i // 4, c), key=(s, 0))``.  The call sites
-(the TPU kernels' ``salt`` argument, ``fast_cartpole.py:121,327``) are
-:data:`SITE_POLICY` (the policy's Gaussian sample), :data:`SITE_ACTION`
-(action white noise) and :data:`SITE_OBS` (observation white noise).  The
+(the TPU kernels' ``salt`` argument, ``fast_cartpole.py:121,327``,
+``fast_env.py:342,369``) are :data:`SITE_POLICY` (the policy's Gaussian
+sample), :data:`SITE_ACTION` (action white noise), :data:`SITE_OBS`
+(observation white noise) and :data:`SITE_DYNAMICS` (per-step draws on the
+dynamics channel: the uniform force, the TPU kernel's salt 2.0).  The
 CUDA kernels compute the same words in native ``uint32`` arithmetic
 (``csrc/philox.cuh``), so a kernel and its plain version draw the same
 uniforms bit for bit.
@@ -35,7 +37,7 @@ _U32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57  # round multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85  # key bumps (Weyl sequence)
 ROUNDS = 10
-SITE_POLICY, SITE_ACTION, SITE_OBS = 0, 1, 2  # 4th counter word: the call site
+SITE_POLICY, SITE_ACTION, SITE_OBS, SITE_DYNAMICS = 0, 1, 2, 3  # 4th counter word: the call site
 TWO_PI = 2.0 * math.pi
 
 
@@ -91,6 +93,16 @@ def uniforms(seed, step: int, env, n: int, site: int = SITE_POLICY):
     indices."""
     k0 = torch.as_tensor(seed, device=env.device).to(torch.int64).reshape(())
     return block_uniforms(env, step, site, k0, 0, n)
+
+
+def seed_tensor(seed, device):
+    """An int or int32 tensor seed as the (1,) int32 tensor the kernels take."""
+    return seed if torch.is_tensor(seed) else torch.tensor([seed], dtype=torch.int32, device=device)
+
+
+def seed_ok(seed, dev):
+    """The call seed a kernel takes: one int32 on the rows' device."""
+    return seed.numel() == 1 and seed.dtype == torch.int32 and seed.device == dev
 
 
 def box_muller(u, n: int):

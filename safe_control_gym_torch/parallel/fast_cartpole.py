@@ -505,11 +505,6 @@ def check_params_size(lib, name, params):
                            f"({ctypes.sizeof(params)} bytes) and the CUDA source ({size})")
 
 
-def seed_ok(seed, dev):
-    """The call seed a kernel takes: one int32 on the rows' device."""
-    return seed.numel() == 1 and seed.dtype == torch.int32 and seed.device == dev
-
-
 def cartpole_rollout(p, rows, action, seed):
     """K5: ``p['steps']`` control steps of a constant action for every env.
     rows (18, B) float32, action (1, B) float32, seed int32 (1,).
@@ -521,7 +516,7 @@ def cartpole_rollout(p, rows, action, seed):
     B = rows.shape[-1]
     dev = rows.device
     if not (dev.type == "cuda" and tuple(rows.shape) == (_NROWS, B)
-            and tuple(action.shape) == (1, B) and seed_ok(seed, dev)
+            and tuple(action.shape) == (1, B) and philox.seed_ok(seed, dev)
             and all(t.device == dev and t.dtype == torch.float32 for t in (rows, action))):
         raise ValueError(
             "cartpole_rollout takes float32 rows (18, B), action (1, B) and an int32 seed on "
@@ -556,7 +551,7 @@ def check_policy_inputs(name, rows, n_rows, weights, seed, obs_dim, nu, act):
     """Raise unless the policy kernels can take these CUDA tensors."""
     B, dev = rows.shape[-1], rows.device
     H2 = weights[0].shape[0]
-    ok = (dev.type == "cuda" and tuple(rows.shape) == (n_rows, B) and seed_ok(seed, dev)
+    ok = (dev.type == "cuda" and tuple(rows.shape) == (n_rows, B) and philox.seed_ok(seed, dev)
           and all(tuple(t.shape) == s for t, s in zip(weights, policy_shapes(obs_dim, nu, H2)))
           and all(t.device == dev and t.dtype == torch.float32 for t in [rows, *weights]))
     if not ok or H2 % 2 or not 1 <= H2 // 2 <= FP.MAX_HIDDEN or act not in ("tanh", "relu"):
@@ -629,11 +624,6 @@ def stats_of(rows, first):
             "mean_length": d["sum_length"] / n, "mean_violations": d["sum_violations"] / n}
 
 
-def seed_tensor(seed, device):
-    """An int or int32 tensor seed as the (1,) int32 tensor the kernels take."""
-    return seed if torch.is_tensor(seed) else torch.tensor([seed], dtype=torch.int32, device=device)
-
-
 class FastCartPoleRollout:
     """Host wrapper of K5: packed state + one-launch rollout calls."""
 
@@ -690,7 +680,7 @@ class FastCartPoleRollout:
             action = self.prepare_action(action)
         if seed is None:
             seed, self._auto_seed = self._auto_seed, self._auto_seed + 1
-        return cartpole_rollout(self.params, rows, action, seed_tensor(seed, self.device))
+        return cartpole_rollout(self.params, rows, action, philox.seed_tensor(seed, self.device))
 
 
 class FastCartPolePolicyRollout:
@@ -736,4 +726,5 @@ class FastCartPolePolicyRollout:
         """One launch = T policy-driven env steps.  Returns (rows, traj)."""
         if seed is None:
             seed, self._auto_seed = self._auto_seed, self._auto_seed + 1
-        return cartpole_policy_rollout(self.params, rows, weights, seed_tensor(seed, self.device))
+        return cartpole_policy_rollout(self.params, rows, weights,
+                                       philox.seed_tensor(seed, self.device))

@@ -1,30 +1,39 @@
 """Whole-rollout engine: many env steps of the 3D quadrotor per launch.
 
-Port of ``safe_control_gym_tpu/parallel/fast_env.py`` for the
-constant-action envelope without the maze.  The whole rollout (actuation,
-impulse force, RK4 substeps, closed-form goal, reward, done, violation
-counting, counter-PRNG auto-reset and episode statistics) runs in K2,
+Port of ``safe_control_gym_tpu/parallel/fast_env.py``, the constant-action
+engine with its maze envelope (BASELINE config 5).  The whole rollout
+(actuation, action white noise, impulse or uniform dynamics force, RK4
+substeps, closed-form goal, the maze's gate, obstacle and ground geometry
+with gate progress and completion, rl_reward / quadratic / competition
+reward, done, violation counting, counter-PRNG auto-reset with the gate and
+obstacle pose redraws, and episode statistics) runs in K2,
 :func:`quad3d_rollout`: the CUDA kernel ``csrc/quad3d_rollout.cu`` for CUDA
 tensors, the plain PyTorch version :func:`quad3d_rollout_plain` for CPU
 tensors.
 
 State is packed as float32 rows ``(27, B)`` at the JAX package's row
-indices; the env seed row holds the int32 seed's bit pattern and is never
-used in arithmetic.  Reset draws come from the counter stream both engines
-share (``ops/ctr_prng.py``), so this engine and the general engine
+indices, and with the maze ``4 NG + 2 NO + 4`` rows more (:func:`maze_rows`:
+each gate's x, y, yaw and height, each obstacle's x and y, then the current
+gate, the steps at the goal, the completion flag and the previous step's
+violation flag); the env seed row holds the int32 seed's bit pattern and is
+never used in arithmetic.  Reset draws come from the counter stream both
+engines share (``ops/ctr_prng.py``), so this engine and the general engine
 (``envs/quadrotor.py`` + ``parallel/vector.py``) agree through auto-resets.
+The step noise (action white noise, the uniform force) comes from Philox
+keyed on the call's seed (``ops/philox.py``, call sites 1 and 3): it agrees
+with the JAX package's in distribution only.
 
-Outside the envelope (``supports``): action white noise, the uniform
-dynamics force, the goal-horizon observation and the maze are not supported
-yet.  The normalized RL action space is the policy engine's
-(``parallel/fast_policy.py``, ``allow_normalized=True``): a constant-action
-call has no policy output to map.  Observation white noise (one scalar std)
-is the constant-action engine's: it never reads the observation, so the
-rows do not change; the policy engine, which would have to draw it, refuses
-it.
+Outside the envelope (``supports``): the goal-horizon observation, and more
+than ``MAX_GATES`` gates or ``MAX_OBSTACLES`` obstacles.  The normalized RL
+action space is the policy engine's (``parallel/fast_policy.py``,
+``allow_normalized=True``): a constant-action call has no policy output to
+map.  Observation white noise (one scalar std) is the constant-action
+engine's: it never reads the observation, so the rows do not change; the
+policy engine, which would have to draw it, refuses it, as it refuses the
+maze envelope (``allow_maze``).
 
 :func:`step_rows` is the plain version of the control step both kernels
-share (``scg::env_step`` in ``csrc/quad3d.cuh``).
+share (``scg::env_step_group`` in ``csrc/lane_group.cuh``).
 """
 
 from __future__ import annotations
@@ -35,9 +44,10 @@ import math
 import numpy as np
 import torch
 
+from safe_control_gym_torch.envs import gates as GG
 from safe_control_gym_torch.envs import quadrotor as Q
 from safe_control_gym_torch.envs.constraints import box_bounds_view
-from safe_control_gym_torch.ops import ctr_prng
+from safe_control_gym_torch.ops import ctr_prng, philox
 from safe_control_gym_torch.ops.quad_substeps import actuate, div, fc_rows, substeps_rows
 from safe_control_gym_torch.ops.rotations import projection_matrix
 from safe_control_gym_torch.utils.device import resolve_device
@@ -55,8 +65,12 @@ _NROWS = 27
 
 _STATS_KEYS = ("ep_return", "ep_length", "ep_violations", "done_count",
                "sum_return", "sum_length", "sum_violations")
-# Counter slot of each reset draw in fast-row order (x0..x11, mass, J, offset).
+# Counter slot of each reset draw in fast-row order (x0..x11, mass, J,
+# offset); the maze's pose draws follow at slots 17 and up.
 _SLOT_MAP = list(range(4, 16)) + [0, 1, 2, 3, 16]
+# The most gates and obstacles K2's maze instance holds (csrc/maze.cuh);
+# the competition levels have four of each.
+MAX_GATES, MAX_OBSTACLES = 8, 8
 
 # K2's launch (csrc/quad3d_rollout.cu): GROUP lanes of a warp per env
 # (csrc/lane_group.cuh), BLOCK threads a block.
@@ -120,41 +134,46 @@ def dist_envelope_flags(cfg):
 
 
 def supports(cfg, allow_normalized: bool = False, allow_maze: bool = False) -> bool:
-    """True if the config is in the whole-rollout engines' envelope.
+    """True if the config is in the whole-rollout engines' envelope: the JAX
+    package's ``supports`` (fast_env.py:63-129) without its goal-horizon
+    option, and with two refusals of the port's.
 
     ``allow_normalized`` asks for the policy engine's (``fast_policy.py``)
     envelope: it maps the normalized RL action space to thrust in-kernel,
     and it refuses observation white noise, which it does not draw yet.  The
-    constant-action engine (the default) admits a single scalar observation
-    white noise, as the JAX package's does: it never reads the observation,
-    so its rows do not change.  The maze envelope (``allow_maze``) is not
-    ported yet and raises."""
-    if allow_maze:
-        raise NotImplementedError("the maze envelope is not ported yet")
+    constant-action engine admits a single scalar observation white noise,
+    as the JAX package's does: it never reads the observation, so its rows
+    do not change.  ``allow_maze`` asks for K2's maze envelope (BASELINE
+    config 5): gates and obstacles, the competition cost, collision and
+    completion done, one scalar action white noise and a uniform dynamics
+    force, up to ``MAX_GATES`` gates and ``MAX_OBSTACLES`` obstacles (the
+    JAX kernel has no such cap)."""
     ti = {**Q._DEFAULT_TASK_INFO, **(cfg.task_info or {})}
     has_d, fl = dist_envelope_flags(cfg)
     act_w = np.asarray(
         1e-4 if cfg.rew_act_weight is None else cfg.rew_act_weight, dtype=float).ravel()
+    gates_nom, obstacles_nom = Q.maze_nominal(cfg)
     return (
         # The kernel applies one action weight to all four motors.
         (act_w.size == 1 or bool(np.all(act_w == act_w[0])))
         and int(cfg.quad_type) == Q.QuadType.THREE_D
         and cfg.physics in ("pyb", "dyn")
-        and cfg.cost in ("rl_reward", "quadratic")
+        and (cfg.cost in ("rl_reward", "quadratic") or (allow_maze and cfg.cost == "competition"))
         and (allow_normalized or not cfg.normalized_rl_action_space)
         and (cfg.task == "stabilization"
              or (cfg.task == "traj_tracking"
                  and ti.get("trajectory_type") in ("figure8", "circle", "square")))
         and int(cfg.obs_goal_horizon) == 0
         and (not has_d["observation"] or (not allow_normalized and fl["obs_noise"]))
-        # Action noise needs the in-kernel Philox stream of the maze branch.
-        and not has_d["action"]
-        and (not has_d["dynamics"] or fl["impulse"])
+        # Action white noise and the uniform force: the maze envelope's.
+        and (not has_d["action"] or (allow_maze and fl["act_noise"]))
+        and (not has_d["dynamics"] or fl["impulse"] or (allow_maze and fl["uniform"]))
         and cfg.adversary_disturbance is None
-        and not (cfg.gates or cfg.obstacles)
+        and (allow_maze or not (cfg.gates or cfg.obstacles))
+        and len(gates_nom) <= MAX_GATES and len(obstacles_nom) <= MAX_OBSTACLES
         and not cfg.done_on_violation
-        and not cfg.done_on_collision
-        and not cfg.done_on_completion
+        and (allow_maze or not cfg.done_on_collision)
+        and (allow_maze or not cfg.done_on_completion)
         and not cfg.use_constraint_penalty
         # Violation counting is per-dim bound tests: pure box programs only.
         and (cfg.constraints is None
@@ -166,7 +185,7 @@ def impulse_spec(cfg):
     """(magnitude, duration, decay_rate) of the config's impulse on the
     dynamics channel (the single form the envelopes admit), or None."""
     dist = (cfg.disturbances or {}).get("dynamics")
-    if not dist:
+    if not dist or dist[0].get("disturbance_func") == "uniform":
         return None
     return tuple(float(np.asarray(dist[0].get(k, dflt), dtype=float).ravel()[0])
                  for k, dflt in (("magnitude", 1.0), ("duration", 1), ("decay_rate", 1.0)))
@@ -176,6 +195,17 @@ def act_noise_std(cfg) -> float:
     """Std of the config's action white noise (0 without one)."""
     act_d = (cfg.disturbances or {}).get("action")
     return float(np.asarray(act_d[0].get("std", 1.0), float).ravel()[0]) if act_d else 0.0
+
+
+def dyn_uniform_spec(cfg):
+    """((low x, y, z), (high x, y, z)) of the config's uniform dynamics force,
+    or None (fast_env.py:639-642: defaults -1 and 1)."""
+    dist = (cfg.disturbances or {}).get("dynamics")
+    if not dist or dist[0].get("disturbance_func") != "uniform":
+        return None
+    lo3 = np.broadcast_to(np.asarray(dist[0].get("low", -1.0), float).ravel(), (3,))
+    hi3 = np.broadcast_to(np.asarray(dist[0].get("high", 1.0), float).ravel(), (3,))
+    return tuple(map(float, lo3)), tuple(map(float, hi3))
 
 
 def constraint_box(env, nx: int, nu: int):
@@ -190,12 +220,13 @@ def constraint_box(env, nx: int, nu: int):
             np.full(nu, -1e30), np.full(nu, 1e30), False)
 
 
-def build_engine_params(env, steps_per_call: int, allow_normalized: bool = False) -> dict:
+def build_engine_params(env, steps_per_call: int, allow_normalized: bool = False,
+                        allow_maze: bool = False) -> dict:
     """Static engine-parameter dict from an env (the JAX package's keys for
     this envelope; Python floats, rounded to float32 where used).  The
     flags are :func:`supports`'."""
     cfg = env.config
-    if not supports(cfg, allow_normalized=allow_normalized):
+    if not supports(cfg, allow_normalized=allow_normalized, allow_maze=allow_maze):
         raise ValueError("config outside the whole-rollout engine's envelope (supports())")
     ti = {**Q._DEFAULT_TASK_INFO, **(cfg.task_info or {})}
     n_sub = cfg.pyb_freq // cfg.ctrl_freq
@@ -251,7 +282,7 @@ def build_engine_params(env, steps_per_call: int, allow_normalized: bool = False
         proj = tuple(tuple(float(v) for v in M4[k, :4]) for k in range(3))
 
     c_s_lo, c_s_hi, c_u_lo, c_u_hi, u_check = constraint_box(env, _NX, 4)
-    return dict(
+    params = dict(
         steps=steps_per_call,
         n_sub=n_sub,
         euler=(cfg.physics == "dyn"),
@@ -293,12 +324,62 @@ def build_engine_params(env, steps_per_call: int, allow_normalized: bool = False
         normalized=bool(cfg.normalized_rl_action_space),
         norm_act_scale=float(cfg.norm_act_scale),
         hover_thrust=float(Q.GRAVITY_ACC * nominal[0] / 4.0),
-        cost={"quadratic": "quad"}.get(cfg.cost, "rl"),
+        # Per-step disturbances: white-noise thrust and the uniform dynamics
+        # force (the maze envelope's).
+        act_noise_std=act_noise_std(cfg),
+        dyn_uniform=dyn_uniform_spec(cfg),
+        cost={"competition": "competition", "quadratic": "quad"}.get(cfg.cost, "rl"),
+        pyb_freq_f=float(cfg.pyb_freq),
     )
+
+    # Competition maze (BASELINE config 5; fast_env.py:800-836).
+    gates_nom, obstacles_nom = Q.maze_nominal(cfg)
+    NG, NO = len(gates_nom), len(obstacles_nom)
+    params["maze"] = bool(NG or NO or cfg.cost == "competition")
+    params["n_gates"], params["n_obstacles"] = NG, NO
+    if params["maze"]:
+        heights = [GG.GATE_HEIGHTS[t] for t in gates_nom[:, 6].astype(int)]
+        params["gates_nom"] = tuple((float(g[0]), float(g[1]), float(g[5]), float(h))
+                                    for g, h in zip(gates_nom, heights))
+        params["obstacles_nom"] = tuple((float(o[0]), float(o[1])) for o in obstacles_nom)
+        go_rand = cfg.gates_and_obstacles_randomization_info or {}
+        if cfg.randomized_gates_and_obstacles:
+            gi = go_rand.get("gates", {"low": -0.15, "high": 0.15})
+            oi = go_rand.get("obstacles", {"low": -0.15, "high": 0.15})
+            params["gate_rand"] = (float(gi["low"]), float(gi["high"]))
+            params["obst_rand"] = (float(oi["low"]), float(oi["high"]))
+        else:
+            params["gate_rand"] = params["obst_rand"] = (0.0, 0.0)
+        xg = np.asarray(env.x_goal, float).reshape(-1, _NX)
+        params["goal_xyz"] = (float(xg[0, 0]), float(xg[0, 2]), float(xg[0, 4]))
+        params["goal_tol"] = float(ti.get("stabilization_goal_tolerance", 0.15))
+        params["completion_steps"] = float(cfg.ctrl_freq * 2)
+        params["done_collision"] = bool(cfg.done_on_collision)
+        params["done_completion"] = bool(cfg.done_on_completion)
+    return params
+
+
+def maze_rows(p) -> int:
+    """Rows of the maze after the 27 (fast_env.py:839-846): 4 a gate (x, y,
+    yaw, height), 2 an obstacle (x, y), then the current gate, the steps at
+    the goal, the completion flag and the previous step's violation flag."""
+    return 4 * p["n_gates"] + 2 * p["n_obstacles"] + 4 if p.get("maze") else 0
 
 
 def total_rows(p) -> int:
-    return _NROWS
+    return _NROWS + maze_rows(p)
+
+
+def pose_affine(p):
+    """The reset affine of the maze's pose draws, slot 17 + q for q in
+    0..3 NG + 2 NO - 1 (3 a gate: x, y, yaw; 2 an obstacle: x, y): the
+    pose is ``a[q] + u * b[q]``, with ``a`` the nominal plus the low bound
+    and ``b`` the bounds' span, Python floats (fast_env.py:567-581)."""
+    (glo, ghi), (olo, ohi) = p["gate_rand"], p["obst_rand"]
+    a = [v + glo for nx0, ny0, nyaw, _ in p["gates_nom"] for v in (nx0, ny0, nyaw)]
+    a += [v + olo for o in p["obstacles_nom"] for v in o]
+    b = [ghi - glo] * (3 * p["n_gates"]) + [ohi - olo] * (2 * p["n_obstacles"])
+    return a, b
 
 
 # --------------------------------------------------------------------------
@@ -352,23 +433,89 @@ def eval_goal(p, step_f):
     return goal
 
 
-def step_rows(p, carry, thrust_rows, act_rows):
-    """One control step on the 27 state rows (fast_env.py:297-590, without
-    the maze and the step-noise channels).
+def maze_geometry(p, s, step_f, g_rows, o_rows, cur_gate, steps_goal, completed):
+    """The maze's closed-form geometry on the post-substep state rows ``s``
+    (fast_env.py:393-447): ground, gate-frame, gate-leg and obstacle
+    collision, the current gate's 7-ray aperture fan, gate progress after
+    the settling window, at-goal and completion.  Returns (collided,
+    stepped, at_goal, cur_gate, steps_goal, completed)."""
+    NG, NO = p["n_gates"], p["n_obstacles"]
+    px, py, pz = s[0], s[2], s[4]
+    zero_t = torch.zeros_like(step_f)
+    collided = pz < GG.GROUND_COLLISION_Z
+    r = GG.DRONE_RADIUS
+    hit_cur = zero_t
+    for g in range(NG):
+        gx, gy, gyaw, gh = (g_rows[4 * g + j] for j in range(4))
+        c, sn = torch.cos(gyaw), torch.sin(gyaw)
+        relx, rely = px - gx, py - gy
+        u = relx * c + rely * sn
+        nrm = -relx * sn + rely * c
+        wz = pz - gh
+        in_slab = nrm.abs() < (GG.GATE_SLAB_HALF + r)
+        in_outer = (u.abs() < GG.GATE_OUTER_HALF + r) & (wz.abs() < GG.GATE_OUTER_HALF + r)
+        in_inner = (u.abs() < GG.GATE_INNER_HALF - r) & (wz.abs() < GG.GATE_INNER_HALF - r)
+        leg = (torch.sqrt(relx * relx + rely * rely) < GG.OBSTACLE_RADIUS + r) & (
+            pz < gh - GG.GATE_OUTER_HALF)
+        collided = collided | (in_slab & in_outer & ~in_inner) | leg
+        # The 7-ray aperture fan (quadrotor.py:1068-1092).
+        hit_g = zero_t > 1.0
+        dz = torch.clamp(pz, gh - GG.RAY_HALF_LENGTH, gh + GG.RAY_HALF_LENGTH) - pz
+        for i in range(-GG.N_RAY_OFFSETS, GG.N_RAY_OFFSETS + 1):
+            sx = gx + i * GG.RAY_SPACING * c
+            sy = gy + i * GG.RAY_SPACING * sn
+            d2 = (px - sx) * (px - sx) + (py - sy) * (py - sy) + dz * dz
+            hit_g = hit_g | (d2 < r * r)
+        hit_cur = torch.where((cur_gate - float(g)).abs() < 0.5, hit_g.to(torch.float32), hit_cur)
+    for o in range(NO):
+        relx, rely = px - o_rows[2 * o], py - o_rows[2 * o + 1]
+        collided = collided | ((torch.sqrt(relx * relx + rely * rely)
+                                < GG.OBSTACLE_RADIUS + r) & (pz < GG.OBSTACLE_HEIGHT + r))
+    # Gate progress after the settling window (quadrotor.py:1060).
+    active = ((step_f * p["n_sub"]) > (0.5 * p["pyb_freq_f"])) & (cur_gate < float(NG))
+    stepped = active & (hit_cur > 0.5)
+    cur_gate = cur_gate + stepped.to(torch.float32)
+    gx0, gy0, gz0 = p["goal_xyz"]
+    near = torch.sqrt((px - gx0) * (px - gx0) + (py - gy0) * (py - gy0)
+                      + (pz - gz0) * (pz - gz0)) < p["goal_tol"]
+    at_goal = (cur_gate >= float(NG)) & near
+    steps_goal = torch.where(at_goal, steps_goal + 1.0, zero_t)
+    completed = torch.maximum(completed, (steps_goal > p["completion_steps"]).to(torch.float32))
+    return collided, stepped, at_goal, cur_gate, steps_goal, completed
 
-    Returns ``(new_rows, rew, done, trunc, violf, s_post)``: ``done``
-    includes the time limit, ``trunc`` is the time limit without another
-    done, and ``s_post`` the post-step state before the auto-reset (the
-    terminal observation)."""
+
+def step_rows(p, carry, thrust_rows, act_rows, noise=None):
+    """One control step on the state rows (fast_env.py:297-590).
+
+    ``thrust_rows``: the preprocessed thrust (pre noise: the reward's action
+    terms); ``act_rows``: the commanded action (the input-constraint test);
+    ``noise``: ``(u_act, u_dyn)``, the 8 action-noise and 3 uniform-force
+    uniforms of the step (either None where the config has no such
+    channel).  Returns ``(new_rows, rew, done, trunc, violf, s_post)``:
+    ``done`` includes the time limit, ``trunc`` is the time limit without
+    another done, and ``s_post`` the post-step state before the auto-reset
+    (the terminal observation)."""
     s = carry[:_NX]
     mass, jd = carry[_R_MASS], carry[_R_J:_R_J + 3]
     step_f, offset = carry[_R_STEP], carry[_R_OFFSET]
     stats = carry[_R_STATS:_R_STATS + 7]
+    u_act, u_dyn = noise if noise is not None else (None, None)
+    NG, NO, maze = p["n_gates"], p["n_obstacles"], p["maze"]
+    if maze:
+        g_rows = carry[_NROWS:_NROWS + 4 * NG]
+        o_rows = carry[_NROWS + 4 * NG:_NROWS + 4 * NG + 2 * NO]
+        cur_gate, steps_goal, completed, prev_viol = carry[_NROWS + 4 * NG + 2 * NO:]
     ug = p["u_goal"]
 
     act_cost = sum((t - ug) * (t - ug) for t in thrust_rows) * p["rew_act_w"]
     quad_act = sum(0.5 * p["r_weight"][i] * ((t - ug) * (t - ug))
                    for i, t in enumerate(thrust_rows))
+    if p["act_noise_std"] > 0.0:
+        # Action white noise (fast_env.py:341-348), Box-Muller on 8 draws.
+        std = p["act_noise_std"]
+        thrust_rows = [t + std * torch.sqrt(-2.0 * torch.log(1.0 - u_act[i]))
+                       * torch.cos(philox.TWO_PI * u_act[4 + i])
+                       for i, t in enumerate(thrust_rows)]
     forces = tuple(actuate(t) for t in thrust_rows)
 
     if p["impulse"] is not None:
@@ -381,6 +528,10 @@ def step_rows(p, carry, thrust_rows, act_rows):
             torch.zeros_like(po))
         n = torch.where(step_f >= offset, mag * dec, torch.zeros_like(dec))
         ext = (n, n, n)
+    elif p["dyn_uniform"] is not None:
+        # The uniform dynamics force (fast_env.py:367-370).
+        lo3, hi3 = p["dyn_uniform"]
+        ext = tuple(lo3[k] + u_dyn[k] * (hi3[k] - lo3[k]) for k in range(3))
     else:
         z = torch.zeros_like(step_f)
         ext = (z, z, z)
@@ -393,6 +544,9 @@ def step_rows(p, carry, thrust_rows, act_rows):
 
     goal = eval_goal(p, step_f)
     zero_t = torch.zeros_like(step_f)
+    if maze:
+        collided, stepped, at_goal, cur_gate, steps_goal, completed = maze_geometry(
+            p, s, step_f, g_rows, o_rows, cur_gate, steps_goal, completed)
     viol = None
     oob_done = zero_t > 1.0
     for k in range(_NX):
@@ -405,7 +559,12 @@ def step_rows(p, carry, thrust_rows, act_rows):
             viol = viol | (act_rows[i] < p["u_low"][i]) | (act_rows[i] > p["u_high"][i])
     violf = viol.to(torch.float32) if p["count_viol"] else zero_t
 
-    if p["cost"] == "quad":
+    if p["cost"] == "competition":
+        # The sparse competition reward; its violation term is the previous
+        # step's flag (fast_env.py:470-476).
+        rew = (100.0 * stepped.to(torch.float32) + 100.0 * at_goal.to(torch.float32)
+               - 1000.0 * collided.to(torch.float32) - 100.0 * prev_viol)
+    elif p["cost"] == "quad":
         dist = quad_act
         for k in range(_NX):
             e = s[k] - goal[k]
@@ -427,6 +586,11 @@ def step_rows(p, carry, thrust_rows, act_rows):
             e = s[k] - goal[k]
             d2 = d2 + e * e
         done = done | (d2 < p["stab_tol"] ** 2)
+    if maze:
+        if p["done_collision"]:
+            done = done | collided
+        if p["done_completion"]:
+            done = done | (completed > 0.5)
     trunc = timeout & ~done  # before the time limit joins done (fast_env.py:509)
     done = done | timeout
 
@@ -438,10 +602,12 @@ def step_rows(p, carry, thrust_rows, act_rows):
         stats[6] + donef * ep_vio,
     )
 
-    # Masked auto-reset from the counter stream (slot remap: fast-row order).
+    # Masked auto-reset from the counter stream (slot remap: fast-row order;
+    # the maze's poses from slots 17 and up).
+    n_pose = 3 * NG + 2 * NO if maze else 0
     es = ctr_prng.seed_from_row(carry[_R_SEED])
     base = ctr_prng.episode_base(es, carry[_R_EP].to(torch.int32) + 1)
-    u = [ctr_prng.slot_uniform(base, _SLOT_MAP[k]) for k in range(17)]
+    u = [ctr_prng.slot_uniform(base, k) for k in _SLOT_MAP + list(range(17, 17 + n_pose))]
     nm, lo_v, hi_v = p["rand_nominal"], p["rand_lo"], p["rand_hi"]
     new_x = [torch.where(done, nm[4 + k] + lo_v[4 + k] + u[k] * (hi_v[4 + k] - lo_v[4 + k]), s[k])
              for k in range(_NX)]
@@ -453,17 +619,49 @@ def step_rows(p, carry, thrust_rows, act_rows):
     new_ep = torch.where(done, carry[_R_EP] + 1.0, carry[_R_EP])
     new_rows = (new_x + [new_mass] + new_j + [new_step, new_off] + list(new_stats)
                 + [carry[_R_SEED], new_ep])
+    if maze:
+        # Per-episode gate and obstacle pose redraws (fast_env.py:560-588):
+        # gates (x, y, yaw, nominal height), then obstacles (x, y).
+        a, b = pose_affine(p)
+        new_maze = []
+        for g in range(NG):
+            for j in range(3):
+                q = 3 * g + j
+                new_maze.append(torch.where(done, a[q] + u[17 + q] * b[q], g_rows[4 * g + j]))
+            new_maze.append(torch.where(done, torch.full_like(step_f, p["gates_nom"][g][3]),
+                                        g_rows[4 * g + 3]))
+        for o in range(NO):
+            for j in range(2):
+                q = 3 * NG + 2 * o + j
+                new_maze.append(torch.where(done, a[q] + u[17 + q] * b[q], o_rows[2 * o + j]))
+        new_rows += new_maze + [torch.where(done, zero_t, cur_gate),
+                                torch.where(done, zero_t, steps_goal),
+                                torch.where(done, zero_t, completed),
+                                violf]  # the next step's "previous violation" flag
     return new_rows, rew, done, trunc, violf, list(s)
 
 
-def quad3d_rollout_plain(p, rows, action):
+def step_noise(p, seed, it, env):
+    """The step's Philox uniforms ``(u_act, u_dyn)`` for :func:`step_rows`:
+    8 of the action white noise (call site 1) and 3 of the uniform force
+    (call site 3), each None where the config has no such channel."""
+    u_act = (philox.uniforms(seed, it, env, 8, philox.SITE_ACTION)
+             if p["act_noise_std"] > 0.0 else None)
+    u_dyn = (philox.uniforms(seed, it, env, 3, philox.SITE_DYNAMICS)
+             if p["dyn_uniform"] is not None else None)
+    return u_act, u_dyn
+
+
+def quad3d_rollout_plain(p, rows, action, seed=0):
     """Plain PyTorch version of K2: ``p['steps']`` control steps of the
-    constant ``action`` (4, B) on ``rows`` (27, B)."""
+    constant ``action`` (4, B) on ``rows`` (total_rows(p), B); ``seed`` (an
+    int or an int32 tensor of one element) keys the step noise."""
     carry = list(rows.unbind(0))
     act = list(action.unbind(0))
     thr = [torch.clamp(a, p["a_low"], p["a_high"]) for a in act]
-    for _ in range(p["steps"]):
-        carry = step_rows(p, carry, thr, act)[0]
+    env = torch.arange(rows.shape[1], device=rows.device)
+    for it in range(p["steps"]):
+        carry = step_rows(p, carry, thr, act, step_noise(p, seed, it, env))[0]
     return torch.stack(carry, 0)
 
 
@@ -472,6 +670,7 @@ def quad3d_rollout_plain(p, rows, action):
 # --------------------------------------------------------------------------
 
 _F32_12 = ctypes.c_float * 12
+_MAX_POSE = 3 * MAX_GATES + 2 * MAX_OBSTACLES
 
 
 class RolloutParams(ctypes.Structure):
@@ -495,6 +694,14 @@ class RolloutParams(ctypes.Structure):
            ("s_low", _F32_12), ("s_high", _F32_12), ("c_low", _F32_12), ("c_high", _F32_12),
            ("u_low", ctypes.c_float * 4), ("u_high", ctypes.c_float * 4),
            ("rand_a", ctypes.c_float * 16), ("rand_b", ctypes.c_float * 16)]
+        + [(n, ctypes.c_int) for n in (
+            "maze", "n_gates", "n_obst", "act_noise", "dyn_uniform", "done_collision",
+            "done_completion")]
+        + [(n, ctypes.c_float) for n in (
+            "act_noise_std", "n_sub_f", "settle", "goal_tol", "completion_steps")]
+        + [("dyn_lo", ctypes.c_float * 3), ("dyn_span", ctypes.c_float * 3),
+           ("goal_xyz", ctypes.c_float * 3), ("gate_h", ctypes.c_float * MAX_GATES),
+           ("pose_a", ctypes.c_float * _MAX_POSE), ("pose_b", ctypes.c_float * _MAX_POSE)]
     )
 
 
@@ -505,7 +712,7 @@ def kernel_params(p) -> RolloutParams:
     c = RolloutParams()
     c.steps = int(p["steps"])
     c.n_sub, c.euler = int(p["n_sub"]), int(bool(p["euler"]))
-    c.cost = 1 if p["cost"] == "quad" else 0
+    c.cost = {"quad": 1, "competition": 2}.get(p["cost"], 0)
     c.task = 0 if p["task"] == "stab" else 1
     c.traj_type = {"figure8": 0, "circle": 1}.get(p["traj_type"], 2)
     c.u_check, c.done_oob = int(bool(p["u_check"])), int(bool(p["done_oob"]))
@@ -540,25 +747,53 @@ def kernel_params(p) -> RolloutParams:
     nm, lo, hi = p["rand_nominal"], p["rand_lo"], p["rand_hi"]
     c.rand_a[:] = [a + b for a, b in zip(nm, lo)]
     c.rand_b[:] = [h - b for h, b in zip(hi, lo)]
+    c.act_noise_std = p["act_noise_std"]
+    c.act_noise = int(p["act_noise_std"] > 0.0)
+    if p["dyn_uniform"] is not None:
+        c.dyn_uniform = 1
+        lo3, hi3 = p["dyn_uniform"]
+        c.dyn_lo[:] = lo3
+        c.dyn_span[:] = [h - b for h, b in zip(hi3, lo3)]
+    c.n_sub_f, c.settle = float(p["n_sub"]), 0.5 * p["pyb_freq_f"]
+    if p["maze"]:
+        c.maze, c.n_gates, c.n_obst = 1, p["n_gates"], p["n_obstacles"]
+        c.done_collision, c.done_completion = int(p["done_collision"]), int(p["done_completion"])
+        c.goal_xyz[:] = p["goal_xyz"]
+        c.goal_tol, c.completion_steps = p["goal_tol"], p["completion_steps"]
+        c.gate_h[:p["n_gates"]] = [g[3] for g in p["gates_nom"]]
+        # Gates' entries at 3 g + j, obstacles' at 3 MAX_GATES + 2 o + j
+        # (csrc/maze.cuh reads them at constant indices).
+        a, b = pose_affine(p)
+        ng3 = 3 * p["n_gates"]
+        for dst, src in ((c.pose_a, a), (c.pose_b, b)):
+            dst[:ng3] = src[:ng3]
+            dst[3 * MAX_GATES:3 * MAX_GATES + len(src) - ng3] = src[ng3:]
     return c
 
 
-def quad3d_rollout(p, rows, action):
+def quad3d_rollout(p, rows, action, seed=0):
     """K2: ``p['steps']`` control steps of a constant action for every env.
-    rows (27, B) float32, action (4, B) float32.
+    rows (total_rows(p), B) float32, action (4, B) float32, seed an int or
+    an int32 tensor of one element on the rows' device (it keys the step
+    noise).
 
     CPU tensors take :func:`quad3d_rollout_plain`; CUDA float32 tensors
-    launch ``csrc/quad3d_rollout.cu``; anything else raises."""
+    launch ``csrc/quad3d_rollout.cu`` (its maze instance where the config
+    has the maze or step noise); anything else raises."""
     if rows.device.type == "cpu" and action.device.type == "cpu":
-        return quad3d_rollout_plain(p, rows, action)
+        return quad3d_rollout_plain(p, rows, action, seed)
     B = rows.shape[-1]
-    for a, shp in ((rows, (_NROWS, B)), (action, (4, B))):
+    n_rows = total_rows(p)
+    for a, shp in ((rows, (n_rows, B)), (action, (4, B))):
         if a.device != rows.device or a.device.type != "cuda" or a.dtype != torch.float32 \
                 or tuple(a.shape) != shp:
             raise ValueError(
-                "quad3d_rollout takes float32 rows (27, B) and action (4, B) on one "
+                f"quad3d_rollout takes float32 rows ({n_rows}, B) and action (4, B) on one "
                 f"CUDA device; got {tuple(rows.shape)} {rows.dtype} {rows.device}, "
                 f"{tuple(action.shape)} {action.dtype} {action.device}")
+    seed = philox.seed_tensor(seed, rows.device)
+    if not philox.seed_ok(seed, rows.device):
+        raise ValueError(f"quad3d_rollout takes an int32 seed of one element on {rows.device}")
     from safe_control_gym_torch import kernels
 
     rows, action = rows.contiguous(), action.contiguous()
@@ -570,8 +805,8 @@ def quad3d_rollout(p, rows, action):
     if lib.quad3d_rollout_params_size() != ctypes.sizeof(params):
         raise RuntimeError("RolloutParams differs between fast_env.py and quad3d_rollout.cu")
     code = lib.quad3d_rollout(
-        ctypes.addressof(params), rows.data_ptr(), action.data_ptr(), out.data_ptr(),
-        B, *launch_plan(B), kernels.stream_ptr(rows.device))
+        ctypes.addressof(params), seed.data_ptr(), rows.data_ptr(), action.data_ptr(),
+        out.data_ptr(), B, *launch_plan(B), kernels.stream_ptr(rows.device))
     kernels.check(code, "quad3d_rollout")
     quad3d_rollout.launches += 1
     return out
@@ -581,34 +816,51 @@ quad3d_rollout.launches = 0
 
 
 def reset_rows(p, env_seeds):
-    """Fresh packed rows (27, B) for int32 ``env_seeds`` on their device:
-    episode-0 draws from the counter stream, float32 arithmetic as in the
-    general engine's reset, so both engines start from the same states."""
+    """Fresh packed rows (total_rows(p), B) for int32 ``env_seeds`` on their
+    device: episode-0 draws from the counter stream, float32 arithmetic as
+    in the JAX package's reset_rows (fast_env.py:849-908), so both engines
+    start from the same states."""
     es = env_seeds.to(torch.int32)
     dev = es.device
     B = es.shape[0]
-    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    NG, NO = p["n_gates"], p["n_obstacles"]
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
     nm, lo, hi = (np.asarray(p[k], np.float32) for k in ("rand_nominal", "rand_lo", "rand_hi"))
-    u_all = ctr_prng.uniform_slots(ctr_prng.episode_base(es, torch.zeros_like(es)), 17).T
+    n_slots = 17 + (3 * NG + 2 * NO if p["maze"] else 0)
+    u_all = ctr_prng.uniform_slots(ctr_prng.episode_base(es, torch.zeros_like(es)), n_slots).T
     drawn = f32(nm + lo) + u_all[:, :16] * f32(hi - lo)  # (B, 16): mass, j3, x12
-    rows = torch.zeros((_NROWS, B), dtype=torch.float32, device=dev)
+    rows = torch.zeros((total_rows(p), B), dtype=torch.float32, device=dev)
     rows[:_NX] = drawn[:, 4:].T
     rows[_R_MASS] = drawn[:, 0]
     rows[_R_J:_R_J + 3] = drawn[:, 1:4].T
     rows[_R_OFFSET] = torch.floor(u_all[:, 16] * p["max_steps"])
     rows[_R_SEED] = ctr_prng.seed_to_row(es)
+    if p["maze"]:
+        glo, ghi = (np.float32(v) for v in p["gate_rand"])
+        olo, ohi = (np.float32(v) for v in p["obst_rand"])
+        for g, (nx0, ny0, nyaw, nh) in enumerate(p["gates_nom"]):
+            for j, nv in enumerate((nx0, ny0, nyaw)):
+                rows[_NROWS + 4 * g + j] = (f32(np.float32(nv) + glo)
+                                            + u_all[:, 17 + 3 * g + j] * f32(ghi - glo))
+            rows[_NROWS + 4 * g + 3] = nh
+        for o, nominal in enumerate(p["obstacles_nom"]):
+            for j, nv in enumerate(nominal):
+                rows[_NROWS + 4 * NG + 2 * o + j] = (
+                    f32(np.float32(nv) + olo) + u_all[:, 17 + 3 * NG + 2 * o + j] * f32(ohi - olo))
     return rows
 
 
 class FastQuadRollout:
     """Host wrapper: packed state + one-launch rollout calls."""
 
-    def __init__(self, env, num_envs: int, steps_per_call: int = 256, device=None):
+    def __init__(self, env, num_envs: int, steps_per_call: int = 256, device=None,
+                 allow_maze: bool = True):
         self.env = env
         self.B = num_envs
         self.steps = steps_per_call
         self.device = resolve_device(device)
-        self.params = build_engine_params(env, steps_per_call)
+        self._auto_seed = 1
+        self.params = build_engine_params(env, steps_per_call, allow_maze=allow_maze)
         self.n_rows = total_rows(self.params)
 
     def reset(self, seed: int = 0, env_seeds=None):
@@ -631,6 +883,17 @@ class FastQuadRollout:
             rows[_R_OFFSET] = offsets[:, 0].to(dev, torch.float32)
         rows[_R_SEED] = ctr_prng.seed_to_row(env_states.env_seed.to(dev))
         rows[_R_EP] = env_states.episode_idx.to(dev, torch.float32)
+        p = self.params
+        if p["maze"]:
+            NG, NO = p["n_gates"], p["n_obstacles"]
+            rows[_NROWS:_NROWS + 4 * NG] = env_states.gates_eff.to(dev, torch.float32).reshape(
+                self.B, 4 * NG).T
+            rows[_NROWS + 4 * NG:_NROWS + 4 * NG + 2 * NO] = env_states.obstacles_eff.to(
+                dev, torch.float32).reshape(self.B, 2 * NO).T
+            mz = _NROWS + 4 * NG + 2 * NO
+            for k, field in enumerate(("current_gate", "steps_at_goal", "task_completed",
+                                       "cnstr_violation")):
+                rows[mz + k] = getattr(env_states, field).to(dev, torch.float32)
         return rows
 
     def states(self, rows):
@@ -661,9 +924,10 @@ class FastQuadRollout:
         """One launch = ``steps_per_call`` env steps for all B envs.
 
         ``action``: (4,)/(B, 4) thrust command, or the tensor from
-        :meth:`prepare_action`.  ``seed`` is accepted for the JAX package's
-        API; this envelope draws no step noise, so it is unused."""
-        del seed
+        :meth:`prepare_action`.  ``seed`` keys the call's step noise
+        (auto-incremented where None)."""
         if not (torch.is_tensor(action) and tuple(action.shape) == (4, self.B)):
             action = self.prepare_action(action)
-        return quad3d_rollout(self.params, rows, action)
+        if seed is None:
+            seed, self._auto_seed = self._auto_seed, self._auto_seed + 1
+        return quad3d_rollout(self.params, rows, action, philox.seed_tensor(seed, self.device))

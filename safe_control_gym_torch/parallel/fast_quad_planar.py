@@ -495,7 +495,7 @@ def planar_rollout(p, rows, action, seed):
     nx, nu = p["nx"], p["nu"]
     n_rows, B, dev = nx + 13, rows.shape[-1], rows.device
     if not (dev.type == "cuda" and tuple(rows.shape) == (n_rows, B)
-            and tuple(action.shape) == (nu, B) and FC.seed_ok(seed, dev)
+            and tuple(action.shape) == (nu, B) and philox.seed_ok(seed, dev)
             and all(t.device == dev and t.dtype == torch.float32 for t in (rows, action))):
         raise ValueError(
             f"planar_rollout takes float32 rows ({n_rows}, B), action ({nu}, B) and an int32 "
@@ -603,7 +603,7 @@ class _PlanarBase:
     def _seed(self, seed):
         if seed is None:
             seed, self._auto_seed = self._auto_seed, self._auto_seed + 1
-        return FC.seed_tensor(seed, self.device)
+        return philox.seed_tensor(seed, self.device)
 
 
 class FastPlanarQuadRollout(_PlanarBase):

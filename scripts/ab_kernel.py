@@ -14,7 +14,8 @@ K1 one launch of config 4's substeps (dt 1/240, 4 RK4 substeps, actuation
 on; ``--euler``, ``--no-actuation`` change them) on random states, thrusts
 through both PWM clip limits and small external forces, in ``--dtype``
 float32 or float64 (the float64 instance); BASELINE config 4 for K2 (one
-call of 8192 hover steps) and K3 (one call of
+call of 8192 hover steps; ``--maze``: config 5 on K2's maze instance, its
+step noise on) and K3 (one call of
 128 policy steps: the rl_train shapes, the normalized action space, weights
 from a fixed seed, hidden width ``--hidden``), config 2 for K5 (one call of
 8192 steps of a zero force under the config's action white noise) and
@@ -44,22 +45,24 @@ instruction count (``cuobjdump``) and its loops (each backward branch and
 the instructions it spans), from which instructions per step are read.
 
 The one-thread entry points of K1, K2, K3, K5-K8 (before their lane-group
-redesigns) take no launch plan; the script tells them apart by
-``<entry>_api_version`` (absent: 1), as it tells K4's by
-``ppo_grads_api_version``.  ``--group NAME=G`` launches
+redesigns) take no launch plan, and K2's before its maze instance no seed;
+the script tells them apart by ``<entry>_api_version`` (absent: 1), as it
+tells K4's by ``ppo_grads_api_version``.  ``--group NAME=G`` launches
 the tree NAME (``this`` or an other's name) with G lanes per env, where its
 build has that instance; else each tree takes its wrapper's plan.
 ``--block NAME=N`` launches K1 of the tree NAME with N threads a block in
 place of its plan's (a sweep of the plan's block size).
 
     python3 scripts/ab_kernel.py --kernel k1|k2|k3|k4|k5|k6|k7|k8 --other NAME=DIR [--other ...]
-        [--batch 4096] [--steps N] [--hidden 64] [--quad-type 2] [--disturbed]
+        [--batch 4096] [--steps N] [--hidden 64] [--quad-type 2] [--disturbed] [--maze]
         [--dtype float32|float64] [--euler] [--no-actuation] [--launches 200]
         [--group NAME=G ...] [--block NAME=N ...] [--rounds 5] [--sass-dir DIR]
         [--out results.json]
 
 Needs one CUDA card, ``nvcc`` and, for every kernel but K1 and K4, the
-same parameter-struct size in every tree (checked).
+same parameter-struct size in every tree (checked), or for K2 and K3 an
+other tree's struct no larger than this one's: the maze envelope's fields
+were appended, so an older struct is a prefix of this one.
 """
 
 from __future__ import annotations
@@ -130,6 +133,9 @@ K4_V1 = {"ppo_grads_plan": [_I, _I, _I, _I, _P, _P, _P],
 # wflat, rows_in, rows_out, traj, B, stream; params, nx, seed, rows_in,
 # action, rows_out, B, block, stream; and params, nx, relu, hidden, seed,
 # wflat, rows_in, rows_out, traj, B, stream.
+# K2's entry of API version 2 (the launch plan, no seed): params, rows_in,
+# action, rows_out, B, group, block, grid, stream.
+K2_V2 = {"quad3d_rollout": [_P, _P, _P, _P, _I, _I, _I, _I, _P]}
 ROLLOUT_V1 = {"quad3d_rollout": [_P, _P, _P, _P, _I, _I, _P],
               "quad3d_policy_rollout": [_P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P, _I, _P],
               "cartpole_rollout": [_P, _P, _P, _P, _P, _I, _I, _P],
@@ -208,7 +214,9 @@ def build_others(kernel: str, trees: dict, out_dir) -> dict:
             sigs = kernels._SIGNATURES if api(lib, entry) == 2 else K1_V1
             entries = ("quad3d_substeps", "quad3d_substeps_f64")
         else:
-            sigs = kernels._SIGNATURES if api(lib, entry) == 2 else ROLLOUT_V1
+            version = api(lib, entry)
+            sigs = ROLLOUT_V1 if version == 1 else K2_V2 if (kernel, version) == ("k2", 2) \
+                else kernels._SIGNATURES
             sigs = {**kernels._SIGNATURES, entry: sigs[entry]}
             entries = (entry, PARAMS_SIZE[kernel])
         for fn in entries:
@@ -218,12 +226,13 @@ def build_others(kernel: str, trees: dict, out_dir) -> dict:
     return out
 
 
-def prefer(kernel, hidden, nx, nu, group, dtype="float32") -> list:
+def prefer(kernel, hidden, nx, nu, group, dtype="float32", maze=False) -> list:
     """Mangled template arguments that begin the name of the instance the
     main path runs, the most specific first: K1's at the scalar type and
     the group size ``group`` (before its redesign: at the scalar type),
-    K2's first (a build holds one
-    group size), K3's at H = 64 or else its run-time-width instance
+    K2's config-4 instance (with ``maze`` its maze instance; a build holds
+    one group size; before the maze instance its one), K3's at H = 64 or
+    else its run-time-width instance
     (H = 0), K4's at R = 2 with its weights in shared memory, K5's at the
     group size ``group``, K7's at (nx, nu) and ``group``, K6's and K8's at
     the width and ``group`` (before their redesigns: at the width).  A
@@ -231,7 +240,8 @@ def prefer(kernel, hidden, nx, nu, group, dtype="float32") -> list:
     instance."""
     h = 64 if hidden == 64 else 0
     t = {"float32": "f", "float64": "d"}[dtype]
-    return {"k1": [f"I{t}Li{group}E", f"I{t}E"], "k2": ["ILi"], "k3": [f"ILi{h}E"],
+    return {"k1": [f"I{t}Li{group}E", f"I{t}E"], "k2": [f"ILi4ELb{int(maze)}E", "ILi"],
+            "k3": [f"ILi{h}E"],
             "k4": ["ILi2ELb1E"],
             "k5": [f"ILi{group}E"], "k6": [f"ILi{h}ELi{group}E", f"ILi{h}E"],
             "k7": [f"ILi{nx}ELi{nu}ELi{group}E", f"ILi{nx}ELi{nu}E"],
@@ -360,7 +370,7 @@ def k1_launch(dev, B, n_sub, dtype, euler, actuation, stream, blocks=None):
 
 
 def inputs(kernel, dev, B, steps, hidden, quad_type, disturbed=False, dtype="float32",
-           euler=False, actuation=True, launches=200, blocks=None):
+           euler=False, actuation=True, launches=200, blocks=None, maze=False):
     """The kernel's input at the main path's shapes (B envs, ``steps``
     steps a call, K3, K6 and K8 at width ``hidden``, K7 and K8 on the quad
     type ``quad_type``, K6 and K8 ``disturbed`` or not) and a function that
@@ -371,8 +381,9 @@ def inputs(kernel, dev, B, steps, hidden, quad_type, disturbed=False, dtype="flo
     by library where not the plan's."""
     import torch
 
-    from chip_smoke import cfg4, seeded_ac
+    from chip_smoke import seeded_ac
     from safe_control_gym_torch import kernels
+    from safe_control_gym_torch.baseline import cfg4, cfg5
     from safe_control_gym_torch.envs.quadrotor import make_quadrotor
     from safe_control_gym_torch.parallel import fast_env as F
     from safe_control_gym_torch.parallel import fast_policy as P
@@ -400,19 +411,25 @@ def inputs(kernel, dev, B, steps, hidden, quad_type, disturbed=False, dtype="flo
     elif kernel in ("k6", "k8"):
         launch = planar_policy_launch(kernel, dev, B, steps, hidden, quad_type, disturbed, stream)
     elif kernel == "k2":
-        env = make_quadrotor(cfg4(), device=dev)
+        env = make_quadrotor(cfg5() if maze else cfg4(), device=dev)
         fr = F.FastQuadRollout(env, B, steps_per_call=steps, device=dev)
         act = fr.prepare_action(np.full(4, float(env.u_goal[0])))
-        rows_in = fr.run(fr.run(fr.reset(seed=0), act), act)
+        rows_in = fr.run(fr.run(fr.reset(seed=0), act, seed=1), act, seed=2)
+        seed = torch.tensor([3], dtype=torch.int32, device=dev)
         params = F.kernel_params(fr.params)
 
         def launch(lib, group):
             out = torch.empty_like(rows_in)
-            args = (ctypes.addressof(params), rows_in.data_ptr(), act.data_ptr(), out.data_ptr(), B)
-            if api(lib, "quad3d_rollout") == 1:
-                code = lib.quad3d_rollout(*args, 64, stream)
+            args = (rows_in.data_ptr(), act.data_ptr(), out.data_ptr(), B)
+            version = api(lib, "quad3d_rollout")
+            if version == 1:
+                code = lib.quad3d_rollout(ctypes.addressof(params), *args, 64, stream)
+            elif version == 2:
+                code = lib.quad3d_rollout(ctypes.addressof(params), *args,
+                                          *F.launch_plan(B, group), stream)
             else:
-                code = lib.quad3d_rollout(*args, *F.launch_plan(B, group), stream)
+                code = lib.quad3d_rollout(ctypes.addressof(params), seed.data_ptr(), *args,
+                                          *F.launch_plan(B, group), stream)
             return code, (out,)
     else:
         env = make_quadrotor(cfg4(normalized_rl_action_space=True), device=dev)
@@ -458,7 +475,7 @@ def planar_launch(kernel, dev, B, steps, quad_type, stream):
     point of its API version."""
     import torch
 
-    from chip_smoke import cfg_cartpole, cfg_quad2d
+    from safe_control_gym_torch.baseline import cfg_cartpole, cfg_quad2d
     from safe_control_gym_torch.envs.cartpole import make_cartpole
     from safe_control_gym_torch.envs.quadrotor import make_quadrotor
     from safe_control_gym_torch.parallel import fast_cartpole as FC
@@ -500,7 +517,8 @@ def planar_policy_launch(kernel, dev, B, steps, hidden, quad_type, disturbed, st
     build through the entry point of its API version."""
     import torch
 
-    from chip_smoke import cfg_cartpole_rl, cfg_quad2d_rl, seeded_ac
+    from chip_smoke import seeded_ac
+    from safe_control_gym_torch.baseline import cfg_cartpole_rl, cfg_quad2d_rl
     from safe_control_gym_torch.envs.cartpole import make_cartpole
     from safe_control_gym_torch.envs.quadrotor import make_quadrotor
     from safe_control_gym_torch.parallel import fast_cartpole as FC
@@ -619,6 +637,8 @@ def main():
                     help="K7's and K8's quad type (config 3 is the 2D quad)")
     ap.add_argument("--disturbed", action="store_true",
                     help="K6 and K8 with action white noise and an impulse, tracking the circle")
+    ap.add_argument("--maze", action="store_true",
+                    help="K2 on config 5 (its maze instance; trees whose K2 has one)")
     ap.add_argument("--dtype", choices=("float32", "float64"), default="float32",
                     help="K1's instance")
     ap.add_argument("--euler", action="store_true", help="K1 with Euler substeps, not RK4")
@@ -665,7 +685,10 @@ def main():
             getattr(libs["this"], fn).argtypes = sigs[fn]
     if kernel in PARAMS_SIZE:
         sizes = {k: getattr(lib, PARAMS_SIZE[kernel])() for k, lib in libs.items()}
-        if len(set(sizes.values())) != 1:
+        # K2's and K3's struct gained the maze fields at its end: an older
+        # tree reads the prefix it knows.
+        prefix_ok = kernel in ("k2", "k3") and max(sizes.values()) == sizes["this"]
+        if len(set(sizes.values())) != 1 and not prefix_ok:
             raise RuntimeError(f"parameter structs differ in size between the trees: {sizes}")
     nx, nu = {1: (2, 1), 2: (6, 2)}[args.quad_type]
     sass = {}
@@ -675,7 +698,7 @@ def main():
                                                groups.get(k)
                                                or default_group(kernel, nx, B, args.hidden,
                                                                 args.dtype),
-                                               args.dtype),
+                                               args.dtype, args.maze),
                               os.path.join(args.sass_dir, f"{kernel}_{k}.sass"))
                 for k, p in paths.items()}
 
@@ -686,7 +709,7 @@ def main():
         libs[name] = Named(libs[name])
         blocks[id(libs[name])] = int(n)
     call = inputs(kernel, dev, B, steps, args.hidden, args.quad_type, args.disturbed, args.dtype,
-                  args.euler, not args.no_actuation, args.launches, blocks)
+                  args.euler, not args.no_actuation, args.launches, blocks, args.maze)
     floor = empty_floor(dev, B, steps, args, libs, groups, blocks) if kernel == "k1" else {}
 
     def equal(a, b):
@@ -713,7 +736,8 @@ def main():
     res = {"card": card_line(), "kernel": kernel, "B": B, "steps": steps,
            "hidden": args.hidden if kernel in ("k3", "k6", "k8") else None,
            "quad_type": args.quad_type if kernel in ("k7", "k8") else None,
-           "disturbed": args.disturbed if kernel in ("k6", "k8") else None, "groups": groups,
+           "disturbed": args.disturbed if kernel in ("k6", "k8") else None,
+           "maze": args.maze if kernel == "k2" else None, "groups": groups,
            "k1": {"dtype": args.dtype, "euler": args.euler, "actuation": not args.no_actuation,
                   "launches": args.launches, "blocks": args.block,
                   "empty_kernel_ms": floor} if kernel == "k1" else None,

@@ -60,8 +60,12 @@ def test_supports_envelope():
            dict(gates=((0.5, -1.0, 0, 0, 0, 0, 0),))]
     for kw in bad:
         assert not tf.supports(tq.QuadrotorConfig(**{**CFG4, **kw})), kw
-    with pytest.raises(NotImplementedError):
-        tf.supports(ok, allow_maze=True)
+    # The maze envelope (allow_maze=True) is the JAX package's (the configs
+    # of tests/test_torch_maze.py hold the rest of it).
+    for kw in [{}] + bad:
+        cfg = {**CFG4, **kw}
+        assert tf.supports(tq.QuadrotorConfig(**cfg), allow_maze=True) \
+            == jf.supports(jq.QuadrotorConfig(**cfg), allow_maze=True), kw
     has, flags = tf.dist_envelope_flags(ok)
     jhas, jflags = jf.dist_envelope_flags(jq.QuadrotorConfig(**CFG4))
     assert (has, flags) == (jhas, jflags)
@@ -178,20 +182,31 @@ def test_entry_point_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("batch", [1000, 1])
-def test_kernel_matches_plain_on_card(batch):
-    """K2 against its plain version on the card, 25 steps through resets
-    (chip_smoke.py runs the same check at B = 1024 and 1000), at batches
-    that leave the last block's lane groups partly past the last env."""
+@pytest.mark.parametrize("config", ["config4", "config5"])
+def test_kernel_matches_plain_on_card(config, batch):
+    """K2 against its plain version on the card, through resets (chip_smoke.py
+    runs the same check at B = 1024 and 1000), at batches that leave the
+    last block's lane groups partly past the last env: config 4 for 25
+    steps, and config 5 (the maze instance: 4 s episodes, step noise on)
+    for 90 steps, all its rows bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    env = tq.make_quadrotor(tq.QuadrotorConfig(**{**CFG4, "episode_len_sec": 0.2}))
-    fr = tf.FastQuadRollout(env, batch, steps_per_call=25)
+    from safe_control_gym_torch.baseline import cfg5
+
+    cfg = (tq.QuadrotorConfig(**{**CFG4, "episode_len_sec": 0.2}) if config == "config4"
+           else cfg5(episode_len_sec=4))
+    env = tq.make_quadrotor(cfg)
+    fr = tf.FastQuadRollout(env, batch, steps_per_call=25 if config == "config4" else 90)
     rows0 = fr.reset(seed=0)
     act = fr.prepare_action(np.full(4, float(env.u_goal[0])))
     before = tf.quad3d_rollout.launches
-    out = fr.run(rows0, act)
+    out = fr.run(rows0, act, seed=3)
     assert tf.quad3d_rollout.launches == before + 1
-    ref = tf.quad3d_rollout_plain(fr.params, rows0, act)
+    ref = tf.quad3d_rollout_plain(fr.params, rows0, act, 3)
+    if config == "config5":
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+        assert float(out[21].sum()) > 0
+        return
     assert torch.equal(out[_EXACT_ROWS], ref[_EXACT_ROWS]) and float(out[21].sum()) > 0
     assert torch.equal(out.view(torch.int32)[25], rows0.view(torch.int32)[25])
     torch.testing.assert_close(out[:12], ref[:12], rtol=2e-4, atol=2e-5)
@@ -271,6 +286,8 @@ def test_wrappers_reject_tensors_off_cpu_and_cuda():
     p = tf.build_engine_params(tenv, 2)
     with pytest.raises(ValueError):
         tf.quad3d_rollout(p, m(27, 4), m(4, 4))
+    with pytest.raises(ValueError):
+        tf.quad3d_rollout(p, m(27, 4), m(4, 4), torch.zeros(1, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError):
         tf.build_engine_params(tq.make_quadrotor(
             tq.QuadrotorConfig(**{**CFG4, "normalized_rl_action_space": True}), device="cpu"), 2)

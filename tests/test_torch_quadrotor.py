@@ -125,8 +125,10 @@ def test_convert_carries_jax_state():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(quad_type=2, physics="pyb_drag"), dict(physics="pyb_gnd"), dict(cost="competition"),
-    dict(adversary_disturbance="dynamics"), dict(gates=((0.5, -1.0, 0, 0, 0, 0, 0),)),
+    dict(quad_type=2, physics="pyb_drag"), dict(physics="pyb_gnd"),
+    dict(adversary_disturbance="dynamics"),
+    dict(disturbances={"dynamics": ({"disturbance_func": "periodic", "scale": 0.1},)}),
+    dict(disturbances={"dynamics": ({"disturbance_func": "brownian", "std": 0.1},)}),
     dict(disturbances={"dynamics": ({"disturbance_func": "white_noise", "std": 0.1},)}),
     dict(constraints=({"constraint_form": "linear_constraint",
                        "constrained_variable": "input", "A": [[1, 1, 1, 1]], "b": [1.0]},)),
