@@ -9,7 +9,10 @@ competition cost, collision done, action white noise and a uniform
 dynamics force), config 2 (CartPole tracking with box constraints and
 action white noise), config 3 (2D quadrotor stabilization with randomized
 mass and inertia), and PPO training on config 4, CartPole stabilization and
-quad-2D stabilization (the configs: ``safe_control_gym_torch/baseline.py``):
+quad-2D stabilization, with the observation branches of K3, K6 and K8 on
+config 4-GH and the planar and CartPole tasks with goal rows and
+observation noise (the configs: ``safe_control_gym_torch/baseline.py``,
+``cfg4_gh`` and ``cfg_quad2d_gh`` here):
 
 1. builds the kernels (K1-K8) from ``safe_control_gym_torch/csrc`` and
    prints the card (``nvidia-smi`` name and power limit), torch and CUDA
@@ -65,6 +68,13 @@ quad-2D stabilization (the configs: ``safe_control_gym_torch/baseline.py``):
    without action noise; K6 and K8 at H = 64 and 128, at every group they
    are built for, on the rl configs and on the circle with action white
    noise and an impulse), and K5 and K7 against the port's general engine;
+8b. holds the policy kernels' observation instances (observation white
+   noise of std 0.05, goal-horizon rows) against their plain versions at
+   B = 1024 and 1000, H = 64 and 128, 25 steps through resets and
+   truncations: K3 on config 4-GH (config 4 with two goal-horizon blocks,
+   obs 36: ``cfg4_gh``), K8 on 2D stabilization and 2D tracking with two
+   goal-horizon blocks, K6 on CartPole stabilization; and under a
+   zero-weight policy bit for bit, with and without the noise;
 9. serves config 5, config 2 and config 3 at B = 4096: the general engine
    (``make_cartpole`` / ``make_quadrotor`` + ``make_vec_env`` + ``rollout``)
    for 64 steps (config 5's runs K1 once a step), then one K2 call of 8192
@@ -74,17 +84,23 @@ quad-2D stabilization (the configs: ``safe_control_gym_torch/baseline.py``):
    plain versions on a call from the timed call's own rows (K2: every row
    bit for bit);
 10. drives the training paths, PPO at the ``rl_train`` shapes (B = 4096,
-   T = 128, 10 epochs of 4 minibatches of 131072) on config 4, CartPole
-   stabilization and quad-2D stabilization at H = 64, and config 4 at
-   H = 128, normalized action space: two warm-up train steps, then 3 timed
-   train steps with the launch counters zeroed just before and read just
-   after (K3, K6 or K8 once and K4 forty times per train step); the device
-   busy share and the kernels that take the time; the policy kernel against
-   its plain version on the timed call's own input, and timed alone;
-11. prints each kernel's registers and spills (``ptxas -v``), one JSON line
-   of per-kernel results (K1 with its plan's group and block and every
-   instance's registers and spill bytes; K2 with its maze instance's time,
-   bound, registers and spill bytes), then the final status line.
+   T = 128, 10 epochs of 4 minibatches of 131072) on config 4, config 4-GH
+   (K3's observation instance, K4 at obs 36), CartPole stabilization and
+   quad-2D stabilization at H = 64, and config 4 at H = 128, normalized
+   action space: two warm-up train steps, then 3 timed train steps with the
+   launch counters zeroed just before and read just after (K3, K6 or K8
+   once and K4 forty times per train step); quad-2D stabilization with two
+   goal-horizon blocks and the noise (K8's observation instance) and
+   CartPole stabilization with the noise (K6's), one warm-up and one timed
+   step each; the device busy share and the kernels that take the time;
+   the policy kernel against its plain version on the timed call's own
+   input, and timed alone;
+11. prints each kernel's registers and spills (``ptxas -v``), each phase's
+   seconds, one JSON line of per-kernel results (K1 with its plan's group
+   and block and every instance's registers and spill bytes; K2 with its
+   maze instance's time, bound, registers and spill bytes; the observation
+   instances of K3, K6 and K8 as entries of their own), then the final
+   status line.
 
 Any failure raises and exits non-zero; nothing falls back to the CPU.
 
@@ -154,6 +170,23 @@ IMPULSE_CP = {"dynamics": ({"disturbance_func": "impulse", "magnitude": 0.4, "du
 ACT_NOISE_CP = {"action": ({"disturbance_func": "white_noise", "std": 0.2},)}
 TRACK_CIRCLE = dict(task="traj_tracking",
                     task_info={"trajectory_type": "circle", "trajectory_plane": "xz"})
+# The observation white noise of tests/test_fast_policy.py:131-132.
+OBS_NOISE = {"observation": ({"disturbance_func": "white_noise", "std": 0.05},)}
+
+
+def cfg4_gh(noise=True, **kw):
+    """Config 4-GH (no BASELINE config): config 4 with the normalized action
+    space, two goal-horizon blocks (obs 36, the horizon of
+    tests/test_fast_policy.py:217) and, with ``noise``, OBS_NOISE."""
+    dist = {**cfg4().disturbances, **(OBS_NOISE if noise else {})}
+    return cfg4(**{"normalized_rl_action_space": True, "obs_goal_horizon": 2,
+                   "disturbances": dist, **kw})
+
+
+def cfg_quad2d_gh(**kw):
+    """The quad-2D stabilization task with two goal-horizon blocks (the goal
+    appended once: obs 12) and OBS_NOISE."""
+    return cfg_quad2d_rl(**{"obs_goal_horizon": 2, "disturbances": OBS_NOISE, **kw})
 
 
 def plan_batches(groups, lanes):
@@ -282,6 +315,12 @@ K7_RESET_OPS = 200  # 11 counter hashes and affine draws
 # Per action of a policy kernel: Box-Muller, log-prob and the action map
 # (~20 operations), and a log, sqrt, cos and exp.
 K68_SAMPLE_OPS, K68_SAMPLE_TRANS = 20, 4
+# The observation instances (csrc/obs_ext.cuh), per noised state row: its 2
+# uniforms (half a Philox block) and Box-Muller (6 operations and a log,
+# sqrt and cos); per goal block of the 3D figure-8: K2's goal (48 and a sin
+# and a cos; the static goal of stabilization is copied).
+OBS_NOISE_ROW_OPS = K3_RNG_OPS // 4 + 6 + 3
+GOAL3_OPS = 48 + 2
 
 
 def counters():
@@ -298,13 +337,22 @@ def counters():
             "k7": PQ.planar_rollout, "k8": PQ.planar_policy_rollout}
 
 
+# The policy kernels' observation instances: their launches (``obs_launches``)
+# are also counted in the kernel's own.
+OBS_INSTANCES = ("k3", "k6", "k8")
+
+
 def zero_counters():
-    for fn in counters().values():
+    for k, fn in counters().items():
         fn.launches = 0
+        if k in OBS_INSTANCES:
+            fn.obs_launches = 0
 
 
 def read_counters():
-    return {k: fn.launches for k, fn in counters().items()}
+    c = counters()
+    return {**{k: fn.launches for k, fn in c.items()},
+            **{f"{k}_obs": c[k].obs_launches for k in OBS_INSTANCES}}
 
 
 def cuda_ms(fn, reps):
@@ -936,6 +984,88 @@ def phase_k3(dev):
     return max(e for e, _ in errs), max(d for _, d in errs)
 
 
+def check_policy_bits(tag, fp, kernel, plain, nx, nu):
+    """A policy kernel's observation instance against its plain version bit
+    for bit over CHECK_STEPS steps from fresh rows, under a policy whose
+    layers are 0 (logstd seeded): the MLP's tanh, the one function whose
+    libdevice and PyTorch roundings may differ, out of the way, the
+    observation noise, goal rows, terminal observations, Gaussian sample and
+    steps are held bit for bit.  Returns the truncated steps seen."""
+    import torch
+
+    from safe_control_gym_torch.parallel import fast_policy as P
+
+    rows0 = fp.reset(seed=0)
+    ac = seeded_ac(rows0.device, nx=nx, nu=nu)
+    with torch.no_grad():
+        for prm in list(ac.actor.parameters()) + list(ac.critic.parameters()):
+            prm.zero_()
+    w = P.pack_weights(ac.actor, ac.critic, ac.logstd)
+    seed = torch.tensor([7], dtype=torch.int32, device=rows0.device)
+    rows, traj = kernel(fp.params, rows0, w, seed)
+    rows_p, traj_p = plain(fp.params, rows0, w, seed)
+    torch.cuda.synchronize()
+    trunc = int(traj[:, nx + nu + 2].sum())
+    differ = float((traj.view(torch.int32) != traj_p.view(torch.int32)).double().mean())
+    same_rows = torch.equal(rows.view(torch.int32), rows_p.view(torch.int32))
+    check(f"{tag} vs plain bit for bit (zero-weight policy, B={fp.B}, {CHECK_STEPS} steps)",
+          same_rows and differ == 0.0 and trunc > 0,
+          f"rows equal {same_rows}; {differ:.3g} of record entries differ; {trunc} truncated "
+          "steps")
+    return trunc
+
+
+def phase_obs_ext(dev):
+    """The policy kernels' observation instances against their plain
+    versions at B = 1024 and the ragged 1000, H = 64 and 128, over 25 steps
+    through resets and truncations: K3 on config 4-GH, K8 on 2D
+    stabilization and 2D tracking with two goal-horizon blocks, K6 on
+    cartpole_stab, all with the observation noise; with seeded weights at
+    the record tolerance (done and truncation exact), and with a zero-weight
+    policy bit for bit, with and without the noise."""
+    from safe_control_gym_torch.envs.cartpole import make_cartpole
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+    from safe_control_gym_torch.parallel import fast_cartpole as FC
+    from safe_control_gym_torch.parallel import fast_policy as P
+    from safe_control_gym_torch.parallel import fast_quad_planar as PQ
+
+    cases = [("K3 (config 4-GH)", "k3", lambda noise: make_quadrotor(cfg4_gh(
+                  noise, episode_len_sec=0.2), device=dev), P.FastPolicyRollout,
+              P.policy_rollout, P.policy_rollout_plain, K2_LAYOUT, 4)]
+    for task, extra in (("stabilization", {}), ("tracking", TRACK_CIRCLE)):
+        cases.append((f"K8 2D (h=2, {task})", "k8", lambda noise, extra=extra: make_quadrotor(
+            cfg_quad2d_gh(episode_len_sec=0.2, disturbances=OBS_NOISE if noise else None,
+                          **extra), device=dev), PQ.FastPlanarQuadPolicyRollout,
+            PQ.planar_policy_rollout, PQ.planar_policy_rollout_plain, k7_layout(6), 2))
+    cases.append(("K6 (observation noise)", "k6", lambda noise: make_cartpole(cfg_cartpole_rl(
+        episode_len_sec=0.2, disturbances=OBS_NOISE if noise else None), device=dev),
+        FC.FastCartPolePolicyRollout, FC.cartpole_policy_rollout,
+        FC.cartpole_policy_rollout_plain, K5_LAYOUT, 1))
+    res = {}
+    for tag, key, make_env, engine, kernel, plain, layout, nu in cases:
+        env = make_env(True)
+        errs = []
+        for h in POLICY_WIDTHS:
+            for B in (CHECK_B, RAGGED_B):
+                fp = engine(env, B, CHECK_STEPS, mlp_hidden=h, device=dev)
+                errs.append(check_policy(tag, fp, kernel, plain, layout, fp.obs_dim, nu, h))
+        for noise in (True, False):
+            env_b = env if noise else make_env(False)
+            fp = engine(env_b, CHECK_B, CHECK_STEPS, device=dev)
+            if noise or fp.obs_dim > layout_nx(layout):
+                check_policy_bits(f"{tag}{'' if noise else ', noise off'}", fp, kernel, plain,
+                                  fp.obs_dim, nu)
+        err, differ = max(e for e, _ in errs), max(d for _, d in errs)
+        res[f"{key}_obs_err"] = max(res.get(f"{key}_obs_err", 0.0), err)
+        res[f"{key}_obs_differ"] = max(res.get(f"{key}_obs_differ", 0.0), differ)
+    return res
+
+
+def layout_nx(layout):
+    """The state rows of a rows layout (K2_LAYOUT, K5_LAYOUT, k7_layout)."""
+    return layout["close"][0][1].stop
+
+
 def k4_inputs(dev, ac, n, seed=0, nx=12, nu=4):
     """A seeded (nx+nu+4, n) minibatch near the policy ``ac``: ratios spread
     over both sides of the clip range."""
@@ -1010,6 +1140,7 @@ _LOGSTD8 = [-0.7 + 0.4 * i / 7 for i in range(8)]
 K4_SHAPES = {"config4": (12, 4, HIDDEN, [-0.5, -0.7, -0.3, -0.6]),
              "cartpole": (4, 1, HIDDEN, [-0.4]), "quad2d": (6, 2, HIDDEN, [-0.5, -0.3]),
              "config4_h128": (12, 4, 128, [-0.5, -0.7, -0.3, -0.6]),
+             "config4_gh": (36, 4, HIDDEN, [-0.5, -0.7, -0.3, -0.6]),
              "obs128_act8": (128, 8, HIDDEN, _LOGSTD8),
              "obs128_act8_h256": (128, 8, 256, _LOGSTD8)}
 
@@ -1334,10 +1465,13 @@ def phase_serve_quad2d(dev):
                  "quad_planar_rollout", "k7", k7_layout(6), 6 + 7)
 
 
-def run_train(dev, tag, env, key, kernel, plain, kname, layout, nx, nu, hidden=HIDDEN):
-    """A training path: PPO train steps at the rl_train shapes (hidden width
-    ``hidden``), the policy kernel (K3, K6 or K8) once and K4 forty times
-    per train step."""
+def run_train(dev, tag, env, key, kernel, plain, kname, layout, nx, nu, hidden=HIDDEN,
+              steps=TRAIN_STEPS, warmup=2):
+    """A training path: ``steps`` timed PPO train steps after ``warmup``
+    ones at the rl_train shapes (hidden width ``hidden``), the policy kernel
+    (K3, K6 or K8; its observation instance where the env's observation is
+    more than its ``nx`` state rows) once and K4 forty times per train
+    step."""
     import torch
 
     from safe_control_gym_torch.controllers.ppo import PPO
@@ -1347,10 +1481,16 @@ def run_train(dev, tag, env, key, kernel, plain, kname, layout, nx, nu, hidden=H
               mini_batch_size=MB, hidden_dim=hidden, use_fast_rollout=True,
               reshuffle_each_epoch=False)
     check(f"{tag}: PPO on the card takes {kname} and K4", ppo._fp is not None and ppo._fu is not None,
-          f"{type(ppo._fp).__name__}, hidden {hidden}, use_fast_update='auto' on CUDA")
-    res = {}
-    for _ in range(2):
+          f"{type(ppo._fp).__name__}, hidden {hidden}, obs {ppo.obs_dim}, "
+          "use_fast_update='auto' on CUDA")
+    obs = P.obs_ext(ppo._fp.params, nx) is not None
+    D = ppo._fp.obs_dim
+    res = {"obs_dim": D, "train_steps": steps}
+    t0 = time.perf_counter()
+    for _ in range(warmup):
         ppo.state, _ = ppo._train_step(ppo.state)
+    torch.cuda.synchronize()
+    res["warmup_s"] = time.perf_counter() - t0
     # The first timed call's own policy-kernel input: rows, packed weights,
     # and the seed the controller's generator is about to draw.
     fp, ac = ppo._fp, ppo.state.ac
@@ -1362,23 +1502,28 @@ def run_train(dev, tag, env, key, kernel, plain, kname, layout, nx, nu, hidden=H
     torch.cuda.synchronize()
     zero_counters()
     t0 = time.perf_counter()
-    ppo.state, metrics = ppo.train_many(TRAIN_STEPS)(ppo.state)
+    ppo.state, metrics = ppo.train_many(steps)(ppo.state)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     res["launches"] = read_counters()
     res["policy_launches"], res["k4_launches"] = res["launches"][key], res["launches"]["k4"]
-    others = sum(v for k, v in res["launches"].items() if k not in (key, "k4"))
-    res["train_step_s"] = t_train / TRAIN_STEPS
-    res["train_env_steps_s"] = TRAIN_STEPS * TRAIN_B * TRAIN_T / t_train
+    res["obs_launches"] = res["launches"].get(f"{key}_obs", 0)
+    others = sum(v for k, v in res["launches"].items() if not k.startswith(key) and k != "k4")
+    res["train_step_s"] = t_train / steps
+    res["train_env_steps_s"] = steps * TRAIN_B * TRAIN_T / t_train
     res["train_metrics"] = {k: float(v) for k, v in metrics.items()}
+    inst = "observation instance" if obs else "state-observation instance"
     check(f"{tag}: train steps went through the kernels",
-          res["policy_launches"] == TRAIN_STEPS and others == 0
-          and res["k4_launches"] == TRAIN_STEPS * EPOCHS * N_MINI,
-          f"{kname} {res['policy_launches']} and K4 {res['k4_launches']} launches in {TRAIN_STEPS} "
-          f"train steps (want 1 and {EPOCHS * N_MINI} per step), {others} others")
+          res["policy_launches"] == steps and res["obs_launches"] == (steps if obs else 0)
+          and others == 0 and res["k4_launches"] == steps * EPOCHS * N_MINI,
+          f"{kname} {res['policy_launches']} ({inst}; observation instance "
+          f"{res['obs_launches']}) and K4 {res['k4_launches']} launches in {steps} train steps "
+          f"(want 1 and {EPOCHS * N_MINI} per step), {others} others")
     check(f"{tag}: train step output", all(np.isfinite(v) for v in res["train_metrics"].values())
-          and ppo.state.total_steps == (2 + TRAIN_STEPS) * TRAIN_B * TRAIN_T,
-          f"finite metrics {res['train_metrics']}, total_steps {ppo.state.total_steps}")
+          and ppo.state.total_steps == (warmup + steps) * TRAIN_B * TRAIN_T
+          and tuple(ppo.state.obs.shape) == (TRAIN_B, D),
+          f"finite metrics {res['train_metrics']}, total_steps {ppo.state.total_steps}, "
+          f"obs {tuple(ppo.state.obs.shape)}")
 
     # -- where a train step's time goes: device busy share and the kernels.
     step = lambda: ppo._train_step(ppo.state)  # noqa: E731
@@ -1405,9 +1550,10 @@ def run_train(dev, tag, env, key, kernel, plain, kname, layout, nx, nu, hidden=H
     torch.cuda.synchronize()
     res["plain_ms"] = start.elapsed_time(end)
     res["main_max_abs_err"], res["main_differ"] = check_record(
-        f"{kname} vs plain on the training path (B={TRAIN_B}, {TRAIN_T} steps)", rows, traj,
-        rows_p, traj_p, rows_in, layout, nx, nu)
+        f"{kname} vs plain on the training path ({tag}, B={TRAIN_B}, {TRAIN_T} steps)", rows,
+        traj, rows_p, traj_p, rows_in, layout, D, nu)
     res["resets"] = float(rows[layout["done"]].sum() - rows_in[layout["done"]].sum())
+    res["truncations"] = float(traj[:, D + nu + 2].sum())
 
     # -- the policy kernel alone (K4 is timed in phase_k4).
     res["ms"] = device_ms(lambda: kernel(fp.params, rows_in, w, seed), 5)
@@ -1415,8 +1561,10 @@ def run_train(dev, tag, env, key, kernel, plain, kname, layout, nx, nu, hidden=H
 
 
 def phase_train(dev):
-    """The training paths: config 4 (K3), cartpole_stab (K6), quad2d_stab
-    (K8) at the rl_train width, and config 4 at hidden width 128 (K3's
+    """The training paths: config 4 (K3), config 4-GH (K3's observation
+    instance), cartpole_stab (K6), quad2d_stab (K8) at the rl_train width,
+    quad2d_stab with goal rows and noise (K8's observation instance) and
+    cartpole_stab with noise (K6's), and config 4 at hidden width 128 (K3's
     run-time-width instance and K4's wide plan)."""
     from safe_control_gym_torch.envs.cartpole import make_cartpole
     from safe_control_gym_torch.envs.quadrotor import make_quadrotor
@@ -1429,6 +1577,21 @@ def phase_train(dev):
                                                              device=dev),
                              "k3", P.policy_rollout, P.policy_rollout_plain,
                              "quad3d_policy_rollout", K2_LAYOUT, 12, 4),
+        # Config 4-GH: K3's observation instance (obs 36) and K4 at (36, 4, 64).
+        "config4_gh": run_train(dev, "config 4-GH", make_quadrotor(cfg4_gh(), device=dev),
+                                "k3", P.policy_rollout, P.policy_rollout_plain,
+                                "quad3d_policy_rollout", K2_LAYOUT, 12, 4),
+        # The quad-2D family with goal rows and CartPole with the noise: the
+        # observation instances of K8 and K6, one timed train step each.
+        "quad2d_gh": run_train(dev, "quad2d_stab, h=2, noise", make_quadrotor(cfg_quad2d_gh(),
+                                                                              device=dev),
+                               "k8", PQ.planar_policy_rollout, PQ.planar_policy_rollout_plain,
+                               "quad_planar_policy_rollout", k7_layout(6), 6, 2, steps=1,
+                               warmup=1),
+        "cartpole_noise": run_train(dev, "cartpole_stab, noise", make_cartpole(
+            cfg_cartpole_rl(disturbances=OBS_NOISE), device=dev), "k6",
+            FC.cartpole_policy_rollout, FC.cartpole_policy_rollout_plain,
+            "cartpole_policy_rollout", K5_LAYOUT, 4, 1, steps=1, warmup=1),
         "cartpole": run_train(dev, "cartpole_stab", make_cartpole(cfg_cartpole_rl(), device=dev),
                               "k6", FC.cartpole_policy_rollout, FC.cartpole_policy_rollout_plain,
                               "cartpole_policy_rollout", K5_LAYOUT, 4, 1),
@@ -1479,6 +1642,14 @@ def bounds(res, serve_cp, serve_q2, serve_mz, train):
         n_w = h2 * nx + h2 + h2 * h2 + h2 + 8 * h2 + 8 + nu
         return 4 * (TRAIN_B * 2 * n_rows + n_w + TRAIN_T * (2 * nx + nu + 5) * TRAIN_B)
 
+    def obs_ops(tag, nx, goal_ops):
+        """An observation instance's own work on training path ``tag``: the
+        policy's observation every step (noised state rows, goal blocks),
+        the terminal one on this run's truncated steps only."""
+        tr = train[tag]
+        per = nx * OBS_NOISE_ROW_OPS + (tr["obs_dim"] // nx - 1) * goal_ops
+        return (steps_t + tr["truncations"]) * per
+
     def k3_ops(tag, hidden):
         return (steps_t * (k2_step + policy_ops(12, 4, hidden) + K3_ACTION_OPS)
                 + train[tag]["resets"] * K2_RESET_OPS)
@@ -1502,7 +1673,20 @@ def bounds(res, serve_cp, serve_q2, serve_mz, train):
            "k3": bound(policy_bytes(27, 12, 4), k3_ops("config4", HIDDEN)),
            "k3_h128": bound(policy_bytes(27, 12, 4, 128), k3_ops("config4_h128", 128)),
            "k5": bound(B * (2 * 18 + 1) * 4, k5_ops), "k6": bound(policy_bytes(18, 4, 1), k6_ops),
-           "k7": bound(B * (2 * 19 + 2) * 4, k7_ops), "k8": bound(policy_bytes(19, 6, 2), k8_ops)}
+           "k7": bound(B * (2 * 19 + 2) * 4, k7_ops), "k8": bound(policy_bytes(19, 6, 2), k8_ops),
+           # The observation instances on their training paths: the first
+           # layer over the D observation rows (policy_ops), the noise and
+           # goal rows (obs_ops), the record of 2 D + nu + 5 rows.
+           "k3_obs": bound(policy_bytes(27, 36, 4), steps_t * (k2_step + policy_ops(36, 4)
+                                                                + K3_ACTION_OPS)
+                           + obs_ops("config4_gh", 12, GOAL3_OPS)
+                           + train["config4_gh"]["resets"] * K2_RESET_OPS),
+           "k8_obs": bound(policy_bytes(19, 12, 2), steps_t * (k7_step + policy_ops(12, 2))
+                           + obs_ops("quad2d_gh", 6, 0)
+                           + train["quad2d_gh"]["resets"] * K7_RESET_OPS),
+           "k6_obs": bound(policy_bytes(18, 4, 1), steps_t * (k5_step + policy_ops(4, 1))
+                           + obs_ops("cartpole_noise", 4, 0)
+                           + train["cartpole_noise"]["resets"] * K5_RESET_OPS)}
     # K4 per launch at each of its shapes: the minibatch read once, the
     # weights read and the gradients and loss sums written once.
     for tag, (nx, nu, h, _) in K4_SHAPES.items():
@@ -1520,6 +1704,15 @@ def policy_instance(ptxas, kname, quad, plan):
     name = next(n for n in ptxas if f"{kname}I{quad}Li{HIDDEN}ELi{group}E" in n)
     r = ptxas[name]
     return {"group": group, "block": block, "registers": r["registers"],
+            "spill_bytes": r["spill_stores"] + r["spill_loads"]}
+
+
+def obs_instance(ptxas, kname, quad=""):
+    """Registers and spill bytes of a policy kernel's observation instance
+    (8 lanes an env, the width read at run time; ``quad`` as for
+    policy_instance)."""
+    r = next(r for n, r in ptxas.items() if f"{kname}I{quad}Li0ELi8ELb1E" in n)
+    return {"group": 8, "registers": r["registers"],
             "spill_bytes": r["spill_stores"] + r["spill_loads"]}
 
 
@@ -1567,21 +1760,30 @@ def main():
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
-    build_s, ptxas = phase_build()
-    k1_errs, k1_inputs = phase_k1(dev)
-    k1_f64 = phase_k1_float64(dev, k1_inputs)
-    k2_err, env_c, fr_c, rows0, rows_k2 = phase_k2(dev)
-    cross_err = phase_cross(dev, env_c, fr_c, rows0, rows_k2)
-    maze_err = phase_k2_maze(dev)
-    maze_cross_err = phase_maze_cross(dev)
-    res = phase_main(dev)
-    k3_err, k3_differ = phase_k3(dev)
-    k4 = phase_k4(dev)
-    small = {**phase_k5_k6(dev), **phase_k7_k8(dev)}
-    serve_cp = phase_serve_cartpole(dev)
-    serve_q2 = phase_serve_quad2d(dev)
-    serve_mz = phase_serve_maze(dev)
-    train = phase_train(dev)
+    phase_s = {}
+
+    def phase(fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[fn.__name__] = time.perf_counter() - t0
+        print(f"[phase] {fn.__name__}: {phase_s[fn.__name__]:.1f} s", flush=True)
+        return out
+
+    build_s, ptxas = phase(phase_build)
+    k1_errs, k1_inputs = phase(phase_k1, dev)
+    k1_f64 = phase(phase_k1_float64, dev, k1_inputs)
+    k2_err, env_c, fr_c, rows0, rows_k2 = phase(phase_k2, dev)
+    cross_err = phase(phase_cross, dev, env_c, fr_c, rows0, rows_k2)
+    maze_err = phase(phase_k2_maze, dev)
+    maze_cross_err = phase(phase_maze_cross, dev)
+    res = phase(phase_main, dev)
+    k3_err, k3_differ = phase(phase_k3, dev)
+    k4 = phase(phase_k4, dev)
+    small = {**phase(phase_k5_k6, dev), **phase(phase_k7_k8, dev), **phase(phase_obs_ext, dev)}
+    serve_cp = phase(phase_serve_cartpole, dev)
+    serve_q2 = phase(phase_serve_quad2d, dev)
+    serve_mz = phase(phase_serve_maze, dev)
+    train = phase(phase_train, dev)
     bnd = bounds(res, serve_cp, serve_q2, serve_mz, train)
 
     from safe_control_gym_torch.ops import quad_substeps as K1
@@ -1623,20 +1825,25 @@ def main():
               f"time {sv['ms']:.4f} ms (bound {b['bound_ms']:.4f} ms, {b['bound_by']}); "
               f"{sv['resets']:.0f} auto-resets; plain {sv['plain_ms']:.1f} ms per "
               f"{sv['plain_steps']} steps; {card_line()}")
-    for tag, pk in (("config4", "K3"), ("cartpole", "K6"), ("quad2d", "K8"), ("config4_h128", "K3")):
+    for tag, pk in (("config4", "K3"), ("config4_gh", "K3 obs"), ("cartpole", "K6"),
+                    ("cartpole_noise", "K6 obs"), ("quad2d", "K8"), ("quad2d_gh", "K8 obs"),
+                    ("config4_h128", "K3")):
         tr, tp = train[tag], train[tag]["profile"]
-        print(f"PPO train step {tag} (B={TRAIN_B}, T={TRAIN_T}, {EPOCHS} epochs x {N_MINI} "
-              f"minibatches of {MB}): {tr['train_env_steps_s']:.6g} env-steps/s, "
-              f"{tr['train_step_s'] * 1e3:.3f} ms per train step over {TRAIN_STEPS}; metrics "
+        print(f"PPO train step {tag} (B={TRAIN_B}, T={TRAIN_T}, obs {tr['obs_dim']}, {EPOCHS} "
+              f"epochs x {N_MINI} minibatches of {MB}): {tr['train_env_steps_s']:.6g} env-steps/s, "
+              f"{tr['train_step_s'] * 1e3:.3f} ms per train step over {tr['train_steps']}; metrics "
               f"{tr['train_metrics']}; launches per train step: {pk} "
-              f"{tr['policy_launches'] / TRAIN_STEPS:g}, K4 {tr['k4_launches'] / TRAIN_STEPS:g}")
+              f"{tr['policy_launches'] / tr['train_steps']:g}, "
+              f"K4 {tr['k4_launches'] / tr['train_steps']:g}")
         print(f"  train step: wall {tp['wall_ms']:.3f} ms, device busy {tp['device_ms']:.3f} ms "
               f"({tp['busy_share']}), {pk} {tp['policy_device_ms']:.3f} ms, K4 "
               f"{tp['k4_device_ms']:.3f} ms, {tp['kernel_launches']} kernel launches; top {tp['top']}")
-        pb = bnd[{"config4": "k3", "cartpole": "k6", "quad2d": "k8", "config4_h128": "k3_h128"}[tag]]
+        pb = bnd[{"config4": "k3", "cartpole": "k6", "quad2d": "k8", "config4_h128": "k3_h128",
+                  "config4_gh": "k3_obs", "cartpole_noise": "k6_obs", "quad2d_gh": "k8_obs"}[tag]]
         print(f"  {pk} device time {tr['ms']:.4f} ms per call of {TRAIN_T} steps (bound "
               f"{pb['bound_ms']:.4f} ms, {pb['bound_by']}, {pb['bound_ms'] / tr['ms']:.1%} of it); "
-              f"plain {tr['plain_ms']:.1f} ms; {tr['resets']:.0f} auto-resets")
+              f"plain {tr['plain_ms']:.1f} ms; {tr['resets']:.0f} auto-resets, "
+              f"{tr['truncations']:.0f} truncations; warm-up {tr['warmup_s']:.1f} s")
     for tag, kr in k4.items():
         kb = bnd[f"k4_{tag}"]
         print(f"K4 {tag} (nx {kr['nx']}, nu {kr['nu']}, H {kr['H']}, mb={MB}): "
@@ -1712,6 +1919,20 @@ def main():
                      share_not_bit_equal=max(small["k8_differ"], train["quad2d"]["main_differ"]),
                      **policy_instance(ptxas, "quad_planar_policy_rollout_kernel", "Li6ELi2E",
                                        PQ.policy_launch_plan(TRAIN_B, HIDDEN, 6))),
+        # The observation instances, each on its training path.
+        *[kernel_entry(f"{name}_obs", f"{name}.cu", replaces, train[tag]["obs_launches"],
+                       max(small[f"{key}_obs_err"], train[tag]["main_max_abs_err"]),
+                       train[tag]["ms"], train[tag]["plain_ms"], bnd[f"{key}_obs"],
+                       share_not_bit_equal=max(small[f"{key}_obs_differ"],
+                                               train[tag]["main_differ"]),
+                       obs_dim=train[tag]["obs_dim"], path=tag,
+                       **obs_instance(ptxas, f"{name}_kernel", quad))
+          for name, replaces, tag, key, quad in (
+              ("quad3d_policy_rollout", "parallel/fast_policy.py:76", "config4_gh", "k3", ""),
+              ("cartpole_policy_rollout", "parallel/fast_cartpole.py:288", "cartpole_noise", "k6",
+               ""),
+              ("quad_planar_policy_rollout", "parallel/fast_quad_planar.py:677", "quad2d_gh", "k8",
+               "Li6ELi2E"))],
     ]}
     total_s = time.perf_counter() - t_start
     if args.out:
@@ -1719,6 +1940,7 @@ def main():
         with open(args.out, "w") as f:
             json.dump({"card": card_line(), "torch": torch.__version__,
                        "cuda": torch.version.cuda, "build_s": build_s, "total_s": total_s,
+                       "phase_s": phase_s,
                        "k1_max_abs_err": k1_errs, "k1_float64": k1_f64,
                        "k2_vs_plain_max_abs_err": k2_err,
                        "k2_vs_general_max_abs_err": cross_err,
@@ -1728,6 +1950,7 @@ def main():
                        "k3_vs_plain_max_abs_err": k3_err, "k4": k4, "ptxas": ptxas,
                        "small_checks": small, "serve_cartpole": serve_cp, "serve_quad2d": serve_q2,
                        "train": train, **res, **kernels_line}, f, indent=1, default=str)
+    print(f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     print(f"total {total_s:.1f} s")
     print(card_line())
     print(json.dumps(kernels_line))

@@ -159,16 +159,21 @@ class PPOState:
 
 
 def fast_rollout_engine(env_cfg):
-    """The policy-in-kernel engine of an env config's family and its
-    envelope test (the JAX package's selection, ppo.py:159-200)."""
+    """The policy-in-kernel engine of an env config's family and whether the
+    config is in its envelope (the JAX package's selection and asserts,
+    ppo.py:159-210: the normalized action space, and the goal-horizon rows
+    of the quadrotors)."""
     if isinstance(env_cfg, CartPoleConfig):
-        return fast_cartpole.FastCartPolePolicyRollout, fast_cartpole.supports
+        return (fast_cartpole.FastCartPolePolicyRollout,
+                fast_cartpole.supports(env_cfg, allow_normalized=True))
     if not hasattr(env_cfg, "quad_type"):
         raise ValueError("use_fast_rollout supports CartPole and quadrotor configs, not "
                          f"{type(env_cfg).__name__}")
     if int(env_cfg.quad_type) in (1, 2):
-        return fast_quad_planar.FastPlanarQuadPolicyRollout, fast_quad_planar.supports
-    return FastPolicyRollout, fast_env.supports
+        return (fast_quad_planar.FastPlanarQuadPolicyRollout,
+                fast_quad_planar.supports(env_cfg, allow_normalized=True, allow_goal_horizon=True))
+    return FastPolicyRollout, fast_env.supports(env_cfg, allow_normalized=True,
+                                                allow_goal_horizon=True)
 
 
 class PPO(BaseController):
@@ -201,14 +206,19 @@ class PPO(BaseController):
                 raise ValueError("the fast rollout does not implement running normalizers")
             if action_filter_fn is not None:
                 raise ValueError("the fast rollout takes no action filter")
-            engine, supports = fast_rollout_engine(env.config)
-            if not supports(env.config, allow_normalized=True):
+            engine, in_envelope = fast_rollout_engine(env.config)
+            if not in_envelope:
                 raise ValueError(f"env config outside the envelope of {engine.__name__} "
-                                 "(supports(cfg, allow_normalized=True))")
+                                 "(supports(cfg, allow_normalized=True, ...))")
             self._fp = engine(env, cfg.rollout_batch_size, cfg.rollout_steps,
                               mlp_hidden=cfg.hidden_dim, mlp_act=cfg.activation, device=dev)
+            if self._fp.obs_dim != obs_dim:
+                raise ValueError(f"the fast rollout's observation ({self._fp.obs_dim}) is not "
+                                 f"the env's ({obs_dim})")
             env_state = self._fp.reset(seed)
-            obs = self._fp.observe(env_state)
+            # The initial observation carries the configured observation
+            # noise, as the general engine's reset does (ppo.py:220-222).
+            obs = self._fp.observe(env_state, generator=self.gen)
         else:
             env_state, obs, _ = self.vec.reset(seed=seed)
         self.state = PPOState(
@@ -281,7 +291,9 @@ class PPO(BaseController):
         # kernels mask them to truncated steps).
         term_v = torch.where(d["trunc"] > 0.0, self._value(ac, d["term_obs"]),
                              torch.zeros_like(d["rew"]))
-        state.env_state, state.obs = rows, fp.observe(rows)
+        # The bootstrap observation carries the observation noise, as the
+        # general engine's (ppo.py:358-361).
+        state.env_state, state.obs = rows, fp.observe(rows, generator=self.gen)
         return {"obs": d["obs"], "act": d["act"], "rew": d["rew"], "mask": d["mask"],
                 "v": d["v"], "logp": d["logp"], "terminal_v": term_v}
 

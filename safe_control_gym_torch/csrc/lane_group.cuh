@@ -58,6 +58,15 @@ __device__ __forceinline__ LaneGroup lane_group(int B) {
   return g;
 }
 
+// v[min(i, N - 1)] without indexing registers by a run-time value.
+template <int N>
+__device__ __forceinline__ float pick(const float (&v)[N], int i) {
+  float r = v[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) r = i >= k ? v[k] : r;
+  return r;
+}
+
 // Lane i's value of v (a plain read in a group of one), float or double.
 template <int G, typename T>
 __device__ __forceinline__ T from(T v, const LaneGroup& g, int i) {
@@ -243,27 +252,15 @@ __device__ __forceinline__ void env_step_group(const RolloutParams& P, EnvRows& 
 // the rows of a warp's groups in different banks (a multiple of 32, plus 4).
 __host__ __device__ constexpr int mlp_group_row(int h) { return 4 * ((h + 7) / 8 * 8) + 4; }
 
-// policy_mlp.cuh::dual_mlp over the group, at the fixed width H or (H = 0)
-// the width h; sh is the group's row of shared memory.  Layer 1: lane gl
-// computes units gl, gl + G, ... of both nets.  Layer 2: lane gl owns the
-// float4 column chunks 4 gl + 4 G m of each net and sums each of their units
-// over k = 0..h-1 in order.  Output layer: lane gl sums outputs gl, gl + G,
-// ... (0..NU-1 the means, NU the value) over j = 0..h-1 in order.  Every
-// lane gets the means and the value.
-template <int OBS, int NU, int H, int G>
-__device__ __forceinline__ void dual_mlp_group(const float* __restrict__ w, int h, const float* obs,
-                                               int relu, float* sh, const LaneGroup& g, float* mean,
-                                               float& value) {
+// Layer 1 of the dual MLP over the group (dual_mlp_group): lane gl computes
+// units gl, gl + G, ... of both nets from the OBS observation rows obs (in
+// registers) into h1, the group's row of shared memory.
+template <int OBS, int G, typename Dims>
+__device__ __forceinline__ void mlp_group_layer1(const float* __restrict__ w, const Dims& L,
+                                                 const float* obs, int relu, float* h1,
+                                                 const LaneGroup& g) {
   constexpr int OBS_PAD = MlpDims<OBS>::OBS_PAD;
-  constexpr int HC = H > 0 ? (H + MLP_CHUNK - 1) / MLP_CHUNK * MLP_CHUNK : MLP_MAX_H;
-  constexpr int NCH = (HC + 4 * G - 1) / (4 * G);  // column chunks a lane owns in a net
-  constexpr int NO = (NU + G) / G;                 // outputs a lane sums
-  const MlpDims<OBS> L(H > 0 ? H : h);
-  const int hh = L.H;
-  float* h1 = sh;
-  float* h2 = sh + 2 * hh;
-
-  for (int u = g.gl; u < 2 * hh; u += G) {
+  for (int u = g.gl; u < 2 * L.H; u += G) {
     float wr[OBS_PAD];
 #pragma unroll
     for (int c = 0; c < OBS_PAD; c += 4) {
@@ -278,6 +275,25 @@ __device__ __forceinline__ void dual_mlp_group(const float* __restrict__ w, int 
     for (int c = 1; c < OBS; ++c) z = z + wr[c] * obs[c];
     h1[u] = act_fn(z + __ldg(w + L.B1 + u), relu);
   }
+}
+
+// Layers 2 and 3 of the dual MLP over the group (dual_mlp_group), on the
+// first hidden layer h1 = sh[0, 2h) that every lane of the group wrote, at
+// the fixed width H or (H = 0) the width L.H.  Layer 2: lane gl owns the
+// float4 column chunks 4 gl + 4 G m of each net and sums each of their units
+// over k = 0..h-1 in order, into h2 = sh[2h, 4h).  Output layer: lane gl
+// sums outputs gl, gl + G, ... (0..NU-1 the means, NU the value) over j =
+// 0..h-1 in order.  Every lane gets the means and the value.
+template <int NU, int H, int G, typename Dims>
+__device__ __forceinline__ void mlp_group_layers23(const float* __restrict__ w, const Dims& L,
+                                                   int relu, float* sh, const LaneGroup& g,
+                                                   float* mean, float& value) {
+  constexpr int HC = H > 0 ? (H + MLP_CHUNK - 1) / MLP_CHUNK * MLP_CHUNK : MLP_MAX_H;
+  constexpr int NCH = (HC + 4 * G - 1) / (4 * G);  // column chunks a lane owns in a net
+  constexpr int NO = (NU + G) / G;                 // outputs a lane sums
+  const int hh = L.H;
+  const float* h1 = sh;
+  float* h2 = sh + 2 * hh;
   __syncwarp();
 
   // A chunk past the net's width reads chunk 0 instead: no branch in the
@@ -342,6 +358,19 @@ __device__ __forceinline__ void dual_mlp_group(const float* __restrict__ w, int 
 #pragma unroll
   for (int i = 0; i < NU; ++i) mean[i] = from<G>(out[i / G], g, i % G);
   value = from<G>(out[NU / G], g, NU % G);
+}
+
+// policy_mlp.cuh::dual_mlp over the group, at the fixed width H or (H = 0)
+// the width h, on the OBS observation rows obs in registers; sh is the
+// group's row of shared memory (mlp_group_row floats): layer 1
+// (mlp_group_layer1), then layers 2 and 3 (mlp_group_layers23).
+template <int OBS, int NU, int H, int G>
+__device__ __forceinline__ void dual_mlp_group(const float* __restrict__ w, int h, const float* obs,
+                                               int relu, float* sh, const LaneGroup& g, float* mean,
+                                               float& value) {
+  const MlpDims<OBS> L(H > 0 ? H : h);
+  mlp_group_layer1<OBS, G>(w, L, obs, relu, sh, g);
+  mlp_group_layers23<NU, H, G>(w, L, relu, sh, g, mean, value);
 }
 
 }  // namespace scg

@@ -59,15 +59,6 @@
 namespace scg {
 namespace grp {
 
-// v[min(i, N - 1)] without indexing by a run-time value.
-template <int N>
-__device__ __forceinline__ float pick(const float (&v)[N], int i) {
-  float r = v[0];
-#pragma unroll
-  for (int k = 1; k < N; ++k) r = i >= k ? v[k] : r;
-  return r;
-}
-
 __device__ __forceinline__ uint32_t word(const Philox4& u, int k) {
   return k == 0 ? u.w[0] : k == 1 ? u.w[1] : k == 2 ? u.w[2] : u.w[3];
 }
@@ -546,6 +537,28 @@ __device__ __forceinline__ void actuate_round(const pq::PlanarParams& P, const f
   }
 }
 
+// The goal rows at control step step_f (fast_quad_planar.py::goal_rows):
+// the static goal, or the closed-form curve on the axes the state reads
+// (1D: z; 2D: x and z).  Also the goal-horizon rows of K8's observation
+// instance (obs_ext.cuh).
+template <int NX>
+__device__ __forceinline__ void planar_goal(const pq::PlanarParams& P, float step_f, float* goal) {
+  if (P.task == 0) {
+#pragma unroll
+    for (int k = 0; k < NX; ++k) goal[k] = P.x_goal[k];
+  } else {
+    float sw, cw;
+    sincosf(curve_angle(P.curve, P.ctrl_dt, step_f), &sw, &cw);
+    if constexpr (NX == 2) {
+      axis_goal_sc(P.curve, P.plane_off, P.ctrl_dt, step_f, P.z_sel, sw, cw, goal[0], goal[1]);
+    } else {
+      axis_goal_sc(P.curve, P.plane_off, P.ctrl_dt, step_f, P.x_sel, sw, cw, goal[0], goal[1]);
+      axis_goal_sc(P.curve, P.plane_off, P.ctrl_dt, step_f, P.z_sel, sw, cw, goal[2], goal[3]);
+      goal[4] = goal[5] = 0.0f;
+    }
+  }
+}
+
 // One planar-quad control step in place on r over the group (the JAX
 // package's step_env_core, fast_quad_planar.py:161-336): action white
 // noise, motor-grouped actuation, impulse, RK4 or Euler substeps, goal,
@@ -638,20 +651,7 @@ __device__ __forceinline__ bool pq_step(const pq::PlanarParams& P, pq::Rows<NX>&
   planar_substeps<NX, G>(P, s, b, ext, g);
 
   float goal[NX];
-  if (P.task == 0) {
-#pragma unroll
-    for (int k = 0; k < NX; ++k) goal[k] = P.x_goal[k];
-  } else {
-    float sw, cw;
-    sincosf(curve_angle(P.curve, P.ctrl_dt, r.step_f), &sw, &cw);
-    if constexpr (NX == 2) {
-      axis_goal_sc(P.curve, P.plane_off, P.ctrl_dt, r.step_f, P.z_sel, sw, cw, goal[0], goal[1]);
-    } else {
-      axis_goal_sc(P.curve, P.plane_off, P.ctrl_dt, r.step_f, P.x_sel, sw, cw, goal[0], goal[1]);
-      axis_goal_sc(P.curve, P.plane_off, P.ctrl_dt, r.step_f, P.z_sel, sw, cw, goal[2], goal[3]);
-      goal[4] = goal[5] = 0.0f;
-    }
-  }
+  planar_goal<NX>(P, r.step_f, goal);
 
   bool viol = false;
 #pragma unroll

@@ -15,6 +15,9 @@ constexpr uint32_t SITE_POLICY = 0;  // the policy's Gaussian sample
 constexpr uint32_t SITE_ACTION = 1;  // action white noise
 constexpr uint32_t SITE_OBS = 2;     // observation white noise
 constexpr uint32_t SITE_DYNAMICS = 3;  // per-step draws on the dynamics channel (uniform force)
+// Observation white noise (SITE_OBS): the policy's observation draws from
+// blocks 0.., the terminal observation's fresh draws from this block on.
+constexpr uint32_t OBS_TERM_BLOCK = 32;
 constexpr float TWO_PI = 6.283185307179586476925286766559f;
 
 struct Philox4 {

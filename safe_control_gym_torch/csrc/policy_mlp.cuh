@@ -87,6 +87,16 @@ struct MlpDims {
         LOGSTD(B3 + 8) {}
 };
 
+// The layout at a width h and an observation of d rows, both read at run
+// time (the observation instances, obs_ext.cuh): MlpDims<d>(h)'s offsets.
+struct MlpDimsD {
+  int OBS_PAD, H, HP, W1, B1, W2T, B2, W3T, B3, LOGSTD;
+  __device__ MlpDimsD(int h, int d)
+      : OBS_PAD((d + 3) / 4 * 4), H(h), HP((h + MLP_CHUNK - 1) / MLP_CHUNK * MLP_CHUNK), W1(0),
+        B1(2 * h * OBS_PAD), W2T(B1 + (2 * h + 3) / 4 * 4), B2(W2T + 2 * h * 2 * HP),
+        W3T(B2 + (2 * h + 3) / 4 * 4), B3(W3T + 2 * h * 8), LOGSTD(B3 + 8) {}
+};
+
 // One net of the packed pair at fixed width H: hidden units [base, base + H)
 // of both layers (base 0 the actor, H the critic) and its NO output rows
 // from o0.  Writes those rows' sums, before the output bias.
@@ -252,19 +262,12 @@ __device__ __forceinline__ void dual_mlp(const float* __restrict__ w, int h, con
 
 // act = (mean + b3) + exp(logstd) * eps and its log-prob, eps by
 // Box-Muller on Philox draws of call site 0 (radius draws 0..NU-1, angle
-// draws NU..2NU-1; draw d is word d % 4 of block d / 4).
-template <int OBS, int NU, int H>
-__device__ __forceinline__ void gaussian_sample(const float* __restrict__ w, int h, const float* mean,
-                                                int e, int it, uint32_t seed, float* act, float& logp) {
-  int b3, ls0;
-  if constexpr (H > 0) {
-    b3 = MlpLayout<OBS, H>::B3;
-    ls0 = MlpLayout<OBS, H>::LOGSTD;
-  } else {
-    const MlpDims<OBS> L(h);
-    b3 = L.B3;
-    ls0 = L.LOGSTD;
-  }
+// draws NU..2NU-1; draw d is word d % 4 of block d / 4); b3 and ls0: the
+// offsets of the output bias and of logstd in w.
+template <int NU>
+__device__ __forceinline__ void gaussian_sample_at(const float* __restrict__ w, int b3, int ls0,
+                                                   const float* mean, int e, int it, uint32_t seed,
+                                                   float* act, float& logp) {
   const Philox4 u0 = philox4x32_10(e, it, 0, SITE_POLICY, seed, 0);
   Philox4 u1 = u0;
   if constexpr (2 * NU > 4) u1 = philox4x32_10(e, it, 1, SITE_POLICY, seed, 0);
@@ -281,6 +284,23 @@ __device__ __forceinline__ void gaussian_sample(const float* __restrict__ w, int
     act[i] = (mean[i] + __ldg(w + b3 + i)) + expf(ls) * eps;
     logp = logp - 0.5f * (eps * eps) - ls - HALF_LOG_2PI;
   }
+}
+
+// gaussian_sample_at with the offsets of the fixed width H, or for H = 0
+// of the width h, at an observation of OBS rows.
+template <int OBS, int NU, int H>
+__device__ __forceinline__ void gaussian_sample(const float* __restrict__ w, int h, const float* mean,
+                                                int e, int it, uint32_t seed, float* act, float& logp) {
+  int b3, ls0;
+  if constexpr (H > 0) {
+    b3 = MlpLayout<OBS, H>::B3;
+    ls0 = MlpLayout<OBS, H>::LOGSTD;
+  } else {
+    const MlpDims<OBS> L(h);
+    b3 = L.B3;
+    ls0 = L.LOGSTD;
+  }
+  gaussian_sample_at<NU>(w, b3, ls0, mean, e, it, seed, act, logp);
 }
 
 }  // namespace scg

@@ -8,18 +8,23 @@
 // env step (scg::env_step_group, also K2's) and one record of the trajectory.
 // Plain version: safe_control_gym_torch/parallel/fast_policy.py::
 // policy_rollout_plain.  Envelope: that of K2 plus the normalized action
-// space; the observation white noise and the goal-horizon observation rows
-// of the TPU kernel are not ported (fast_env.supports refuses them).
+// space, the observation white noise and the goal-horizon observation rows
+// (fast_env.supports(allow_normalized=True, allow_goal_horizon=True)); the
+// maze build of the TPU kernel is not ported.
 //
-// Layout: state rows (27, B) as K2; record (T, 33, B), row r of step t and
-// env e at (t*33 + r)*B + e: obs 0..11 | act 12..15 | rew 16 | done 17 |
-// trunc 18 | v 19 | logp 20 | terminal obs 21..32 (post-step state times
-// trunc), the JAX record rows (fast_policy.py:62-71) with the batch last so
-// that consecutive envs' stores are neighbours.  Weights: one flat vector of
-// the packed dual network (pack_weights, fast_policy.py:296-330) in kernel
-// orientation: w1 (2H, 12) | b1 (2H) | w2^T (2H, 2H) | b2 (2H) | w3^T (2H,
-// 8) | b3 (8) | logstd (4), w2^T padded where H is not a multiple of 32
-// (policy_mlp.cuh).  Hidden widths 1..128: H = 64 has its own instance.
+// Layout: state rows (27, B) as K2; record (T, 2D + 9, B), D the
+// observation's width (12 without goal rows), row r of step t and env e at
+// (t*(2D + 9) + r)*B + e: obs 0..D-1 | act | rew | done | trunc | v | logp |
+// terminal obs (the post-step observation times trunc), the JAX record rows
+// (fast_policy.py:62-71) with the batch last so that consecutive envs'
+// stores are neighbours.  Weights: one flat vector of the packed dual
+// network (pack_weights, fast_policy.py:296-330) in kernel orientation: w1
+// (2H, D) | b1 (2H) | w2^T (2H, 2H) | b2 (2H) | w3^T (2H, 8) | b3 (8) |
+// logstd (4), w1 rows padded to a multiple of 4 and w2^T where H is not a
+// multiple of 32 (policy_mlp.cuh).  Hidden widths 1..128: H = 64 has its
+// own instance.  An observation that is more than the state (noise or goal
+// rows, D up to 128) runs the observation instance (obs_ext.cuh: the
+// observation row in shared memory, D and the width read at run time).
 //
 // Design: one env over a group of K3_GROUP lanes of a warp
 // (csrc/lane_group.cuh), its 27 rows in every lane's registers for the
@@ -48,6 +53,7 @@
 #include <cstdint>
 
 #include "lane_group.cuh"
+#include "obs_ext.cuh"
 #include "philox.cuh"
 #include "policy_mlp.cuh"
 #include "quad3d.cuh"
@@ -72,18 +78,23 @@ struct PolicyParams {
 };
 
 // H: the hidden width, 64, or 0 for a width h read at run time (1..128).
-// G: lanes per env.  The launch bound names one block an SM: with the block size alone ptxas held
-// the H = 64 instance at 128 registers and spilled (PERF.md).
-template <int H, int G>
+// G: lanes per env.  OBS: the observation instance (obs_ext.cuh; H = 0),
+// its observation X; the other instances never read X.  The launch bound
+// names one block an SM: with the block size alone ptxas held the H = 64
+// instance at 128 registers and spilled (PERF.md).
+template <int H, int G, bool OBS>
 __global__ void __launch_bounds__(BLOCK, 1) quad3d_policy_rollout_kernel(
     const RolloutParams P, const PolicyParams Q, const int* __restrict__ seed_ptr,
     const float* __restrict__ w, int h, const float* __restrict__ rows_in,
-    float* __restrict__ rows_out, float* __restrict__ traj, int B) {
+    float* __restrict__ rows_out, float* __restrict__ traj, int B, const scg::ObsExt X) {
   extern __shared__ float smem[];
   const scg::LaneGroup g = scg::lane_group<G>(B);
-  float* sh = smem + (threadIdx.x / G) * scg::mlp_group_row(H > 0 ? H : h);
+  float* sh = smem + (threadIdx.x / G) * (OBS ? scg::obs_group_row(h, X.obs_dim)
+                                              : scg::mlp_group_row(H > 0 ? H : h));
   const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
   const bool store = g.valid && g.gl == 0;
+  // The goal rows at a control step (the static goal when stabilizing).
+  const auto goal = [&P](float step_f, float* out) { scg::eval_goal(P, step_f, out); };
 
   scg::EnvRows r;
   scg::load_rows(rows_in, B, g.e, r);
@@ -96,10 +107,19 @@ __global__ void __launch_bounds__(BLOCK, 1) quad3d_policy_rollout_kernel(
 
     // -- the actor's and the critic's forward (means and value), the
     // Gaussian sample and its log-prob (fast_policy.py:141-161), the
-    // normalized action map.
+    // normalized action map.  The observation instance builds the
+    // observation row and stores its record rows first.
+    const int D = OBS ? X.obs_dim : scg::NX;
+    float* rec = traj + static_cast<size_t>(it) * (2 * D + 9) * B + g.e;
+    const float step_pre = r.step_f;
     float mean[4], value, act[4], thr[4], logp;
-    scg::dual_mlp_group<scg::NX, 4, H, G>(w, h, obs, Q.relu, sh, g, mean, value);
-    scg::gaussian_sample<scg::NX, 4, H>(w, h, mean, g.e, it, seed, act, logp);
+    if constexpr (OBS) {
+      scg::obs_policy_step<scg::NX, 4, G>(X, w, h, Q.relu, r.s, step_pre, it, seed, sh, g, g.valid,
+                                          rec, B, goal, act, value, logp);
+    } else {
+      scg::dual_mlp_group<scg::NX, 4, H, G>(w, h, obs, Q.relu, sh, g, mean, value);
+      scg::gaussian_sample<scg::NX, 4, H>(w, h, mean, g.e, it, seed, act, logp);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       thr[i] = Q.normalized ? (1.0f + Q.norm_act_scale * scg::clipf(act[i], -1.0f, 1.0f)) * Q.hover_thrust
@@ -110,7 +130,19 @@ __global__ void __launch_bounds__(BLOCK, 1) quad3d_policy_rollout_kernel(
     scg::env_step_group<G>(P, r, a, o, g);
 
     // -- one record column.
-    if (store) {
+    if constexpr (OBS) {
+      if (store) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) rec[(D + i) * B] = act[i];
+        rec[(D + 4) * B] = o.rew;
+        rec[(D + 5) * B] = o.done ? 1.0f : 0.0f;
+        rec[(D + 6) * B] = o.trunc ? 1.0f : 0.0f;
+        rec[(D + 7) * B] = value;
+        rec[(D + 8) * B] = logp;
+      }
+      scg::store_terminal_obs<scg::NX, G>(X, o.s_post, o.trunc, step_pre, g.e, it, seed, g, g.valid,
+                                          rec + (D + 9) * B, B, goal);
+    } else if (store) {
       float* rec = traj + static_cast<size_t>(it) * TRAJ_ROWS * B + g.e;
 #pragma unroll
       for (int k = 0; k < scg::NX; ++k) rec[k * B] = obs[k];
@@ -129,18 +161,26 @@ __global__ void __launch_bounds__(BLOCK, 1) quad3d_policy_rollout_kernel(
   if (store) scg::store_rows(rows_out, B, g.e, r);
 }
 
-template <int H, int G>
+template <int H, int G, bool OBS>
 int launch(const RolloutParams& P, const PolicyParams& Q, const int* sd, const float* wp,
            int h, const float* ri, float* ro, float* tr, int B, int block, int grid, int smem,
-           cudaStream_t st) {
-  auto kern = quad3d_policy_rollout_kernel<H, G>;
+           cudaStream_t st, const scg::ObsExt& X) {
+  auto kern = quad3d_policy_rollout_kernel<H, G, OBS>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kern<<<grid, block, smem, st>>>(P, Q, sd, wp, h, ri, ro, tr, B);
+  kern<<<grid, block, smem, st>>>(P, Q, sd, wp, h, ri, ro, tr, B, X);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Both entries' checks of the launch plan: `row` floats of shared memory a
+// group.
+bool plan_ok(int hidden, int B, int group, int block, int grid, int smem, int row) {
+  return !(hidden < 1 || hidden > scg::MLP_MAX_H || group != K3_GROUP || block < 32 || block > BLOCK ||
+           block % 32 != 0 || static_cast<long long>(grid) * (block / group) < B ||
+           smem < (block / group) * row * static_cast<int>(sizeof(float)));
 }
 
 }  // namespace
@@ -148,14 +188,16 @@ int launch(const RolloutParams& P, const PolicyParams& Q, const int* sd, const f
 // 2: the entry takes the launch plan (fast_policy.py::launch_plan).
 extern "C" int quad3d_policy_rollout_api_version() { return 2; }
 
+// The size of the observation instances' ObsExt (K3, K6 and K8 take it), for
+// the host mirror's check.
+extern "C" int obs_ext_params_size() { return static_cast<int>(sizeof(scg::ObsExt)); }
+
 extern "C" int quad3d_policy_rollout(const void* params, int normalized, int relu,
                                      float norm_act_scale, float hover_thrust, int hidden,
                                      const void* seed, const void* wflat, const void* rows_in,
                                      void* rows_out, void* traj, int B, int group, int block,
                                      int grid, int smem, void* stream) {
-  if (hidden < 1 || hidden > scg::MLP_MAX_H || group != K3_GROUP || block < 32 || block > BLOCK ||
-      block % 32 != 0 || static_cast<long long>(grid) * (block / group) < B ||
-      smem < (block / group) * scg::mlp_group_row(hidden) * static_cast<int>(sizeof(float)))
+  if (!plan_ok(hidden, B, group, block, grid, smem, scg::mlp_group_row(hidden)))
     return static_cast<int>(cudaErrorInvalidValue);
   const RolloutParams P = *static_cast<const RolloutParams*>(params);
   const PolicyParams Q{normalized, relu, norm_act_scale, hover_thrust};
@@ -165,7 +207,29 @@ extern "C" int quad3d_policy_rollout(const void* params, int normalized, int rel
   auto* ro = static_cast<float*>(rows_out);
   auto* tr = static_cast<float*>(traj);
   const auto st = static_cast<cudaStream_t>(stream);
+  const scg::ObsExt none{};
   return hidden == 64
-             ? launch<64, K3_GROUP>(P, Q, sd, wp, hidden, ri, ro, tr, B, block, grid, smem, st)
-             : launch<0, K3_GROUP>(P, Q, sd, wp, hidden, ri, ro, tr, B, block, grid, smem, st);
+             ? launch<64, K3_GROUP, false>(P, Q, sd, wp, hidden, ri, ro, tr, B, block, grid, smem, st, none)
+             : launch<0, K3_GROUP, false>(P, Q, sd, wp, hidden, ri, ro, tr, B, block, grid, smem, st, none);
+}
+
+// The observation instance (obs_ext.cuh): ext points to the ObsExt of an
+// observation of 12 (1 + goal_blocks) rows, at most 128.
+extern "C" int quad3d_policy_rollout_obs(const void* params, const void* ext, int normalized,
+                                         int relu, float norm_act_scale, float hover_thrust,
+                                         int hidden, const void* seed, const void* wflat,
+                                         const void* rows_in, void* rows_out, void* traj, int B,
+                                         int group, int block, int grid, int smem, void* stream) {
+  const scg::ObsExt X = *static_cast<const scg::ObsExt*>(ext);
+  if (X.goal_blocks < 0 || X.obs_dim != scg::NX * (1 + X.goal_blocks) ||
+      X.obs_dim > scg::MLP_MAX_OBS ||
+      !plan_ok(hidden, B, group, block, grid, smem, scg::obs_group_row(hidden, X.obs_dim)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RolloutParams P = *static_cast<const RolloutParams*>(params);
+  const PolicyParams Q{normalized, relu, norm_act_scale, hover_thrust};
+  return launch<0, K3_GROUP, true>(P, Q, static_cast<const int*>(seed),
+                                   static_cast<const float*>(wflat), hidden,
+                                   static_cast<const float*>(rows_in), static_cast<float*>(rows_out),
+                                   static_cast<float*>(traj), B, block, grid, smem,
+                                   static_cast<cudaStream_t>(stream), X);
 }

@@ -59,7 +59,12 @@ _SIGNATURES = {
     # wflat, rows_in, rows_out, traj, B, then the launch plan
     # (fast_policy.launch_plan: group, block, grid, smem bytes), stream
     "quad3d_policy_rollout": [_P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # the observation instance: params, ObsExt (fast_policy.ObsExtParams),
+    # then the arguments of quad3d_policy_rollout after its params
+    "quad3d_policy_rollout_obs": [_P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _P],
     "quad3d_policy_rollout_api_version": [],
+    "obs_ext_params_size": [],
     # nx, nu, H, mb, plan (int[8], written)
     "ppo_grads_plan": [_I, _I, _I, _I, _P],
     # plan, nx, nu, H, mb, relu, clip_lo, clip_hi, inv_n, mb_ptr, wflat, wpad,
@@ -75,6 +80,8 @@ _SIGNATURES = {
     # launch plan (fast_cartpole.policy_launch_plan: group, block, grid, smem
     # bytes), stream
     "cartpole_policy_rollout": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # the observation instance: params, ObsExt, then the same arguments
+    "cartpole_policy_rollout_obs": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cartpole_policy_rollout_api_version": [],
     # params, nx, seed, rows_in, action, rows_out, B, then the launch plan
     # (fast_quad_planar.launch_plan: group, block, grid), stream
@@ -84,6 +91,9 @@ _SIGNATURES = {
     # params, nx, relu, hidden, seed, wflat, rows_in, rows_out, traj, B, then
     # the launch plan (fast_quad_planar.policy_launch_plan), stream
     "quad_planar_policy_rollout": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # the observation instances: params, ObsExt, then the same arguments
+    "quad_planar_policy_rollout_obs": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _P],
     "quad_planar_policy_rollout_api_version": [],
 }
 

@@ -38,6 +38,10 @@ _M0, _M1 = 0xD2511F53, 0xCD9E8D57  # round multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85  # key bumps (Weyl sequence)
 ROUNDS = 10
 SITE_POLICY, SITE_ACTION, SITE_OBS, SITE_DYNAMICS = 0, 1, 2, 3  # 4th counter word: the call site
+# Observation white noise (call site 2): the policy's observation draws
+# from blocks 0.., the terminal observation's fresh draws from this block
+# on (csrc/philox.cuh::OBS_TERM_BLOCK).
+OBS_TERM_BLOCK = 32
 TWO_PI = 2.0 * math.pi
 
 
@@ -72,27 +76,28 @@ def _word(x, device):
     return torch.as_tensor(x, device=device).to(torch.int64) & _U32
 
 
-def block_uniforms(c0, c1, c3, k0, k1, n: int):
+def block_uniforms(c0, c1, c3, k0, k1, n: int, block0: int = 0):
     """(n, *shape) float32 uniforms: draw ``i`` is word ``i % 4`` of
-    ``philox4x32_10(ctr=(c0, c1, i // 4, c3), key=(k0, k1))``.  Each
-    argument is an int or an int tensor (int32 bit patterns are taken as
-    uint32 words); tensors broadcast against ``c0``."""
+    ``philox4x32_10(ctr=(c0, c1, block0 + i // 4, c3), key=(k0, k1))``.
+    Each argument is an int or an int tensor (int32 bit patterns are taken
+    as uint32 words); tensors broadcast against ``c0``."""
     c0 = _word(c0, None)
     c1, c3, k0, k1 = (_word(v, c0.device) for v in (c1, c3, k0, k1))
     out = []
-    for blk in range((n + 3) // 4):
+    for blk in range(block0, block0 + (n + 3) // 4):
         out.extend(philox4x32(c0, c1, torch.full_like(c0, blk), c3, k0, k1))
     return torch.stack([bits_to_unit(w) for w in out[:n]])
 
 
-def uniforms(seed, step: int, env, n: int, site: int = SITE_POLICY):
+def uniforms(seed, step: int, env, n: int, site: int = SITE_POLICY, block0: int = 0):
     """(n, *env.shape) float32 uniforms: draws 0..n-1 at call site ``site``
-    of each env at ``step`` of the call keyed by ``seed``.
+    of each env at ``step`` of the call keyed by ``seed``, counted from
+    draw block ``block0``.
 
     ``seed``: int or int32 tensor of one element; ``env``: int tensor of env
     indices."""
     k0 = torch.as_tensor(seed, device=env.device).to(torch.int64).reshape(())
-    return block_uniforms(env, step, site, k0, 0, n)
+    return block_uniforms(env, step, site, k0, 0, n, block0)
 
 
 def seed_tensor(seed, device):

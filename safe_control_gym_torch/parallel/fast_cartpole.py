@@ -24,9 +24,11 @@ JAX row indices; the seed row holds the int32 env seed's bit pattern.
 Step noise: the TPU kernels draw from the TPU core PRNG; here the action
 white noise comes from Philox (``ops/philox.py``) keyed on the call's seed
 and counted by (env, step, block, call site 1), so it matches the JAX
-package and the general engine in distribution only.  Outside the envelope
-(``supports``): the goal-horizon observation, and observation white noise in
-K6 (K5 never reads the observation, so it admits the channel).
+package and the general engine in distribution only.  Observation white
+noise: K6 draws it on Philox call site 2 (``fast_env.obs_noise_rows``, its
+observation instance); K5 never reads the observation, so its rows do not
+change.  Outside the envelope (``supports``): the goal-horizon observation,
+as in the JAX package's.
 """
 
 from __future__ import annotations
@@ -99,35 +101,44 @@ def launch_plan(B: int, group: int | None = None):
 # lanes stay within POLICY_PLAN_LANES, one above.
 POLICY_GROUPS = (1, 8)
 POLICY_PLAN_LANES = 131072
+# The observation instances (observation noise, goal rows: csrc/obs_ext.cuh)
+# are built for 8 lanes an env only, at every B.
+OBS_GROUP = 8
 
 
-def policy_launch_plan(B: int, hidden: int, group: int | None = None):
+def policy_launch_plan(B: int, hidden: int, group: int | None = None, obs_dim: int = 0):
     """A policy kernel's launch (K6; K8 through ``fast_quad_planar``) for B
     envs at hidden width ``hidden``: (lanes per env, threads per block,
     blocks, dynamic shared-memory bytes).  Each env is one group of
     ``group`` lanes (:func:`plan_group` over POLICY_GROUPS within
-    POLICY_PLAN_LANES where None) inside a warp, 32 envs a block, each group
-    of 8 lanes with its row of shared memory (``fast_policy.group_row``, at
-    most 66,048 bytes a block); the lanes of the last block's groups past
-    env B - 1 run env B - 1 and store nothing.  The kernel refuses a group
-    size it was not built with."""
-    g = plan_group(B, POLICY_PLAN_LANES, POLICY_GROUPS) if group is None else group
-    if g not in POLICY_GROUPS:
-        raise ValueError(f"the policy kernels are built for groups of {POLICY_GROUPS} lanes, "
-                         f"not {g}")
+    POLICY_PLAN_LANES where None; ``OBS_GROUP`` for the observation
+    instance, ``obs_dim`` > 0) inside a warp, 32 envs a block, each group of
+    8 lanes with its row of shared memory (``fast_policy.group_row``, at
+    most 66,048 bytes a block, 82,432 with the observation row); the lanes
+    of the last block's groups past env B - 1 run env B - 1 and store
+    nothing.  The kernel refuses a group size it was not built with."""
+    FP.check_obs(obs_dim)
+    if obs_dim:
+        g = OBS_GROUP if group is None else group
+        if g != OBS_GROUP:
+            raise ValueError(f"the observation instances are built for {OBS_GROUP} lanes, not {g}")
+    else:
+        g = plan_group(B, POLICY_PLAN_LANES, POLICY_GROUPS) if group is None else group
+        if g not in POLICY_GROUPS:
+            raise ValueError(f"the policy kernels are built for groups of {POLICY_GROUPS} lanes, "
+                             f"not {g}")
     FP.check_hidden(hidden)
-    return g, 32 * g, -(-B // 32), 32 * FP.group_row(hidden) * 4 if g > 1 else 0
+    return g, 32 * g, -(-B // 32), 32 * FP.group_row(hidden, obs_dim) * 4 if g > 1 else 0
 
 
 def supports(cfg, allow_normalized: bool = False) -> bool:
     """True if the CartPole config is in the whole-rollout engines'
     envelope: the JAX package's (fast_cartpole.py:56).
-    ``allow_normalized`` asks for the policy
-    engine's envelope: it maps the normalized action space in-kernel and
-    refuses observation white noise, which it does not draw yet.  The
-    constant-action engine (the default) admits a single scalar observation
-    white noise, as the JAX package's does: it never reads the observation,
-    so its rows do not change."""
+    ``allow_normalized`` asks for the policy engine's envelope: it maps the
+    normalized action space in-kernel.  Both engines admit a single scalar
+    observation white noise, as the JAX package's do: the constant-action
+    engine never reads the observation, so its rows do not change, and the
+    policy engine draws it in-kernel."""
     ti = {**C._DEFAULT_TASK_INFO, **(cfg.task_info or {})}
     has_d, fl = FE.dist_envelope_flags(cfg)
     return (
@@ -139,7 +150,7 @@ def supports(cfg, allow_normalized: bool = False) -> bool:
         and int(cfg.obs_goal_horizon) == 0
         and (not has_d["dynamics"] or fl["impulse"])
         and (not has_d["action"] or fl["act_noise"])
-        and (not has_d["observation"] or (not allow_normalized and fl["obs_noise"]))
+        and (not has_d["observation"] or fl["obs_noise"])
         and cfg.adversary_disturbance is None
         and not cfg.done_on_violation
         and not cfg.use_constraint_penalty
@@ -224,6 +235,7 @@ def build_engine_params(env, steps_per_call: int, allow_normalized: bool = False
         x_axis_sel=x_axis_sel, plane_off=plane_off,
         cost={"quadratic": "quad"}.get(cfg.cost, "rl"),
         rand_nominal=tuple(nominal), rand_lo=tuple(lo), rand_hi=tuple(hi),
+        obs_noise_std=FE.obs_noise_std(cfg),
     )
 
 
@@ -411,7 +423,8 @@ def cartpole_policy_rollout_plain(p, rows, weights, seed):
     def step(carry, thr, act, it):
         return step_rows(p, carry, thr[0], act[0], _noise_u(p, seed, it, env))
 
-    return FP.policy_rollout_loop(p, rows, weights, seed, _NX, 1, lambda a: preprocess(p, a), step)
+    return FP.policy_rollout_loop(p, rows, weights, seed, _NX, 1, lambda a: preprocess(p, a), step,
+                                  _R_STEP)
 
 
 # --------------------------------------------------------------------------
@@ -563,12 +576,36 @@ def check_policy_inputs(name, rows, n_rows, weights, seed, obs_dim, nu, act):
             f"{[tuple(t.shape) for t in weights]}, act {act!r}")
 
 
+def launch_policy(lib, entry, params, lead, nx, p, rows, weights, seed, out, traj, group):
+    """Launch a policy kernel (K6, K8) through ``entry`` with the arguments
+    ``lead`` between the params and the hidden width: its observation
+    instance (``entry + '_obs'``, :func:`fast_policy.obs_ext`) where the
+    config's observation is more than the ``nx`` state rows.  Returns the
+    entry's code and whether the observation instance ran."""
+    from safe_control_gym_torch import kernels
+
+    wflat = FP.kernel_weights(weights)
+    hidden, B = weights[0].shape[0] // 2, rows.shape[-1]
+    args = (*lead, hidden, seed.data_ptr(), wflat.data_ptr(), rows.data_ptr(), out.data_ptr(),
+            traj.data_ptr(), B)
+    stream = kernels.stream_ptr(rows.device)
+    ext = FP.obs_ext(p, nx)
+    if ext is None:
+        return getattr(lib, entry)(ctypes.addressof(params), *args,
+                                   *policy_launch_plan(B, hidden, group), stream), False
+    FP.check_obs_ext_size(lib)
+    return getattr(lib, entry + "_obs")(ctypes.addressof(params), ctypes.addressof(ext), *args,
+                                        *policy_launch_plan(B, hidden, group, ext.obs_dim),
+                                        stream), True
+
+
 def cartpole_policy_rollout(p, rows, weights, seed, group=None):
     """K6: the rollout of :func:`cartpole_policy_rollout_plain`.
 
     CPU tensors take the plain version; CUDA tensors launch
     ``csrc/cartpole_policy_rollout.cu`` with ``group`` lanes per env
-    (:func:`policy_launch_plan`'s pick where None); anything else raises."""
+    (:func:`policy_launch_plan`'s pick where None; its observation instance
+    with observation noise); anything else raises."""
     if all(t.device.type == "cpu" for t in (rows, seed, *weights)):
         return cartpole_policy_rollout_plain(p, rows, weights, seed)
     check_policy_inputs("cartpole_policy_rollout", rows, _NROWS, weights, seed, _NX, 1,
@@ -584,18 +621,17 @@ def cartpole_policy_rollout(p, rows, weights, seed, group=None):
     params = kernel_params(p)
     lib = kernels.lib()
     check_params_size(lib, "cartpole", params)
-    wflat = FP.kernel_weights(weights)
-    hidden = weights[0].shape[0] // 2
-    code = lib.cartpole_policy_rollout(
-        ctypes.addressof(params), int(p["mlp_act"] == "relu"), hidden, seed.data_ptr(),
-        wflat.data_ptr(), rows.data_ptr(), out.data_ptr(), traj.data_ptr(), B,
-        *policy_launch_plan(B, hidden, group), kernels.stream_ptr(rows.device))
+    code, obs = launch_policy(lib, "cartpole_policy_rollout", params,
+                              (int(p["mlp_act"] == "relu"),), _NX, p, rows, weights, seed, out,
+                              traj, group)
     kernels.check(code, "cartpole_policy_rollout")
     cartpole_policy_rollout.launches += 1
+    cartpole_policy_rollout.obs_launches += obs
     return out, traj
 
 
-cartpole_policy_rollout.launches = 0
+# Launches of K6, and of its observation instance among them.
+cartpole_policy_rollout.launches = cartpole_policy_rollout.obs_launches = 0
 
 
 def reset_rows(p, env_seeds):
@@ -719,8 +755,10 @@ class FastCartPolePolicyRollout:
         """(B, 4) state matrix from packed rows."""
         return rows[:_NX].T
 
-    # The observation is the state: the envelope has no observation noise.
-    observe = states
+    def observe(self, rows, generator=None):
+        """(B, 4) observation: the state, with the observation noise drawn
+        from ``generator`` where the config has one and it is given."""
+        return FP.observe_rows(self.params, self.env, self.states(rows), rows[_R_STEP], generator)
 
     def run(self, rows, weights, seed=None):
         """One launch = T policy-driven env steps.  Returns (rows, traj)."""

@@ -23,17 +23,21 @@ The step noise (action white noise, the uniform force) comes from Philox
 keyed on the call's seed (``ops/philox.py``, call sites 1 and 3): it agrees
 with the JAX package's in distribution only.
 
-Outside the envelope (``supports``): the goal-horizon observation, and more
-than ``MAX_GATES`` gates or ``MAX_OBSTACLES`` obstacles.  The normalized RL
-action space is the policy engine's (``parallel/fast_policy.py``,
-``allow_normalized=True``): a constant-action call has no policy output to
-map.  Observation white noise (one scalar std) is the constant-action
-engine's: it never reads the observation, so the rows do not change; the
-policy engine, which would have to draw it, refuses it, as it refuses the
-maze envelope (``allow_maze``).
+Outside the envelope (``supports``): more than ``MAX_GATES`` gates or
+``MAX_OBSTACLES`` obstacles, and an observation wider than ``MAX_OBS``.  The
+normalized RL action space and the goal-horizon observation rows are the
+policy engine's (``parallel/fast_policy.py``, ``allow_normalized=True``,
+``allow_goal_horizon=True``): a constant-action call has no policy output to
+map and reads no observation.  Observation white noise (one scalar std) is
+in both envelopes: the constant-action engine never reads the observation,
+so its rows do not change; the policy engine draws it (Philox call site 2,
+:func:`obs_noise_rows`).  The policy engine refuses the maze envelope
+(``allow_maze``).
 
 :func:`step_rows` is the plain version of the control step both kernels
-share (``scg::env_step_group`` in ``csrc/lane_group.cuh``).
+share (``scg::env_step_group`` in ``csrc/lane_group.cuh``);
+:func:`obs_noise_rows` and :func:`goal_ext_rows` are the plain versions of
+the policy kernels' observation row (``csrc/obs_ext.cuh``).
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from safe_control_gym_torch.envs.constraints import box_bounds_view
 from safe_control_gym_torch.ops import ctr_prng, philox
 from safe_control_gym_torch.ops.quad_substeps import actuate, div, fc_rows, substeps_rows
 from safe_control_gym_torch.ops.rotations import projection_matrix
+from safe_control_gym_torch.parallel.fast_update import MAX_OBS
 from safe_control_gym_torch.utils.device import resolve_device
 
 # State-row layout.
@@ -71,6 +76,9 @@ _SLOT_MAP = list(range(4, 16)) + [0, 1, 2, 3, 16]
 # The most gates and obstacles K2's maze instance holds (csrc/maze.cuh);
 # the competition levels have four of each.
 MAX_GATES, MAX_OBSTACLES = 8, 8
+# MAX_OBS (fast_update): the widest observation (state plus goal-horizon
+# rows) the policy kernels take, K4's and kernel_scope's limit; the JAX
+# kernels have none.
 
 # K2's launch (csrc/quad3d_rollout.cu): GROUP lanes of a warp per env
 # (csrc/lane_group.cuh), BLOCK threads a block.
@@ -133,21 +141,44 @@ def dist_envelope_flags(cfg):
     }
 
 
-def supports(cfg, allow_normalized: bool = False, allow_maze: bool = False) -> bool:
+def obs_mul(cfg) -> int:
+    """Blocks of the observation: 1 + the goal-horizon blocks the env
+    appends (benchmark_env.py:406-420; JAX fast_env.py:794-797): tracking
+    appends the next ``obs_goal_horizon`` reference states, stabilization
+    the goal once, and only the rl_reward cost appends any."""
+    h = int(cfg.obs_goal_horizon)
+    if cfg.cost != "rl_reward" or h <= 0:
+        return 1
+    return 1 + h if cfg.task == "traj_tracking" else 2
+
+
+def goal_horizon_ok(cfg, nx: int, allow_goal_horizon: bool) -> bool:
+    """The goal-horizon part of the envelopes: none, or (``allow_goal_horizon``,
+    the policy engines') rl_reward rows whose observation of ``nx *
+    obs_mul`` stays within ``MAX_OBS``."""
+    return int(cfg.obs_goal_horizon) == 0 or (
+        allow_goal_horizon and cfg.cost == "rl_reward" and nx * obs_mul(cfg) <= MAX_OBS)
+
+
+def supports(cfg, allow_normalized: bool = False, allow_maze: bool = False,
+             allow_goal_horizon: bool = False) -> bool:
     """True if the config is in the whole-rollout engines' envelope: the JAX
-    package's ``supports`` (fast_env.py:63-129) without its goal-horizon
-    option, and with two refusals of the port's.
+    package's ``supports`` (fast_env.py:63-129) with two refusals of the
+    port's.
 
     ``allow_normalized`` asks for the policy engine's (``fast_policy.py``)
-    envelope: it maps the normalized RL action space to thrust in-kernel,
-    and it refuses observation white noise, which it does not draw yet.  The
-    constant-action engine admits a single scalar observation white noise,
-    as the JAX package's does: it never reads the observation, so its rows
-    do not change.  ``allow_maze`` asks for K2's maze envelope (BASELINE
-    config 5): gates and obstacles, the competition cost, collision and
-    completion done, one scalar action white noise and a uniform dynamics
-    force, up to ``MAX_GATES`` gates and ``MAX_OBSTACLES`` obstacles (the
-    JAX kernel has no such cap)."""
+    envelope: it maps the normalized RL action space to thrust in-kernel.
+    Both engines admit a single scalar observation white noise, as the JAX
+    package's do: the constant-action engine never reads the observation,
+    so its rows do not change, and the policy engine draws it in-kernel.
+    ``allow_goal_horizon`` asks for the policy engine's goal-horizon
+    observation rows (rl_reward only, as the JAX package's), up to an
+    observation of ``MAX_OBS`` (the JAX kernel has no such cap).
+    ``allow_maze`` asks for K2's maze envelope (BASELINE config 5): gates
+    and obstacles, the competition cost, collision and completion done, one
+    scalar action white noise and a uniform dynamics force, up to
+    ``MAX_GATES`` gates and ``MAX_OBSTACLES`` obstacles (the JAX kernel has
+    no such cap)."""
     ti = {**Q._DEFAULT_TASK_INFO, **(cfg.task_info or {})}
     has_d, fl = dist_envelope_flags(cfg)
     act_w = np.asarray(
@@ -163,8 +194,8 @@ def supports(cfg, allow_normalized: bool = False, allow_maze: bool = False) -> b
         and (cfg.task == "stabilization"
              or (cfg.task == "traj_tracking"
                  and ti.get("trajectory_type") in ("figure8", "circle", "square")))
-        and int(cfg.obs_goal_horizon) == 0
-        and (not has_d["observation"] or (not allow_normalized and fl["obs_noise"]))
+        and goal_horizon_ok(cfg, _NX, allow_goal_horizon)
+        and (not has_d["observation"] or fl["obs_noise"])
         # Action white noise and the uniform force: the maze envelope's.
         and (not has_d["action"] or (allow_maze and fl["act_noise"]))
         and (not has_d["dynamics"] or fl["impulse"] or (allow_maze and fl["uniform"]))
@@ -191,10 +222,35 @@ def impulse_spec(cfg):
                  for k, dflt in (("magnitude", 1.0), ("duration", 1), ("decay_rate", 1.0)))
 
 
+def _white_noise_std(cfg, channel) -> float:
+    d = (cfg.disturbances or {}).get(channel)
+    return float(np.asarray(d[0].get("std", 1.0), float).ravel()[0]) if d else 0.0
+
+
 def act_noise_std(cfg) -> float:
     """Std of the config's action white noise (0 without one)."""
-    act_d = (cfg.disturbances or {}).get("action")
-    return float(np.asarray(act_d[0].get("std", 1.0), float).ravel()[0]) if act_d else 0.0
+    return _white_noise_std(cfg, "action")
+
+
+def obs_noise_std(cfg) -> float:
+    """Std of the config's observation white noise (0 without one)."""
+    return _white_noise_std(cfg, "observation")
+
+
+def obs_ext_params(env, nx: int) -> dict:
+    """The observation keys of the quadrotor engines' parameter dicts (JAX
+    fast_env.py:654, :794-797): the observation white noise's std, the goal
+    horizon and the observation's blocks (``obs_mul``), and with goal rows
+    the length of the env's goal table (``goal_len``, the port's), whose
+    last row the goal rows clip at: the env's ``x_goal.shape[0] - 1``
+    (quadrotor.py:539), not the kernels' ``max_steps - 1`` (JAX
+    fast_policy.py:118)."""
+    cfg = env.config
+    keys = dict(obs_noise_std=obs_noise_std(cfg), obs_goal_horizon=int(cfg.obs_goal_horizon),
+                obs_mul=obs_mul(cfg))
+    if keys["obs_mul"] > 1:
+        keys["goal_len"] = int(np.asarray(env.x_goal).reshape(-1, nx).shape[0])
+    return keys
 
 
 def dyn_uniform_spec(cfg):
@@ -206,6 +262,12 @@ def dyn_uniform_spec(cfg):
     lo3 = np.broadcast_to(np.asarray(dist[0].get("low", -1.0), float).ravel(), (3,))
     hi3 = np.broadcast_to(np.asarray(dist[0].get("high", 1.0), float).ravel(), (3,))
     return tuple(map(float, lo3)), tuple(map(float, hi3))
+
+
+def goal_blocks(p) -> int:
+    """Goal blocks of nx rows after the state rows of the observation: the
+    horizon when tracking, 1 (the static goal) when stabilizing, else 0."""
+    return p.get("obs_mul", 1) - 1
 
 
 def constraint_box(env, nx: int, nu: int):
@@ -221,12 +283,13 @@ def constraint_box(env, nx: int, nu: int):
 
 
 def build_engine_params(env, steps_per_call: int, allow_normalized: bool = False,
-                        allow_maze: bool = False) -> dict:
+                        allow_maze: bool = False, allow_goal_horizon: bool = False) -> dict:
     """Static engine-parameter dict from an env (the JAX package's keys for
     this envelope; Python floats, rounded to float32 where used).  The
     flags are :func:`supports`'."""
     cfg = env.config
-    if not supports(cfg, allow_normalized=allow_normalized, allow_maze=allow_maze):
+    if not supports(cfg, allow_normalized=allow_normalized, allow_maze=allow_maze,
+                    allow_goal_horizon=allow_goal_horizon):
         raise ValueError("config outside the whole-rollout engine's envelope (supports())")
     ti = {**Q._DEFAULT_TASK_INFO, **(cfg.task_info or {})}
     n_sub = cfg.pyb_freq // cfg.ctrl_freq
@@ -330,6 +393,7 @@ def build_engine_params(env, steps_per_call: int, allow_normalized: bool = False
         dyn_uniform=dyn_uniform_spec(cfg),
         cost={"competition": "competition", "quadratic": "quad"}.get(cfg.cost, "rl"),
         pyb_freq_f=float(cfg.pyb_freq),
+        **obs_ext_params(env, _NX),
     )
 
     # Competition maze (BASELINE config 5; fast_env.py:800-836).
@@ -431,6 +495,37 @@ def eval_goal(p, step_f):
         goal[2 * k] = M[k][0] * p3[0] + M[k][1] * p3[1] + M[k][2] * p3[2] + M[k][3]
         goal[2 * k + 1] = M[k][0] * v3[0] + M[k][1] * v3[1] + M[k][2] * v3[2] + M[k][3]
     return goal
+
+
+def obs_noise_rows(p, rows, seed, it, env, block0=0):
+    """Observation white noise on state rows (JAX fast_env.py:180-194):
+    row k plus ``std * sqrt(-2 log(1 - u_r)) * cos(2 pi u_a)``, one
+    Box-Muller pair a row from Philox call site 2 (``SITE_OBS``), row k's
+    pair words 2 (k % 2) and 2 (k % 2) + 1 of draw block ``block0 + k //
+    2`` (the policy's observation from block 0, the terminal observation's
+    fresh draws from ``philox.OBS_TERM_BLOCK``).  The rows unchanged where
+    the config has no observation noise."""
+    std = p["obs_noise_std"]
+    if std <= 0.0:
+        return list(rows)
+    u = philox.uniforms(seed, it, env, 2 * len(rows), philox.SITE_OBS, block0)
+    return [r + std * torch.sqrt(-2.0 * torch.log(1.0 - u[2 * k]))
+            * torch.cos(philox.TWO_PI * u[2 * k + 1]) for k, r in enumerate(rows)]
+
+
+def goal_ext_rows(p, step_f, offset: int, goal_fn):
+    """The goal-horizon rows of an observation made at control-step rows
+    ``step_f`` (JAX fast_policy.py:108-122, benchmark_env.py:406-420): the
+    static goal once (stabilization), or the goal rows ``goal_fn(p, idx)``
+    at ``idx = min(step_f + offset + i, goal_last)`` for the ``goal_blocks``
+    next steps i (tracking; the policy's observation at offset 1, the
+    terminal observation at 2).  The index clips at the env's goal table's
+    last row, as the env does (quadrotor.py:539), not at the kernels'
+    ``max_steps - 1``."""
+    rows = []
+    for i in range(goal_blocks(p)):
+        rows += goal_fn(p, torch.clamp(step_f + float(offset + i), max=float(p["goal_len"] - 1)))
+    return rows
 
 
 def maze_geometry(p, s, step_f, g_rows, o_rows, cur_gate, steps_goal, completed):

@@ -24,9 +24,12 @@ anything else raises.  State rows ``(nx + 13, B)`` at the JAX row indices
 (:func:`rows_layout`): 15 for 1D, 19 for 2D.  The record has
 ``2 nx + nu + 5`` rows: 10 in 1D, 19 in 2D.
 
-Outside the envelope (``supports``): the goal-horizon observation rows of
-the TPU policy kernel (``goal_ext_rows``), and observation white noise in K8
-(K7 never reads the observation, so it admits the channel).
+K8's observation instance (``csrc/obs_ext.cuh``) adds the observation
+white noise (Philox call site 2) and the goal-horizon rows of the TPU policy
+kernel (``goal_ext_rows``, the static goal or the next ``obs_goal_horizon``
+goals, clipped at the env's goal table's last row); K7 never reads the
+observation, so its rows do not change under observation noise.  Outside
+the envelope (``supports``): observations wider than ``fast_env.MAX_OBS``.
 """
 
 from __future__ import annotations
@@ -75,13 +78,15 @@ def launch_plan(B: int, nx: int, group: int | None = None):
     return g, 32 * g, -(-B // 32)
 
 
-def policy_launch_plan(B: int, hidden: int, nx: int, group: int | None = None):
+def policy_launch_plan(B: int, hidden: int, nx: int, group: int | None = None,
+                       obs_dim: int = 0):
     """K8's launch for B envs of the quad type with ``nx`` states at hidden
     width ``hidden``: (lanes per env, threads per block, blocks, dynamic
-    shared-memory bytes), K6's plan (``fast_cartpole.policy_launch_plan``)."""
+    shared-memory bytes), K6's plan (``fast_cartpole.policy_launch_plan``;
+    ``obs_dim`` > 0: the observation instance's)."""
     if nx not in (2, 6):
         raise ValueError(f"K8 takes the 1D (nx 2) or 2D (nx 6) quad, not nx {nx}")
-    return FC.policy_launch_plan(B, hidden, group)
+    return FC.policy_launch_plan(B, hidden, group, obs_dim)
 
 
 def nx_nu(quad_type):
@@ -102,15 +107,16 @@ def exact_rows(nx: int):
     return [L["STEP"], L["OFFSET"], L["STATS"] + 3, L["EP"]]
 
 
-def supports(cfg, allow_normalized: bool = False) -> bool:
+def supports(cfg, allow_normalized: bool = False, allow_goal_horizon: bool = False) -> bool:
     """True if the 1D/2D quadrotor config is in the whole-rollout engines'
-    envelope: the JAX package's (fast_quad_planar.py:54) without the
-    goal-horizon observation.  ``allow_normalized`` asks for the policy
-    engine's envelope: it maps the normalized action space in-kernel and
-    refuses observation white noise, which it does not draw yet.  The
-    constant-action engine (the default) admits a single scalar observation
-    white noise, as the JAX package's does: it never reads the observation,
-    so its rows do not change."""
+    envelope: the JAX package's (fast_quad_planar.py:54), with the
+    observation capped at ``fast_env.MAX_OBS``.  ``allow_normalized`` asks
+    for the policy engine's envelope: it maps the normalized action space
+    in-kernel; ``allow_goal_horizon`` its goal-horizon observation rows
+    (rl_reward only, as the JAX package's).  Both engines admit a single
+    scalar observation white noise, as the JAX package's do: the
+    constant-action engine never reads the observation, so its rows do not
+    change, and the policy engine draws it in-kernel."""
     if int(cfg.quad_type) not in (1, 2):
         return False
     nx, nu = nx_nu(cfg.quad_type)
@@ -126,10 +132,10 @@ def supports(cfg, allow_normalized: bool = False) -> bool:
         and (cfg.task == "stabilization"
              or (cfg.task == "traj_tracking"
                  and ti.get("trajectory_type") in ("figure8", "circle", "square")))
-        and int(cfg.obs_goal_horizon) == 0
+        and FE.goal_horizon_ok(cfg, nx, allow_goal_horizon)
         and (not has_d["dynamics"] or fl["impulse"])
         and (not has_d["action"] or fl["act_noise"])
-        and (not has_d["observation"] or (not allow_normalized and fl["obs_noise"]))
+        and (not has_d["observation"] or fl["obs_noise"])
         and cfg.adversary_disturbance is None
         and not (cfg.gates or cfg.obstacles)
         and not cfg.done_on_violation
@@ -140,12 +146,14 @@ def supports(cfg, allow_normalized: bool = False) -> bool:
     )
 
 
-def build_engine_params(env, steps_per_call: int, allow_normalized: bool = False) -> dict:
+def build_engine_params(env, steps_per_call: int, allow_normalized: bool = False,
+                        allow_goal_horizon: bool = False) -> dict:
     """Static engine-parameter dict from a 1D/2D quadrotor env (the JAX
     package's keys, fast_quad_planar.py:363-534).  The flags are
     :func:`supports`'."""
     cfg = env.config
-    if not supports(cfg, allow_normalized=allow_normalized):
+    if not supports(cfg, allow_normalized=allow_normalized,
+                    allow_goal_horizon=allow_goal_horizon):
         raise ValueError("config outside the fast-planar-quad envelope (supports())")
     nx, nu = nx_nu(cfg.quad_type)
     ti = {**Q._DEFAULT_TASK_INFO, **(cfg.task_info or {})}
@@ -246,6 +254,7 @@ def build_engine_params(env, steps_per_call: int, allow_normalized: bool = False
         x_sel=x_sel, z_sel=z_sel, plane_off=plane_off,
         cost={"quadratic": "quad"}.get(cfg.cost, "rl"),
         rand_nominal=tuple(nominal), rand_lo=tuple(lo), rand_hi=tuple(hi),
+        **FE.obs_ext_params(env, nx),
     )
 
 
@@ -413,7 +422,8 @@ def planar_policy_rollout_plain(p, rows, weights, seed):
         return step_rows(p, carry, thr, act, _noise_u(p, seed, it, env))
 
     return FP.policy_rollout_loop(p, rows, weights, seed, p["nx"], p["nu"],
-                                  lambda a: preprocess(p, a), step)
+                                  lambda a: preprocess(p, a), step, rows_layout(p["nx"])["STEP"],
+                                  goal_rows)
 
 
 # --------------------------------------------------------------------------
@@ -530,31 +540,31 @@ def planar_policy_rollout(p, rows, weights, seed, group=None):
     if all(t.device.type == "cpu" for t in (rows, seed, *weights)):
         return planar_policy_rollout_plain(p, rows, weights, seed)
     nx, nu = p["nx"], p["nu"]
-    FC.check_policy_inputs("planar_policy_rollout", rows, nx + 13, weights, seed, nx, nu,
+    D = FP.obs_dim(p, nx)
+    FC.check_policy_inputs("planar_policy_rollout", rows, nx + 13, weights, seed, D, nu,
                            p["mlp_act"])
     from safe_control_gym_torch import kernels
 
     B = rows.shape[-1]
     rows = rows.contiguous()
     out = torch.empty_like(rows)
-    traj = torch.empty((p["steps"], 2 * nx + nu + 5, B), dtype=torch.float32, device=rows.device)
+    traj = torch.empty((p["steps"], 2 * D + nu + 5, B), dtype=torch.float32, device=rows.device)
     if B == 0:
         return out, traj
     params = kernel_params(p)
     lib = kernels.lib()
     FC.check_params_size(lib, "quad_planar", params)
-    wflat = FP.kernel_weights(weights)
-    hidden = weights[0].shape[0] // 2
-    code = lib.quad_planar_policy_rollout(
-        ctypes.addressof(params), nx, int(p["mlp_act"] == "relu"), hidden, seed.data_ptr(),
-        wflat.data_ptr(), rows.data_ptr(), out.data_ptr(), traj.data_ptr(), B,
-        *policy_launch_plan(B, hidden, nx, group), kernels.stream_ptr(rows.device))
+    code, obs = FC.launch_policy(lib, "quad_planar_policy_rollout", params,
+                                 (nx, int(p["mlp_act"] == "relu")), nx, p, rows, weights, seed,
+                                 out, traj, group)
     kernels.check(code, "quad_planar_policy_rollout")
     planar_policy_rollout.launches += 1
+    planar_policy_rollout.obs_launches += obs
     return out, traj
 
 
-planar_policy_rollout.launches = 0
+# Launches of K8, and of its observation instance among them.
+planar_policy_rollout.launches = planar_policy_rollout.obs_launches = 0
 
 
 def reset_rows(p, env_seeds):
@@ -655,24 +665,27 @@ class FastPlanarQuadPolicyRollout(_PlanarBase):
                  mlp_act: str = "tanh", device=None):
         FP._act_fn(mlp_act)
         FP.check_hidden(mlp_hidden)
-        params = build_engine_params(env, steps_per_call, allow_normalized=True)
+        params = build_engine_params(env, steps_per_call, allow_normalized=True,
+                                     allow_goal_horizon=True)
         params["mlp_act"] = mlp_act
         self._setup(env, num_envs, device, params)
         self.T = steps_per_call
         self.H = mlp_hidden
-        self.obs_dim = self.nx
-        self.traj_rows = 2 * self.nx + self.nu + 5
+        self.obs_dim = FP.obs_dim(params, self.nx)
+        self.traj_rows = 2 * self.obs_dim + self.nu + 5
 
     pack_weights = staticmethod(FP.pack_weights)
 
     def unpack_traj(self, traj):
-        """(T, 2 nx + nu + 5, B) record -> PPO field dict, (T, B, ...)."""
-        return FP.unpack_record(traj, self.nx, self.nu)
+        """(T, 2 D + nu + 5, B) record -> PPO field dict, (T, B, ...)."""
+        return FP.unpack_record(traj, self.obs_dim, self.nu)
 
-    # The observation is the state: the envelope has no observation noise
-    # and no goal-horizon rows.
-    def observe(self, rows):
-        return self.states(rows)
+    def observe(self, rows, generator=None):
+        """(B, D) observation (``fast_policy.observe_rows``): the state,
+        noised from ``generator`` where the config has observation noise and
+        it is given, then the goal rows."""
+        return FP.observe_rows(self.params, self.env, self.states(rows),
+                               rows[self.layout["STEP"]], generator)
 
     def run(self, rows, weights, seed=None):
         """One launch = T policy-driven env steps.  Returns (rows, traj)."""

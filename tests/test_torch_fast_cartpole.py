@@ -84,10 +84,13 @@ def test_supports_envelope():
         assert not tf.supports(tc.CartPoleConfig(**{**CFG1, **kw})), kw
     assert tf.supports(tc.CartPoleConfig(**CFG1, normalized_rl_action_space=True),
                        allow_normalized=True)
-    # Scalar observation white noise: K5 admits it, K6 (allow_normalized=True) does not.
+    # Scalar observation white noise: K5 admits it, and so does K6
+    # (allow_normalized=True), which draws it; K6 has no goal-horizon rows,
+    # as the JAX K6 (fast_cartpole.py:72).
     noisy = tc.CartPoleConfig(**CFG1, disturbances=OBS_NOISE)
     assert tf.supports(noisy)
-    assert not tf.supports(noisy, allow_normalized=True)
+    assert tf.supports(noisy, allow_normalized=True)
+    assert not tf.supports(tc.CartPoleConfig(**CFG1, obs_goal_horizon=2), allow_normalized=True)
 
 
 def test_obs_noise_leaves_k5_rows_unchanged():
@@ -105,12 +108,20 @@ def test_obs_noise_leaves_k5_rows_unchanged():
 
 
 def test_k6_refuses_obs_noise():
-    """K6 feeds the observation to the policy: it keeps refusing the
-    channel until it draws it in-kernel."""
+    """K6 feeds the observation to the policy and draws a scalar
+    observation white noise in-kernel; it refuses a masked or vector-std
+    one, as the JAX package's does."""
     env = tc.make_cartpole(tc.CartPoleConfig(**CFG1, normalized_rl_action_space=True,
                                              disturbances=OBS_NOISE), device="cpu")
-    with pytest.raises(ValueError, match="envelope"):
-        tf.FastCartPolePolicyRollout(env, 8, 2, device="cpu")
+    fp = tf.FastCartPolePolicyRollout(env, 8, 2, device="cpu")
+    assert fp.params["obs_noise_std"] == OBS_NOISE["observation"][0]["std"] and fp.obs_dim == 4
+    for spec in ({"mask": [1, 0, 1, 0]}, {"std": [0.01] * 4}):
+        dist = {"observation": ({**OBS_NOISE["observation"][0], **spec},)}
+        cfg = dict(CFG1, normalized_rl_action_space=True, disturbances=dist)
+        assert not jf.supports(jc.CartPoleConfig(**cfg), allow_normalized=True)
+        with pytest.raises(ValueError, match="envelope"):
+            tf.FastCartPolePolicyRollout(tc.make_cartpole(tc.CartPoleConfig(**cfg), device="cpu"),
+                                         8, 2, device="cpu")
 
 
 def test_engine_params_and_reset_rows_match_jax():

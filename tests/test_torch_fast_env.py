@@ -69,12 +69,29 @@ def test_supports_envelope():
     has, flags = tf.dist_envelope_flags(ok)
     jhas, jflags = jf.dist_envelope_flags(jq.QuadrotorConfig(**CFG4))
     assert (has, flags) == (jhas, jflags)
-    # Scalar observation white noise: K2 admits it, as the JAX K2 does; the
-    # policy engine (allow_normalized=True) does not.
+    # Scalar observation white noise: K2 admits it, as the JAX K2 does, and
+    # so does the policy engine (allow_normalized=True), which draws it; a
+    # masked one is refused by both packages.
     dist = {**CFG4["disturbances"], **OBS_NOISE}
     noisy = tq.QuadrotorConfig(**{**CFG4, "disturbances": dist})
     assert tf.supports(noisy) and jf.supports(jq.QuadrotorConfig(**{**CFG4, "disturbances": dist}))
-    assert not tf.supports(noisy, allow_normalized=True)
+    assert tf.supports(noisy, allow_normalized=True)
+    masked = {**CFG4, "disturbances": {"observation": ({**OBS_NOISE["observation"][0],
+                                                        "mask": [1] * 6 + [0] * 6},)}}
+    assert not tf.supports(tq.QuadrotorConfig(**masked), allow_normalized=True)
+    assert not jf.supports(jq.QuadrotorConfig(**masked), allow_normalized=True)
+    # Goal-horizon rows: the policy engine's (allow_goal_horizon), rl_reward
+    # only, as the JAX package's, up to an observation of MAX_OBS = 128 rows
+    # (h = 9: 120); the JAX kernel has no cap (h = 10: 132).
+    for h, cost, want in ((2, "rl_reward", True), (9, "rl_reward", True),
+                          (2, "quadratic", False), (10, "rl_reward", False)):
+        cfg = {**CFG4, "obs_goal_horizon": h, "cost": cost, "normalized_rl_action_space": True}
+        assert not tf.supports(tq.QuadrotorConfig(**cfg), allow_normalized=True)
+        got = tf.supports(tq.QuadrotorConfig(**cfg), allow_normalized=True,
+                          allow_goal_horizon=True)
+        jax_ok = jf.supports(jq.QuadrotorConfig(**cfg), allow_normalized=True,
+                             allow_goal_horizon=True)
+        assert got == want and jax_ok == (cost == "rl_reward"), (h, cost)
 
 
 def test_obs_noise_leaves_k2_rows_unchanged():

@@ -23,6 +23,7 @@ from safe_control_gym_torch.parallel import fast_policy as tp
 from safe_control_gym_torch.utils import convert
 from safe_control_gym_tpu.controllers.ppo import PPO as JPPO
 from safe_control_gym_tpu.envs import quadrotor as jq
+from safe_control_gym_tpu.parallel import fast_env as jf
 from safe_control_gym_tpu.parallel.vector import make_vec_env as j_make_vec_env
 
 B, T, SEED = 128, 8, 3
@@ -260,14 +261,21 @@ def test_philox_uniform_statistics():
 
 
 def test_k3_refuses_obs_noise():
-    """K3 feeds the observation to the policy: it keeps refusing scalar
-    observation white noise, which K2 admits, until it draws the channel
-    in-kernel."""
+    """K3 feeds the observation to the policy and draws a scalar
+    observation white noise in-kernel, as K2 admits it; it refuses a masked
+    or vector-std one, as the JAX package's does."""
+    obs = {"disturbance_func": "white_noise", "std": 0.01}
     noisy = dataclasses.replace(tq.QuadrotorConfig(**CFG), disturbances={
-        **CFG["disturbances"],
-        "observation": ({"disturbance_func": "white_noise", "std": 0.01},)})
-    with pytest.raises(ValueError, match="envelope"):
-        tp.FastPolicyRollout(tq.make_quadrotor(noisy, device="cpu"), 8, 2, device="cpu")
+        **CFG["disturbances"], "observation": (obs,)})
+    fp = tp.FastPolicyRollout(tq.make_quadrotor(noisy, device="cpu"), 8, 2, device="cpu")
+    assert fp.params["obs_noise_std"] == 0.01 and fp.obs_dim == 12
+    for spec in ({"mask": [1] * 6 + [0] * 6}, {"std": [0.01] * 12}):
+        cfg = dataclasses.replace(noisy, disturbances={
+            **CFG["disturbances"], "observation": ({**obs, **spec},)})
+        jcfg = jq.QuadrotorConfig(**{**CFG, "disturbances": cfg.disturbances})
+        assert not jf.supports(jcfg, allow_normalized=True)
+        with pytest.raises(ValueError, match="envelope"):
+            tp.FastPolicyRollout(tq.make_quadrotor(cfg, device="cpu"), 8, 2, device="cpu")
 
 
 def test_supports_normalized_envelope():
@@ -276,11 +284,20 @@ def test_supports_normalized_envelope():
     noisy = dataclasses.replace(cfg, disturbances={
         **CFG["disturbances"],
         "observation": ({"disturbance_func": "white_noise", "std": 0.01},)})
-    assert not tf.supports(noisy, allow_normalized=True)
+    assert tf.supports(noisy, allow_normalized=True)
+    # Goal-horizon rows: the policy engine takes them (allow_goal_horizon, as
+    # the JAX PPO asks, ppo.py:207-210) up to an observation of 128 rows.
     horizon = dataclasses.replace(cfg, obs_goal_horizon=2)
     assert not tf.supports(horizon, allow_normalized=True)
+    assert tf.supports(horizon, allow_normalized=True, allow_goal_horizon=True)
+    assert tp.FastPolicyRollout(tq.make_quadrotor(horizon, device="cpu"), 8, 2,
+                                device="cpu").obs_dim == 36
+    above_the_cap = dataclasses.replace(cfg, obs_goal_horizon=10)  # 132 rows
+    assert jf.supports(jq.QuadrotorConfig(**{**CFG, "obs_goal_horizon": 10}),
+                       allow_normalized=True, allow_goal_horizon=True)
+    assert not tf.supports(above_the_cap, allow_normalized=True, allow_goal_horizon=True)
     with pytest.raises(ValueError):
-        tp.FastPolicyRollout(tq.make_quadrotor(horizon, device="cpu"), 8, 2, device="cpu")
+        tp.FastPolicyRollout(tq.make_quadrotor(above_the_cap, device="cpu"), 8, 2, device="cpu")
     with pytest.raises(ValueError):
         tp.FastPolicyRollout(tq.make_quadrotor(cfg, device="cpu"), 8, 2, mlp_act="elu",
                              device="cpu")

@@ -74,10 +74,24 @@ def test_supports_envelope():
         assert not tf.supports(tq.QuadrotorConfig(**{**CFG3, **kw})), kw
     assert tf.supports(tq.QuadrotorConfig(**CFG3, normalized_rl_action_space=True),
                        allow_normalized=True)
-    # Scalar observation white noise: K7 admits it, K8 (allow_normalized=True) does not.
+    # Scalar observation white noise: K7 admits it, and so does K8
+    # (allow_normalized=True), which draws it.
     noisy = tq.QuadrotorConfig(**CFG3, disturbances=OBS_NOISE)
     assert tf.supports(noisy)
-    assert not tf.supports(noisy, allow_normalized=True)
+    assert tf.supports(noisy, allow_normalized=True)
+    # Goal-horizon rows: K8's (allow_goal_horizon), rl_reward only, as the
+    # JAX package's, up to an observation of 128 rows (2D tracking h = 20:
+    # 126); the JAX kernel has no cap (h = 21: 132).
+    for qt, h, task, want in ((2, 2, "stabilization", True), (2, 20, "traj_tracking", True),
+                              (2, 21, "traj_tracking", False), (1, 63, "traj_tracking", True),
+                              (1, 64, "traj_tracking", False)):
+        cfg = {**CFG3, "quad_type": qt, "obs_goal_horizon": h, "task": task,
+               "normalized_rl_action_space": True}
+        got = tf.supports(tq.QuadrotorConfig(**cfg), allow_normalized=True,
+                          allow_goal_horizon=True)
+        assert got == want and jf.supports(jq.QuadrotorConfig(**cfg), allow_normalized=True,
+                                           allow_goal_horizon=True), (qt, h, task)
+        assert not tf.supports(tq.QuadrotorConfig(**cfg), allow_normalized=True)
 
 
 @pytest.mark.parametrize("quad_type", [1, 2])
@@ -99,13 +113,22 @@ def test_obs_noise_leaves_k7_rows_unchanged(quad_type):
 
 @pytest.mark.parametrize("quad_type", [1, 2])
 def test_k8_refuses_obs_noise(quad_type):
-    """K8 feeds the observation to the policy: it keeps refusing the
-    channel until it draws it in-kernel."""
+    """K8 feeds the observation to the policy and draws a scalar
+    observation white noise in-kernel; it refuses a masked or vector-std
+    one, as the JAX package's does."""
     env = tq.make_quadrotor(tq.QuadrotorConfig(**dict(
         CFG3, quad_type=quad_type, normalized_rl_action_space=True, disturbances=OBS_NOISE)),
         device="cpu")
-    with pytest.raises(ValueError, match="envelope"):
-        tf.FastPlanarQuadPolicyRollout(env, 8, 2, device="cpu")
+    fp = tf.FastPlanarQuadPolicyRollout(env, 8, 2, device="cpu")
+    assert fp.params["obs_noise_std"] == OBS_NOISE["observation"][0]["std"] and fp.obs_dim == fp.nx
+    nx = fp.nx
+    for spec in ({"mask": [1] + [0] * (nx - 1)}, {"std": [0.01] * nx}):
+        dist = {"observation": ({**OBS_NOISE["observation"][0], **spec},)}
+        cfg = dict(CFG3, quad_type=quad_type, normalized_rl_action_space=True, disturbances=dist)
+        assert not jf.supports(jq.QuadrotorConfig(**cfg), allow_normalized=True)
+        with pytest.raises(ValueError, match="envelope"):
+            tf.FastPlanarQuadPolicyRollout(tq.make_quadrotor(tq.QuadrotorConfig(**cfg),
+                                                             device="cpu"), 8, 2, device="cpu")
 
 
 @pytest.mark.parametrize("quad_type", [1, 2])
