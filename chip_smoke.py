@@ -53,6 +53,24 @@ observation noise (the configs: ``safe_control_gym_torch/baseline.py``,
    its plain version at B = 1024 and 1000 for 25 steps through auto-resets,
    at hidden width 64 and 128 (the run-time-width instance): all rows and
    the whole record, done counts exactly;
+6b. drives K3's maze instances (``phase_k3_maze``): ``FastPolicyRollout`` on
+   config 5 with the normalized action space at B = 4096, T = 128, H = 64
+   and 128, seeded weights, one call through ``run`` with the launch
+   counters zeroed just before and read just after, rows and record bit for
+   bit against the plain version, its auto-resets and truncations counted
+   and the call timed; then at B = 1000 and 1024, with observation noise
+   and with goal rows (the maze's observation instance), bit for bit; and
+   one step on config 5 without noise under a logstd of -20 against the
+   general engine driven by the policy's means (done exact, reward 1e-4,
+   live states 2e-4 / 2e-5, gate counters exact, the placed envs through
+   their gate); prints the SASS size of K3's instances (config 4's, config
+   4-GH's observation instance, the maze instance);
+6c. drives the env surface (``phase_env_surface``): the general engine at
+   B = 4096 for 32 steps on config 4 with the aero modes (no K1 launch)
+   and on config 4 with a quadratic constraint, a periodic dynamics force
+   and the adversary channel (K1 once a step), each against the same run on
+   the CPU (states 2e-4 / 2e-5, done flags exact every step), with its host
+   ms a step;
 7. holds K4 (``ppo_grads``, the PPO minibatch gradients) against its plain
    version and against ``torch.autograd`` of the reference losses at
    mb = 131072, tanh, at the config-4 (nx 12, nu 4), CartPole (4, 1) and
@@ -92,15 +110,17 @@ observation noise (the configs: ``safe_control_gym_torch/baseline.py``,
    once and K4 forty times per train step); quad-2D stabilization with two
    goal-horizon blocks and the noise (K8's observation instance) and
    CartPole stabilization with the noise (K6's), one warm-up and one timed
-   step each; the device busy share and the kernels that take the time;
-   the policy kernel against its plain version on the timed call's own
-   input, and timed alone;
+   step each; the device busy share and the kernels that take the time,
+   from a profiled train step whose session recorded both the policy
+   kernel and K4 (up to TRAIN_PROFILE_SESSIONS sessions, else the run
+   fails); the policy kernel against its plain version on the timed call's
+   own input, and timed alone;
 11. prints each kernel's registers and spills (``ptxas -v``), each phase's
    seconds, one JSON line of per-kernel results (K1 with its plan's group
    and block and every instance's registers and spill bytes; K2 with its
    maze instance's time, bound, registers and spill bytes; the observation
-   instances of K3, K6 and K8 as entries of their own), then the final
-   status line.
+   instances of K3, K6 and K8 and K3's maze instance as entries of their
+   own), then the final status line.
 
 Any failure raises and exits non-zero; nothing falls back to the CPU.
 
@@ -231,6 +251,9 @@ TRAIN_B, TRAIN_T, EPOCHS, HIDDEN = 4096, 128, 10, 64
 MB = TRAIN_B * TRAIN_T // 4
 N_MINI = TRAIN_B * TRAIN_T // MB
 TRAIN_STEPS = 3
+# Profiler sessions of one train step tried before a training path's
+# profile fails for want of its policy kernel or K4 (train_profile).
+TRAIN_PROFILE_SESSIONS = 4
 # K3, K6 and K8 against their plain versions: both sides run the same float32 operations
 # in the same order (-fmad=false), but tanh, log, cos and exp are CUDA's
 # libdevice functions in the kernel and PyTorch's CUDA operators in the
@@ -347,12 +370,16 @@ def zero_counters():
         fn.launches = 0
         if k in OBS_INSTANCES:
             fn.obs_launches = 0
+    counters()["k3"].maze_launches = 0
 
 
 def read_counters():
+    """Every kernel's launches, with those of the observation instances
+    (``k3_obs``, ...) and K3's maze instances (``k3_maze``) among them."""
     c = counters()
     return {**{k: fn.launches for k, fn in c.items()},
-            **{f"{k}_obs": c[k].obs_launches for k in OBS_INSTANCES}}
+            **{f"{k}_obs": c[k].obs_launches for k in OBS_INSTANCES},
+            "k3_maze": c["k3"].maze_launches}
 
 
 def cuda_ms(fn, reps):
@@ -386,9 +413,18 @@ def device_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+# Sacrificial kernels launched at the start of every profiled session
+# before the work it measures (torch.cuda._sleep's spin kernel, left out of
+# the results): the profiler was seen to drop the first events of a session
+# in a process that had launched much before, the policy kernel and the
+# first small kernels of a train step among them (fault (f), PERF.md).
+PROFILE_LEAD_KERNELS, PROFILE_LEAD_CYCLES = 256, 2000
+
+
 def profile_kernels(fn, reps):
     """Run ``fn`` ``reps`` times under torch.profiler; return (wall ms,
-    {kernel name: (device ms total, launches)}) for the CUDA kernels seen."""
+    {kernel name: (device ms total, launches)}) for the CUDA kernels seen,
+    the session's lead kernels left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -400,13 +436,17 @@ def profile_kernels(fn, reps):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD_KERNELS):
+            torch.cuda._sleep(PROFILE_LEAD_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kern = {e.key: (e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.device_time_total > 0}
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0
+            and "spin_kernel" not in e.key}
     return wall, kern
 
 
@@ -424,6 +464,24 @@ def kernel_device_ms(fn, name, reps, sessions=3):
               f"{sorted(kern)}); profiling again", flush=True)
     raise RuntimeError(f"the profiler recorded no device time for {name} in {sessions} "
                        "sessions")
+
+
+def train_profile(step, kname, sessions=TRAIN_PROFILE_SESSIONS):
+    """{kernel: (device ms, launches)} of one profiled train step, from the
+    first session in which the profiler recorded both the policy kernel
+    ``kname`` and K4 (``ppo_grads``): it was seen to drop all of a kernel's
+    events in a session (PERF.md).  Up to ``sessions`` sessions; raises
+    where none recorded both."""
+    for _ in range(sessions):
+        _, kern = profile_kernels(step, 1)
+        seen = {name: any(name in k for k in kern) for name in (kname, "ppo_grads")}
+        if all(seen.values()):
+            return kern
+        print(f"  profiler: a train-step session without {sorted(n for n, s in seen.items() if not s)}"
+              f"; kernels seen ({len(kern)}): {sorted(k[:60] for k in kern)}; profiling again",
+              flush=True)
+    raise RuntimeError(f"the profiler recorded {kname} and ppo_grads together in none of "
+                       f"{sessions} train-step sessions")
 
 
 def check(name, ok, detail):
@@ -1061,6 +1119,256 @@ def phase_obs_ext(dev):
     return res
 
 
+def check_record_bits(tag, rows, traj, rows_p, traj_p):
+    """A policy kernel's rows and record against its plain version's, every
+    entry bit for bit; returns the largest absolute difference."""
+    import torch
+
+    same_rows = torch.equal(rows.view(torch.int32), rows_p.view(torch.int32))
+    differ = float((traj.view(torch.int32) != traj_p.view(torch.int32)).double().mean())
+    check(f"{tag}: rows and record bit for bit", same_rows and differ == 0.0
+          and bool(torch.isfinite(traj).all()),
+          f"rows equal {same_rows}; {differ:.3g} of {traj.numel()} record entries differ")
+    return max(max_err(rows, rows_p), max_err(traj, traj_p))
+
+
+def k3_maze_run(fp, hidden, seed=7):
+    """K3's maze instance and its plain version on ``fp``'s fresh rows, with
+    seeded weights of width ``hidden``; returns (rows_in, weights, seed,
+    kernel (rows, traj), plain (rows, traj), the plain call's ms)."""
+    import torch
+
+    from safe_control_gym_torch.parallel import fast_policy as P
+
+    rows0 = fp.reset(seed=0)
+    ac = seeded_ac(rows0.device, nx=fp.obs_dim, hidden=hidden)
+    w = P.pack_weights(ac.actor, ac.critic, ac.logstd)
+    sd = torch.tensor([seed], dtype=torch.int32, device=rows0.device)
+    out = P.policy_rollout(fp.params, rows0, w, sd)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = P.policy_rollout_plain(fp.params, rows0, w, sd)
+    end.record()
+    torch.cuda.synchronize()
+    return rows0, w, sd, out, ref, start.elapsed_time(end)
+
+
+def phase_k3_maze(dev):
+    """K3's maze instances (config 5, the competition maze, on K3).  The
+    main path at full width: ``FastPolicyRollout`` on config 5 with the
+    normalized action space and its step noise, B = 4096, T = 128, H = 64
+    (and again at H = 128), seeded weights, one call through ``run`` with
+    the launch counters zeroed just before and read just after, held
+    against the plain version bit for bit (rows and record), its
+    auto-resets and truncations counted, and timed.  Then at RAGGED_B and
+    CHECK_B, H = 64 and 128 (K3 is built for one group of 8 lanes, the
+    plan's at every B), with the observation white noise and with goal rows
+    (the maze's observation instance), all bit for bit; and one K3 step on
+    config 5 without noise under a logstd of -20 against the general engine
+    driven by the same policy's means from MAZE_CROSS_B scattered and
+    placed states (phase_maze_cross's)."""
+    import torch
+
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+    from safe_control_gym_torch.parallel import fast_policy as P
+    from safe_control_gym_torch.parallel.vector import make_vec_env
+
+    res, err = {}, 0.0
+    env = make_quadrotor(cfg5(normalized_rl_action_space=True), device=dev)
+    for h in POLICY_WIDTHS:
+        fp = P.FastPolicyRollout(env, B_MAIN, TRAIN_T, mlp_hidden=h, device=dev)
+        rows0, w, sd, (rows, traj), (rows_p, traj_p), plain_ms = k3_maze_run(fp, h)
+        tag = f"K3 maze instance (config 5, B={B_MAIN}, T={TRAIN_T}, H={h})"
+        err = max(err, check_record_bits(tag, rows, traj, rows_p, traj_p))
+        r = {"plain_ms": plain_ms, "resets": float(rows[21].sum() - rows0[21].sum()),
+             "truncations": float(traj[:, fp.obs_dim + 4 + 2].sum())}
+        check(f"{tag}: episodes end in the call", r["resets"] > 0,
+              f"{r['resets']:.0f} auto-resets, {r['truncations']:.0f} truncations")
+        zero_counters()
+        fp.run(rows0, w, seed=sd)
+        torch.cuda.synchronize()
+        r["launches"] = read_counters()
+        check(f"{tag}: the call went through the maze instance",
+              r["launches"]["k3_maze"] == 1 and r["launches"]["k3"] == 1
+              and sum(r["launches"].values()) == 2, f"launches {r['launches']}")
+        r["ms"] = device_ms(lambda: P.policy_rollout(fp.params, rows0, w, sd), 5)
+        res[str(h)] = r
+
+    # -- the ragged and check batches, and the maze's observation instance.
+    small = make_quadrotor(cfg5(normalized_rl_action_space=True, episode_len_sec=4), device=dev)
+    cases = [(f"H={h}, B={B}", small, h, B) for h in POLICY_WIDTHS for B in (RAGGED_B, CHECK_B)]
+    for extra, kw in (("observation noise", dict(disturbances={**cfg5().disturbances, **OBS_NOISE})),
+                      ("goal rows", dict(cost="rl_reward", obs_goal_horizon=2))):
+        cases.append((f"{extra}, H={HIDDEN}, B={RAGGED_B}", make_quadrotor(cfg5(
+            normalized_rl_action_space=True, episode_len_sec=4, **kw), device=dev), HIDDEN,
+            RAGGED_B))
+    for what, e, h, B in cases:
+        fpc = P.FastPolicyRollout(e, B, 2 * CHECK_STEPS, mlp_hidden=h, device=dev)
+        _, _, _, (r, t), (rp, tpl), _ = k3_maze_run(fpc, h)
+        err = max(err, check_record_bits(
+            f"K3 maze instance ({what}, obs {fpc.obs_dim}, {2 * CHECK_STEPS} steps)", r, t, rp, tpl))
+    res["max_abs_err"] = err
+    sd = torch.tensor([7], dtype=torch.int32, device=dev)
+
+    # -- against the general engine: one step from scattered and placed
+    # states, config 5 without noise, the policy's means.
+    B = MAZE_CROSS_B
+    env = make_quadrotor(cfg5(normalized_rl_action_space=True, episode_len_sec=4,
+                              disturbances=None, randomized_inertial_prop=False,
+                              init_state_randomization_info=MAZE_SCATTER,
+                              done_on_completion=True), device=dev)
+    state, obs, _ = make_vec_env(env, B).reset(seed=3)
+    x, cur, at_goal = state.x.clone(), state.current_gate.clone(), state.steps_at_goal.clone()
+    x[:96] = 0.0
+    x[:64, 0], x[:64, 2], x[:64, 4] = (state.gates_eff[:64, 0, k] for k in (0, 1, 3))
+    x[64:96, 0], x[64:96, 2], x[64:96, 4] = (float(env.x_goal[k]) for k in (0, 2, 4))
+    cur[64:96], at_goal[64:96] = len(env.config.gates), 2 * env.config.ctrl_freq
+    full = torch.full_like(cur, 40)
+    state = state.replace(x=x, ctrl_step=full, pyb_step=2 * full, current_gate=cur,
+                          steps_at_goal=at_goal)
+    fpx = P.FastPolicyRollout(env, B, 1, device=dev)
+    ac = seeded_ac(dev)
+    with torch.no_grad():
+        ac.logstd.fill_(-20.0)
+    rows_in = fpx.pack(state)
+    rows, traj = P.policy_rollout(fpx.params, rows_in, P.pack_weights(ac.actor, ac.critic,
+                                                                      ac.logstd), sd)
+    with torch.no_grad():
+        s1, _, rew, done, _ = env.step(state, ac.actor(state.x))
+    torch.cuda.synchronize()
+    d = fpx.unpack_traj(traj)
+    check("K3 maze vs general engine: done", torch.equal(d["done"][0] > 0.5, done),
+          f"{int(d['done'][0].sum())} vs {int(done.sum())} of {B} done")
+    rew_err = max_err(d["rew"][0], rew)
+    check("K3 maze vs general engine: reward", rew_err <= 1e-4, f"max_abs_err {rew_err:.3g} (1e-4)")
+    live = ~done
+    cross = max_err(rows[:12, live].T, s1.x[live])
+    check("K3 maze vs general engine: states of the envs not done",
+          bool(torch.isclose(rows[:12, live].T, s1.x[live], rtol=2e-4, atol=2e-5).all()),
+          f"max_abs_err {cross:.3g} (rtol 2e-4, atol 2e-5)")
+    mz = 27 + 4 * fpx.params["n_gates"] + 2 * fpx.params["n_obstacles"]
+    passed = int(s1.stepped_through_gate[:64].sum())
+    check("K3 maze vs general engine: gate and goal counters",
+          torch.equal(rows[mz, live], s1.current_gate[live].float())
+          and torch.equal(rows[mz + 1, live], s1.steps_at_goal[live].float()) and passed == 64
+          and bool(done[64:96].all()), f"exact; {passed} of 64 placed envs passed their gate")
+    res["max_abs_err_vs_general_engine"] = cross
+    return res
+
+
+# The env-surface phase: config 4 with the aero modes (ground effect, drag,
+# downwash), and config 4 with a quadratic state constraint (a sphere of
+# radius 2 around the origin in position), a periodic dynamics force beside
+# its impulse, and an adversary force on the dynamics channel.
+SURFACE_STEPS = 32
+QUAD_SPHERE = {"constraint_form": "quadratic_constraint", "constrained_variable": "state",
+               "P": [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]], "b": 4.0,
+               "active_dims": [0, 2, 4]}
+PERIODIC = {"disturbance_func": "periodic", "scale": 0.002, "frequency": 1.5}
+
+
+def surface_configs():
+    """(tag, config, whether it goes through K1) of phase_env_surface."""
+    c4 = cfg4()
+    return [("config 4, pyb_gnd_drag_dw", cfg4(physics="pyb_gnd_drag_dw"), False),
+            ("config 4, quadratic constraint, periodic force, adversary",
+             cfg4(constraints=c4.constraints + (QUAD_SPHERE,),
+                  disturbances={"dynamics": c4.disturbances["dynamics"] + (PERIODIC,)},
+                  adversary_disturbance="dynamics", adversary_disturbance_scale=0.005), True)]
+
+
+def surface_run(env, B, steps, seed=0):
+    """``steps`` general-engine steps (make_vec_env, auto-reset) of ``env``
+    at batch B from the port's seed-0 reset, under seeded thrusts around
+    hover and, where the env has the adversary channel, a seeded adversary
+    force set before each step; returns (final state, done flags of every
+    step, host seconds of the steps)."""
+    import torch
+
+    from safe_control_gym_torch.parallel.vector import make_vec_env
+
+    dev = env.device
+    vec = make_vec_env(env, B)
+    rng = np.random.default_rng(seed)
+    hover = float(env.u_goal[0])
+    acts = [torch.as_tensor((hover * (1 + 0.1 * rng.uniform(-1, 1, (B, 4)))).astype(np.float32),
+                            device=dev) for _ in range(steps)]
+    adv = [torch.as_tensor(rng.uniform(-1, 1, (B, 3)).astype(np.float32), device=dev)
+           for _ in range(steps)]
+    set_adv = env.extras["set_adversary_control"] if env.config.adversary_disturbance else None
+    state, _, _ = vec.reset(seed=seed)
+    dones = []
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        if set_adv is not None:
+            state = set_adv(state, adv[t])
+        state, _, _, done, _ = vec.step(state, acts[t])
+        dones.append(done)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return state, torch.stack(dones), time.perf_counter() - t0
+
+
+def phase_env_surface(dev):
+    """The env surface on the card: the general engine at B = 4096 for
+    SURFACE_STEPS steps on each of surface_configs(), with the launch
+    counters zeroed just before and read just after (K1 not at all for the
+    aero modes, once a step for the other), held against the same run of
+    the port on the CPU (states rtol 2e-4 / atol 2e-5, done flags exact
+    every step), and its host ms a step."""
+    import torch
+
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+
+    res = {}
+    for tag, cfg, through_k1 in surface_configs():
+        env = make_quadrotor(cfg, device=dev)
+        surface_run(env, B_MAIN, 2)  # warm-up
+        zero_counters()
+        state, dones, secs = surface_run(env, B_MAIN, SURFACE_STEPS)
+        launches = read_counters()
+        want = SURFACE_STEPS if through_k1 else 0
+        check(f"{tag}: K1 launches", launches["k1"] == want
+              and sum(launches.values()) == launches["k1"],
+              f"launches {launches} in {SURFACE_STEPS} steps (want K1 {want})")
+        ref_state, ref_dones, _ = surface_run(make_quadrotor(cfg, device="cpu"), B_MAIN,
+                                              SURFACE_STEPS)
+        x, x_ref = state.x.cpu(), ref_state.x
+        err = max_err(x, x_ref)
+        same_done = torch.equal(dones.cpu(), ref_dones)
+        check(f"{tag}: card against the CPU ({SURFACE_STEPS} steps, B={B_MAIN})",
+              same_done and bool(torch.isclose(x, x_ref, rtol=2e-4, atol=2e-5).all())
+              and bool(torch.isfinite(x).all()),
+              f"done flags equal {same_done} ({int(ref_dones.sum())} dones); states "
+              f"max_abs_err {err:.3g} (rtol 2e-4, atol 2e-5)")
+        res[tag] = {"host_ms_per_step": secs / SURFACE_STEPS * 1e3, "launches": launches,
+                    "dones": int(ref_dones.sum()), "max_abs_err": err}
+        print(f"  {tag}: {res[tag]['host_ms_per_step']:.3f} host ms a step at B={B_MAIN}; "
+              f"{card_line()}", flush=True)
+    return res
+
+
+def sass_instructions(kname):
+    """SASS instructions of the kernel instance whose mangled name holds
+    ``kname`` in the built library (``scripts/ab_kernel.py::sass_count``,
+    which writes its SASS beside the library)."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from ab_kernel import sass_count
+
+    from safe_control_gym_torch import kernels
+
+    return sass_count(kernels.LIB, kname, [""], kernels.BUILD / f"{kname}.sass")["instructions"]
+
+
+# K3's instances whose SASS the maze instances must leave as it was
+# (config 4's at H = 64: 4856 instructions before them), by mangled name.
+K3_SASS = {"config 4 (H=64)": "quad3d_policy_rollout_kernelILi64ELi8ELb0ELb0E",
+           "config 4-GH (observation)": "quad3d_policy_rollout_kernelILi0ELi8ELb1ELb0E",
+           "config 5 (maze, H=64)": "quad3d_policy_rollout_kernelILi64ELi8ELb0ELb1E"}
+
+
 def layout_nx(layout):
     """The state rows of a rows layout (K2_LAYOUT, K5_LAYOUT, k7_layout)."""
     return layout["close"][0][1].stop
@@ -1525,9 +1833,10 @@ def run_train(dev, tag, env, key, kernel, plain, kname, layout, nx, nu, hidden=H
           f"finite metrics {res['train_metrics']}, total_steps {ppo.state.total_steps}, "
           f"obs {tuple(ppo.state.obs.shape)}")
 
-    # -- where a train step's time goes: device busy share and the kernels.
+    # -- where a train step's time goes: device busy share and the kernels,
+    # from a session that saw both the policy kernel and K4.
     step = lambda: ppo._train_step(ppo.state)  # noqa: E731
-    _, kern = profile_kernels(step, 1)
+    kern = train_profile(step, kname)
     busy = sum(t for t, _ in kern.values())
     t0 = time.perf_counter()
     step()
@@ -1539,6 +1848,11 @@ def run_train(dev, tag, env, key, kernel, plain, kname, layout, nx, nu, hidden=H
         "k4_device_ms": sum(t for k, (t, _) in kern.items() if "ppo_grads" in k),
         "kernel_launches": sum(n for _, n in kern.values()),
         "top": sorted(((k[:80], t, n) for k, (t, n) in kern.items()), key=lambda r: -r[1])[:10]}
+    tp = res["profile"]
+    check(f"{tag}: the train-step profile holds {kname} and K4",
+          tp["policy_device_ms"] > 0 and tp["k4_device_ms"] > 0,
+          f"{kname} {tp['policy_device_ms']:.3f} ms, K4 {tp['k4_device_ms']:.3f} ms of "
+          f"{tp['device_ms']:.3f} ms busy")
 
     # -- the policy kernel against its plain version on the first timed
     # call's own input.
@@ -1621,7 +1935,7 @@ def policy_ops(nx, nu, hidden=HIDDEN):
             + nu * (K68_SAMPLE_OPS + K68_SAMPLE_TRANS))
 
 
-def bounds(res, serve_cp, serve_q2, serve_mz, train):
+def bounds(res, serve_cp, serve_q2, serve_mz, train, k3_maze):
     """Least time the card could take for each kernel's main-path work."""
     B = B_MAIN
     k1_bytes = B * (12 + 4 + 3 + 1 + 3 + 12) * 4
@@ -1668,7 +1982,18 @@ def bounds(res, serve_cp, serve_q2, serve_mz, train):
     k2_maze_ops = (env_steps * (2 * (RK4_SUBSTEP_OPS + 4 * FC_TRANS) + MAZE_STEP_OPS
                                 + MAZE_STEP_TRANS)
                    + serve_mz["resets"] * K2_MAZE_RESET_OPS + B * 4)
+    # K3's maze instance on its main path (config 5, B = 4096, T = 128): K2's
+    # maze step with the noise, the policy (products, sample, action map and
+    # cost), this call's resets, the gates' sincos at the call's start; the
+    # rows (27 + 28 maze rows) in and out, the weights, the record.
+    def k3_maze_bound(h):
+        step = (2 * (RK4_SUBSTEP_OPS + 4 * FC_TRANS) + MAZE_STEP_OPS + MAZE_STEP_TRANS
+                + policy_ops(12, 4, h) + 16)
+        ops = steps_t * step + k3_maze[str(h)]["resets"] * K2_MAZE_RESET_OPS + TRAIN_B * 4
+        return bound(policy_bytes(55, 12, 4, h), ops)
+
     out = {"k1": bound(k1_bytes, k1_ops), "k1_f64": bound(2 * k1_bytes, k1_ops, PEAK_F64_OPS_S),
+           "k3_maze": k3_maze_bound(HIDDEN), "k3_maze_h128": k3_maze_bound(128),
            "k2": bound(k2_bytes, k2_ops), "k2_maze": bound(B * (2 * 55 + 4) * 4, k2_maze_ops),
            "k3": bound(policy_bytes(27, 12, 4), k3_ops("config4", HIDDEN)),
            "k3_h128": bound(policy_bytes(27, 12, 4, 128), k3_ops("config4_h128", 128)),
@@ -1707,13 +2032,26 @@ def policy_instance(ptxas, kname, quad, plan):
             "spill_bytes": r["spill_stores"] + r["spill_loads"]}
 
 
-def obs_instance(ptxas, kname, quad=""):
+def obs_instance(ptxas, kname, quad="", tail=""):
     """Registers and spill bytes of a policy kernel's observation instance
     (8 lanes an env, the width read at run time; ``quad`` as for
-    policy_instance)."""
-    r = next(r for n, r in ptxas.items() if f"{kname}I{quad}Li0ELi8ELb1E" in n)
+    policy_instance; ``tail`` K3's further template arguments, "Lb0E" for
+    its instance without the maze)."""
+    r = next(r for n, r in ptxas.items() if f"{kname}I{quad}Li0ELi8ELb1E{tail}" in n)
     return {"group": 8, "registers": r["registers"],
             "spill_bytes": r["spill_stores"] + r["spill_loads"]}
+
+
+def k3_maze_instances(ptxas):
+    """Registers and spill bytes of K3's three maze instances: H = 64, the
+    run-time width, and the observation instance."""
+    out = {}
+    for tag, args in (("H=64", "Li64ELi8ELb0E"), ("run-time width", "Li0ELi8ELb0E"),
+                      ("observation", "Li0ELi8ELb1E")):
+        r = next(r for n, r in ptxas.items() if f"quad3d_policy_rollout_kernelI{args}Lb1E" in n)
+        out[tag] = {"registers": r["registers"],
+                    "spill_bytes": r["spill_stores"] + r["spill_loads"]}
+    return out
 
 
 def k1_instances(ptxas):
@@ -1778,13 +2116,15 @@ def main():
     maze_cross_err = phase(phase_maze_cross, dev)
     res = phase(phase_main, dev)
     k3_err, k3_differ = phase(phase_k3, dev)
+    k3_maze = phase(phase_k3_maze, dev)
+    surface = phase(phase_env_surface, dev)
     k4 = phase(phase_k4, dev)
     small = {**phase(phase_k5_k6, dev), **phase(phase_k7_k8, dev), **phase(phase_obs_ext, dev)}
     serve_cp = phase(phase_serve_cartpole, dev)
     serve_q2 = phase(phase_serve_quad2d, dev)
     serve_mz = phase(phase_serve_maze, dev)
     train = phase(phase_train, dev)
-    bnd = bounds(res, serve_cp, serve_q2, serve_mz, train)
+    bnd = bounds(res, serve_cp, serve_q2, serve_mz, train, k3_maze)
 
     from safe_control_gym_torch.ops import quad_substeps as K1
     from safe_control_gym_torch.parallel import fast_cartpole as FC
@@ -1850,6 +2190,15 @@ def main():
               f"{kr['ms'] * 1e3:.2f} us per launch, bound {kb['bound_ms'] * 1e3:.2f} us "
               f"({kb['bound_by']}), {kb['bound_ms'] / kr['ms']:.1%} of it; plain "
               f"{kr['plain_ms'] * 1e3:.2f} us; plan {kr['plan']}")
+
+    k3_sass = {tag: sass_instructions(name) for tag, name in K3_SASS.items()}
+    print(f"K3 SASS instructions: {k3_sass} (config 4's at H = 64: 4856 before the maze instances)")
+    for h, b in ((HIDDEN, "k3_maze"), (128, "k3_maze_h128")):
+        km, kb = k3_maze[str(h)], bnd[b]
+        print(f"K3 maze instance, config 5 (B={B_MAIN}, T={TRAIN_T}, H={h}): {km['ms']:.4f} ms per "
+              f"call (bound {kb['bound_ms']:.4f} ms, {kb['bound_by']}, "
+              f"{kb['bound_ms'] / km['ms']:.1%} of it); plain {km['plain_ms']:.1f} ms; "
+              f"{km['resets']:.0f} auto-resets, {km['truncations']:.0f} truncations; {card_line()}")
 
     c4 = train["config4"]
     # K3 at both widths the training paths run: H = 64 (the entry's own
@@ -1926,13 +2275,27 @@ def main():
                        share_not_bit_equal=max(small[f"{key}_obs_differ"],
                                                train[tag]["main_differ"]),
                        obs_dim=train[tag]["obs_dim"], path=tag,
-                       **obs_instance(ptxas, f"{name}_kernel", quad))
+                       **obs_instance(ptxas, f"{name}_kernel", quad,
+                                      "Lb0E" if key == "k3" else ""))
           for name, replaces, tag, key, quad in (
               ("quad3d_policy_rollout", "parallel/fast_policy.py:76", "config4_gh", "k3", ""),
               ("cartpole_policy_rollout", "parallel/fast_cartpole.py:288", "cartpole_noise", "k6",
                ""),
               ("quad_planar_policy_rollout", "parallel/fast_quad_planar.py:677", "quad2d_gh", "k8",
                "Li6ELi2E"))],
+        # K3's maze instances on config 5 (B = 4096, T = 128).
+        kernel_entry("quad3d_policy_rollout_maze", "quad3d_policy_rollout.cu",
+                     "parallel/fast_policy.py:76", k3_maze[str(HIDDEN)]["launches"]["k3_maze"],
+                     k3_maze["max_abs_err"], k3_maze[str(HIDDEN)]["ms"],
+                     k3_maze[str(HIDDEN)]["plain_ms"], bnd["k3_maze"], config=5,
+                     max_abs_err_vs_general_engine=k3_maze["max_abs_err_vs_general_engine"],
+                     resets=k3_maze[str(HIDDEN)]["resets"],
+                     truncations=k3_maze[str(HIDDEN)]["truncations"], group=P.GROUP, block=P.BLOCK,
+                     instances=k3_maze_instances(ptxas), sass=k3_sass,
+                     by_width={"128": {"ms": k3_maze["128"]["ms"],
+                                       "plain_ms": k3_maze["128"]["plain_ms"],
+                                       "bound_ms": bnd["k3_maze_h128"]["bound_ms"],
+                                       "bound_by": bnd["k3_maze_h128"]["bound_by"]}}),
     ]}
     total_s = time.perf_counter() - t_start
     if args.out:
@@ -1946,7 +2309,7 @@ def main():
                        "k2_vs_general_max_abs_err": cross_err,
                        "k2_maze_vs_plain_max_abs_err": maze_err,
                        "k2_maze_vs_general_max_abs_err": maze_cross_err, "serve_maze": serve_mz,
-                       "bounds": bnd,
+                       "bounds": bnd, "k3_maze": k3_maze, "env_surface": surface,
                        "k3_vs_plain_max_abs_err": k3_err, "k4": k4, "ptxas": ptxas,
                        "small_checks": small, "serve_cartpole": serve_cp, "serve_quad2d": serve_q2,
                        "train": train, **res, **kernels_line}, f, indent=1, default=str)

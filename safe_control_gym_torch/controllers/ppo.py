@@ -162,7 +162,8 @@ def fast_rollout_engine(env_cfg):
     """The policy-in-kernel engine of an env config's family and whether the
     config is in its envelope (the JAX package's selection and asserts,
     ppo.py:159-210: the normalized action space, and the goal-horizon rows
-    of the quadrotors)."""
+    of the quadrotors; not the maze, which FastPolicyRollout takes but
+    neither package's PPO sends it)."""
     if isinstance(env_cfg, CartPoleConfig):
         return (fast_cartpole.FastCartPolePolicyRollout,
                 fast_cartpole.supports(env_cfg, allow_normalized=True))

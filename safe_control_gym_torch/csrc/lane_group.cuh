@@ -3,7 +3,7 @@
 // and sines (div_round, sincos_round), the 3D quadrotor's grouped
 // derivative and substeps (fc_group, substeps_group: K1 quad3d_substeps in
 // float and double, and the control step of K2 quad3d_rollout and K3
-// quad3d_policy_rollout, env_step_group; K2's maze instance adds
+// quad3d_policy_rollout, env_step_group; their maze instances add
 // maze.cuh), and the policy kernels' grouped dual MLP (K3, K6
 // cartpole_policy_rollout, K8 quad_planar_policy_rollout).
 //
@@ -232,11 +232,11 @@ __device__ __forceinline__ void step_substeps_group(const RolloutParams& P, EnvR
   substeps_group<G, float>(r.s, b, P.n_sub, P.euler, P.dt, P.dt_half, P.dt_sixth, g);
 }
 
-// One control step without the maze and the step noise (K3, and K2's
-// instance for such configs) over the group: the impulse schedule and the
+// One control step without the maze and the step noise (K2's and K3's
+// instances for such configs) over the group: the impulse schedule and the
 // substeps, then quad3d.cuh::env_step, the rest of the step (goal,
 // violation, reward, done, statistics, auto-reset) on the state they left.
-// K2's maze instance runs maze.cuh::env_step_maze instead.
+// The maze instances of K2 and K3 run maze.cuh::env_step_maze instead.
 template <int G>
 __device__ __forceinline__ void env_step_group(const RolloutParams& P, EnvRows& r,
                                                const ActionTerms& a, StepOut& o, const LaneGroup& g) {

@@ -1,9 +1,11 @@
-// K2's maze envelope (BASELINE config 5): the competition maze's gates and
-// obstacles over a lane group, and the per-step noise of the maze family
-// (action white noise, the uniform dynamics force).  The JAX package's
-// step_env_core branch (safe_control_gym_tpu/parallel/fast_env.py:341-348,
-// :367-370, :393-447, :560-588); plain version
-// parallel/fast_env.py::step_rows / maze_geometry.
+// The maze envelope of K2 and K3 (BASELINE config 5): the competition
+// maze's gates and obstacles over a lane group, and the per-step noise of
+// the maze family (action white noise, the uniform dynamics force).  The
+// JAX package's step_env_core branch (safe_control_gym_tpu/parallel/
+// fast_env.py:341-348, :367-370, :393-447, :560-588), which both its
+// whole-rollout kernels run; plain version parallel/fast_env.py::step_rows
+// / maze_geometry.  K3's group has 8 lanes, K2's 4: a lane past the last
+// gate, obstacle or motor holds none but joins every ballot and shuffle.
 //
 // Layout of the lane group: lane gl holds gates gl, gl + G, ... and
 // obstacles gl, gl + G, ... (their pose rows, and each gate's cos and sin

@@ -119,8 +119,9 @@ __device__ __forceinline__ float slot_uniform(uint32_t base, uint32_t slot) {
 // The whole-rollout engines' control step (K2 quad3d_rollout, K3
 // quad3d_policy_rollout): the JAX package's step_env_core
 // (safe_control_gym_tpu/parallel/fast_env.py:297-590); plain version
-// parallel/fast_env.py::step_rows.  The maze and the step noise are K2's
-// maze instance's (maze.cuh); K3 and K2's other instance compile them out.
+// parallel/fast_env.py::step_rows.  The maze and the step noise are the
+// maze instances' of K2 and K3 (maze.cuh); their other instances compile
+// them out.
 // ---------------------------------------------------------------------------
 
 // Row indices (fast_env.py:48-57).

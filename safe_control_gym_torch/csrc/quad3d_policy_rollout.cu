@@ -7,10 +7,10 @@
 // in-kernel generator, its log-prob, the normalized-action map, the shared
 // env step (scg::env_step_group, also K2's) and one record of the trajectory.
 // Plain version: safe_control_gym_torch/parallel/fast_policy.py::
-// policy_rollout_plain.  Envelope: that of K2 plus the normalized action
-// space, the observation white noise and the goal-horizon observation rows
-// (fast_env.supports(allow_normalized=True, allow_goal_horizon=True)); the
-// maze build of the TPU kernel is not ported.
+// policy_rollout_plain.  Envelope: that of K2 with its maze, plus the
+// normalized action space, the observation white noise and the
+// goal-horizon observation rows (fast_env.supports(allow_normalized=True,
+// allow_maze=True, allow_goal_horizon=True)), as the TPU kernel's.
 //
 // Layout: state rows (27, B) as K2; record (T, 2D + 9, B), D the
 // observation's width (12 without goal rows), row r of step t and env e at
@@ -24,7 +24,14 @@
 // multiple of 32 (policy_mlp.cuh).  Hidden widths 1..128: H = 64 has its
 // own instance.  An observation that is more than the state (noise or goal
 // rows, D up to 128) runs the observation instance (obs_ext.cuh: the
-// observation row in shared memory, D and the width read at run time).
+// observation row in shared memory, D and the width read at run time).  A
+// config with the maze (gates, obstacles or the competition cost), the
+// action white noise or the uniform dynamics force runs the maze instances
+// of each (entry quad3d_policy_rollout_maze): their rows are K2's maze
+// rows (27 + 4 a gate + 2 an obstacle + 4) and their step K2's maze
+// instance's (maze.cuh::env_step_maze, the lanes splitting the gates,
+// obstacles and noisy motors); the action noise is added to the policy's
+// thrust inside the step, and the record keeps the pre-noise action.
 //
 // Design: one env over a group of K3_GROUP lanes of a warp
 // (csrc/lane_group.cuh), its 27 rows in every lane's registers for the
@@ -53,6 +60,7 @@
 #include <cstdint>
 
 #include "lane_group.cuh"
+#include "maze.cuh"
 #include "obs_ext.cuh"
 #include "philox.cuh"
 #include "policy_mlp.cuh"
@@ -79,10 +87,12 @@ struct PolicyParams {
 
 // H: the hidden width, 64, or 0 for a width h read at run time (1..128).
 // G: lanes per env.  OBS: the observation instance (obs_ext.cuh; H = 0),
-// its observation X; the other instances never read X.  The launch bound
-// names one block an SM: with the block size alone ptxas held the H = 64
-// instance at 128 registers and spilled (PERF.md).
-template <int H, int G, bool OBS>
+// its observation X; the other instances never read X.  MAZE: the maze
+// instance (maze.cuh: the maze rows and the step noise); the others compile
+// it out.  The launch bound names one block an SM: with the block size
+// alone ptxas held the H = 64 instance at 128 registers and spilled
+// (PERF.md).
+template <int H, int G, bool OBS, bool MAZE>
 __global__ void __launch_bounds__(BLOCK, 1) quad3d_policy_rollout_kernel(
     const RolloutParams P, const PolicyParams Q, const int* __restrict__ seed_ptr,
     const float* __restrict__ w, int h, const float* __restrict__ rows_in,
@@ -99,6 +109,8 @@ __global__ void __launch_bounds__(BLOCK, 1) quad3d_policy_rollout_kernel(
   scg::EnvRows r;
   scg::load_rows(rows_in, B, g.e, r);
   scg::StepOut o;
+  scg::MazeRows<G> m{};
+  if (MAZE && P.maze) scg::load_maze<G>(P, rows_in, B, g, m);
 
   for (int it = 0; it < P.steps; ++it) {
     float obs[scg::NX];
@@ -125,9 +137,15 @@ __global__ void __launch_bounds__(BLOCK, 1) quad3d_policy_rollout_kernel(
       thr[i] = Q.normalized ? (1.0f + Q.norm_act_scale * scg::clipf(act[i], -1.0f, 1.0f)) * Q.hover_thrust
                             : scg::clipf(act[i], P.a_low, P.a_high);
 
-    // -- shared env step (dynamics, reward, done, statistics, auto-reset).
+    // -- shared env step (dynamics, reward, done, statistics, auto-reset;
+    // in MAZE the step noise on the thrust thr, the maze and the poses'
+    // redraw).
     const scg::ActionTerms a = scg::action_terms(P, thr, act);
-    scg::env_step_group<G>(P, r, a, o, g);
+    if constexpr (MAZE) {
+      scg::env_step_maze<G>(P, r, a, thr, it, seed, o, m, g);
+    } else {
+      scg::env_step_group<G>(P, r, a, o, g);
+    }
 
     // -- one record column.
     if constexpr (OBS) {
@@ -159,13 +177,14 @@ __global__ void __launch_bounds__(BLOCK, 1) quad3d_policy_rollout_kernel(
     }
   }
   if (store) scg::store_rows(rows_out, B, g.e, r);
+  if (MAZE && g.valid && P.maze) scg::store_maze<G>(P, rows_out, B, g, m);
 }
 
-template <int H, int G, bool OBS>
+template <int H, int G, bool OBS, bool MAZE>
 int launch(const RolloutParams& P, const PolicyParams& Q, const int* sd, const float* wp,
            int h, const float* ri, float* ro, float* tr, int B, int block, int grid, int smem,
            cudaStream_t st, const scg::ObsExt& X) {
-  auto kern = quad3d_policy_rollout_kernel<H, G, OBS>;
+  auto kern = quad3d_policy_rollout_kernel<H, G, OBS, MAZE>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -185,8 +204,9 @@ bool plan_ok(int hidden, int B, int group, int block, int grid, int smem, int ro
 
 }  // namespace
 
-// 2: the entry takes the launch plan (fast_policy.py::launch_plan).
-extern "C" int quad3d_policy_rollout_api_version() { return 2; }
+// 2: the entry takes the launch plan (fast_policy.py::launch_plan).  3: and
+// quad3d_policy_rollout_maze runs the maze instances.
+extern "C" int quad3d_policy_rollout_api_version() { return 3; }
 
 // The size of the observation instances' ObsExt (K3, K6 and K8 take it), for
 // the host mirror's check.
@@ -209,8 +229,10 @@ extern "C" int quad3d_policy_rollout(const void* params, int normalized, int rel
   const auto st = static_cast<cudaStream_t>(stream);
   const scg::ObsExt none{};
   return hidden == 64
-             ? launch<64, K3_GROUP, false>(P, Q, sd, wp, hidden, ri, ro, tr, B, block, grid, smem, st, none)
-             : launch<0, K3_GROUP, false>(P, Q, sd, wp, hidden, ri, ro, tr, B, block, grid, smem, st, none);
+             ? launch<64, K3_GROUP, false, false>(P, Q, sd, wp, hidden, ri, ro, tr, B, block, grid, smem,
+                                                  st, none)
+             : launch<0, K3_GROUP, false, false>(P, Q, sd, wp, hidden, ri, ro, tr, B, block, grid, smem,
+                                                 st, none);
 }
 
 // The observation instance (obs_ext.cuh): ext points to the ObsExt of an
@@ -227,9 +249,41 @@ extern "C" int quad3d_policy_rollout_obs(const void* params, const void* ext, in
     return static_cast<int>(cudaErrorInvalidValue);
   const RolloutParams P = *static_cast<const RolloutParams*>(params);
   const PolicyParams Q{normalized, relu, norm_act_scale, hover_thrust};
-  return launch<0, K3_GROUP, true>(P, Q, static_cast<const int*>(seed),
+  return launch<0, K3_GROUP, true, false>(P, Q, static_cast<const int*>(seed),
                                    static_cast<const float*>(wflat), hidden,
                                    static_cast<const float*>(rows_in), static_cast<float*>(rows_out),
                                    static_cast<float*>(traj), B, block, grid, smem,
                                    static_cast<cudaStream_t>(stream), X);
+}
+
+// The maze instances (maze.cuh), for configs with the maze or the step
+// noise: params as quad3d_policy_rollout's, its rows (27 + maze rows, B);
+// ext null for the state observation (H = 64 or the run-time width) or
+// the ObsExt of an observation instance; then the arguments of
+// quad3d_policy_rollout after its params.
+extern "C" int quad3d_policy_rollout_maze(const void* params, const void* ext, int normalized,
+                                          int relu, float norm_act_scale, float hover_thrust,
+                                          int hidden, const void* seed, const void* wflat,
+                                          const void* rows_in, void* rows_out, void* traj, int B,
+                                          int group, int block, int grid, int smem, void* stream) {
+  const RolloutParams P = *static_cast<const RolloutParams*>(params);
+  if (P.maze && (P.n_gates > scg::MAX_GATES || P.n_obst > scg::MAX_OBSTACLES))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const scg::ObsExt X = ext ? *static_cast<const scg::ObsExt*>(ext) : scg::ObsExt{};
+  const int row = ext ? scg::obs_group_row(hidden, X.obs_dim) : scg::mlp_group_row(hidden);
+  if ((ext && (X.goal_blocks < 0 || X.obs_dim != scg::NX * (1 + X.goal_blocks) ||
+               X.obs_dim > scg::MLP_MAX_OBS)) ||
+      !plan_ok(hidden, B, group, block, grid, smem, row))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PolicyParams Q{normalized, relu, norm_act_scale, hover_thrust};
+  const auto* sd = static_cast<const int*>(seed);
+  const auto* wp = static_cast<const float*>(wflat);
+  const auto* ri = static_cast<const float*>(rows_in);
+  auto* ro = static_cast<float*>(rows_out);
+  auto* tr = static_cast<float*>(traj);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (ext) return launch<0, K3_GROUP, true, true>(P, Q, sd, wp, hidden, ri, ro, tr, B, block, grid, smem, st, X);
+  return hidden == 64
+             ? launch<64, K3_GROUP, false, true>(P, Q, sd, wp, hidden, ri, ro, tr, B, block, grid, smem, st, X)
+             : launch<0, K3_GROUP, false, true>(P, Q, sd, wp, hidden, ri, ro, tr, B, block, grid, smem, st, X);
 }

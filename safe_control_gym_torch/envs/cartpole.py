@@ -10,17 +10,19 @@ cart-pole of upstream safe-control-gym, Florian 2007 / Barto et al.):
     x_dd = temp - ml * theta_dd cos(theta) / Mm
 
 integrated with RK4 at the physics rate.  The step clips (or scales the
-normalized action to a force), adds the action disturbances and the
-dynamics force on the cart, computes the rl_reward or quadratic cost, the
-out-of-bound done on x and theta, the goal capture, constraint violations,
+normalized action to a force), adds the adversary's action offset and the
+action disturbances, the dynamics disturbances and the adversary's force
+on the cart (``set_adversary_control`` in ``extras``, RARL/RAP's), computes
+the rl_reward or quadratic cost, the out-of-bound done on x and theta, the
+goal capture, constraint violations (every form, ``envs/constraints.py``),
 the non-finite freeze and the time limit.  Every env of a batch draws its
 own inertia and initial state from the counter PRNG (``ops/ctr_prng.py``,
-slots 0..2 inertia, 3..6 initial state, 7 impulse offset), exactly as the
-JAX package and the whole-rollout engine (``parallel/fast_cartpole.py``)
-draw them.
+slots 0..2 inertia, 3..6 initial state, 7 a single dynamics offset, then
+any other randomized offsets), as the JAX package and the whole-rollout
+engine (``parallel/fast_cartpole.py``) draw them; the JAX package draws the
+other offsets from threefry, so those agree in distribution only.
 
-Not ported yet (``make_cartpole`` raises ``NotImplementedError``): the
-adversary channel and the ``symbolic`` model.
+Not ported yet: the ``symbolic`` model.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ import torch
 from safe_control_gym_torch.envs import benchmark as bm
 from safe_control_gym_torch.envs.benchmark import Cost, EnvSpaces, FnEnv, Task
 from safe_control_gym_torch.envs.constraints import build_constraints
-from safe_control_gym_torch.envs.disturbances import build_disturbances
+from safe_control_gym_torch.envs.disturbances import (build_disturbances, num_offset_slots,
+                                                       scheduled_offsets)
 from safe_control_gym_torch.ops import ctr_prng
 from safe_control_gym_torch.ops.integrators import rk4_step
 from safe_control_gym_torch.utils.device import resolve_device
@@ -128,7 +131,10 @@ class CartPoleState:
     pole_mass: torch.Tensor
     cart_mass: torch.Tensor
     dist_offsets: dict  # channel -> (B, n_scheduled) int32
+    dist_walk: dict  # channel -> (B, walk_dim) brownian walks
     cnstr_violation: torch.Tensor  # bool
+    adv_force: torch.Tensor  # (B, 1) the adversary's force on the cart, next step only
+    adv_act: torch.Tensor  # (B, 1) the adversary's action offset, next step only
 
     def replace(self, **kw) -> "CartPoleState":
         return dataclasses.replace(self, **kw)
@@ -161,8 +167,8 @@ def _weights_vec(w, dim):
 def make_cartpole(config: CartPoleConfig = CartPoleConfig(), device=None) -> FnEnv:
     """Build the batched CartPole env on ``device`` (CUDA by default)."""
     cfg = config
-    if cfg.adversary_disturbance is not None:
-        raise NotImplementedError("not ported yet: the adversary channel")
+    if cfg.adversary_disturbance not in (None, "action", "dynamics"):
+        raise ValueError(f"unknown adversary_disturbance {cfg.adversary_disturbance!r}")
     device = resolve_device(device)
     dtype = cfg.dtype
     task = Task(cfg.task)
@@ -218,16 +224,11 @@ def make_cartpole(config: CartPoleConfig = CartPoleConfig(), device=None) -> FnE
     dist_specs = cfg.disturbances or {}
     dist_progs = {
         ch: build_disturbances(dist_specs.get(ch), dim, cfg.episode_len_sec, cfg.ctrl_freq,
-                               channel=ch)
+                               channel=ch, pyb_freq=cfg.pyb_freq)
         for ch, dim in zip(_CHANNELS, (NX, NU, NU))
     }
-    # A single randomized dynamics offset comes from counter slot 7; the JAX
-    # package draws any other randomized offset from threefry.
-    for ch, prog in dist_progs.items():
-        n = prog.num_scheduled if prog is not None else 0
-        if n > (1 if ch == "dynamics" else 0):
-            raise NotImplementedError(
-                f"not ported yet: {n} randomized step offsets on the {ch} channel")
+    walk_dims = {ch: p.walk_dim if p is not None else 0 for ch, p in dist_progs.items()}
+    n_slots = 8 + num_offset_slots(dist_progs)
 
     # Randomization infos merge into the defaults (unlike the quadrotor's).
     init_rand = {**_DEFAULT_INIT_RAND, **(cfg.init_state_randomization_info or {})}
@@ -277,22 +278,19 @@ def make_cartpole(config: CartPoleConfig = CartPoleConfig(), device=None) -> FnE
         prog = dist_progs["observation"]
         if prog is not None:
             obs = prog.apply(state.dist_offsets["observation"], state.ctrl_step, obs,
-                             (state.env_seed, state.episode_idx))
+                             (state.env_seed, state.episode_idx), state.pyb_step, state.x,
+                             state.dist_walk["observation"])
         return _extend_obs(obs, state.ctrl_step + 1)
 
     def _reset_core(env_seed, episode_idx):
         """Counter-based reset draws (cartpole.py:279-328): slots 0..2
-        inertia, 3..6 initial state, 7 impulse offset."""
+        inertia, 3..6 initial state, 7 a single dynamics offset, then any
+        other randomized offsets (``disturbances.scheduled_offsets``)."""
         B = env_seed.shape[0]
         base = ctr_prng.episode_base(env_seed, episode_idx)
-        u_all = ctr_prng.uniform_slots(base, 8).to(dtype)  # (8, B)
+        u_all = ctr_prng.uniform_slots(base, n_slots).to(dtype)  # (n_slots, B)
         drawn = rand_a + u_all[:7].T * rand_b
-        offsets = {}
-        for ch, prog in dist_progs.items():
-            if prog is not None and prog.num_scheduled:
-                offsets[ch] = torch.floor(u_all[7] * max_steps).to(torch.int32)[:, None]
-            else:
-                offsets[ch] = torch.zeros((B, 0), dtype=torch.int32, device=device)
+        offsets = scheduled_offsets(dist_progs, u_all, 8, 7, max_steps)
         zi = torch.zeros(B, dtype=torch.int32, device=device)
         state = CartPoleState(
             x=drawn[:, 3:7].contiguous(),
@@ -304,7 +302,11 @@ def make_cartpole(config: CartPoleConfig = CartPoleConfig(), device=None) -> FnE
             pole_mass=drawn[:, 1].contiguous(),
             cart_mass=drawn[:, 2].contiguous(),
             dist_offsets=offsets,
+            dist_walk={ch: torch.zeros((B, n), dtype=dtype, device=device)
+                       for ch, n in walk_dims.items()},
             cnstr_violation=torch.zeros(B, dtype=torch.bool, device=device),
+            adv_force=torch.zeros((B, NU), dtype=dtype, device=device),
+            adv_act=torch.zeros((B, NU), dtype=dtype, device=device),
         )
         info = {}
         if constraints is not None:
@@ -320,6 +322,19 @@ def make_cartpole(config: CartPoleConfig = CartPoleConfig(), device=None) -> FnE
         """Next episode of the same envs (the auto-reset path)."""
         return _reset_core(state.env_seed, state.episode_idx + 1)
 
+    def set_adversary_control(state: CartPoleState, adv_action):
+        """The adversary's action for the next step (benchmark_env.py:256-266):
+        clipped to [-1, 1], scaled and offset, as an action offset or a
+        force on the cart, (B, 1)."""
+        adv = torch.clamp(torch.as_tensor(adv_action, dtype=dtype, device=device), -1.0, 1.0)
+        adv = (adv * cfg.adversary_disturbance_scale
+               + cfg.adversary_disturbance_offset).reshape(state.x.shape[0], NU)
+        if cfg.adversary_disturbance == "action":
+            return state.replace(adv_act=adv)
+        if cfg.adversary_disturbance == "dynamics":
+            return state.replace(adv_force=adv)
+        raise RuntimeError("adversary_disturbance is not configured for this env.")
+
     def step(state: CartPoleState, action):
         B = state.x.shape[0]
         identity = (state.env_seed, state.episode_idx)
@@ -330,14 +345,22 @@ def make_cartpole(config: CartPoleConfig = CartPoleConfig(), device=None) -> FnE
         else:
             force = torch.clamp(action, a_low_t, a_high_t)
         preprocessed = force
+        if cfg.adversary_disturbance == "action":
+            # After preprocessing, before the passive action disturbances
+            # (cartpole.py:363-366).
+            force = force + state.adv_act
         if dist_progs["action"] is not None:
             force = dist_progs["action"].apply(
-                state.dist_offsets["action"], state.ctrl_step, force, identity)
-        # Passive dynamics disturbance: extra horizontal force on the cart.
+                state.dist_offsets["action"], state.ctrl_step, force, identity, state.pyb_step,
+                state.x, state.dist_walk["action"])
+        # Passive dynamics disturbance and the adversary's force: extra
+        # horizontal force on the cart.
         ext_force = torch.zeros((B, NU), dtype=dtype, device=device)
         if dist_progs["dynamics"] is not None:
             ext_force = dist_progs["dynamics"].apply(
-                state.dist_offsets["dynamics"], state.ctrl_step, ext_force, identity)
+                state.dist_offsets["dynamics"], state.ctrl_step, ext_force, identity,
+                state.pyb_step, state.x, state.dist_walk["dynamics"])
+        ext_force = ext_force + state.adv_force
 
         def fc(xx, u):
             return cartpole_fc(xx, u + ext_force, state.pole_length, state.pole_mass,
@@ -346,6 +369,9 @@ def make_cartpole(config: CartPoleConfig = CartPoleConfig(), device=None) -> FnE
         x = state.x
         for _ in range(n_sub):
             x = rk4_step(fc, x, force, pyb_dt)
+        # The brownian walks one step on (cartpole.py:391-399).
+        walk = {ch: prog.evolve(state.dist_walk[ch], state.ctrl_step, identity)
+                if prog is not None else state.dist_walk[ch] for ch, prog in dist_progs.items()}
 
         # Reward: the pre-increment step indexes the goal.
         goal = x_goal_t if task == Task.STABILIZATION else _goal_rows(state.ctrl_step)
@@ -399,7 +425,9 @@ def make_cartpole(config: CartPoleConfig = CartPoleConfig(), device=None) -> FnE
         info["TimeLimit.truncated"] = timeout & ~done
         done = done | timeout
         new_state = state.replace(x=x, ctrl_step=new_ctrl, pyb_step=state.pyb_step + n_sub,
-                                  cnstr_violation=violated)
+                                  dist_walk=walk, cnstr_violation=violated,
+                                  adv_force=torch.zeros_like(state.adv_force),
+                                  adv_act=torch.zeros_like(state.adv_act))
         return new_state, _obs(new_state), rew.to(dtype), done, info
 
     return FnEnv(
@@ -413,5 +441,6 @@ def make_cartpole(config: CartPoleConfig = CartPoleConfig(), device=None) -> FnE
         pyb_freq=cfg.pyb_freq,
         episode_len_sec=cfg.episode_len_sec,
         device=device,
-        extras={"reset_episode": reset_episode},
+        extras={"set_adversary_control": set_adversary_control,
+                "reset_episode": reset_episode},
     )

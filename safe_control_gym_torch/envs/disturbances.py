@@ -1,12 +1,15 @@
-"""Batched disturbance injection (impulse, step, uniform and white_noise kinds).
+"""Batched disturbance injection: every kind of the JAX package.
 
-Port of ``safe_control_gym_tpu/envs/disturbances.py`` for the two
-deterministic kinds (``disturbances.py:138-163``), ``uniform`` (:164-170,
-:234-242) and ``white_noise`` (:171-175, :243-250).  A channel's YAML list
-compiles to a ``CompiledDisturbances`` program, a function of the
-per-episode offsets, the step counter and, for the noisy kinds, the env's
-identity.  A randomized offset is drawn at reset from the counter PRNG
-(``envs/quadrotor.py``), so it needs no carried random stream.
+Port of ``safe_control_gym_tpu/envs/disturbances.py``: ``impulse`` and
+``step`` (``disturbances.py:138-163``), ``uniform`` (:164-170), ``white_noise``
+(:171-175) on every channel, ``periodic`` (:176-183), ``brownian`` (:184-186,
+with ``evolve`` :95-116 and its walk state) and ``state_dependent``
+(:187-190).  A channel's YAML list compiles to a ``CompiledDisturbances``
+program, a function of the per-episode schedule (randomized offsets and
+the brownian walk), the step counters, the env's identity (for the noisy
+kinds) and the env state (for ``state_dependent``).  The randomized offsets
+are drawn at reset from the counter PRNG (``envs/quadrotor.py``,
+``envs/cartpole.py``), so they need no carried random stream.
 
 Noisy kinds: the JAX package draws them from a threefry key carried in the
 env state, whose bits the port cannot reproduce.  The port draws them from
@@ -14,17 +17,19 @@ Philox (``ops/philox.py``) keyed on ``(env_seed, episode_idx)`` and counted
 by ``(ctrl_step, entry, block, site)``, where ``entry`` is the entry's index
 in the channel's list and ``site`` the channel's call site (action 1,
 observation 2, dynamics 3): white noise is Box-Muller on each pair of
-draws, uniform ``u * (high - low) + low`` on one draw a dim.  The noise is
-then a pure function of the env's identity and step, with no generator to
-carry, and the CPU and CUDA give the same stream.  It matches the JAX
-package's in distribution only.  White noise on the dynamics channel is not
-ported yet and raises, as do the other noisy kinds (periodic, brownian) and
-state_dependent, when the env is built.
+draws, uniform ``u * (high - low) + low`` on one draw a dim, the periodic
+kind's phase ``-pi + u * 2 pi`` (a fresh phase each application, as the JAX
+package draws one), and the brownian walk's increment ``std * sqrt(ctrl_dt)``
+times a Box-Muller normal (its entry's draws in ``evolve``; ``apply`` adds
+the walk and draws nothing).  The noise is then a pure function of the
+env's identity and step, with no generator to carry, and the CPU and CUDA
+give the same stream.  It matches the JAX package's in distribution only.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -35,22 +40,24 @@ from safe_control_gym_torch.ops import philox
 # Call site (4th Philox counter word) of each channel's noisy kinds.
 NOISE_SITES = {"action": philox.SITE_ACTION, "observation": philox.SITE_OBS,
                "dynamics": philox.SITE_DYNAMICS}
-# The channels whose white noise is ported.
-WHITE_NOISE_CHANNELS = ("action", "observation")
 
 
 @dataclasses.dataclass(frozen=True)
 class _Dist:
-    kind: str  # impulse | step | uniform | white_noise
+    kind: str  # impulse | step | uniform | white_noise | periodic | brownian | state_dependent
     dim: int
     mask: Optional[np.ndarray]
     magnitude: float = 1.0
     step_offset: Optional[int] = None  # None -> randomized per episode
     duration: int = 1
     decay_rate: float = 1.0
-    std: Optional[np.ndarray] = None  # white noise, (dim,)
+    std: Optional[np.ndarray] = None  # white noise and brownian, (dim,)
     low: Optional[np.ndarray] = None  # uniform, (dim,)
     high: Optional[np.ndarray] = None
+    scale: float = 1.0  # periodic
+    frequency: float = 1.0
+    coeff: Optional[np.ndarray] = None  # state_dependent: -coeff * x[state_index]
+    state_index: Optional[np.ndarray] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +68,8 @@ class CompiledDisturbances:
     dim: int
     max_step: int  # EPISODE_LEN_SEC / CTRL_TIMESTEP (disturbances.py:112)
     site: Optional[int] = None  # the channel's Philox call site (noisy kinds)
+    pyb_timestep: float = 1.0  # the periodic kind's clock
+    ctrl_timestep: float = 0.02  # the brownian walk's step
 
     @property
     def num_scheduled(self) -> int:
@@ -68,16 +77,70 @@ class CompiledDisturbances:
         return sum(1 for d in self.dists
                    if d.kind in ("impulse", "step") and d.step_offset is None)
 
-    def apply(self, offsets, ctrl_step, target, identity=None):
-        """Apply all entries in order (disturbances.py:69-79).
+    @property
+    def walk_dim(self) -> int:
+        """Float state carried by the brownian entries (each its dim)."""
+        return sum(d.dim for d in self.dists if d.kind == "brownian")
+
+    def evolve(self, walk, ctrl_step, identity):
+        """The brownian walks one control step on (disturbances.py:95-116):
+        ``W + std * sqrt(ctrl_dt) * N``, N a Box-Muller normal of each
+        brownian entry's Philox draws at ``ctrl_step``.  walk: (B,
+        walk_dim); returned unchanged without brownian entries."""
+        if not self.walk_dim:
+            return walk
+        env_seed, episode_idx = identity
+        parts, wi = [], 0
+        for entry, d in enumerate(self.dists):
+            if d.kind != "brownian":
+                continue
+            u = philox.block_uniforms(ctrl_step, entry, self.site, env_seed, episode_idx,
+                                      2 * d.dim)
+            step = torch.as_tensor(d.std, dtype=walk.dtype, device=walk.device) \
+                * float(np.sqrt(self.ctrl_timestep))
+            parts.append(walk[:, wi:wi + d.dim]
+                         + step * philox.box_muller(u, d.dim).T.to(walk.dtype))
+            wi += d.dim
+        return torch.cat(parts, -1)
+
+    def apply(self, offsets, ctrl_step, target, identity=None, pyb_step=None, x=None,
+              walk=None):
+        """Apply all entries in order (disturbances.py:69-79, :118-193).
 
         offsets: (B, num_scheduled) int32; ctrl_step: (B,) int32;
         target: (B, dim); identity: the envs' ``(env_seed, episode_idx)``
-        int32 tensors, which key the noisy kinds."""
+        int32 tensors, which key the noisy kinds; pyb_step: (B,) int32, the
+        periodic kind's clock; x: (B, nx) the env state, which the
+        state_dependent kind reads; walk: (B, walk_dim), the brownian
+        entries' walks."""
         dtype = target.dtype
         out = target
-        si = 0
+        si = wi = 0
         for entry, d in enumerate(self.dists):
+            mask = (None if d.mask is None
+                    else torch.as_tensor(d.mask, dtype=dtype, device=target.device))
+            if d.kind == "periodic":
+                # scale * sin(2 pi f t + phase), a fresh uniform phase in
+                # [-pi, pi) each application (disturbances.py:176-183).
+                env_seed, episode_idx = identity
+                u = philox.block_uniforms(ctrl_step, entry, self.site, env_seed, episode_idx,
+                                          d.dim).T.to(dtype)
+                phase = -math.pi + u * (2.0 * math.pi)
+                t = pyb_step.to(dtype)[:, None] * self.pyb_timestep
+                noise = d.scale * torch.sin(2.0 * math.pi * d.frequency * t + phase)
+                out = out + (noise if mask is None else noise * mask)
+                continue
+            if d.kind == "brownian":
+                w = walk[:, wi:wi + d.dim].to(dtype)
+                wi += d.dim
+                out = out + (w if mask is None else w * mask)
+                continue
+            if d.kind == "state_dependent":
+                # A friction-like -coeff * x[state_index] (disturbances.py:187-190).
+                coeff = torch.as_tensor(d.coeff, dtype=dtype, device=target.device)
+                noise = coeff * x[:, torch.as_tensor(d.state_index, device=x.device)].to(dtype)
+                out = out - (noise if mask is None else noise * mask)
+                continue
             if d.kind == "uniform":
                 # uniform(sub, (dim,)) * (high - low) + low (disturbances.py:234-242).
                 env_seed, episode_idx = identity
@@ -139,11 +202,13 @@ def build_disturbances(
     episode_len_sec: float,
     ctrl_freq: int,
     channel: Optional[str] = None,
+    pyb_freq: Optional[int] = None,
 ) -> Optional[CompiledDisturbances]:
     """Compile one channel's YAML spec list (reference
     create_disturbance_list, disturbances.py:315-333); ``channel`` names
     the channel (observation, action or dynamics), whose call site keys
-    its white noise."""
+    its noisy kinds; ``pyb_freq`` sets the periodic kind's clock
+    (``ctrl_freq`` where None)."""
     if not specs:
         return None
     dists = []
@@ -171,19 +236,57 @@ def build_disturbances(
                 magnitude=float(spec.get("magnitude", 1.0)),
                 step_offset=spec.get("step_offset"),
             )
-        elif kind == "uniform" and channel in NOISE_SITES:
+        elif kind == "uniform":
             d = _Dist(kind="uniform", dim=dim, mask=mask,
                       low=np.broadcast_to(np.asarray(spec.get("low", 0.0), float), (dim,)).copy(),
                       high=np.broadcast_to(np.asarray(spec.get("high", 1.0), float), (dim,)).copy())
-        elif kind == "white_noise" and channel in WHITE_NOISE_CHANNELS:
-            d = _Dist(kind="white_noise", dim=dim, mask=mask, std=np.broadcast_to(
+        elif kind in ("white_noise", "brownian"):
+            d = _Dist(kind=kind, dim=dim, mask=mask, std=np.broadcast_to(
                 np.asarray(spec.get("std", 1.0), float), (dim,)).copy())
+        elif kind == "periodic":
+            d = _Dist(kind="periodic", dim=dim, mask=mask, scale=float(spec.get("scale", 1.0)),
+                      frequency=float(spec.get("frequency", 1.0)))
+        elif kind == "state_dependent":
+            if spec.get("state_index") is None:
+                raise ValueError("state_dependent needs state_index")
+            state_index = np.asarray(spec["state_index"], np.int64).reshape(-1)
+            if state_index.shape[0] != dim:
+                raise ValueError(f"state_dependent needs {dim} state indices")
+            d = _Dist(kind="state_dependent", dim=dim, mask=mask, state_index=state_index,
+                      coeff=np.broadcast_to(np.asarray(spec.get("coeff", 1.0), float),
+                                            (dim,)).copy())
         else:
-            raise NotImplementedError(
-                f"disturbance_func {kind!r} on the {channel} channel is not ported yet "
-                "(impulse, step and uniform, and white_noise on the action and observation "
-                "channels)")
+            raise ValueError(f"unknown disturbance_func {kind!r}")
+        if d.kind not in ("impulse", "step", "state_dependent") and channel not in NOISE_SITES:
+            raise ValueError(f"the noisy kind {kind!r} needs a channel (its Philox call site)")
         dists.append(d)
     return CompiledDisturbances(
         dists=tuple(dists), dim=dim, max_step=int(episode_len_sec * ctrl_freq),
-        site=NOISE_SITES.get(channel))
+        site=NOISE_SITES.get(channel), pyb_timestep=1.0 / (pyb_freq or ctrl_freq),
+        ctrl_timestep=1.0 / ctrl_freq)
+
+
+def scheduled_offsets(progs, u_all, first_slot: int, single_slot: int, max_steps: int):
+    """Each channel's randomized step offsets, (B, n) int32, from an env's
+    counter draws ``u_all`` (n_slots, B), both ``floor(u * max_steps)``: a
+    single one on the dynamics channel from slot ``single_slot``, as the JAX
+    package draws it (quadrotor.py:722-731, cartpole.py:298-307); every
+    other from the slots at ``first_slot`` on, in channel order (the JAX
+    package's threefry ``randint``, disturbances.py:81-93, which the port
+    matches in distribution only).  ``progs``: channel -> program or None."""
+    out, k = {}, first_slot
+    for ch, prog in progs.items():
+        n = prog.num_scheduled if prog is not None else 0
+        if ch == "dynamics" and n == 1:
+            rows = u_all[single_slot:single_slot + 1]
+        else:
+            rows, k = u_all[k:k + n], k + n
+        out[ch] = torch.floor(rows.T * max_steps).to(torch.int32)
+    return out
+
+
+def num_offset_slots(progs) -> int:
+    """The counter slots :func:`scheduled_offsets` takes from ``first_slot``
+    on: every randomized offset but a single one on the dynamics channel."""
+    n = {ch: prog.num_scheduled if prog is not None else 0 for ch, prog in progs.items()}
+    return sum(n.values()) - (n.get("dynamics") == 1)

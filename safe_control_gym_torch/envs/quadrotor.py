@@ -2,20 +2,30 @@
 
 Port of ``safe_control_gym_tpu/envs/quadrotor.py``: the thrust -> PWM ->
 RPM -> force actuation (with the 1D/2D motor grouping of ``cmd2pwm``),
-``pyb`` (RK4) and ``dyn`` (explicit Euler) physics, stabilization and
-figure8/circle/square trajectory tracking, ``rl_reward``, ``quadratic`` and
-``competition`` costs, box constraints, impulse, step, uniform and
-white-noise disturbances, the competition maze (gates and obstacles with
-their per-episode pose randomization, collision, gate progress and
-completion, ``envs/gates.py``), out-of-bound / collision / completion done
-flags, time-limit truncation and the non-finite freeze.  The 3D physics runs through the K1 substep kernel
-(``ops/quad_substeps.py``); the 1D and 2D bodies (``quad_fc_1d`` /
-``quad_fc_2d``), which had no TPU kernel, are plain PyTorch.  Every env of a
-batch carries its own randomized inertia and initial state, drawn from the
-counter PRNG (``ops/ctr_prng.py``) exactly as the JAX package draws them.
+``pyb`` (RK4) and ``dyn`` (explicit Euler) physics and the aero modes
+``pyb_gnd`` (ground effect), ``pyb_drag`` (drag), ``pyb_dw`` (downwash: no
+effect on a single drone) and ``pyb_gnd_drag_dw`` (``_aero``,
+base_aviary.py:437-496), stabilization and figure8/circle/square
+trajectory tracking, ``rl_reward``, ``quadratic`` and ``competition`` costs,
+every constraint form (``envs/constraints.py``), every disturbance kind
+(``envs/disturbances.py``) with any number of randomized step offsets, the
+adversary channel (``set_adversary_control`` in ``extras``, RARL/RAP's),
+the competition maze (gates and obstacles with their per-episode pose
+randomization, collision, gate progress and completion, ``envs/gates.py``),
+out-of-bound / collision / completion done flags, time-limit truncation
+and the non-finite freeze.  The 3D physics runs through the K1 substep
+kernel (``ops/quad_substeps.py``) but for the ground-effect and drag modes,
+which, as in the JAX package (quadrotor.py:785-789), take the plain
+rigid body (``quad_fc_3d``) with the aero terms in every stage; the 1D and
+2D bodies (``quad_fc_1d`` / ``quad_fc_2d``), which had no TPU kernel, are
+plain PyTorch.  Every env of a batch carries its own randomized inertia
+and initial state, drawn from the counter PRNG (``ops/ctr_prng.py``)
+exactly as the JAX package draws them; the randomized step offsets other
+than a single one on the dynamics channel, which the JAX package draws
+from threefry, come from counter slots after the maze's and agree with
+the JAX package's in distribution only.
 
-Not ported yet (``make_quadrotor`` raises ``NotImplementedError``): the
-aero physics modes, the adversary channel, and the ``symbolic`` model.
+Not ported yet: the ``symbolic`` model.
 """
 
 from __future__ import annotations
@@ -32,14 +42,15 @@ from safe_control_gym_torch.envs import benchmark as bm
 from safe_control_gym_torch.envs import gates as gate_geom
 from safe_control_gym_torch.envs.benchmark import Cost, EnvSpaces, FnEnv, Task
 from safe_control_gym_torch.envs.constraints import build_constraints
-from safe_control_gym_torch.envs.disturbances import build_disturbances
+from safe_control_gym_torch.envs.disturbances import (build_disturbances, num_offset_slots,
+                                                       scheduled_offsets)
 from safe_control_gym_torch.ops import ctr_prng
 from safe_control_gym_torch.ops.integrators import rk4_step
 from safe_control_gym_torch.ops.quad_substeps import GRAVITY as GRAVITY_ACC
 from safe_control_gym_torch.ops.quad_substeps import (  # noqa: F401 (cmd2pwm, pwm2rpm: the env's actuation API)
     ARM_L, KF, MAX_PWM, MIN_PWM, PWM2RPM_CONST, PWM2RPM_SCALE, actuate, cmd2pwm, div, pwm2rpm,
     quad3d_substeps)
-from safe_control_gym_torch.ops.rotations import transform_trajectory
+from safe_control_gym_torch.ops.rotations import rot_xyz, transform_trajectory
 from safe_control_gym_torch.utils.device import resolve_device
 
 BIG = 1e30
@@ -59,6 +70,15 @@ MASS = 0.03454
 J_DIAG = (1.4e-5, 1.4e-5, 2.17e-5)
 KM = 7.94e-12
 GROUND_PLANE_Z = 0.0
+THRUST2WEIGHT = 2.25
+GND_EFF_COEFF = 11.36859
+PROP_RADIUS = 2.31348e-2
+DRAG_COEFF = (9.1785e-7, 9.1785e-7, 10.311e-7)
+# Derived (base_aviary.py:138-147): the ground effect's height clip.
+MAX_RPM = math.sqrt((THRUST2WEIGHT * GRAVITY_ACC * MASS) / (4 * KF))
+MAX_THRUST = 4 * KF * MAX_RPM**2
+GND_EFF_H_CLIP = 0.25 * PROP_RADIUS * math.sqrt(
+    (15 * MAX_RPM**2 * KF * GND_EFF_COEFF) / MAX_THRUST)
 
 # Default randomization infos (reference quadrotor.py:45-134).
 _DEFAULT_INERTIAL_RAND = {
@@ -183,9 +203,15 @@ class QuadState:
     episode_idx: torch.Tensor  # int32
     mass: torch.Tensor
     j_diag: torch.Tensor  # (B, 3)
-    # Per-channel randomized impulse/step offsets, (B, n_scheduled) int32.
+    # Per-channel randomized impulse/step offsets, (B, n_scheduled) int32,
+    # and brownian walks, (B, walk_dim).
     dist_offsets: dict
+    dist_walk: dict
     cnstr_violation: torch.Tensor  # bool
+    # The adversary channel's force (B, 3) and action offset (B, nu), set by
+    # set_adversary_control for the next step and zeroed by it.
+    adv_force: torch.Tensor
+    adv_act: torch.Tensor
     # Competition maze state (empty gate/obstacle axes without a maze).
     gates_eff: torch.Tensor  # (B, NG, 4): x, y, yaw, aperture height
     obstacles_eff: torch.Tensor  # (B, NO, 2)
@@ -280,25 +306,17 @@ def maze_nominal(cfg: QuadrotorConfig):
             np.asarray(cfg.obstacles if cfg.obstacles else np.zeros((0, 6)), float).reshape(-1, 6))
 
 
-def _unsupported(cfg: QuadrotorConfig):
-    """Why the port cannot build this config yet, or None."""
-    if int(cfg.quad_type) not in TYPE_NX_NU:
-        return f"quad_type {cfg.quad_type}"
-    if cfg.physics in ("pyb_gnd", "pyb_drag", "pyb_dw", "pyb_gnd_drag_dw"):
-        return f"physics {cfg.physics!r} (only 'pyb' and 'dyn' are ported)"
-    if cfg.adversary_disturbance is not None:
-        return "the adversary channel"
-    return None
-
-
 def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> FnEnv:
     """Build the batched quadrotor env on ``device`` (CUDA by default)."""
     cfg = config
     if cfg.physics not in ("pyb", "dyn", "pyb_gnd", "pyb_drag", "pyb_dw", "pyb_gnd_drag_dw"):
         raise ValueError(f"unknown physics mode {cfg.physics!r}")
-    missing = _unsupported(cfg)
-    if missing is not None:
-        raise NotImplementedError(f"not ported yet: {missing}")
+    if int(cfg.quad_type) not in TYPE_NX_NU:
+        raise ValueError(f"unknown quad_type {cfg.quad_type}")
+    if cfg.adversary_disturbance not in (None, "action", "dynamics"):
+        raise ValueError(f"unknown adversary_disturbance {cfg.adversary_disturbance!r}")
+    use_gnd = cfg.physics in ("pyb_gnd", "pyb_gnd_drag_dw")
+    use_drag = cfg.physics in ("pyb_drag", "pyb_gnd_drag_dw")
     device = resolve_device(device)
     dtype = cfg.dtype
     quad_type = QuadType(int(cfg.quad_type))
@@ -405,17 +423,10 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
     dyn_dim = int(quad_type)  # DISTURBANCE_MODES dims (quadrotor.py:808-813)
     dist_progs = {
         ch: build_disturbances(dist_specs.get(ch), dim, cfg.episode_len_sec, cfg.ctrl_freq,
-                               channel=ch)
+                               channel=ch, pyb_freq=cfg.pyb_freq)
         for ch, dim in zip(_CHANNELS, (nx, nu, dyn_dim))
     }
-    # Randomized offsets come from counter slot 4+nx, which the JAX package
-    # uses for a single randomized dynamics offset only; its other
-    # randomized offsets come from threefry, which the port does not replay.
-    for ch, prog in dist_progs.items():
-        n = prog.num_scheduled if prog is not None else 0
-        if n > (1 if ch == "dynamics" else 0):
-            raise NotImplementedError(
-                f"not ported yet: {n} randomized step offsets on the {ch} channel")
+    walk_dims = {ch: p.walk_dim if p is not None else 0 for ch, p in dist_progs.items()}
 
     # Randomization infos replace the defaults when given; the defaults are
     # filtered to this quad type's fields (quadrotor.py:485-496).
@@ -482,7 +493,8 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
         prog = dist_progs["observation"]
         if prog is not None:
             obs = prog.apply(state.dist_offsets["observation"], state.ctrl_step, obs,
-                             (state.env_seed, state.episode_idx))
+                             (state.env_seed, state.episode_idx), state.pyb_step, state.x,
+                             state.dist_walk["observation"])
         return _extend_obs(obs, state.ctrl_step + 1)
 
     def _pos3d(x):
@@ -508,7 +520,8 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
     rand_a = dev(nominal + rand_lo)
     rand_b = dev(rand_hi - rand_lo)
     m0 = 4 + nx + 1
-    n_slots = m0 + 3 * NG + 2 * NO
+    n_maze = m0 + 3 * NG + 2 * NO  # the offsets' slots after the maze's
+    n_slots = n_maze + num_offset_slots(dist_progs)
 
     def _maze_poses(u_all, B):
         """Per-env gate (x, y, yaw, height) and obstacle (x, y) poses: the
@@ -524,7 +537,7 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
                 g_xy = g_xy + glo + ug[..., :2] * (ghi - glo)
                 g_yaw = g_yaw + glo + ug[..., 2] * (ghi - glo)
             if NO:
-                uo = u_all[m0 + 3 * NG:n_slots].T.reshape(B, NO, 2)
+                uo = u_all[m0 + 3 * NG:n_maze].T.reshape(B, NO, 2)
                 olo, ohi = float(o_rand["low"]), float(o_rand["high"])
                 o_xy = o_xy + olo + uo * (ohi - olo)
         gates_eff = torch.cat([g_xy, g_yaw[..., None], g_h_nom.expand(B, NG)[..., None]], -1)
@@ -532,20 +545,15 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
 
     def _reset_core(env_seed, episode_idx):
         """Counter-based reset draws: slots 0..3 inertia, 4..4+nx-1 initial
-        state, 4+nx the impulse offset, then 3 per gate (x, y, yaw) and 2 per
-        obstacle (x, y) (quadrotor.py:660-744)."""
+        state, 4+nx a single dynamics offset, then 3 per gate (x, y, yaw) and
+        2 per obstacle (x, y) (quadrotor.py:660-744), then any other
+        randomized offsets (``disturbances.scheduled_offsets``)."""
         B = env_seed.shape[0]
         base = ctr_prng.episode_base(env_seed, episode_idx)
         u_all = ctr_prng.uniform_slots(base, n_slots).to(dtype)  # (n_slots, B)
         drawn = rand_a + u_all[: 4 + nx].T * rand_b
         gates_eff, obstacles_eff = _maze_poses(u_all, B)
-        offsets = {}
-        for ch, prog in dist_progs.items():
-            n = prog.num_scheduled if prog is not None else 0
-            if n:
-                offsets[ch] = torch.floor(u_all[4 + nx] * max_steps).to(torch.int32)[:, None]
-            else:
-                offsets[ch] = torch.zeros((B, 0), dtype=torch.int32, device=device)
+        offsets = scheduled_offsets(dist_progs, u_all, n_maze, 4 + nx, max_steps)
         zi = torch.zeros(B, dtype=torch.int32, device=device)
         zb = torch.zeros(B, dtype=torch.bool, device=device)
         state = QuadState(
@@ -557,7 +565,11 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
             mass=drawn[:, 0].contiguous(),
             j_diag=drawn[:, 1:4].contiguous(),
             dist_offsets=offsets,
+            dist_walk={ch: torch.zeros((B, n), dtype=dtype, device=device)
+                       for ch, n in walk_dims.items()},
             cnstr_violation=zb,
+            adv_force=torch.zeros((B, 3), dtype=dtype, device=device),
+            adv_act=torch.zeros((B, nu), dtype=dtype, device=device),
             gates_eff=gates_eff,
             obstacles_eff=obstacles_eff,
             current_gate=zi,
@@ -581,16 +593,78 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
         """Next episode of the same envs (the auto-reset path)."""
         return _reset_core(state.env_seed, state.episode_idx + 1)
 
-    def _planar_substeps(x, thrust, ext, mass, j_diag):
-        """1D/2D actuation and physics substeps (quadrotor.py:834-865)."""
-        forces = planar_forces(thrust, n_motor)
+    drag_coeff = torch.tensor(DRAG_COEFF, dtype=dtype, device=device)
+
+    def _aero(x, forces, ext_f3):
+        """Ground effect and drag (base_aviary.py:437-496; quadrotor.py:597-630):
+        the ground effect adds per-motor thrust by the CoM height, the drag a
+        body-frame force proportional to the body-frame velocity and the
+        propellers' total speed."""
+        zero = torch.zeros_like(x[:, 0])
         if quad_type == QuadType.ONE_D:
-            fc = lambda xx, f: quad_fc_1d(xx, f, mass, ext[:, 0])  # noqa: E731
+            z, vel = x[:, 0], torch.stack([zero, zero, x[:, 1]], -1)
+            phi = theta = zero
+            rob = torch.eye(3, dtype=x.dtype, device=x.device).expand(x.shape[0], 3, 3)
+        elif quad_type == QuadType.TWO_D:
+            z, vel = x[:, 2], torch.stack([x[:, 1], zero, x[:, 3]], -1)
+            phi, theta = zero, x[:, 4]
+            rob = rot_xyz(zero, theta, zero)
         else:
-            fc = lambda xx, f: quad_fc_2d(xx, f, mass, j_diag[:, 1], ext[:, 0], ext[:, 1])  # noqa: E731
+            z, vel = x[:, 4], torch.stack([x[:, 1], x[:, 3], x[:, 5]], -1)
+            phi, theta = x[:, 6], x[:, 7]
+            rob = rot_xyz(phi, theta, x[:, 8])
+        if use_gnd:
+            h = torch.clamp_min(z, GND_EFF_H_CLIP)
+            ge = forces * GND_EFF_COEFF * ((PROP_RADIUS / (4 * h)) ** 2)[:, None]
+            upright = (phi.abs() < math.pi / 2) & (theta.abs() < math.pi / 2)
+            forces = forces + torch.where(upright[:, None], ge, torch.zeros_like(ge))
+        if use_drag:
+            rpm_sum = (2 * math.pi * torch.sqrt(div(forces, KF)) / 60).sum(-1)
+            drag_body = -drag_coeff * rpm_sum[:, None] * torch.einsum("bji,bj->bi", rob, vel)
+            ext_f3 = ext_f3 + torch.einsum("bij,bj->bi", rob, drag_body)
+        return forces, ext_f3
+
+    def _fc(x, forces, mass, j_diag, ext_f3):
+        """x' of the body of this quad type (quadrotor.py:585-595), with the
+        aero terms where the physics mode has them."""
+        if use_gnd or use_drag:
+            forces, ext_f3 = _aero(x, forces, ext_f3)
+        if quad_type == QuadType.ONE_D:
+            return quad_fc_1d(x, forces, mass, ext_f3[:, 2])
+        if quad_type == QuadType.TWO_D:
+            return quad_fc_2d(x, forces, mass, j_diag[:, 1], ext_f3[:, 0], ext_f3[:, 2])
+        return quad_fc_3d(x, forces, mass, j_diag, ext_f3)
+
+    def _plain_substeps(x, thrust, ext_f3, mass, j_diag):
+        """The actuation and the physics substeps in plain PyTorch
+        (quadrotor.py:834-865): the 1D and 2D bodies, and the 3D body in the
+        ground-effect and drag modes."""
+        forces = actuate(thrust) if three_d else planar_forces(thrust, n_motor)
+        fc = lambda xx, f: _fc(xx, f, mass, j_diag, ext_f3)  # noqa: E731
         for _ in range(n_sub):
             x = x + pyb_dt * fc(x, forces) if cfg.physics == "dyn" else rk4_step(fc, x, forces, pyb_dt)
         return x
+
+    def set_adversary_control(state: QuadState, adv_action):
+        """The adversary's action for the next step (benchmark_env.py:256-266):
+        clipped to [-1, 1], scaled and offset, as an action offset (B, nu)
+        or a world force (B, 3: the 1D quad's on z, the 2D quad's on x and
+        z)."""
+        adv = torch.clamp(torch.as_tensor(adv_action, dtype=dtype, device=device), -1.0, 1.0)
+        adv = adv * cfg.adversary_disturbance_scale + cfg.adversary_disturbance_offset
+        adv = adv.reshape(state.x.shape[0], -1)
+        if cfg.adversary_disturbance == "action":
+            return state.replace(adv_act=adv.reshape(-1, nu))
+        if cfg.adversary_disturbance == "dynamics":
+            zero = torch.zeros_like(adv[:, 0])
+            if quad_type == QuadType.ONE_D:
+                f = torch.stack([zero, zero, adv[:, 0]], -1)
+            elif quad_type == QuadType.TWO_D:
+                f = torch.stack([adv[:, 0], zero, adv[:, 1]], -1)
+            else:
+                f = adv.reshape(-1, 3)
+            return state.replace(adv_force=f)
+        raise RuntimeError("adversary_disturbance is not configured for this env.")
 
     def step(state: QuadState, action):
         B = state.x.shape[0]
@@ -605,18 +679,33 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
         preprocessed = thrust
         if dist_progs["action"] is not None:
             thrust = dist_progs["action"].apply(
-                state.dist_offsets["action"], state.ctrl_step, thrust, identity)
+                state.dist_offsets["action"], state.ctrl_step, thrust, identity, state.pyb_step,
+                state.x, state.dist_walk["action"])
+        if cfg.adversary_disturbance == "action":
+            thrust = thrust + state.adv_act
         ext = torch.zeros((B, dyn_dim), dtype=dtype, device=device)
         if dist_progs["dynamics"] is not None:
             ext = dist_progs["dynamics"].apply(
-                state.dist_offsets["dynamics"], state.ctrl_step, ext, identity)
-        if three_d:
+                state.dist_offsets["dynamics"], state.ctrl_step, ext, identity, state.pyb_step,
+                state.x, state.dist_walk["dynamics"])
+        # The world force (quadrotor.py:880-887): the 1D quad's on z, the 2D
+        # quad's on x and z.
+        zero = torch.zeros_like(ext[:, 0])
+        ext_f3 = (torch.stack([zero, zero, ext[:, 0]], -1) if quad_type == QuadType.ONE_D
+                  else torch.stack([ext[:, 0], zero, ext[:, 1]], -1)
+                  if quad_type == QuadType.TWO_D else ext)
+        if cfg.adversary_disturbance == "dynamics":
+            ext_f3 = ext_f3 + state.adv_force
+        if three_d and not (use_gnd or use_drag):
             # K1: actuation pipeline and all physics substeps in one launch.
             x = quad3d_substeps(
-                state.x, thrust.contiguous(), ext.contiguous(), state.mass, state.j_diag,
+                state.x, thrust.contiguous(), ext_f3.contiguous(), state.mass, state.j_diag,
                 dt=pyb_dt, n_sub=n_sub, euler=(cfg.physics == "dyn"), actuation=True)
         else:
-            x = _planar_substeps(state.x, thrust, ext, state.mass, state.j_diag)
+            x = _plain_substeps(state.x, thrust, ext_f3, state.mass, state.j_diag)
+        # The brownian walks one step on (quadrotor.py:912-918).
+        walk = {ch: prog.evolve(state.dist_walk[ch], state.ctrl_step, identity)
+                if prog is not None else state.dist_walk[ch] for ch, prog in dist_progs.items()}
 
         # Competition info: collision, gate progress (quadrotor.py:884-962).
         info = {}
@@ -732,7 +821,10 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
             x=x,
             ctrl_step=new_ctrl,
             pyb_step=state.pyb_step + n_sub,
+            dist_walk=walk,
             cnstr_violation=violated,
+            adv_force=torch.zeros_like(state.adv_force),
+            adv_act=torch.zeros_like(state.adv_act),
             current_gate=new_gate,
             stepped_through_gate=stepped,
             currently_collided=collided,
@@ -753,5 +845,6 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
         pyb_freq=cfg.pyb_freq,
         episode_len_sec=cfg.episode_len_sec,
         device=device,
-        extras={"reset_episode": reset_episode},
+        extras={"set_adversary_control": set_adversary_control,
+                "reset_episode": reset_episode},
     )

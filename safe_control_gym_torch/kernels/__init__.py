@@ -63,6 +63,10 @@ _SIGNATURES = {
     # then the arguments of quad3d_policy_rollout after its params
     "quad3d_policy_rollout_obs": [_P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _P],
+    # the maze instances: params, ObsExt or null (the state observation),
+    # then the arguments of quad3d_policy_rollout after its params
+    "quad3d_policy_rollout_maze": [_P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _P],
     "quad3d_policy_rollout_api_version": [],
     "obs_ext_params_size": [],
     # nx, nu, H, mb, plan (int[8], written)

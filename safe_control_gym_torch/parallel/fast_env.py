@@ -31,8 +31,8 @@ policy engine's (``parallel/fast_policy.py``, ``allow_normalized=True``,
 map and reads no observation.  Observation white noise (one scalar std) is
 in both envelopes: the constant-action engine never reads the observation,
 so its rows do not change; the policy engine draws it (Philox call site 2,
-:func:`obs_noise_rows`).  The policy engine refuses the maze envelope
-(``allow_maze``).
+:func:`obs_noise_rows`).  The policy engine takes the maze envelope too
+(``allow_maze``), as the JAX package's does; the PPO trainer does not.
 
 :func:`step_rows` is the plain version of the control step both kernels
 share (``scg::env_step_group`` in ``csrc/lane_group.cuh``);
@@ -945,6 +945,33 @@ def reset_rows(p, env_seeds):
     return rows
 
 
+def pack_states(p, env_states, dev):
+    """A batched general-engine ``QuadState`` as packed rows (total_rows(p),
+    B) on device ``dev``, the maze rows included (both 3D engines' ``pack``)."""
+    B = env_states.x.shape[0]
+    rows = torch.zeros((total_rows(p), B), dtype=torch.float32, device=dev)
+    rows[:_NX] = env_states.x.to(dev, torch.float32).T
+    rows[_R_MASS] = env_states.mass.to(dev, torch.float32)
+    rows[_R_J:_R_J + 3] = env_states.j_diag.to(dev, torch.float32).T
+    rows[_R_STEP] = env_states.ctrl_step.to(dev, torch.float32)
+    offsets = env_states.dist_offsets.get("dynamics")
+    if offsets is not None and offsets.shape[-1]:
+        rows[_R_OFFSET] = offsets[:, 0].to(dev, torch.float32)
+    rows[_R_SEED] = ctr_prng.seed_to_row(env_states.env_seed.to(dev))
+    rows[_R_EP] = env_states.episode_idx.to(dev, torch.float32)
+    if p["maze"]:
+        NG, NO = p["n_gates"], p["n_obstacles"]
+        rows[_NROWS:_NROWS + 4 * NG] = env_states.gates_eff.to(dev, torch.float32).reshape(
+            B, 4 * NG).T
+        rows[_NROWS + 4 * NG:_NROWS + 4 * NG + 2 * NO] = env_states.obstacles_eff.to(
+            dev, torch.float32).reshape(B, 2 * NO).T
+        mz = _NROWS + 4 * NG + 2 * NO
+        for k, field in enumerate(("current_gate", "steps_at_goal", "task_completed",
+                                   "cnstr_violation")):
+            rows[mz + k] = getattr(env_states, field).to(dev, torch.float32)
+    return rows
+
+
 class FastQuadRollout:
     """Host wrapper: packed state + one-launch rollout calls."""
 
@@ -967,29 +994,7 @@ class FastQuadRollout:
 
     def pack(self, env_states):
         """Pack a batched general-engine ``QuadState`` into rows."""
-        dev = self.device
-        rows = torch.zeros((self.n_rows, self.B), dtype=torch.float32, device=dev)
-        rows[:_NX] = env_states.x.to(dev, torch.float32).T
-        rows[_R_MASS] = env_states.mass.to(dev, torch.float32)
-        rows[_R_J:_R_J + 3] = env_states.j_diag.to(dev, torch.float32).T
-        rows[_R_STEP] = env_states.ctrl_step.to(dev, torch.float32)
-        offsets = env_states.dist_offsets.get("dynamics")
-        if offsets is not None and offsets.shape[-1]:
-            rows[_R_OFFSET] = offsets[:, 0].to(dev, torch.float32)
-        rows[_R_SEED] = ctr_prng.seed_to_row(env_states.env_seed.to(dev))
-        rows[_R_EP] = env_states.episode_idx.to(dev, torch.float32)
-        p = self.params
-        if p["maze"]:
-            NG, NO = p["n_gates"], p["n_obstacles"]
-            rows[_NROWS:_NROWS + 4 * NG] = env_states.gates_eff.to(dev, torch.float32).reshape(
-                self.B, 4 * NG).T
-            rows[_NROWS + 4 * NG:_NROWS + 4 * NG + 2 * NO] = env_states.obstacles_eff.to(
-                dev, torch.float32).reshape(self.B, 2 * NO).T
-            mz = _NROWS + 4 * NG + 2 * NO
-            for k, field in enumerate(("current_gate", "steps_at_goal", "task_completed",
-                                       "cnstr_violation")):
-                rows[mz + k] = getattr(env_states, field).to(dev, torch.float32)
-        return rows
+        return pack_states(self.params, env_states, self.device)
 
     def states(self, rows):
         """(B, 12) state matrix from packed rows."""

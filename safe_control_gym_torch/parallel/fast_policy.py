@@ -6,10 +6,10 @@ control steps for every env: the observation (the state rows, with the
 observation white noise and the goal-horizon rows where the config has
 them), the dual actor+critic MLP forward on it, a Box-Muller Gaussian
 sample from Philox uniforms (``ops/philox.py``), its log-prob, the
-normalized-action map, the control step K2 also runs (``step_rows``), and
-one record per step.  CUDA tensors launch ``csrc/quad3d_policy_rollout.cu``;
-CPU tensors take the plain version :func:`policy_rollout_plain`; anything
-else raises.
+normalized-action map, the control step K2 also runs (``step_rows``, with
+the maze and the step noise where the config has them), and one record per
+step.  CUDA tensors launch ``csrc/quad3d_policy_rollout.cu``; CPU tensors
+take the plain version :func:`policy_rollout_plain`; anything else raises.
 
 Record layout (the JAX rows, ``fast_policy.py:62-71``), stored (T, 2 D + 9,
 B) with the batch last, D the observation's width (12 x ``obs_mul``): obs
@@ -18,9 +18,15 @@ observation masked to truncated steps for the GAE bootstrap (33 rows at D =
 12).  Weights keep the packed dual-network layout of ``pack_weights``
 (``fast_policy.py:296-330``).
 
-Envelope: ``fast_env.supports(cfg, allow_normalized=True,
-allow_goal_horizon=True)``, the JAX PPO's (``controllers/ppo.py:207-210``),
-with the observation capped at ``MAX_OBS`` = 128 rows.
+Envelope: ``fast_env.supports(cfg, allow_normalized=True, allow_maze=True,
+allow_goal_horizon=True)``, the JAX K3's (``fast_policy.py:236-237``): with
+the competition maze (BASELINE config 5: gates, obstacles, the competition
+cost, collision and completion done, action white noise and the uniform
+dynamics force), the observation capped at ``MAX_OBS`` = 128 rows and the
+maze at ``MAX_GATES`` gates and ``MAX_OBSTACLES`` obstacles.  The state rows
+are K2's (``fast_env.total_rows``: 27, and the maze rows).  The PPO
+trainer's envelope is narrower, as the JAX PPO's (``controllers/ppo.py:
+207-210``): no maze.
 """
 
 from __future__ import annotations
@@ -180,7 +186,11 @@ def policy_rollout_loop(p, rows, weights, seed, nx: int, nu: int, thrust_fn, ste
 
 def policy_rollout_plain(p, rows, weights, seed):
     """Plain PyTorch version of K3: ``p['steps']`` policy-driven control
-    steps on ``rows`` (27, B).
+    steps on ``rows`` (``fast_env.total_rows(p)``, B).  The step's noise
+    (action white noise, the uniform force: ``fast_env.step_noise``) takes
+    the call's seed, as K2's does; the thrust it noises is the policy's
+    (pre-noise) thrust, which the reward's action terms read, and the
+    record keeps the pre-noise action (JAX fast_policy.py:150-173).
 
     ``weights``: (w1, b1, w2, b2, w3, b3, logstd) from :func:`pack_weights`;
     ``seed``: int32 tensor of one element.  Returns (rows, traj (T, 2 D +
@@ -191,9 +201,17 @@ def policy_rollout_plain(p, rows, weights, seed):
     else:
         def thrust(a):
             return torch.clamp(a, p["a_low"], p["a_high"])
-    return policy_rollout_loop(p, rows, weights, seed, FE._NX, 4, thrust,
-                               lambda c, thr, act, it: FE.step_rows(p, c, thr, act),
-                               FE._R_STEP, FE.eval_goal)
+    env = torch.arange(rows.shape[1], device=rows.device)
+    return policy_rollout_loop(
+        p, rows, weights, seed, FE._NX, 4, thrust,
+        lambda c, thr, act, it: FE.step_rows(p, c, thr, act, FE.step_noise(p, seed, it, env)),
+        FE._R_STEP, FE.eval_goal)
+
+
+def maze_instance(p) -> bool:
+    """Whether a config runs K3's maze instances: the maze, the action white
+    noise or the uniform dynamics force (K2's maze instance's envelope)."""
+    return p["maze"] or p["act_noise_std"] > 0.0 or p["dyn_uniform"] is not None
 
 
 MLP_CHUNK = 32  # csrc/policy_mlp.cuh: second-layer units a run-time-width kernel sums at a time
@@ -265,21 +283,23 @@ def policy_rollout(p, rows, weights, seed):
 
     CPU tensors take the plain version; CUDA float32 tensors launch
     ``csrc/quad3d_policy_rollout.cu`` (its observation instance where the
-    observation is more than the state, :func:`obs_ext`); anything else
-    raises."""
+    observation is more than the state, :func:`obs_ext`; its maze instances
+    where :func:`maze_instance`); anything else raises."""
     tensors = [rows, seed, *weights]
     if all(t.device.type == "cpu" for t in tensors):
         return policy_rollout_plain(p, rows, weights, seed)
     B = rows.shape[-1]
     H2, D = weights[0].shape[0], obs_dim(p, FE._NX)
     shapes = ((H2, D), (H2, 1), (H2, H2), (H2, 1), (8, H2), (8, 1), (4,))
-    ok = (tuple(rows.shape) == (FE._NROWS, B) and seed.numel() == 1 and seed.dtype == torch.int32
+    ok = (tuple(rows.shape) == (FE.total_rows(p), B) and seed.numel() == 1
+          and seed.dtype == torch.int32
           and all(tuple(t.shape) == s for t, s in zip(weights, shapes))
           and all(t.device == rows.device and t.device.type == "cuda" for t in tensors)
           and all(t.dtype == torch.float32 for t in [rows, *weights]))
     if not ok or H2 % 2 or not 1 <= H2 // 2 <= MAX_HIDDEN or p["mlp_act"] not in ("tanh", "relu"):
         raise ValueError(
-            f"policy_rollout takes float32 rows (27, B), packed weights of hidden 1..{MAX_HIDDEN} "
+            f"policy_rollout takes float32 rows ({FE.total_rows(p)}, B), packed weights of hidden "
+            f"1..{MAX_HIDDEN} "
             f"for obs {D} and an int32 seed on one CUDA device, tanh or relu; got rows "
             f"{tuple(rows.shape)} {rows.dtype} {rows.device}, "
             f"weights {[tuple(t.shape) for t in weights]}, act {p['mlp_act']!r}")
@@ -297,22 +317,31 @@ def policy_rollout(p, rows, weights, seed):
             float(p["hover_thrust"]), H2 // 2, seed.data_ptr(), wflat.data_ptr(),
             rows.data_ptr(), out.data_ptr(), traj.data_ptr(), B)
     ext = obs_ext(p, FE._NX)
-    if ext is None:
-        code = lib.quad3d_policy_rollout(ctypes.addressof(params), *args,
-                                         *launch_plan(B, H2 // 2), kernels.stream_ptr(rows.device))
-    else:
+    if ext is not None:
         check_obs_ext_size(lib)
-        code = lib.quad3d_policy_rollout_obs(
-            ctypes.addressof(params), ctypes.addressof(ext), *args,
-            *launch_plan(B, H2 // 2, obs_dim=D), kernels.stream_ptr(rows.device))
+    plan = launch_plan(B, H2 // 2, obs_dim=0 if ext is None else D)
+    maze = maze_instance(p)
+    if maze:
+        if lib.quad3d_rollout_params_size() != ctypes.sizeof(params):
+            raise RuntimeError("RolloutParams differs between fast_env.py and quad3d_rollout.cu")
+        code = lib.quad3d_policy_rollout_maze(
+            ctypes.addressof(params), None if ext is None else ctypes.addressof(ext), *args,
+            *plan, kernels.stream_ptr(rows.device))
+    elif ext is None:
+        code = lib.quad3d_policy_rollout(ctypes.addressof(params), *args, *plan,
+                                         kernels.stream_ptr(rows.device))
+    else:
+        code = lib.quad3d_policy_rollout_obs(ctypes.addressof(params), ctypes.addressof(ext),
+                                             *args, *plan, kernels.stream_ptr(rows.device))
     kernels.check(code, "quad3d_policy_rollout")
     policy_rollout.launches += 1
     policy_rollout.obs_launches += ext is not None
+    policy_rollout.maze_launches += maze
     return out, traj
 
 
-# Launches of K3, and of its observation instance among them.
-policy_rollout.launches = policy_rollout.obs_launches = 0
+# Launches of K3, and of its observation and maze instances among them.
+policy_rollout.launches = policy_rollout.obs_launches = policy_rollout.maze_launches = 0
 
 
 def unpack_record(traj, obs_dim: int, nu: int):
@@ -389,7 +418,7 @@ class FastPolicyRollout:
         _act_fn(mlp_act)
         check_hidden(mlp_hidden)
         self.params = FE.build_engine_params(env, steps_per_call, allow_normalized=True,
-                                             allow_goal_horizon=True)
+                                             allow_maze=True, allow_goal_horizon=True)
         self.params["mlp_act"] = mlp_act
         self.obs_dim = obs_dim(self.params, FE._NX)
         self.traj_rows = 2 * self.obs_dim + 9
@@ -412,6 +441,11 @@ class FastPolicyRollout:
     def states(self, rows):
         """(B, 12) state matrix from packed rows."""
         return rows[:FE._NX].T
+
+    def pack(self, env_states):
+        """Pack a batched general-engine ``QuadState`` into rows (K2's
+        ``FastQuadRollout.pack``: the maze rows included)."""
+        return FE.pack_states(self.params, env_states, self.device)
 
     def observe(self, rows, generator=None):
         """(B, D) observation from packed rows: :func:`observe_rows` at the

@@ -12,8 +12,9 @@ leading batch axis; ``dist_sched`` as the nested dict of channel ->
 ``{"offsets": ..., "walk": ...}`` or an empty array).
 :func:`quad_state_from_numpy` and :func:`cartpole_state_from_numpy` return
 the port's state on a given device, so that both packages can start from
-the same state.  The PRNG key and the adversary fields have no counterpart
-in the port and are dropped.
+the same state: the offsets, the brownian walks and the adversary's
+pending force and action offset included.  The PRNG key has no
+counterpart in the port and is dropped.
 """
 
 from __future__ import annotations
@@ -28,16 +29,19 @@ _INT_FIELDS = ("ctrl_step", "pyb_step", "env_seed", "episode_idx", "current_gate
                "steps_at_goal")
 _BOOL_FIELDS = ("cnstr_violation", "stepped_through_gate", "currently_collided",
                 "at_goal_pos", "task_completed")
-_FLOAT_FIELDS = ("x", "mass", "j_diag", "gates_eff", "obstacles_eff")
+_FLOAT_FIELDS = ("x", "mass", "j_diag", "gates_eff", "obstacles_eff", "adv_force", "adv_act")
 
 
-def _offsets(sched, batch: int) -> np.ndarray:
-    """A channel's (B, n) int32 offsets from the JAX schedule entry."""
+def _sched(sched, key: str, batch: int, dtype) -> np.ndarray:
+    """A channel's (B, n) ``offsets`` or ``walk`` from the JAX schedule entry
+    (a plain offsets array in older states)."""
     if isinstance(sched, dict):
-        sched = sched.get("offsets")
+        sched = sched.get(key)
+    elif key == "walk":
+        sched = None
     if sched is None:
-        return np.zeros((batch, 0), np.int32)
-    return np.asarray(sched, np.int32).reshape(batch, -1)
+        return np.zeros((batch, 0), dtype)
+    return np.asarray(sched, dtype).reshape(batch, -1)
 
 
 def _state_from_numpy(cls, fields, device, dtype, float_fields, int_fields, bool_fields):
@@ -54,10 +58,11 @@ def _state_from_numpy(cls, fields, device, dtype, float_fields, int_fields, bool
     for name in bool_fields:
         kw[name] = put(np.asarray(fields[name]).astype(bool), torch.bool)
     sched = fields.get("dist_sched", {})
-    kw["dist_offsets"] = {
-        ch: put(_offsets(sched.get(ch), batch), torch.int32)
-        for ch in ("observation", "action", "dynamics")
-    }
+    channels = ("observation", "action", "dynamics")
+    kw["dist_offsets"] = {ch: put(_sched(sched.get(ch), "offsets", batch, np.int32), torch.int32)
+                          for ch in channels}
+    kw["dist_walk"] = {ch: put(_sched(sched.get(ch), "walk", batch, np.float32), dtype)
+                       for ch in channels}
     return cls(**kw)
 
 
@@ -71,7 +76,7 @@ def cartpole_state_from_numpy(fields: dict, device, dtype=torch.float32) -> Cart
     """The port's ``CartPoleState`` from a batched JAX ``CartPoleState``'s
     fields."""
     return _state_from_numpy(CartPoleState, fields, device, dtype,
-                             ("x", "pole_length", "pole_mass", "cart_mass"),
+                             ("x", "pole_length", "pole_mass", "cart_mass", "adv_force", "adv_act"),
                              ("ctrl_step", "pyb_step", "env_seed", "episode_idx"),
                              ("cnstr_violation",))
 

@@ -237,12 +237,14 @@ def prefer(kernel, hidden, nx, nu, group, dtype="float32", maze=False) -> list:
     group size ``group``, K7's at (nx, nu) and ``group``, K6's and K8's at
     the width and ``group`` (before their redesigns: at the width); of K3,
     K6 and K8 the state-observation instance, not the observation instance
-    (``Lb1E``) of later builds.  A kernel that is no template (K2 and K5
-    before their redesigns) has one instance."""
+    (``Lb1E``) of later builds, and of K3 the instance without the maze
+    (its second flag ``Lb0E``; the maze instances carry ``Lb1E``).  A
+    kernel that is no template (K2 and K5 before their redesigns) has one
+    instance."""
     h = 64 if hidden == 64 else 0
     t = {"float32": "f", "float64": "d"}[dtype]
     return {"k1": [f"I{t}Li{group}E", f"I{t}E"], "k2": [f"ILi4ELb{int(maze)}E", "ILi"],
-            "k3": [f"ILi{h}ELi8ELb0E", f"ILi{h}E"],
+            "k3": [f"ILi{h}ELi8ELb0ELb0E", f"ILi{h}ELi8ELb0EE", f"ILi{h}E"],
             "k4": ["ILi2ELb1E"],
             "k5": [f"ILi{group}E"],
             "k6": [f"ILi{h}ELi{group}ELb0E", f"ILi{h}ELi{group}E", f"ILi{h}E"],

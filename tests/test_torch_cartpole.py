@@ -181,8 +181,41 @@ def test_non_finite_state_freezes_and_ends_the_episode():
                        "A": [[1.0, 0.0, 1.0, 0.0]], "b": [1.0]},)),
 ])
 def test_unported_configs_raise(kw):
-    with pytest.raises(NotImplementedError):
-        tc.make_cartpole(tc.CartPoleConfig(**{**CFG1, **kw}), device="cpu")
+    """The configs the port refused until it ported their modules (the
+    adversary channel, white noise on the dynamics channel, a periodic
+    action disturbance, a linear state constraint) now build in both
+    packages and step from the same state under the same action (and the
+    same adversary force): the states at the suite's tolerances, done
+    flags exact, constraint values at the tolerances.  The white noise and
+    the periodic phase are the packages' own draws (held in distribution in
+    tests/test_torch_env_surface.py): there the states agree to within the
+    noise's reach over one step (5 x 1 N over the lightest total mass)."""
+    jenv, tenv = _envs({**CFG1, **kw})
+    js, _, _ = jax.vmap(jenv.reset)(jax.random.split(jax.random.key(1), B))
+    fields = jax.tree.map(np.asarray, {k: getattr(js, k) for k in js.__dataclass_fields__
+                                        if k != "key"})
+    ts = cartpole_state_from_numpy(fields, "cpu")
+    rng = np.random.default_rng(2)
+    a = rng.uniform(-2, 2, (B, 1)).astype(np.float32)
+    if kw.get("adversary_disturbance"):
+        adv = rng.uniform(-1.5, 1.5, (B, 1)).astype(np.float32)
+        js = jax.vmap(jenv.extras["set_adversary_control"])(js, jnp.asarray(adv))
+        ts = tenv.extras["set_adversary_control"](ts, torch.from_numpy(adv))
+        np.testing.assert_allclose(ts.adv_force.numpy(), np.asarray(js.adv_force), rtol=1e-6)
+    js1, _, jr, jd, ji = jax.jit(jax.vmap(jenv.step))(js, jnp.asarray(a))
+    ts1, _, tr, td, ti = tenv.step(ts, torch.from_numpy(a))
+    if kw.get("disturbances"):
+        reach = 5 * 1.0 / 1.0 / CFG1["ctrl_freq"]
+        assert np.abs(ts1.x.numpy() - np.asarray(js1.x)).max() < 2 * reach
+        assert np.abs(ts1.x.numpy() - np.asarray(js1.x)).max() > 1e-6
+        return
+    np.testing.assert_allclose(ts1.x.numpy(), np.asarray(js1.x), rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=1e-5)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    if "constraint_values" in ji:
+        np.testing.assert_allclose(ti["constraint_values"].numpy(),
+                                   np.asarray(ji["constraint_values"]), rtol=2e-4, atol=2e-5)
+    assert not ts1.adv_force.any() and not np.asarray(js1.adv_force).any()
 
 
 def test_default_device_is_cuda():
