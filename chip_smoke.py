@@ -115,6 +115,20 @@ observation noise (the configs: ``safe_control_gym_torch/baseline.py``,
    kernel and K4 (up to TRAIN_PROFILE_SESSIONS sessions, else the run
    fails); the policy kernel against its plain version on the timed call's
    own input, and timed alone;
+10b. drives the model-based base (``phase_lqr``, ``phase_pid``): LQR on
+   config 4 at B = 4096 (the tracking gain table, one Riccati solve a
+   waypoint, built on the card against the CPU; three waypoints' float64
+   DARE against scipy; one full run_tracking episode on the general engine,
+   K1 once a step, its host ms a step, RMSE and profile; 32 closed-loop steps
+   against the CPU), LQR's run(analysis=True) on CartPole stabilization at
+   B = 4096 (every env at the goal, env 0's state RMSE against the CPU), and
+   the batched PID on B = 4096 3D quadrotors for a whole episode
+   (tests/test_controllers.py:82-99: every env within 0.1 m of the goal, K1
+   once a step) with one pid_control step against the CPU;
+10c. PPO's leftovers (``phase_ppo_extras``): config 4 at the rl_train shapes
+   with the fused 2H-wide update against the separate autograd update (the
+   parameters within rtol 2e-4), and the CNN, the masked RNN and the
+   Categorical on the card against the CPU;
 11. prints each kernel's registers and spills (``ptxas -v``), each phase's
    seconds, one JSON line of per-kernel results (K1 with its plan's group
    and block and every instance's registers and spill bytes; K2 with its
@@ -1350,6 +1364,395 @@ def phase_env_surface(dev):
     return res
 
 
+# The model-based base and PPO's leftovers (phase_lqr, phase_pid,
+# phase_ppo_extras).  LQR's weights are tests/test_controllers.py's.
+LQR_Q, LQR_R = [1.0], [0.1]
+# The card's LQR gain table against the same code on the CPU, relative to
+# the table's largest entry: both solve float32 Riccati equations whose
+# solutions span several decades, and the two packages' float32 solutions
+# already differ by up to 1e-3 there (tests/test_torch_linalg.py).
+LQR_GAIN_REL = 5e-3
+LQR_CPU_STEPS = 32  # closed-loop steps of config 4 held against the CPU
+# tests/test_controllers.py:30-41 (CartPole) and :82-99 (the 3D quadrotor).
+LQR_CARTPOLE = dict(task="stabilization", cost="quadratic", randomized_init=True,
+                    episode_len_sec=5)
+PID_QUAD3D = dict(quad_type=3, task="stabilization", cost="rl_reward",
+                  task_info={"stabilization_goal": [0.3, -0.2, 1.0],
+                             "stabilization_goal_tolerance": 0.05},
+                  randomized_init=False, init_state={"init_z": 0.5}, episode_len_sec=4,
+                  ctrl_freq=50, pyb_freq=100)
+PID_BAR = 0.1  # m from the goal at the end of the episode (test_controllers.py:98)
+# pid_control on the card against the CPU: the RPMs at rtol 2e-4 (gains of
+# 7e4 on the attitude error turn a last-place difference of a rotation into
+# ~1e-7 of an RPM), the PID state at the state tolerance.
+PID_RTOL, PID_ATOL = 2e-4, 2e-5
+
+
+def path_profile(step, steps=16):
+    """Where ``steps`` calls of ``step`` (one general-engine step each) spend
+    the device's time: wall (unprofiled), device busy, K1's device time a
+    launch and its launches, from one profiled session."""
+    import torch
+
+    run = lambda: [step() for _ in range(steps)]  # noqa: E731
+    _, kern = profile_kernels(run, 1)
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(t for t, _ in kern.values())
+    k1 = [(t, n) for k, (t, n) in kern.items() if "quad3d_substeps_kernel" in k]
+    k1_ms, k1_n = sum(t for t, _ in k1), sum(n for _, n in k1)
+    check(f"profile of {steps} steps holds K1", k1_n == steps, f"K1 launches seen {k1_n}")
+    return {"steps": steps, "wall_ms": wall, "device_ms": busy, "busy_share": busy / wall,
+            "k1_ms_per_launch": k1_ms / k1_n, "k1_device_share": k1_ms / busy,
+            "kernel_launches": sum(n for _, n in kern.values()),
+            "top": sorted(((k[:80], t, n) for k, (t, n) in kern.items()), key=lambda r: -r[1])[:5]}
+
+
+def lqr_closed_loop(lqr, env, B, steps, seed=0):
+    """``steps`` closed-loop steps of the LQR's gain table on ``env`` (no
+    reset, as run_tracking); the final state and the done flags."""
+    import torch
+
+    from safe_control_gym_torch.parallel.vector import make_vec_env
+
+    vec = make_vec_env(env, B, auto_reset=False)
+    state, obs, _ = vec.reset(seed=seed)
+    dones = []
+    for k in range(steps):
+        state, obs, _, done, _ = vec.step_no_reset(state, lqr._policy_at(obs, k))
+        dones.append(done)
+    return state, torch.stack(dones)
+
+
+def phase_lqr(dev):
+    """LQR on config 4 at B = 4096: the tracking gain table (one Riccati
+    solve a waypoint, one batch) built on the card against the same code on
+    the CPU (relative to the table's largest entry, LQR_GAIN_REL); three
+    waypoints' DARE in float64 on the card against scipy (1e-8); one full
+    run_tracking episode on the general engine with the launch counters
+    zeroed just before and read just after (K1 once a step, nothing else),
+    its host ms a step and tracking RMSE; the first LQR_CPU_STEPS steps of
+    the closed loop against the CPU on the card's gain table (states rtol
+    2e-4 / atol 2e-5, done flags exact).  Then run(analysis=True) of LQR on
+    CartPole stabilization at B = 4096: every env at the goal within 0.05
+    (tests/test_controllers.py:41), and env 0's state RMSE against the
+    same run on the CPU."""
+    import scipy.linalg
+    import torch
+
+    from safe_control_gym_torch.controllers.lqr import LQR
+    from safe_control_gym_torch.envs.cartpole import CartPoleConfig, make_cartpole
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+    from safe_control_gym_torch.ops.integrators import discretize_linear_system
+    from safe_control_gym_torch.ops.linalg import solve_discrete_are
+
+    env, env_cpu = make_quadrotor(cfg4(), device=dev), make_quadrotor(cfg4(), device="cpu")
+    build_s = []
+    for _ in range(2):  # the first build loads the solver libraries
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lqr = LQR(env, q_lqr=LQR_Q, r_lqr=LQR_R)
+        torch.cuda.synchronize()
+        build_s.append(time.perf_counter() - t0)
+    lqr_cpu = LQR(env_cpu, q_lqr=LQR_Q, r_lqr=LQR_R)
+    K, K_cpu = lqr.gain.cpu(), lqr_cpu.gain
+    gain_rel = float((K.double() - K_cpu.double()).abs().max() / K_cpu.abs().max())
+    check("LQR gain table on the card against the CPU",
+          K.shape == K_cpu.shape == (env.max_episode_steps, 4, 12) and bool(torch.isfinite(K).all())
+          and gain_rel < LQR_GAIN_REL,
+          f"{K.shape[0]} waypoint gains, largest difference {gain_rel:.3g} of the largest entry "
+          f"(bound {LQR_GAIN_REL:g}); built in {build_s[0] * 1e3:.1f} ms on the card, "
+          f"{build_s[1] * 1e3:.1f} ms the second time")
+
+    ks = [0, K.shape[0] // 3, 2 * K.shape[0] // 3]
+    x0 = lqr.x_0[ks].double()
+    A, B = env.symbolic.batch_linearize(x0, lqr.u_0.double().expand(len(ks), -1))
+    Ad, Bd = discretize_linear_system(A, B, env.symbolic.dt)
+    Q, R = lqr.Q.double(), lqr.R.double()
+    P = solve_discrete_are(Ad, Bd, Q, R).cpu().numpy()
+    dare_rel = max(float(np.abs(P[i] - ref).max() / np.abs(ref).max())
+                   for i, ref in enumerate(scipy.linalg.solve_discrete_are(
+                       Ad[i].cpu().numpy(), Bd[i].cpu().numpy(), Q.cpu().numpy(),
+                       R.cpu().numpy()) for i in range(len(ks))))
+    check("float64 DARE of three waypoints on the card against scipy", dare_rel < 1e-8,
+          f"waypoints {ks}: largest difference {dare_rel:.3g} of the largest entry (bound 1e-8)")
+
+    lqr.run_tracking(num_episodes=B_MAIN, seed=1)  # warm-up
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    tracking = lqr.run_tracking(num_episodes=B_MAIN, seed=0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counters()
+    steps = env.max_episode_steps
+    rmse = tracking["rmse"]
+    check("LQR run_tracking on config 4: K1 once a general-engine step",
+          launches["k1"] == steps and sum(launches.values()) == steps,
+          f"launches {launches} in {steps} steps at B={B_MAIN}")
+    check("LQR run_tracking output", rmse.shape == (B_MAIN,) and bool(np.isfinite(rmse).all())
+          and bool(np.isfinite(tracking["ep_returns"]).all()),
+          f"tracking RMSE median {np.median(rmse):.4g} m (min {rmse.min():.4g}, max "
+          f"{rmse.max():.4g}); mean return {tracking['ep_returns'].mean():.6g}")
+    from safe_control_gym_torch.parallel.vector import make_vec_env
+
+    vec = make_vec_env(env, B_MAIN, auto_reset=False)
+    loop = dict(zip(("s", "o"), vec.reset(seed=0)[:2]))
+
+    def step():
+        loop["s"], loop["o"], _, _, _ = vec.step_no_reset(loop["s"], lqr._policy_at(loop["o"], 8))
+
+    prof = path_profile(step)
+    lqr_cpu.gain = K
+    state, dones = lqr_closed_loop(lqr, env, B_MAIN, LQR_CPU_STEPS)
+    state_c, dones_c = lqr_closed_loop(lqr_cpu, env_cpu, B_MAIN, LQR_CPU_STEPS)
+    x, x_c = state.x.cpu(), state_c.x
+    loop_err = max_err(x, x_c)
+    same_done = torch.equal(dones.cpu(), dones_c)
+    check(f"LQR closed loop on the card against the CPU ({LQR_CPU_STEPS} steps, B={B_MAIN})",
+          same_done and bool(torch.isclose(x, x_c, rtol=2e-4, atol=2e-5).all()),
+          f"done flags equal {same_done} ({int(dones_c.sum())} dones); states max_abs_err "
+          f"{loop_err:.3g} (rtol 2e-4, atol 2e-5)")
+    res = {"gain_rel_err": gain_rel, "gain_build_ms": [t * 1e3 for t in build_s],
+           "dare_f64_rel_err": dare_rel,
+           "launches": launches, "steps": steps,
+           "host_ms_per_step": secs / steps * 1e3, "tracking_rmse_median": float(np.median(rmse)),
+           "tracking_rmse_max": float(rmse.max()),
+           "mean_return": float(tracking["ep_returns"].mean()), "closed_loop_max_abs_err": loop_err,
+           "profile": prof}
+    print(f"  LQR tracking, config 4: {res['host_ms_per_step']:.3f} host ms a general-engine step "
+          f"at B={B_MAIN} ({steps} steps, K1 {launches['k1']}); profiled: wall "
+          f"{prof['wall_ms']:.3f} ms, device busy {prof['device_ms']:.3f} ms in {prof['steps']} "
+          f"steps, K1 {prof['k1_ms_per_launch'] * 1e3:.4f} us a launch; {card_line()}", flush=True)
+
+    cp = make_cartpole(CartPoleConfig(**LQR_CARTPOLE), device=dev)
+    cp_lqr = LQR(cp, q_lqr=LQR_Q, r_lqr=LQR_R)
+    cp_lqr.run(num_episodes=B_MAIN, seed=1)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = cp_lqr.run(num_episodes=B_MAIN, seed=0, analysis=True)
+    torch.cuda.synchronize()
+    cp_secs = time.perf_counter() - t0
+    cp_cpu = make_cartpole(CartPoleConfig(**LQR_CARTPOLE), device="cpu")
+    ref = LQR(cp_cpu, q_lqr=LQR_Q, r_lqr=LQR_R).run(num_episodes=B_MAIN, seed=0, analysis=True)
+    an, an_ref = out["analysis"], ref["analysis"]
+    final = np.abs(out["obs"][-1]).max(-1)
+    check(f"LQR run(analysis=True), CartPole stabilization (B={B_MAIN})",
+          an["state_rmse"].shape == (4,) and bool(np.isfinite(an["state_rmse"]).all())
+          and bool((final < 0.05).all())
+          and np.allclose(an["state_rmse"], an_ref["state_rmse"], rtol=2e-4, atol=2e-5),
+          f"env 0 state_rmse {np.round(an['state_rmse'], 5).tolist()} (CPU "
+          f"{np.round(an_ref['state_rmse'], 5).tolist()}, rtol 2e-4, atol 2e-5); every env at "
+          f"the goal within 0.05: largest final |state| {final.max():.4g}")
+    res["cartpole"] = {"state_rmse": an["state_rmse"].tolist(),
+                       "state_rmse_scalar": an["state_rmse_scalar"],
+                       "host_ms_per_step": cp_secs / cp.max_episode_steps * 1e3,
+                       "final_max_abs": float(final.max())}
+    print(f"  LQR run(analysis=True), CartPole: {res['cartpole']['host_ms_per_step']:.3f} host ms "
+          f"a step at B={B_MAIN}; {card_line()}", flush=True)
+    return res
+
+
+def pid_random_inputs(B, dev, seed=0):
+    """Seeded random PID state and inputs (B, 3) for pid_control."""
+    import torch
+
+    from safe_control_gym_torch.controllers.pid import PIDState
+
+    rng = np.random.default_rng(seed)
+
+    def f(scale, shift=(0.0, 0.0, 0.0)):
+        return torch.as_tensor((rng.standard_normal((B, 3)) * scale + shift).astype(np.float32),
+                               device=dev)
+
+    state = PIDState(f(0.1), f(0.1), f(0.2))
+    return state, dict(cur_pos=f(0.5, (0, 0, 1)), cur_rpy=f(0.2), cur_vel=f(0.3),
+                       target_pos=f(0.5, (0, 0, 1)), target_rpy=f(0.3), target_vel=f(0.2),
+                       target_rpy_rates=f(0.1))
+
+
+def phase_pid(dev):
+    """The PID on B = 4096 3D quadrotors (tests/test_controllers.py:82-99:
+    goal (0.3, -0.2, 1.0), 50 Hz control, 100 Hz physics, 4 s): the batched
+    ``PID.act`` (pid_control over the batch) and the general engine for a
+    whole episode with the launch counters zeroed just before and read just
+    after (K1 once a step, nothing else); every env ends within PID_BAR of
+    the goal; its host ms a step.  Then one batched pid_control step on
+    seeded random inputs on the card against the CPU (RPMs rtol PID_RTOL;
+    the PID state and errors rtol PID_RTOL / atol PID_ATOL)."""
+    import torch
+
+    from safe_control_gym_torch.controllers.pid import PID, PIDState, pid_control
+    from safe_control_gym_torch.envs.quadrotor import QuadrotorConfig, make_quadrotor
+    from safe_control_gym_torch.parallel.vector import make_vec_env
+
+    env = make_quadrotor(QuadrotorConfig(**PID_QUAD3D), device=dev)
+    pid = PID(env)
+    vec = make_vec_env(env, B_MAIN, auto_reset=False)
+
+    def episode(steps):
+        state, obs, _ = vec.reset(seed=0)
+        ps = PIDState.create((B_MAIN,), device=dev)
+        for k in range(steps):
+            act, ps = pid.act(obs, k, ps)
+            state, obs, _, _, _ = vec.step_no_reset(state, act)
+        return state
+
+    episode(2)  # warm-up
+    steps = env.max_episode_steps
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    state = episode(steps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counters()
+    check("PID on the 3D quad: K1 once a general-engine step",
+          launches["k1"] == steps and sum(launches.values()) == steps,
+          f"launches {launches} in {steps} steps at B={B_MAIN}")
+    goal = torch.tensor([0.3, -0.2, 1.0], device=dev)
+    err = (state.x[:, [0, 2, 4]] - goal).norm(dim=-1).cpu()
+    check(f"PID: every env within {PID_BAR} m of the goal after {steps} steps",
+          bool(torch.isfinite(err).all()) and float(err.max()) < PID_BAR,
+          f"largest distance {float(err.max()):.4g} m, median {float(err.median()):.4g} m")
+
+    obs0 = vec.reset(seed=0)[:2]
+    loop = {"s": obs0[0], "o": obs0[1], "p": PIDState.create((B_MAIN,), device=dev)}
+
+    def step():
+        act, loop["p"] = pid.act(loop["o"], 8, loop["p"])
+        loop["s"], loop["o"], _, _, _ = vec.step_no_reset(loop["s"], act)
+
+    prof = path_profile(step)
+
+    ps, inp = pid_random_inputs(B_MAIN, dev)
+    rpm, new, pos_e, yaw_e = pid_control(ps, pid.dt, **inp)
+    ps_c = PIDState(*(t.cpu() for t in (ps.integral_pos_e, ps.integral_rpy_e, ps.last_rpy)))
+    rpm_c, new_c, pos_e_c, yaw_e_c = pid_control(ps_c, pid.dt,
+                                                  **{k: v.cpu() for k, v in inp.items()})
+    rpm_err = max_err(rpm.cpu(), rpm_c)
+    pairs = ((new.integral_pos_e, new_c.integral_pos_e), (new.integral_rpy_e, new_c.integral_rpy_e),
+             (pos_e, pos_e_c), (yaw_e, yaw_e_c))
+    state_err = max(max_err(a.cpu(), b) for a, b in pairs)
+    check(f"pid_control on the card against the CPU (B={B_MAIN}, random inputs)",
+          bool(torch.isclose(rpm.cpu(), rpm_c, rtol=PID_RTOL, atol=0.0).all())
+          and all(bool(torch.isclose(a.cpu(), b, rtol=PID_RTOL, atol=PID_ATOL).all())
+                  for a, b in pairs),
+          f"RPM max_abs_err {rpm_err:.3g} (rtol {PID_RTOL:g}; RPMs {float(rpm_c.min()):.0f}-"
+          f"{float(rpm_c.max()):.0f}); state and errors max_abs_err {state_err:.3g} "
+          f"(rtol {PID_RTOL:g}, atol {PID_ATOL:g})")
+    res = {"launches": launches, "steps": steps, "host_ms_per_step": secs / steps * 1e3,
+           "final_dist_max": float(err.max()), "rpm_max_abs_err": rpm_err,
+           "state_max_abs_err": state_err, "profile": prof}
+    print(f"  PID, 3D quad: {res['host_ms_per_step']:.3f} host ms a general-engine step at "
+          f"B={B_MAIN} ({steps} steps, K1 {launches['k1']}); profiled: wall "
+          f"{prof['wall_ms']:.3f} ms, device busy {prof['device_ms']:.3f} ms in {prof['steps']} "
+          f"steps, K1 {prof['k1_ms_per_launch'] * 1e3:.4f} us a launch; {card_line()}", flush=True)
+    return res
+
+
+PPO_EXTRAS_STEPS = 2  # train steps of each update path (the first warms up)
+CNN_IMAGE = (84, 84, 4)  # a Nature-DQN frame stack
+RNN_SHAPE = (256, 32, 12, 64)  # B, T, D, H
+
+
+def phase_ppo_extras(dev):
+    """PPO's leftovers on the card: config 4 at the rl_train shapes (K3
+    collection) with ``fused_update=True`` against the separate autograd
+    update (``use_fast_update=False``) from one seed, PPO_EXTRAS_STEPS train
+    steps each, the parameters after them within the gradient tolerance
+    (rtol 2e-4 / atol 1e-6, tests/test_rl.py:193), K3 once a train step and
+    K4 never; then the CNN, the RNN with masks and the Categorical forward
+    on the card against the CPU from the same seeded weights and inputs
+    (CNN rtol 1e-4 / atol 1e-5; RNN rtol 2e-4 / atol 2e-5; Categorical rtol
+    1e-5 / atol 1e-6, the mode exactly)."""
+    import torch
+
+    from safe_control_gym_torch.controllers.ppo import PPO
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+    from safe_control_gym_torch.models.distributions import Categorical
+    from safe_control_gym_torch.models.networks import CNN, RNN
+
+    env = make_quadrotor(cfg4(normalized_rl_action_space=True), device=dev)
+    res, params, initial = {}, {}, None
+    for fused in (False, True):
+        tag = "fused" if fused else "separate"
+        ppo = PPO(env, seed=0, rollout_batch_size=TRAIN_B, rollout_steps=TRAIN_T,
+                  opt_epochs=EPOCHS, mini_batch_size=MB, use_fast_rollout=True,
+                  use_fast_update=False, fused_update=fused, reshuffle_each_epoch=False)
+        initial = initial or [p.detach().cpu().clone() for p in ppo.state.ac.parameters()]
+        ppo.state, _ = ppo._train_step(ppo.state)
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.perf_counter()
+        ppo.state, metrics = ppo.train_many(PPO_EXTRAS_STEPS - 1)(ppo.state)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_counters()
+        n = PPO_EXTRAS_STEPS - 1
+        check(f"config 4, {tag} update: K3 collects, K4 idle",
+              launches["k3"] == n and sum(launches.values()) == n
+              and all(np.isfinite(float(v)) for v in metrics.values()),
+              f"launches {launches} in {n} train step(s); metrics "
+              f"{ {k: round(float(v), 6) for k, v in metrics.items()} }")
+        params[fused] = [p.detach().cpu() for p in ppo.state.ac.parameters()]
+        res[tag] = {"train_step_ms": secs / n * 1e3, "launches": launches}
+    err = max(max_err(a, b) for a, b in zip(params[True], params[False]))
+    moved = max(max_err(a, b) for a, b in zip(params[False], initial))
+    check(f"fused update against the separate update ({PPO_EXTRAS_STEPS} train steps at the "
+          "rl_train shapes)",
+          all(bool(torch.isclose(a, b, rtol=2e-4, atol=1e-6).all())
+              for a, b in zip(params[True], params[False])) and moved > 1e-4,
+          f"parameters max_abs_err {err:.3g} (rtol 2e-4, atol 1e-6); the update moved them by "
+          f"up to {moved:.3g}")
+    res["max_abs_err"] = err
+    print(f"  PPO train step, config 4, B={TRAIN_B}, T={TRAIN_T}: fused update "
+          f"{res['fused']['train_step_ms']:.3f} ms, separate autograd update "
+          f"{res['separate']['train_step_ms']:.3f} ms; {card_line()}", flush=True)
+
+    rng = np.random.default_rng(0)
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    cnn = CNN(CNN_IMAGE, 6, generator=gen())
+    img = torch.as_tensor(rng.random((256, *CNN_IMAGE)).astype(np.float32))
+    B, T, D, H = RNN_SHAPE
+    rnn = RNN(D, H, generator=gen())
+    xs = torch.as_tensor(rng.standard_normal((B, T, D)).astype(np.float32))
+    masks = torch.as_tensor((rng.random((B, T)) > 0.1).astype(np.float32))
+    logits = torch.as_tensor((2.0 * rng.standard_normal((B_MAIN, 6))).astype(np.float32))
+    value = torch.as_tensor(rng.integers(0, 6, B_MAIN))
+    with torch.no_grad():
+        want_cnn = cnn(img)
+        want_ys, want_h = rnn(xs, masks)
+        cnn_d, rnn_d = cnn.to(dev), rnn.to(dev)
+        got_cnn = cnn_d(img.to(dev)).cpu()
+        got_ys, got_h = (t.cpu() for t in rnn_d(xs.to(dev), masks.to(dev)))
+    cnn_err, rnn_err = max_err(got_cnn, want_cnn), max(max_err(got_ys, want_ys),
+                                                       max_err(got_h, want_h))
+    check(f"CNN forward on the card against the CPU ({tuple(img.shape)} images)",
+          got_cnn.shape == (256, 6) and bool(torch.isclose(got_cnn, want_cnn, rtol=1e-4,
+                                                           atol=1e-5).all()),
+          f"max_abs_err {cnn_err:.3g} (rtol 1e-4, atol 1e-5)")
+    check(f"RNN forward with masks on the card against the CPU (B {B}, T {T}, D {D}, H {H})",
+          bool(torch.isclose(got_ys, want_ys, rtol=2e-4, atol=2e-5).all())
+          and bool(torch.isclose(got_h, want_h, rtol=2e-4, atol=2e-5).all()),
+          f"max_abs_err {rnn_err:.3g} (rtol 2e-4, atol 2e-5)")
+    cat, cat_d = Categorical(logits), Categorical(logits.to(dev))
+    pairs = ((cat_d.log_prob(value.to(dev)), cat.log_prob(value)),
+             (cat_d.entropy(), cat.entropy()))
+    cat_err = max(max_err(a.cpu(), b) for a, b in pairs)
+    draws = cat_d.sample(torch.Generator(device=dev).manual_seed(0))
+    check(f"Categorical on the card against the CPU ({B_MAIN} x 6 logits)",
+          all(bool(torch.isclose(a.cpu(), b, rtol=1e-5, atol=1e-6).all()) for a, b in pairs)
+          and torch.equal(cat_d.mode().cpu(), cat.mode()) and draws.shape == (B_MAIN,)
+          and int(draws.min()) >= 0 and int(draws.max()) < 6,
+          f"log_prob and entropy max_abs_err {cat_err:.3g} (rtol 1e-5, atol 1e-6), mode exact, "
+          f"{B_MAIN} draws in range")
+    res.update(cnn_max_abs_err=cnn_err, rnn_max_abs_err=rnn_err, categorical_max_abs_err=cat_err)
+    return res
+
+
 def sass_instructions(kname):
     """SASS instructions of the kernel instance whose mangled name holds
     ``kname`` in the built library (``scripts/ab_kernel.py::sass_count``,
@@ -2124,6 +2527,9 @@ def main():
     serve_q2 = phase(phase_serve_quad2d, dev)
     serve_mz = phase(phase_serve_maze, dev)
     train = phase(phase_train, dev)
+    lqr = phase(phase_lqr, dev)
+    pid = phase(phase_pid, dev)
+    ppo_extras = phase(phase_ppo_extras, dev)
     bnd = bounds(res, serve_cp, serve_q2, serve_mz, train, k3_maze)
 
     from safe_control_gym_torch.ops import quad_substeps as K1
@@ -2218,7 +2624,14 @@ def main():
                      res["k1_ms"], res["k1_plain_ms"], bnd["k1"], group=k1_plan["float32"][0],
                      block=k1_plan["float32"][1], instances=k1_instances(ptxas),
                      float64={**k1_f64, **bnd["k1_f64"], "group": k1_plan["float64"][0],
-                              "block": k1_plan["float64"][1]}),
+                              "block": k1_plan["float64"][1]},
+                     # The general engine under the LQR and the PID (B = 4096):
+                     # launches over one episode, profiled device ms a launch.
+                     on_paths={tag: {"launches": r["launches"]["k1"], "steps": r["steps"],
+                                     "ms": r["profile"]["k1_ms_per_launch"],
+                                     "host_ms_per_step": r["host_ms_per_step"]}
+                               for tag, r in (("lqr_tracking_config4", lqr),
+                                              ("pid_quad3d", pid))}),
         kernel_entry("quad3d_rollout", "quad3d_rollout.cu", "parallel/fast_env.py:593",
                      res["k2_launches"], max(k2_err, res["k2_main_max_abs_err"]), res["k2_ms"],
                      res["k2_plain_ms"], bnd["k2"], plain_steps=PLAIN_STEPS,
@@ -2297,6 +2710,19 @@ def main():
                                        "bound_ms": bnd["k3_maze_h128"]["bound_ms"],
                                        "bound_by": bnd["k3_maze_h128"]["bound_by"]}}),
     ]}
+    for tag, r in (("LQR tracking, config 4", lqr), ("PID, 3D quad", pid)):
+        pr = r["profile"]
+        print(f"{tag} (B={B_MAIN}): {r['host_ms_per_step']:.3f} host ms a general-engine step, "
+              f"K1 {r['launches']['k1']} launches in {r['steps']} steps, {pr['k1_ms_per_launch'] * 1e3:.4f} us a launch "
+              f"(profiled {pr['steps']} steps: wall {pr['wall_ms']:.3f} ms, device busy "
+              f"{pr['device_ms']:.3f} ms, {pr['kernel_launches']} kernel launches)")
+    print(f"LQR: gain table card/CPU {lqr['gain_rel_err']:.3g}, float64 DARE/scipy "
+          f"{lqr['dare_f64_rel_err']:.3g}, tracking RMSE median "
+          f"{lqr['tracking_rmse_median']:.4g} m; CartPole run(analysis=True) state_rmse "
+          f"{lqr['cartpole']['state_rmse']}")
+    print(f"PPO extras: fused/separate update max_abs_err {ppo_extras['max_abs_err']:.3g}; CNN "
+          f"{ppo_extras['cnn_max_abs_err']:.3g}, RNN {ppo_extras['rnn_max_abs_err']:.3g}, "
+          f"Categorical {ppo_extras['categorical_max_abs_err']:.3g} against the CPU")
     total_s = time.perf_counter() - t_start
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -2312,7 +2738,8 @@ def main():
                        "bounds": bnd, "k3_maze": k3_maze, "env_surface": surface,
                        "k3_vs_plain_max_abs_err": k3_err, "k4": k4, "ptxas": ptxas,
                        "small_checks": small, "serve_cartpole": serve_cp, "serve_quad2d": serve_q2,
-                       "train": train, **res, **kernels_line}, f, indent=1, default=str)
+                       "train": train, "lqr": lqr, "pid": pid, "ppo_extras": ppo_extras,
+                       **res, **kernels_line}, f, indent=1, default=str)
     print(f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     print(f"total {total_s:.1f} s")
     print(card_line())

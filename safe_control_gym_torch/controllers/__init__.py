@@ -1,1 +1,1 @@
-"""Controllers (port of ``safe_control_gym_tpu/controllers``): the PPO slice."""
+"""Controllers (port of ``safe_control_gym_tpu/controllers``): PPO, LQR and PID."""

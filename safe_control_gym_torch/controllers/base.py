@@ -6,7 +6,7 @@ base_controller.py:6-90): ``reset`` / ``close`` / ``learn`` / ``save`` /
 ``train_step(state) -> (state, metrics)`` functions that ``train_many``
 scans under one jit; here a train step runs eagerly and ``train_many`` is a
 Python loop with the same contract.  The batched evaluation loop ``run()``
-is ported without the reference's post-analysis and plots.
+carries the reference's post-analysis and plots (``analysis=True``).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 import pickle
 from typing import Any
 
+import numpy as np
 import torch
 
 from safe_control_gym_torch.envs.benchmark import where_state
@@ -72,13 +73,18 @@ class BaseController:
 
     @torch.no_grad()
     def run(self, num_episodes: int = 1, max_steps: int | None = None, seed: int = 0,
-            env_seeds=None):
+            env_seeds=None, analysis: bool = False, plot: bool = False, plot_dir: str = "."):
         """Batched evaluation: ``num_episodes`` envs in parallel without
         auto-reset; an env that is done keeps its last state and obs and
         earns no more reward (base.py:95-160).  ``env_seeds`` (int32,
         ``(num_episodes,)``) wins over ``seed``, as in ``make_vec_env``'s
         reset.  Returns per-step obs/action/reward/done/mse stacks (time
-        first, NumPy) and per-episode returns and lengths."""
+        first, NumPy) and per-episode returns and lengths.
+
+        ``analysis=True`` adds the reference's post-analysis of env 0
+        (``utils/plotting.py::post_analysis``): per-state RMSE against the
+        goal stack, angle errors wrapped, and with ``plot=True`` the state
+        and input plots saved under ``plot_dir``."""
         vec = make_vec_env(self.env, num_episodes, auto_reset=False)
         state, obs, _ = vec.reset(seed=seed, env_seeds=env_seeds)
         done_mask = torch.zeros(num_episodes, dtype=torch.bool, device=obs.device)
@@ -93,8 +99,21 @@ class BaseController:
                          "mse": info["mse"]})
             done_mask = done_mask | done
         traj = {k: torch.stack([r[k] for r in recs]).cpu().numpy() for k in recs[0]}
-        return {**traj, "ep_returns": traj["reward"].sum(0),
-                "ep_lengths": (~traj["done"]).sum(0) + 1}
+        results = {**traj, "ep_returns": traj["reward"].sum(0),
+                   "ep_lengths": (~traj["done"]).sum(0) + 1}
+        if analysis:
+            from safe_control_gym_torch.utils.plotting import post_analysis
+
+            T, x_goal = traj["obs"].shape[0], np.asarray(self.env.x_goal)
+            if x_goal.ndim == 1:
+                goal = np.tile(x_goal[None], (T, 1))
+            else:
+                goal = x_goal[np.clip(np.arange(T), 0, x_goal.shape[0] - 1)]
+            nx = x_goal.shape[-1]
+            results["analysis"] = post_analysis(
+                goal, traj["obs"][:, 0, :nx], traj["action"][:, 0], env=self.env, plot=plot,
+                save_plot=plot, plot_dir=plot_dir)
+        return results
 
     def _policy(self, obs):
         """Batched policy the evaluation loop uses; subclasses override."""

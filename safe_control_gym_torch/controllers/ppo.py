@@ -18,12 +18,14 @@ semantics:
     update (ppo_utils.py:128-161), optional clipped value loss;
   * a Gaussian policy with state-independent logstd initialized at -0.5.
 
-The minibatch gradients come from ``torch.autograd`` or, with
-``use_fast_update``, from K4 (``parallel/fast_update.py``, one launch per
-minibatch).  The optimizers repeat optax's ``clip_by_global_norm`` +
-``adam`` (see :class:`Adam`).  Where the JAX package carries a PRNG key in
-its state, the controller draws from its own ``torch.Generator``; the state
-(:class:`PPOState`) is updated in place.
+The minibatch gradients come from ``torch.autograd`` of the two networks,
+from ``torch.autograd`` of one fused 2H-wide network (``fused_update``, the
+JAX package's A/B path), or, with ``use_fast_update``, from K4
+(``parallel/fast_update.py``, one launch per minibatch).  The optimizers
+repeat optax's ``clip_by_global_norm`` + ``adam`` (see :class:`Adam`).
+Where the JAX package carries a PRNG key in its state, the controller draws
+from its own ``torch.Generator``; the state (:class:`PPOState`) is updated
+in place.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from safe_control_gym_torch.controllers.base import BaseController
 from safe_control_gym_torch.models.distributions import Normal
@@ -53,7 +56,13 @@ _BLK = 256  # samples per block of the one-shuffle-per-step permutation (ppo.py:
 @dataclasses.dataclass(frozen=True)
 class PPOConfig:
     """The JAX package's fields and defaults (reference ppo.yaml).
-    ``fused_update`` is the JAX package's A/B path and is not ported."""
+
+    ``fused_update``: minibatch gradients through ONE 2H-wide network, the
+    actor's and critic's hidden layers concatenated and the cross blocks
+    structurally zero (:func:`fused_net`); both losses come from one
+    autograd pass.  The parameters are disjoint and the losses add, so the
+    gradients are the separate networks' (the JAX package's A/B path).  It
+    conflicts with ``use_fast_update=True``, and "auto" leaves K4 off."""
 
     hidden_dim: int = 64
     activation: str = "tanh"
@@ -100,6 +109,19 @@ class ActorCritic(nn.Module):
     def actor_params(self):
         """The actor's optimizer group: MLP params, then logstd."""
         return list(self.actor.parameters()) + [self.logstd]
+
+
+def fused_net(ac: ActorCritic):
+    """The actor and critic as one network of width 2H: [(W1, b1), (W2, b2),
+    (W3, b3)] (weight (out, in)), the hidden layers concatenated actor
+    first and the cross blocks zero, built from the parameters so that
+    autograd reaches them (ppo.py:430-450)."""
+    a, c = ac.actor.layers, ac.critic.layers
+    if len(a) != 3 or len(c) != 3:
+        raise ValueError("fused_update takes actor and critic MLPs of two hidden layers")
+    return [(torch.cat([a[0].weight, c[0].weight], 0), torch.cat([a[0].bias, c[0].bias])),
+            *[(torch.block_diag(a[i].weight, c[i].weight), torch.cat([a[i].bias, c[i].bias]))
+              for i in (1, 2)]]
 
 
 class Adam:
@@ -189,9 +211,6 @@ class PPO(BaseController):
         super().__init__(env, output_dir=output_dir, seed=seed)
         known = {f.name for f in dataclasses.fields(PPOConfig)}
         self.cfg = cfg = PPOConfig(**{k: v for k, v in kwargs.items() if k in known})
-        if cfg.fused_update:
-            raise NotImplementedError("fused_update (the JAX package's A/B update path) is "
-                                      "not ported")
         self.device = dev = env.device
         self.use_fast_rollout = use_fast_rollout
         self.action_filter_fn = action_filter_fn
@@ -234,9 +253,12 @@ class PPO(BaseController):
         )
         use_fu = cfg.use_fast_update
         if use_fu == "auto":
-            use_fu = dev.type == "cuda" and kernel_scope(
+            # An explicit fused_update wins over "auto" (ppo.py:245).
+            use_fu = dev.type == "cuda" and not cfg.fused_update and kernel_scope(
                 obs_dim, act_dim, cfg.hidden_dim, cfg.activation, cfg.mini_batch_size,
                 cfg.use_clipped_value)
+        if use_fu and cfg.fused_update:
+            raise ValueError("use_fast_update=True conflicts with fused_update=True")
         # FastPPOUpdate raises for a shape outside K4's scope.
         self._fu = FastPPOUpdate(cfg.mini_batch_size, cfg.hidden_dim, cfg.activation,
                                  cfg.clip_param, obs_dim=obs_dim, act_dim=act_dim,
@@ -346,7 +368,8 @@ class PPO(BaseController):
         packed = torch.cat([c[:, None] if c.dim() == 1 else c for c in cols], 1).to(torch.float32)
         N, mb = packed.shape[0], cfg.mini_batch_size
         n_mini = max(N // mb, 1)
-        step = self.minibatch_step if self._fu is None else self.minibatch_step_kernel
+        step = (self.minibatch_step_kernel if self._fu is not None else
+                self.minibatch_step_fused if cfg.fused_update else self.minibatch_step)
 
         def layout(mbs):  # K4 takes each minibatch batch-last: (n_mini, F, mb)
             return mbs if self._fu is None else mbs.transpose(1, 2).contiguous()
@@ -392,24 +415,52 @@ class PPO(BaseController):
         cfg, ac = self.cfg, state.ac
         mb = self._unpack(mb_rows)
         with torch.enable_grad():
-            dist = self._dist(ac, mb["obs"])
-            logp = dist.log_prob(mb["act"])
-            ratio = torch.exp(logp - mb["logp"])
-            clip_adv = self._clip_ratio(ratio) * mb["adv"]
-            p_loss = -torch.minimum(ratio * mb["adv"], clip_adv).mean()
-            e_loss = -dist.entropy().mean()
-            kl = (mb["logp"] - logp).mean()
+            p_loss, e_loss, v_loss, kl = self._losses(ac.actor(mb["obs"]), ac.logstd,
+                                                      self._value(ac, mb["obs"]), mb)
             ga = torch.autograd.grad(p_loss + cfg.entropy_coef * e_loss, ac.actor_params())
-            v_cur = self._value(ac, mb["obs"])
-            if cfg.use_clipped_value:
-                v_old_c = mb["v"] + torch.clamp(v_cur - mb["v"], -cfg.clip_param, cfg.clip_param)
-                v_loss = 0.5 * torch.maximum((v_cur - mb["ret"]) ** 2,
-                                             (v_old_c - mb["ret"]) ** 2).mean()
-            else:
-                v_loss = 0.5 * ((v_cur - mb["ret"]) ** 2).mean()
             gc = torch.autograd.grad(v_loss, list(ac.critic.parameters()))
         state.actor_opt.step(ga, scale=self._kl_gate(kl.detach()))
         state.critic_opt.step(gc)
+        return torch.stack([p_loss, v_loss, e_loss, kl]).detach()
+
+    def _losses(self, mean, logstd, v_cur, mb):
+        """(policy, entropy, value) losses and the approximate KL of one
+        minibatch from the actor's means and the critic's values
+        (ppo.py:529-581)."""
+        cfg = self.cfg
+        dist = Normal(mean, torch.exp(logstd))
+        logp = dist.log_prob(mb["act"])
+        ratio = torch.exp(logp - mb["logp"])
+        clip_adv = self._clip_ratio(ratio) * mb["adv"]
+        p_loss = -torch.minimum(ratio * mb["adv"], clip_adv).mean()
+        e_loss = -dist.entropy().mean()
+        kl = (mb["logp"] - logp).mean()
+        if cfg.use_clipped_value:
+            v_old_c = mb["v"] + torch.clamp(v_cur - mb["v"], -cfg.clip_param, cfg.clip_param)
+            v_loss = 0.5 * torch.maximum((v_cur - mb["ret"]) ** 2,
+                                         (v_old_c - mb["ret"]) ** 2).mean()
+        else:
+            v_loss = 0.5 * ((v_cur - mb["ret"]) ** 2).mean()
+        return p_loss, e_loss, v_loss, kl
+
+    def minibatch_step_fused(self, state: PPOState, mb_rows):
+        """Both losses through the fused 2H-wide network and one autograd
+        pass (ppo.py:420-495)."""
+        cfg, ac = self.cfg, state.ac
+        mb = self._unpack(mb_rows)
+        actor, critic = ac.actor_params(), list(ac.critic.parameters())
+        with torch.enable_grad():
+            h = mb["obs"]
+            layers = fused_net(ac)
+            for w, b in layers[:-1]:
+                h = ac.actor.act(F.linear(h, w, b))
+            out = F.linear(h, *layers[-1])
+            p_loss, e_loss, v_loss, kl = self._losses(out[:, :self.act_dim], ac.logstd,
+                                                      out[:, self.act_dim], mb)
+            grads = torch.autograd.grad(p_loss + cfg.entropy_coef * e_loss + v_loss,
+                                        actor + critic)
+        state.actor_opt.step(grads[:len(actor)], scale=self._kl_gate(kl.detach()))
+        state.critic_opt.step(grads[len(actor):])
         return torch.stack([p_loss, v_loss, e_loss, kl]).detach()
 
     def minibatch_step_kernel(self, state: PPOState, mb_T):

@@ -67,6 +67,9 @@ class FnEnv:
         ctrl_freq / pyb_freq / episode_len_sec: timing constants.
         device: the torch device the env's tensors live on.
         extras: env-specific extra functions (``reset_episode``).
+        symbolic: the env's a-priori closed-form model, a
+            ``models.dynamics_model.DynamicsModel`` (the reference ships a
+            CasADi model to its controllers through reset info).
     """
 
     reset: Callable
@@ -80,6 +83,7 @@ class FnEnv:
     episode_len_sec: float
     device: torch.device
     extras: Any = None
+    symbolic: Any = None
 
     @property
     def ctrl_timestep(self) -> float:

@@ -21,8 +21,8 @@ slots 0..2 inertia, 3..6 initial state, 7 a single dynamics offset, then
 any other randomized offsets), as the JAX package and the whole-rollout
 engine (``parallel/fast_cartpole.py``) draw them; the JAX package draws the
 other offsets from threefry, so those agree in distribution only.
-
-Not ported yet: the ``symbolic`` model.
+``env.symbolic`` is the a-priori model on nominal parameters
+(``models/dynamics_model.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from safe_control_gym_torch.envs.benchmark import Cost, EnvSpaces, FnEnv, Task
 from safe_control_gym_torch.envs.constraints import build_constraints
 from safe_control_gym_torch.envs.disturbances import (build_disturbances, num_offset_slots,
                                                        scheduled_offsets)
+from safe_control_gym_torch.models.dynamics_model import DynamicsModel
 from safe_control_gym_torch.ops import ctr_prng
 from safe_control_gym_torch.ops.integrators import rk4_step
 from safe_control_gym_torch.utils.device import resolve_device
@@ -430,10 +431,15 @@ def make_cartpole(config: CartPoleConfig = CartPoleConfig(), device=None) -> FnE
                                   adv_act=torch.zeros_like(state.adv_act))
         return new_state, _obs(new_state), rew.to(dtype), done, info
 
+    def symbolic_fc(x_s, u_s):
+        """The a-priori model on nominal parameters (cartpole.py:488-493)."""
+        return cartpole_fc(x_s, u_s, *nominal_inertia)
+
     return FnEnv(
         reset=reset,
         step=step,
         spaces=spaces,
+        symbolic=DynamicsModel(fc_func=symbolic_fc, nx=4, nu=1, dt=ctrl_dt),
         config=cfg,
         x_goal=x_goal,
         u_goal=u_goal,

@@ -23,9 +23,9 @@ and initial state, drawn from the counter PRNG (``ops/ctr_prng.py``)
 exactly as the JAX package draws them; the randomized step offsets other
 than a single one on the dynamics channel, which the JAX package draws
 from threefry, come from counter slots after the maze's and agree with
-the JAX package's in distribution only.
-
-Not ported yet: the ``symbolic`` model.
+the JAX package's in distribution only.  ``env.symbolic`` is the a-priori
+model on nominal parameters (``models/dynamics_model.py``), which takes the
+commanded thrusts as its input.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from safe_control_gym_torch.envs.benchmark import Cost, EnvSpaces, FnEnv, Task
 from safe_control_gym_torch.envs.constraints import build_constraints
 from safe_control_gym_torch.envs.disturbances import (build_disturbances, num_offset_slots,
                                                        scheduled_offsets)
+from safe_control_gym_torch.models.dynamics_model import DynamicsModel
 from safe_control_gym_torch.ops import ctr_prng
 from safe_control_gym_torch.ops.integrators import rk4_step
 from safe_control_gym_torch.ops.quad_substeps import GRAVITY as GRAVITY_ACC
@@ -133,6 +134,14 @@ TYPE_INIT_LABELS = {1: ("init_x", "init_x_dot"),
 TYPE_OOB_MASK = {1: (1, 0), 2: (1, 0, 1, 0, 1, 0), 3: OOB_MASK}
 _TYPE_INERTIAL_KEYS = {1: ("M",), 2: ("M", "Iyy"), 3: ("M", "Ixx", "Iyy", "Izz")}
 _TYPE_MSE_W = {1: [1, 0], 2: [1, 0, 1, 0, 0, 0], 3: [1, 0, 1, 0, 1, 0, 0, 0, 0, 0, 0, 0]}
+# State names per quad type (quadrotor.py:128); post_analysis wraps the
+# errors of the angles among them.
+STATE_LABELS = {
+    QuadType.ONE_D: ("z", "z_dot"),
+    QuadType.TWO_D: ("x", "x_dot", "z", "z_dot", "theta", "theta_dot"),
+    QuadType.THREE_D: ("x", "x_dot", "y", "y_dot", "z", "z_dot", "phi", "theta", "psi", "p", "q",
+                       "r"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -834,10 +843,27 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
         )
         return new_state, _obs(new_state), rew.to(dtype), done, info
 
+    def symbolic_fc(x_s, u_s):
+        """The a-priori model on nominal parameters (quadrotor.py:1047-1070):
+        one state, the commanded thrusts as input (not motor forces)."""
+        zero = torch.zeros_like(u_s[..., 0])
+        if quad_type == QuadType.ONE_D:  # U = the total thrust
+            return quad_fc_1d(x_s, torch.stack([u_s[..., 0], zero, zero, zero], -1), nom_mass,
+                              zero)
+        if quad_type == QuadType.TWO_D:
+            # U = the paired thrusts (T1, T2) on motors (T1, T2, 0, 0), so
+            # that T1 = f0 + f3 and T2 = f1 + f2 reduce to them.
+            return quad_fc_2d(x_s, torch.stack([u_s[..., 0], u_s[..., 1], zero, zero], -1),
+                              nom_mass, float(nom_j[1]), zero, zero)
+        like = dict(dtype=x_s.dtype, device=x_s.device)
+        return quad_fc_3d(x_s, u_s, torch.tensor(nom_mass, **like), torch.tensor(nom_j, **like),
+                          torch.zeros(3, **like))
+
     return FnEnv(
         reset=reset,
         step=step,
         spaces=spaces,
+        symbolic=DynamicsModel(fc_func=symbolic_fc, nx=nx, nu=nu, dt=ctrl_dt),
         config=cfg,
         x_goal=x_goal,
         u_goal=u_goal,

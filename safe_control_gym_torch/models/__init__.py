@@ -1,1 +1,2 @@
-"""Networks, distributions and normalizers (port of ``safe_control_gym_tpu/models``)."""
+"""Networks, distributions, normalizers and the a-priori dynamics model
+(port of ``safe_control_gym_tpu/models``)."""

@@ -1,12 +1,37 @@
 """SDFormat rotation utilities.
 
-Port of ``safe_control_gym_tpu/ops/rotations.py`` (the parts the quadrotor
-env and the whole-rollout engine use).  Angle inputs may carry leading batch
-dimensions; matrices stack into the trailing two axes.
+Port of ``safe_control_gym_tpu/ops/rotations.py``.  Angle inputs may carry
+leading batch dimensions; matrices stack into the trailing two axes.
 """
 
 import numpy as np
 import torch
+
+
+def _mat(rows):
+    """(..., 3, 3) from three rows of three same-shaped tensors."""
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def rot_z(psi):
+    """Rotation about Z (SDFormat convention).  Returns (..., 3, 3)."""
+    c, s = torch.cos(psi), torch.sin(psi)
+    z, o = torch.zeros_like(psi), torch.ones_like(psi)
+    return _mat([[c, -s, z], [s, c, z], [z, z, o]])
+
+
+def rot_y(theta):
+    """Rotation about Y (SDFormat convention).  Returns (..., 3, 3)."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    z, o = torch.zeros_like(theta), torch.ones_like(theta)
+    return _mat([[c, z, s], [z, o, z], [-s, z, c]])
+
+
+def rot_x(phi):
+    """Rotation about X (SDFormat convention).  Returns (..., 3, 3)."""
+    c, s = torch.cos(phi), torch.sin(phi)
+    z, o = torch.zeros_like(phi), torch.ones_like(phi)
+    return _mat([[o, z, z], [z, c, -s], [z, s, c]])
 
 
 def rot_xyz(phi, theta, psi):
@@ -37,6 +62,21 @@ def body_z_world(phi, theta, psi):
         [cpsi * sth * cphi + spsi * sphi, spsi * sth * cphi - cpsi * sphi, cth * cphi],
         -1,
     )
+
+
+def euler_jacobian(phi, theta):
+    """The matrix taking body rates (p, q, r) to Euler-angle rates (the 3D
+    quadrotor's kinematics).  Returns (..., 3, 3)."""
+    sphi, cphi = torch.sin(phi), torch.cos(phi)
+    tth, cth = torch.tan(theta), torch.cos(theta)
+    z, o = torch.zeros_like(phi), torch.ones_like(phi)
+    return _mat([[o, sphi * tth, cphi * tth], [z, cphi, -sphi], [z, sphi / cth, cphi / cth]])
+
+
+def unit_vector(v, axis=-1, eps=0.0):
+    """``v`` normalized along ``axis``."""
+    n = torch.sqrt(torch.sum(v * v, dim=axis, keepdim=True))
+    return v / (n + eps)
 
 
 def projection_matrix(point, normal):

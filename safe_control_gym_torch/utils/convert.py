@@ -4,7 +4,12 @@ Network weights: a flax MLP's params ``{"params": {"Dense_i": {"kernel",
 "bias"}}}`` as NumPy arrays load into the port's ``MLP`` (``layers[i]``,
 ``weight = kernel.T``), and an ``ActorCritic``'s (actor, critic, logstd)
 into the port's, so both packages compute the same function.  The reverse
-direction serves the tests' comparisons.
+direction serves the tests' comparisons.  A flax ``CNN``'s params
+(``Conv_i`` kernels (kh, kw, in, out), ``Dense_i``) load into the port's
+``CNN``, a flax ``RNN``'s ``GRUCell_0`` (``ir``/``iz``/``in`` with biases,
+``hr``/``hz`` without, ``hn`` with) into the port's ``RNN``, and
+:func:`fused_weights` gives the 2H-wide network of PPO's ``fused_update``
+from flax actor and critic params.
 
 Env state: the JAX package's batched ``QuadState`` or ``CartPoleState``
 reaches this module as a dict of NumPy arrays (field name -> array with a
@@ -118,3 +123,66 @@ def actor_critic_params(ac):
     """The port's ``ActorCritic`` as flax-layout NumPy (actor, critic,
     logstd)."""
     return mlp_params(ac.actor), mlp_params(ac.critic), ac.logstd.detach().cpu().numpy().copy()
+
+
+def _dense(d):
+    """(weight, bias) in torch layout of a flax Dense's NumPy params (bias
+    None where the Dense has none)."""
+    w = np.asarray(d["kernel"], np.float32).T
+    return w, (np.asarray(d["bias"], np.float32) if "bias" in d else None)
+
+
+def _copy(param, value) -> None:
+    value = torch.as_tensor(np.array(value))
+    if tuple(value.shape) != tuple(param.shape):
+        raise ValueError(f"shape {tuple(value.shape)} for a parameter of {tuple(param.shape)}")
+    with torch.no_grad():
+        param.copy_(value)
+
+
+def load_cnn(cnn, params) -> None:
+    """Copy flax CNN params (NumPy) into the port's ``CNN`` in place: conv
+    kernels (kh, kw, in, out) -> weights (out, in, kh, kw); the dense rows
+    keep flax's NHWC flatten, which the port's CNN keeps too."""
+    tree = params["params"]
+    for i, conv in enumerate(cnn.convs):
+        d = tree[f"Conv_{i}"]
+        _copy(conv.weight, np.asarray(d["kernel"], np.float32).transpose(3, 2, 0, 1))
+        _copy(conv.bias, np.asarray(d["bias"], np.float32))
+    for i, layer in enumerate((cnn.dense, cnn.out)):
+        w, b = _dense(tree[f"Dense_{i}"])
+        _copy(layer.weight, w)
+        _copy(layer.bias, b)
+
+
+def load_rnn(rnn, params) -> None:
+    """Copy a flax RNN's ``GRUCell_0`` params (NumPy) into the port's
+    ``RNN`` in place (the gates stacked r, z, n)."""
+    g = params["params"]["GRUCell_0"]
+    cell = rnn.cell
+    ins = [_dense(g[k]) for k in ("ir", "iz", "in")]
+    _copy(cell.inp.weight, np.concatenate([w for w, _ in ins], 0))
+    _copy(cell.inp.bias, np.concatenate([b for _, b in ins], 0))
+    _copy(cell.h_rz.weight, np.concatenate([_dense(g[k])[0] for k in ("hr", "hz")], 0))
+    w, b = _dense(g["hn"])
+    _copy(cell.h_n.weight, w)
+    _copy(cell.h_n.bias, b)
+
+
+def fused_weights(actor_params, critic_params):
+    """The fused network of PPO's ``fused_update`` from flax actor and
+    critic MLP params (NumPy): [(W1, b1), (W2, b2), (W3, b3)] in torch
+    layout (weight (out, in)), hidden layers concatenated actor first, the
+    cross blocks zero (the JAX package's ``fused_losses``)."""
+    a, c = actor_params["params"], critic_params["params"]
+    layers = []
+    for i in range(3):
+        (wa, ba), (wc, bc) = _dense(a[f"Dense_{i}"]), _dense(c[f"Dense_{i}"])
+        if i == 0:
+            w = np.concatenate([wa, wc], 0)
+        else:
+            w = np.zeros((wa.shape[0] + wc.shape[0], wa.shape[1] + wc.shape[1]), np.float32)
+            w[:wa.shape[0], :wa.shape[1]] = wa
+            w[wa.shape[0]:, wa.shape[1]:] = wc
+        layers.append((w, np.concatenate([ba, bc])))
+    return layers

@@ -106,3 +106,78 @@ def test_normalizers_match_jax():
     before = to.rms.count.clone()
     to(torch.from_numpy(_x((4, 12))), update=False)
     assert torch.equal(to.rms.count, before)
+
+
+@pytest.mark.parametrize("hw", [(36, 36), (45, 29)], ids=["square", "ragged"])
+def test_cnn_forward_matches_flax(hw):
+    """flax pads 'SAME' (unevenly where the stride leaves a remainder) and
+    flattens NHWC; the port pads the same way and keeps the order.  The
+    ragged image's first conv pads both axes unevenly (3 above, 4 below)."""
+    h, w = hw
+    jm = jn.CNN(6)
+    params = jax.device_get(jm.init(jax.random.key(4), jnp.zeros((1, h, w, 3))))
+    pm = tn.CNN((h, w, 3), 6)
+    convert.load_cnn(pm, params)
+    x = _x((4, h, w, 3), 5)
+    want = np.asarray(jm.apply(params, jnp.asarray(x)))
+    got = pm(torch.from_numpy(x)).detach().numpy()
+    assert got.shape == (4, 6)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_cnn_same_padding_is_xla_s():
+    """XLA's 'SAME': ceil(n / s) outputs, the smaller half of the padding
+    first."""
+    assert tn._same_pads(36, 8, 4) == (2, 2)
+    assert tn._same_pads(30, 8, 4) == (3, 3)
+    assert tn._same_pads(45, 8, 4) == (3, 4)
+    assert tn._same_pads(9, 4, 2) == (1, 2)
+    assert tn._same_pads(5, 3, 1) == (1, 1)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_rnn_forward_matches_flax(masked):
+    """The GRU over a (B, T, D) sequence, with done masks that restart the
+    carry mid-sequence and an initial carry, against flax's."""
+    B, T, D, H = 4, 7, 5, 8
+    jm = jn.RNN(H)
+    params = jax.device_get(jm.init(jax.random.key(6), jnp.zeros((B, T, D))))
+    pm = tn.RNN(D, H)
+    convert.load_rnn(pm, params)
+    xs, h0 = _x((B, T, D), 7), _x((B, H), 8)
+    masks = (np.random.default_rng(9).random((B, T)) > 0.3).astype(np.float32) if masked else None
+    jys, jh = jm.apply(params, jnp.asarray(xs), None if masks is None else jnp.asarray(masks),
+                       jnp.asarray(h0))
+    ys, h = pm(torch.from_numpy(xs), None if masks is None else torch.from_numpy(masks),
+               torch.from_numpy(h0))
+    assert ys.shape == (B, T, H) and h.shape == (B, H)
+    np.testing.assert_allclose(ys.detach().numpy(), np.asarray(jys), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(h.detach().numpy(), np.asarray(jh), rtol=RTOL, atol=ATOL)
+    # Without an initial carry both start from zeros.
+    jys0, _ = jm.apply(params, jnp.asarray(xs))
+    np.testing.assert_allclose(pm(torch.from_numpy(xs))[0].detach().numpy(), np.asarray(jys0),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_categorical_matches_jax():
+    logits = _x((256, 5), 10, 2.0)
+    value = np.random.default_rng(11).integers(0, 5, 256)
+    jdist, tdist = jd.Categorical(jnp.asarray(logits)), td.Categorical(torch.from_numpy(logits))
+    np.testing.assert_allclose(tdist.logits.numpy(), np.asarray(jdist.logits), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(tdist.log_prob(torch.from_numpy(value)).numpy(),
+                               np.asarray(jdist.log_prob(jnp.asarray(value))), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(tdist.entropy().numpy(), np.asarray(jdist.entropy()), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_array_equal(tdist.mode().numpy(), np.asarray(jdist.mode()))
+    # Sampling from an explicit generator: the same seed gives the same
+    # draws, and their frequencies follow the probabilities (each within
+    # 5 standard errors over 20000 draws of one row).
+    g = lambda: torch.Generator().manual_seed(3)  # noqa: E731
+    a = tdist.sample(g())
+    assert a.shape == (256,) and torch.equal(a, tdist.sample(g()))
+    one = td.Categorical(torch.from_numpy(logits[:1]).expand(20000, 5))
+    freq = np.bincount(one.sample(g()).numpy(), minlength=5) / 20000
+    p = np.exp(np.asarray(jdist.logits[0]))
+    assert np.all(np.abs(freq - p) < 5 * np.sqrt(p * (1 - p) / 20000) + 1e-9), (freq, p)

@@ -264,8 +264,10 @@ def test_run_matches_jax(jax_side, tenv):
 
 
 def test_options_the_port_refuses(tenv):
-    with pytest.raises(NotImplementedError):
-        TPPO(tenv, fused_update=True, **PPO_KW)
+    # The two update rewrites exclude each other (ppo.py:263 of the JAX
+    # package asserts it).
+    with pytest.raises(ValueError):
+        TPPO(tenv, use_fast_update=True, fused_update=True, **PPO_KW)
     with pytest.raises(ValueError):
         TPPO(tenv, use_fast_rollout=True, norm_obs=True, **PPO_KW)
     with pytest.raises(ValueError):
