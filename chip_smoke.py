@@ -129,6 +129,19 @@ observation noise (the configs: ``safe_control_gym_torch/baseline.py``,
    with the fused 2H-wide update against the separate autograd update (the
    parameters within rtol 2e-4), and the CNN, the masked RNN and the
    Categorical on the card against the CPU;
+10d. the model-based stack (``phase_mpc_solve``, ``phase_mpc``,
+   ``phase_ilqr``, ``phase_linear_mpc``, ``phase_gp_mpc``, ``phase_cbf``):
+   the benchmarks/mpc_solve.py workload (2D quad, B = 1024, H = 20) as one
+   batched AL-iLQR solve under ``set_sync_debug_mode("error")``, against
+   the CPU on 8 envs, its launches (profiler) and ms, a single solve's ms;
+   MPC on B = 1024 3D quads for 150 closed-loop steps through the general
+   engine (K1 once a step; the bar: median final position error <= 0.06 m,
+   >= 95% within 0.1 m; the first 5 solves of 32 envs against the CPU);
+   iLQR's learn() on CartPole against the CPU and its episode's bar, with
+   the backward pass's eigh cost; LinearMPC on 256 2D quads to its bar;
+   GP-MPC's learn(), margins and the solves of 10 closed-loop steps against
+   the CPU; the CBF filter's certify on 4096 states against the CPU and
+   is_cbf;
 11. prints each kernel's registers and spills (``ptxas -v``), each phase's
    seconds, one JSON line of per-kernel results (K1 with its plan's group
    and block and every instance's registers and spill bytes; K2 with its
@@ -462,6 +475,32 @@ def profile_kernels(fn, reps):
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0
             and "spin_kernel" not in e.key}
     return wall, kern
+
+
+def profile_launches(fn):
+    """One call of ``fn`` under torch.profiler with the device activity
+    alone: (device operations launched (kernels, memsets and copies), their
+    device ms in all, the five names launched most).  Reads the profiler's
+    raw events: ``key_averages`` builds a Python event per record, which
+    over a solve's ~7e4 launches takes longer than the solve, and the CPU
+    activity multiplies the records."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD_KERNELS):
+            torch.cuda._sleep(PROFILE_LEAD_CYCLES)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA and "spin_kernel" not in e.name()]
+    names = collections.Counter(e.name()[:80] for e in evs)
+    return len(evs), sum(e.duration_ns() for e in evs) / 1e6, names.most_common(5)
 
 
 def kernel_device_ms(fn, name, reps, sessions=3):
@@ -1753,6 +1792,453 @@ def phase_ppo_extras(dev):
     return res
 
 
+# The model-based stack (phase_mpc_solve, phase_mpc, phase_ilqr,
+# phase_linear_mpc, phase_gp_mpc, phase_cbf): batched AL-iLQR solves on the
+# card, the 3D closed loop through K1, each against the same code on the CPU.
+MPC_SOLVE_B, MPC_H = 1024, 20  # benchmarks/mpc_solve.py's batch and horizon
+MPC_SOLVE_REPS, MPC_SINGLE_REPS = 2, 3
+MPC_CPU_ENVS = 8  # envs of a card solve held against the CPU
+# A card solve against the CPU's: float32 with other rounding (cuBLAS
+# products, CUDA's reciprocal division by a scalar), so the solves' accept
+# decisions between costs equal to the last place fall apart as they do
+# between the two packages.  Each limit (costs rtol, inputs over their
+# largest) sits between the sound readings and the smallest reading with a
+# fault planted, both from scripts/mpc_tolerance_port.py over five seeds on
+# an H100 (run T13, PERF.md §6):
+# - the 2D solve (phase_mpc_solve): sound <= 1.71e-7 and 9.03e-4; the input
+#   box left out >= 2.04e-3 and 0.255;
+# - the 3D loop's solves (phase_mpc): sound <= 6.33e-5 and 6.69e-3; one
+#   inner iteration fewer or the input box left out >= 0.205 and 0.719;
+# - GP-MPC's solves (phase_gp_mpc): sound <= 2.43e-3 and 1.33e-2; the GP
+#   mean left out >= 7.62e-2 and 4.67e-2.  The margins left out read as the
+#   sound solves (no row near its bound): the margins check sees them.
+MPC_COST_RTOL, MPC_US_REL = 2e-5, 1e-2
+MPC3D_COST_RTOL, MPC3D_US_REL = 1e-3, 1e-2
+GP_COST_RTOL, GP_US_REL = 1e-2, 2.5e-2
+MPC_STEPS, MPC_CPU_STEPS, MPC_CPU_B = 150, 5, 32
+MPC_BAR_MEDIAN, MPC_BAR_WITHIN, MPC_BAR_SHARE = 0.06, 0.1, 0.95
+# The 3D PID config (tests/test_controllers.py:82-99) as an MPC task.
+MPC_QUAD3D = dict(PID_QUAD3D, cost="quadratic", randomized_init=True,
+                  constraints=({"constraint_form": "default_constraint",
+                                "constrained_variable": "input"},))
+ILQR_CARTPOLE = dict(task="stabilization", cost="quadratic", randomized_init=False,
+                     init_state={"init_theta": 0.2, "init_x": -0.3}, episode_len_sec=4)
+ILQR_COST_RTOL = 1e-3
+LMPC_QUAD2D = dict(quad_type=2, task="stabilization", cost="quadratic",
+                   task_info={"stabilization_goal": [0, 1], "stabilization_goal_tolerance": 0.01},
+                   randomized_init=False, init_state={"init_x": 0.3, "init_z": 0.6},
+                   episode_len_sec=3, ctrl_freq=50, pyb_freq=50)
+LMPC_B = 256
+# tests/test_gp_mpc.py:103-118 (the env's mass is not the prior's) with the
+# mixed constraint rows of tests/test_gp_mpc.py:26-37, so that the margins
+# exist and go through row_order.
+GP_QUAD2D = dict(quad_type=2, task="stabilization", cost="quadratic",
+                 task_info={"stabilization_goal": [0, 1], "stabilization_goal_tolerance": 0.01},
+                 randomized_init=False, init_state={"init_z": 0.9},
+                 inertial_prop={"M": 0.041, "Iyy": 1.4e-5}, episode_len_sec=2, ctrl_freq=25,
+                 pyb_freq=50,
+                 constraints=(
+                     {"constraint_form": "quadratic_constraint", "constrained_variable": "state",
+                      "P": np.diag([1.0, 0.2, 1.0, 0.2, 0.5, 0.1]).tolist(), "b": 25.0},
+                     {"constraint_form": "default_constraint", "constrained_variable": "input"},
+                     {"constraint_form": "symmetric_constraint", "constrained_variable": "state",
+                      "bound": [2.0, 2.0], "active_dims": [0, 2]},
+                     {"constraint_form": "linear_constraint", "constrained_variable": "state",
+                      "A": np.eye(6).tolist(), "b": [3.0] * 6}))
+GP_B, GP_STEPS = 8, 10
+MPC_QUAD3D_KW = dict(horizon=MPC_H, q_mpc=[1.0], r_mpc=[0.1], al_iters=2, inner_iters=3,
+                     terminal_lqr_cost=True)
+GP_KW = dict(horizon=10, q_mpc=[1.0], r_mpc=[0.1], num_samples=150, num_inducing=40,
+             gp_iters=80, al_iters=1, inner_iters=4, terminal_lqr_cost=True)
+CBF_B = 4096
+CBF_ATOL = 1e-4  # 200 ADMM iterations in float32 (tests/test_torch_cbf_qp.py's QP_ATOL)
+
+
+def timed(fn, reps):
+    """Mean host ms of ``reps`` calls of ``fn``, synchronized at the end."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3, out
+
+
+def mpc_rel(got, want):
+    return float((got.double() - want.double()).abs().max() / want.abs().max())
+
+
+def phase_mpc_solve(dev):
+    """The benchmarks/mpc_solve.py workload (``baseline.cfg_mpc_solve``:
+    2D quad stabilization to (0.5, 1.0), the input box; ``MPC(env,
+    horizon=20)``, 3 AL x 6 inner iterations; B = 1024 initial states
+    0.2 N(0, 1) from a seeded generator): one batched solve under
+    ``torch.cuda.set_sync_debug_mode("error")`` (any host sync raises); its
+    first MPC_CPU_ENVS problems against the same solve on the CPU (costs
+    rtol MPC_COST_RTOL, inputs within MPC_US_REL of their largest); the
+    launches and device time of one batched solve (``profile_launches``),
+    ms per batched solve and per single solve (host clock, synchronized)."""
+    import torch
+
+    from safe_control_gym_torch.baseline import cfg_mpc_solve
+    from safe_control_gym_torch.controllers.mpc import MPC
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+
+    mpc = MPC(make_quadrotor(cfg_mpc_solve(), device=dev), horizon=MPC_H)
+    mpc_c = MPC(make_quadrotor(cfg_mpc_solve(), device="cpu"), horizon=MPC_H)
+    gen = torch.Generator().manual_seed(0)
+    x0s_c = 0.2 * torch.randn(MPC_SOLVE_B, mpc.model.nx, generator=gen)
+    x0s = x0s_c.to(dev)
+    t0 = time.perf_counter()
+    mpc.solve_batch(x0s)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        us, cost = mpc.solve_batch(x0s)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check("batched AL-iLQR solve without a host sync",
+          tuple(us.shape) == (MPC_SOLVE_B, MPC_H, mpc.model.nu) and bool(torch.isfinite(us).all())
+          and bool(torch.isfinite(cost).all()),
+          f"B={MPC_SOLVE_B}, H={MPC_H}: one solve under set_sync_debug_mode('error'); "
+          f"costs {float(cost.min()):.5g}-{float(cost.max()):.5g}")
+    cost_err, us_err = solve_errs(us, cost, *mpc_c.solve_batch(x0s_c[:MPC_CPU_ENVS]))
+    check(f"MPC solve on the card against the CPU (first {MPC_CPU_ENVS} envs)",
+          cost_err < MPC_COST_RTOL and us_err < MPC_US_REL,
+          f"costs rel {cost_err:.3g} (rtol {MPC_COST_RTOL:g}); inputs {us_err:.3g} of the "
+          f"largest (bound {MPC_US_REL:g})")
+    batched_ms, _ = timed(lambda: mpc.solve_batch(x0s), MPC_SOLVE_REPS)
+    single = {"i": 0}
+
+    def one():
+        single["i"] += 1
+        return mpc.solve_batch(x0s[single["i"]][None])
+
+    single_ms, _ = timed(one, MPC_SINGLE_REPS)
+    launches, busy, top = profile_launches(lambda: mpc.solve_batch(x0s))
+    check("a profiled batched solve launched on the card", launches > 0 and busy > 0,
+          f"{launches} device operations, {busy:.3f} device ms")
+    res = {"batch": MPC_SOLVE_B, "horizon": MPC_H, "first_solve_s": first_s,
+           "batched_ms": batched_ms, "single_ms": single_ms,
+           "solves_per_s": MPC_SOLVE_B / batched_ms * 1e3, "launches_per_solve": launches,
+           "device_ms_per_solve": busy, "cpu_cost_rel_err": cost_err, "cpu_us_rel_err": us_err,
+           "top": top}
+    print(f"  MPC solve (2D quad, B={MPC_SOLVE_B}, H={MPC_H}, 3x6 iterations): "
+          f"{batched_ms:.2f} ms a batched solve ({res['solves_per_s']:.6g} solves/s), "
+          f"{single_ms:.2f} ms a single solve; profiled: {launches} launches (kernels, memsets, "
+          f"copies) a batched solve, device busy {busy:.3f} ms; first solve {first_s:.2f} s; "
+          f"{card_line()}",
+          flush=True)
+    return res
+
+
+def mpc_loop(ctrl, env, steps, env_seeds, x0=None, record=0):
+    """``steps`` closed-loop steps of ``ctrl.solve_batch`` on ``env`` from
+    ``env_seeds`` (states replaced by ``x0`` where given), the first input
+    clipped to the input box: the states after each step, and the first
+    ``record`` solves' (observations, inputs, costs)."""
+    import torch
+
+    from safe_control_gym_torch.parallel.vector import make_vec_env
+
+    vec = make_vec_env(env, env_seeds.shape[0], auto_reset=False)
+    state, obs, _ = vec.reset(env_seeds=env_seeds)
+    if x0 is not None:
+        state, obs = state.replace(x=x0), x0
+    xs, solves = [], []
+    for k in range(steps):
+        us, cost = ctrl.solve_batch(obs, k)
+        if k < record:
+            solves.append((obs, us, cost))
+        act = torch.clamp(us[:, 0], ctrl._u_lo, ctrl._u_hi)
+        state, obs, _, _, _ = vec.step_no_reset(state, act)
+        xs.append(state.x)
+    return xs, solves
+
+
+def solve_errs(us, cost, us_c, cost_c):
+    """A card solve against the CPU's on the CPU solve's envs (the first
+    ones): (the costs' largest relative error, the inputs' largest error
+    over their largest)."""
+    n = cost_c.shape[0]
+    return (float(((cost[:n].cpu().double() - cost_c.double()).abs()
+                   / cost_c.double().abs()).max()), mpc_rel(us[:n].cpu(), us_c))
+
+
+def redo_solves(ctrl_c, solves, n):
+    """The recorded solves of a closed loop on the card (``mpc_loop``), redone
+    by ``ctrl_c`` on the CPU from the same observations for the first ``n``
+    envs: the largest ``solve_errs`` over the solves."""
+    errs = [solve_errs(us, cost, *ctrl_c.solve_batch(obs[:n].cpu(), k))
+            for k, (obs, us, cost) in enumerate(solves)]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def check_solves(tag, ctrl_c, solves, n, cost_rtol, us_rel):
+    """The recorded solves of a closed loop on the card, redone on the CPU
+    solve by solve (a closed loop drifts once a float32 accept decision
+    flips; ``redo_solves``): costs rtol ``cost_rtol``, inputs within
+    ``us_rel`` of the largest."""
+    cost_err, us_err = redo_solves(ctrl_c, solves, n)
+    check(f"{tag}: {len(solves)} solves of the closed loop on the card against the CPU "
+          f"({n} envs)", cost_err < cost_rtol and us_err < us_rel,
+          f"costs rel {cost_err:.3g} (rtol {cost_rtol:g}); inputs {us_err:.3g} of the "
+          f"largest (bound {us_rel:g})")
+    return cost_err, us_err
+
+
+def phase_mpc(dev):
+    """The 3D quad closed loop with K1 on the path: the PID config of
+    tests/test_controllers.py:82-99 with the input box, the quadratic cost
+    and randomized initial states; ``MPC(horizon=20, q_mpc=[1],
+    r_mpc=[0.1], al_iters=2, inner_iters=3, terminal_lqr_cost=True)``; B =
+    1024 envs for MPC_STEPS steps of ``solve_batch`` -> clip -> the general
+    engine, the launch counters zeroed just before and read just after (K1
+    once a step, nothing else); the bar: median final position error <=
+    MPC_BAR_MEDIAN m and >= MPC_BAR_SHARE of the envs within MPC_BAR_WITHIN
+    m; the solves of the first MPC_CPU_STEPS steps redone on the CPU for
+    the first MPC_CPU_B envs (``check_solves`` at MPC3D_COST_RTOL,
+    MPC3D_US_REL); a profile of two of the
+    loop's env steps holds two K1 launches; K1's us a launch."""
+    import torch
+
+    from safe_control_gym_torch.controllers.mpc import MPC
+    from safe_control_gym_torch.envs.quadrotor import QuadrotorConfig, make_quadrotor
+    from safe_control_gym_torch.ops import ctr_prng
+    from safe_control_gym_torch.parallel.vector import make_vec_env
+
+    env = make_quadrotor(QuadrotorConfig(**MPC_QUAD3D), device=dev)
+    mpc = MPC(env, **MPC_QUAD3D_KW)
+    seeds = ctr_prng.env_seeds_from_seed(0, MPC_SOLVE_B, dev)
+    mpc_loop(mpc, env, 1, seeds)  # warm-up
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    xs, solves = mpc_loop(mpc, env, MPC_STEPS, seeds, record=MPC_CPU_STEPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counters()
+    check("MPC on the 3D quad: K1 once a general-engine step",
+          launches["k1"] == MPC_STEPS and sum(launches.values()) == MPC_STEPS,
+          f"launches {launches} in {MPC_STEPS} steps at B={MPC_SOLVE_B}")
+    goal = torch.tensor([0.3, -0.2, 1.0], device=dev)
+    err = (xs[-1][:, [0, 2, 4]] - goal).norm(dim=-1).cpu()
+    median, share = float(err.median()), float((err <= MPC_BAR_WITHIN).float().mean())
+    check(f"MPC on the 3D quad: the bar after {MPC_STEPS} steps",
+          bool(torch.isfinite(err).all()) and median <= MPC_BAR_MEDIAN and share >= MPC_BAR_SHARE,
+          f"median final position error {median:.4g} m (bar {MPC_BAR_MEDIAN}), "
+          f"{share:.2%} within {MPC_BAR_WITHIN} m (bar {MPC_BAR_SHARE:.0%}), max "
+          f"{float(err.max()):.4g} m")
+
+    mpc_c = MPC(make_quadrotor(QuadrotorConfig(**MPC_QUAD3D), device="cpu"), **MPC_QUAD3D_KW)
+    mpc_c.P_term = mpc.P_term.cpu()
+    cpu_errs = check_solves("MPC on the 3D quad", mpc_c, solves, MPC_CPU_B, MPC3D_COST_RTOL,
+                            MPC3D_US_REL)
+
+    # K1 in the profiler: two general-engine steps of the loop (the solves
+    # launch no K1: the counters above saw K1 exactly once a step).
+    vec = make_vec_env(env, MPC_SOLVE_B, auto_reset=False)
+    loop = dict(zip(("s", "o"), vec.reset(env_seeds=seeds)[:2]))
+    act = torch.clamp(mpc.solve_batch(loop["o"], 0)[0][:, 0], mpc._u_lo, mpc._u_hi)
+
+    def step():
+        loop["s"], loop["o"], _, _, _ = vec.step_no_reset(loop["s"], act)
+
+    _, kern = profile_kernels(step, 2)
+    k1 = [(t, n) for k, (t, n) in kern.items() if "quad3d_substeps_kernel" in k]
+    k1_n = sum(n for _, n in k1)
+    check("a profile of two closed-loop env steps holds two K1 launches", k1_n == 2,
+          f"K1 launches seen {k1_n}")
+    res = {"launches": launches, "steps": MPC_STEPS, "host_ms_per_step": secs / MPC_STEPS * 1e3,
+           "median_final_pos_err": median, "share_within": share,
+           "max_final_pos_err": float(err.max()), "cpu_cost_rel_err": cpu_errs[0],
+           "cpu_us_rel_err": cpu_errs[1], "k1_ms_per_launch": sum(t for t, _ in k1) / k1_n,
+           "env_step_launches": sum(n for _, n in kern.values()) / 2}
+    print(f"  MPC, 3D quad (B={MPC_SOLVE_B}, H={MPC_H}, 2x3 iterations): "
+          f"{res['host_ms_per_step']:.2f} host ms a closed-loop step ({MPC_STEPS} steps, K1 "
+          f"{launches['k1']}); profiled env step: {res['env_step_launches']:.0f} kernel launches, "
+          f"K1 {res['k1_ms_per_launch'] * 1e3:.4f} us a launch; {card_line()}", flush=True)
+    return res
+
+
+def phase_ilqr(dev):
+    """iLQR on the CartPole config of tests/test_controllers.py:65-79:
+    ``learn()`` on the card, its final cost against the CPU's (rtol
+    ILQR_COST_RTOL), one episode of the learned policy on the card ending
+    with |x|, |theta| < 0.1; the wall time of ``learn`` and of one backward
+    pass, whose 200 steps each run an ``eigh`` that synchronizes with the
+    host, and of 200 such ``eigh`` calls alone."""
+    import torch
+
+    from safe_control_gym_torch.controllers.ilqr import iLQR
+    from safe_control_gym_torch.envs.cartpole import CartPoleConfig, make_cartpole
+    from safe_control_gym_torch.parallel.vector import make_vec_env
+
+    env = make_cartpole(CartPoleConfig(**ILQR_CARTPOLE), device=dev)
+    il = iLQR(env, q_lqr=[1.0], r_lqr=[0.1], max_iterations=8)
+    learn_ms, out = timed(il.learn, 1)
+    il_c = iLQR(make_cartpole(CartPoleConfig(**ILQR_CARTPOLE), device="cpu"), q_lqr=[1.0],
+                r_lqr=[0.1], max_iterations=8)
+    cost_c = il_c.learn()["cost"]
+    cost_err = abs(out["cost"] - cost_c) / abs(cost_c)
+    check("iLQR learn() on the card against the CPU", cost_err < ILQR_COST_RTOL,
+          f"final cost {out['cost']:.7g} (CPU {cost_c:.7g}, rel {cost_err:.3g}, rtol "
+          f"{ILQR_COST_RTOL:g}) in {learn_ms:.1f} ms")
+    vec = make_vec_env(env, 1, auto_reset=False)
+    state, obs, _ = vec.reset(env_seeds=torch.tensor([0], dtype=torch.int32, device=dev))
+    x_init = state.x[0]
+    il.reset()
+    for _ in range(env.max_episode_steps):
+        a = il.select_action(obs[0].cpu().numpy())
+        state, obs, _, done, _ = vec.step_no_reset(state, torch.as_tensor(a, device=dev)[None])
+        if bool(done[0]):
+            break
+    x = state.x[0].cpu().numpy()
+    check("iLQR episode on the card: |x|, |theta| < 0.1", float(np.abs(x[[0, 2]]).max()) < 0.1,
+          f"final state {np.round(x, 5).tolist()}")
+    xs, us = il._forward(x_init, il.gains_fb, il.input_ff)
+    bwd_ms, _ = timed(lambda: il._backward(xs, us, 1.0), 3)
+    H = torch.full((1, 1), 0.5, device=dev)
+    eigh_ms, _ = timed(lambda: [torch.linalg.eigh(H) for _ in range(il.T)], 3)
+    res = {"learn_ms": learn_ms, "cost": out["cost"], "cpu_cost": cost_c,
+           "backward_ms": bwd_ms, "eigh_200_ms": eigh_ms, "final_state": x.tolist()}
+    print(f"  iLQR, CartPole: learn() {learn_ms:.1f} ms; one backward pass ({il.T} steps) "
+          f"{bwd_ms:.2f} ms, of which {il.T} eigh calls alone take {eigh_ms:.2f} ms; "
+          f"{card_line()}", flush=True)
+    return res
+
+
+def phase_linear_mpc(dev):
+    """LinearMPC on the config of tests/test_mpc.py:79-96 (2D quad to (0,
+    1), horizon 20, 1 AL x 4 inner iterations, the LQR terminal cost),
+    batched over LMPC_B envs for 150 steps on the general engine: every env
+    ends with |x| < 0.05 and |z - 1| < 0.05."""
+    import torch
+
+    from safe_control_gym_torch.controllers.linear_mpc import LinearMPC
+    from safe_control_gym_torch.envs.quadrotor import QuadrotorConfig, make_quadrotor
+    from safe_control_gym_torch.ops import ctr_prng
+
+    env = make_quadrotor(QuadrotorConfig(**LMPC_QUAD2D), device=dev)
+    lmpc = LinearMPC(env, horizon=MPC_H, q_mpc=[1.0], r_mpc=[0.1], al_iters=1, inner_iters=4,
+                     terminal_lqr_cost=True)
+    steps = 150
+    ms, (xs, _) = timed(lambda: mpc_loop(lmpc, env, steps,
+                                         ctr_prng.env_seeds_from_seed(0, LMPC_B, dev)), 1)
+    x = xs[-1].cpu()
+    worst = float(torch.maximum(x[:, 0].abs(), (x[:, 2] - 1.0).abs()).max())
+    check(f"LinearMPC on the 2D quad, B={LMPC_B}: every env at |x|, |z - 1| < 0.05", worst < 0.05,
+          f"largest final |x| or |z - 1| {worst:.4g}")
+    res = {"host_ms_per_step": ms / steps, "worst_final_err": worst}
+    print(f"  LinearMPC, 2D quad: {res['host_ms_per_step']:.2f} host ms a closed-loop step at "
+          f"B={LMPC_B}; {card_line()}", flush=True)
+    return res
+
+
+def gp_cpu_copy(gp, gp_state=None):
+    """GP-MPC ``gp``'s settings on a CPU env, with ``gp``'s GPs (or
+    ``gp_state``), prior gain and terminal cost."""
+    from safe_control_gym_torch.controllers.gp_mpc import GPMPC
+    from safe_control_gym_torch.envs.quadrotor import QuadrotorConfig, make_quadrotor
+    from safe_control_gym_torch.ops.gp import GPParams, GPState
+
+    gp_c = GPMPC(make_quadrotor(QuadrotorConfig(**GP_QUAD2D), device="cpu"), **GP_KW)
+    s = gp.gp_state if gp_state is None else gp_state
+    gp_c.gp_state = GPState(GPParams(*(t.cpu() for t in s.params)), *(t.cpu() for t in s[1:]))
+    gp_c.K_prior, gp_c.P_term = gp.K_prior.cpu(), gp.P_term.cpu()
+    gp_c._solve = gp_c._make_gp_solver()
+    return gp_c
+
+
+def gp_loop(gp, env, seed):
+    """GP_STEPS closed-loop steps of GP_B envs from states drawn around
+    hover from ``seed``, every solve recorded (``mpc_loop``)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x0s = (rng.normal(size=(GP_B, 6)) * [0.1, 0.1, 0.1, 0.1, 0.05, 0.05]
+           + [0, 0, 0.9, 0, 0, 0]).astype(np.float32)
+    seeds = torch.arange(GP_B, dtype=torch.int32, device=env.device)
+    return mpc_loop(gp, env, GP_STEPS, seeds, torch.as_tensor(x0s, device=env.device),
+                    record=GP_STEPS)
+
+
+def phase_gp_mpc(dev):
+    """GP-MPC on the 2D quad whose mass is not the prior's
+    (tests/test_gp_mpc.py:103-118) with the mixed constraint rows: ``learn()``
+    on the card (150 exploration steps, 40 inducing points, 80 Adam steps),
+    then ``probabilistic_margins`` (finite, the symmetric row untightened at
+    x0 and growing along the horizon); then GP_STEPS closed-loop steps of
+    GP_B envs from seeded states on the card, each solve redone on the CPU
+    with the card's GPs, prior gain and terminal cost (``check_solves`` at
+    GP_COST_RTOL, GP_US_REL)."""
+    import torch
+
+    from safe_control_gym_torch.controllers.gp_mpc import GPMPC
+    from safe_control_gym_torch.envs.quadrotor import QuadrotorConfig, make_quadrotor
+
+    env = make_quadrotor(QuadrotorConfig(**GP_QUAD2D), device=dev)
+    gp = GPMPC(env, **GP_KW)
+    learn_ms, out = timed(gp.learn, 1)
+    x0 = torch.tensor([0.0, 0.0, 0.9, 0.0, 0.0, 0.0], device=dev)
+    m = gp.probabilistic_margins(x0, gp._u_eq2.expand(gp.T, -1) * 1.05).cpu()
+    sym = m[:, 5]  # the first symmetric row (spec order: quadratic, 4 input rows)
+    check("GP-MPC learn() and margins on the card",
+          bool(torch.isfinite(m).all()) and float(sym[0]) == 0.0
+          and bool((sym[1:] - sym[:-1] > -1e-9).all()) and float(sym[-1]) > float(sym[1]),
+          f"{out['train_points']} training points in {learn_ms:.0f} ms; symmetric row margins "
+          f"{np.round(sym.numpy(), 5).tolist()}")
+    gp_c = gp_cpu_copy(gp)
+    loop_ms, (xs, solves) = timed(lambda: gp_loop(gp, env, 0), 1)
+    cpu_errs = check_solves("GP-MPC", gp_c, solves, GP_B, GP_COST_RTOL, GP_US_REL)
+    res = {"learn_ms": learn_ms, "train_points": out["train_points"],
+           "margins_sym_row": sym.tolist(), "host_ms_per_step": loop_ms / GP_STEPS,
+           "cpu_cost_rel_err": cpu_errs[0], "cpu_us_rel_err": cpu_errs[1]}
+    print(f"  GP-MPC, 2D quad: learn() {learn_ms:.0f} ms, {res['host_ms_per_step']:.2f} host ms "
+          f"a closed-loop step at B={GP_B}; {card_line()}", flush=True)
+    return res
+
+
+def phase_cbf(dev):
+    """The CBF-QP filter on CartPole (tests/test_rl.py:114-130, slope 0.5,
+    soft): ``certify`` on CBF_B seeded states and desired inputs on the card
+    against the CPU with the same residual MLP (inputs and slacks atol
+    CBF_ATOL), its ms; ``is_cbf(num_points=10)`` on both, the same verdict
+    and infeasible points."""
+    import torch
+
+    from safe_control_gym_torch.controllers.cbf import CBF_QP
+    from safe_control_gym_torch.envs.cartpole import CartPoleConfig, make_cartpole
+
+    cfg = dict(task="stabilization", cost="rl_reward", normalized_rl_action_space=False,
+               randomized_init=True, episode_len_sec=5)
+    cbf = CBF_QP(make_cartpole(CartPoleConfig(**cfg), device=dev), slope=0.5)
+    cbf_c = CBF_QP(make_cartpole(CartPoleConfig(**cfg), device="cpu"), slope=0.5)
+    cbf_c.mlp.load_state_dict({k: v.cpu() for k, v in cbf.mlp.state_dict().items()})
+    rng = np.random.default_rng(0)
+    X = torch.as_tensor((rng.normal(size=(CBF_B, 4)) * [1.5, 1.0, 0.2, 0.5]).astype(np.float32))
+    Ud = torch.as_tensor((rng.normal(size=(CBF_B, 1)) * 5).astype(np.float32))
+    with torch.no_grad():
+        cert_ms, (u, s) = timed(lambda: cbf.certify(X.to(dev), Ud.to(dev)), 3)
+        u_c, s_c = cbf_c.certify(X, Ud)
+    err = max(max_err(u.cpu(), u_c), max_err(s.cpu(), s_c))
+    check(f"CBF certify on the card against the CPU (B={CBF_B})", err < CBF_ATOL,
+          f"inputs and slacks max_abs_err {err:.3g} (atol {CBF_ATOL:g}); "
+          f"{int((s_c > cbf.slack_tolerance).sum())} envs need slack")
+    (ok, bad), (ok_c, bad_c) = cbf.is_cbf(num_points=10), cbf_c.is_cbf(num_points=10)
+    check("CBF is_cbf(num_points=10) on the card against the CPU",
+          ok == ok_c and np.array_equal(bad, bad_c), f"verdict {ok} (CPU {ok_c}), "
+          f"{len(bad)} infeasible points (CPU {len(bad_c)})")
+    res = {"certify_ms": cert_ms, "max_abs_err": err, "is_cbf": ok}
+    print(f"  CBF certify: {cert_ms:.2f} ms for {CBF_B} states (200 ADMM iterations); "
+          f"{card_line()}", flush=True)
+    return res
+
+
 def sass_instructions(kname):
     """SASS instructions of the kernel instance whose mangled name holds
     ``kname`` in the built library (``scripts/ab_kernel.py::sass_count``,
@@ -2530,6 +3016,12 @@ def main():
     lqr = phase(phase_lqr, dev)
     pid = phase(phase_pid, dev)
     ppo_extras = phase(phase_ppo_extras, dev)
+    mpc_solve = phase(phase_mpc_solve, dev)
+    mpc = phase(phase_mpc, dev)
+    ilqr = phase(phase_ilqr, dev)
+    linear_mpc = phase(phase_linear_mpc, dev)
+    gp_mpc = phase(phase_gp_mpc, dev)
+    cbf = phase(phase_cbf, dev)
     bnd = bounds(res, serve_cp, serve_q2, serve_mz, train, k3_maze)
 
     from safe_control_gym_torch.ops import quad_substeps as K1
@@ -2631,7 +3123,10 @@ def main():
                                      "ms": r["profile"]["k1_ms_per_launch"],
                                      "host_ms_per_step": r["host_ms_per_step"]}
                                for tag, r in (("lqr_tracking_config4", lqr),
-                                              ("pid_quad3d", pid))}),
+                                              ("pid_quad3d", pid))}
+                     | {"mpc_quad3d": {"launches": mpc["launches"]["k1"], "steps": mpc["steps"],
+                                       "ms": mpc["k1_ms_per_launch"],
+                                       "host_ms_per_step": mpc["host_ms_per_step"]}}),
         kernel_entry("quad3d_rollout", "quad3d_rollout.cu", "parallel/fast_env.py:593",
                      res["k2_launches"], max(k2_err, res["k2_main_max_abs_err"]), res["k2_ms"],
                      res["k2_plain_ms"], bnd["k2"], plain_steps=PLAIN_STEPS,
@@ -2720,6 +3215,18 @@ def main():
           f"{lqr['dare_f64_rel_err']:.3g}, tracking RMSE median "
           f"{lqr['tracking_rmse_median']:.4g} m; CartPole run(analysis=True) state_rmse "
           f"{lqr['cartpole']['state_rmse']}")
+    ms_ = mpc_solve
+    print(f"MPC solve (2D quad, B={ms_['batch']}, H={ms_['horizon']}): {ms_['batched_ms']:.2f} ms a "
+          f"batched solve, {ms_['single_ms']:.2f} ms a single solve, {ms_['launches_per_solve']} "
+          f"launches and {ms_['device_ms_per_solve']:.3f} device ms a batched solve, no "
+          f"host sync; MPC on the 3D quad (B={MPC_SOLVE_B}): {mpc['host_ms_per_step']:.2f} host "
+          f"ms a step, K1 {mpc['launches']['k1']} launches in {mpc['steps']} steps, median final "
+          f"position error {mpc['median_final_pos_err']:.4g} m")
+    print(f"iLQR learn() {ilqr['learn_ms']:.1f} ms (backward pass {ilqr['backward_ms']:.2f} ms, "
+          f"200 eigh {ilqr['eigh_200_ms']:.2f} ms); LinearMPC {linear_mpc['host_ms_per_step']:.2f} "
+          f"host ms a step; GP-MPC learn() {gp_mpc['learn_ms']:.0f} ms, "
+          f"{gp_mpc['host_ms_per_step']:.2f} ms a step; CBF certify {cbf['certify_ms']:.2f} ms "
+          f"for {CBF_B} states")
     print(f"PPO extras: fused/separate update max_abs_err {ppo_extras['max_abs_err']:.3g}; CNN "
           f"{ppo_extras['cnn_max_abs_err']:.3g}, RNN {ppo_extras['rnn_max_abs_err']:.3g}, "
           f"Categorical {ppo_extras['categorical_max_abs_err']:.3g} against the CPU")
@@ -2739,6 +3246,8 @@ def main():
                        "k3_vs_plain_max_abs_err": k3_err, "k4": k4, "ptxas": ptxas,
                        "small_checks": small, "serve_cartpole": serve_cp, "serve_quad2d": serve_q2,
                        "train": train, "lqr": lqr, "pid": pid, "ppo_extras": ppo_extras,
+                       "mpc_solve": mpc_solve, "mpc": mpc, "ilqr": ilqr,
+                       "linear_mpc": linear_mpc, "gp_mpc": gp_mpc, "cbf": cbf,
                        **res, **kernels_line}, f, indent=1, default=str)
     print(f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     print(f"total {total_s:.1f} s")

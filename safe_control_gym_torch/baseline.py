@@ -4,7 +4,8 @@ One place for the workloads that ``scripts/bench_port.py`` times and
 ``chip_smoke.py`` drives: config 2 (CartPole tracking), config 3 (2D
 quadrotor stabilization), config 4 (3D quadrotor figure-8 tracking), config
 5 (the level-2 competition maze), and the two stabilization tasks that PPO
-trains on (``benchmarks/rl_convergence.py``).  Each function takes keyword
+trains on (``benchmarks/rl_convergence.py``), and the MPC solve workload of
+``benchmarks/mpc_solve.py``.  Each function takes keyword
 overrides of the config's fields.
 """
 
@@ -120,5 +121,17 @@ def cfg_quad2d_rl(**kw) -> QuadrotorConfig:
     """quad2d_stab_reference_task (benchmarks/rl_convergence.py:44-54)."""
     base = dict(quad_type=2, ctrl_freq=60, pyb_freq=240, episode_len_sec=5, task="stabilization",
                 cost="rl_reward", randomized_init=True, normalized_rl_action_space=True)
+    base.update(kw)
+    return QuadrotorConfig(**base)
+
+
+def cfg_mpc_solve(**kw) -> QuadrotorConfig:
+    """The MPC solve workload of ``benchmarks/mpc_solve.py:31-42``: 2D
+    quadrotor stabilization to (0.5, 1.0), the input box."""
+    base = dict(
+        quad_type=2, ctrl_freq=50, pyb_freq=50, episode_len_sec=5, task="stabilization",
+        task_info={"stabilization_goal": [0.5, 1.0], "stabilization_goal_tolerance": 0.05},
+        cost="quadratic", constraints=INPUT_BOX,
+    )
     base.update(kw)
     return QuadrotorConfig(**base)

@@ -283,8 +283,10 @@ def quad_fc_3d(x, forces, mass, j_diag, ext_f, g=GRAVITY_ACC, km_over_kf=KM / KF
     zb = torch.stack([cpsi * sth * cphi + spsi * sphi,
                       spsi * sth * cphi - cpsi * sphi, cth * cphi], -1)
     m = mass[..., None]
-    gvec = torch.tensor([0.0, 0.0, g], dtype=x.dtype, device=x.device)
-    pos_dd = zb * T[..., None] / m - gvec + ext_f / m
+    # Gravity on z alone (x - 0.0 == x): no gravity vector copied to the
+    # device each call.
+    acc = zb * T[..., None] / m
+    pos_dd = torch.cat([acc[..., :2], acc[..., 2:] - g], -1) + ext_f / m
     l_sq2 = ARM_L / math.sqrt(2.0)
     Mb = torch.stack([l_sq2 * (f1 + f2 - f3 - f4), l_sq2 * (-f1 + f2 + f3 - f4),
                       km_over_kf * (f1 - f2 + f3 - f4)], -1)
@@ -843,6 +845,15 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
         )
         return new_state, _obs(new_state), rew.to(dtype), done, info
 
+    if quad_type == QuadType.THREE_D:
+        # The 3D model's nominal parameters for each float type, on the
+        # env's device, made once: evaluating the model copies nothing to the
+        # device (an MPC solve evaluates it thousands of times).
+        nominal_3d = {fdt: (torch.tensor(nom_mass, dtype=fdt, device=device),
+                            torch.tensor(nom_j, dtype=fdt, device=device),
+                            torch.zeros(3, dtype=fdt, device=device))
+                      for fdt in (torch.float32, torch.float64)}
+
     def symbolic_fc(x_s, u_s):
         """The a-priori model on nominal parameters (quadrotor.py:1047-1070):
         one state, the commanded thrusts as input (not motor forces)."""
@@ -855,9 +866,7 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
             # that T1 = f0 + f3 and T2 = f1 + f2 reduce to them.
             return quad_fc_2d(x_s, torch.stack([u_s[..., 0], u_s[..., 1], zero, zero], -1),
                               nom_mass, float(nom_j[1]), zero, zero)
-        like = dict(dtype=x_s.dtype, device=x_s.device)
-        return quad_fc_3d(x_s, u_s, torch.tensor(nom_mass, **like), torch.tensor(nom_j, **like),
-                          torch.zeros(3, **like))
+        return quad_fc_3d(x_s, u_s, *nominal_3d[x_s.dtype])
 
     return FnEnv(
         reset=reset,

@@ -11,6 +11,12 @@ direction serves the tests' comparisons.  A flax ``CNN``'s params
 :func:`fused_weights` gives the 2H-wide network of PPO's ``fused_update``
 from flax actor and critic params.
 
+The model-based controllers: a flax ``MLP``'s params load into
+``CBF_QP.mlp`` (the residual model) by :func:`load_mlp`, and a JAX
+``GPState`` whose leaves are NumPy arrays becomes the port's by
+:func:`gp_state_from_numpy`, so that GP predictions, GP-MPC's dynamics and
+its margins start from the same fitted GPs.
+
 Env state: the JAX package's batched ``QuadState`` or ``CartPoleState``
 reaches this module as a dict of NumPy arrays (field name -> array with a
 leading batch axis; ``dist_sched`` as the nested dict of channel ->
@@ -186,3 +192,16 @@ def fused_weights(actor_params, critic_params):
             w[wa.shape[0]:, wa.shape[1]:] = wc
         layers.append((w, np.concatenate([ba, bc])))
     return layers
+
+
+def gp_state_from_numpy(state, device, dtype=torch.float32):
+    """The port's ``ops.gp.GPState`` from a JAX ``GPState`` with NumPy
+    leaves (params, training set, alpha, L)."""
+    from safe_control_gym_torch.ops.gp import GPParams, GPState
+
+    def put(a):
+        return torch.as_tensor(np.array(a), device=device).to(dtype)
+
+    p = state.params
+    return GPState(GPParams(put(p.log_lengthscales), put(p.log_signal_var), put(p.log_noise_var)),
+                   put(state.train_x), put(state.train_y), put(state.alpha), put(state.L))
