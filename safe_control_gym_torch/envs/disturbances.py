@@ -70,6 +70,18 @@ class CompiledDisturbances:
     site: Optional[int] = None  # the channel's Philox call site (noisy kinds)
     pyb_timestep: float = 1.0  # the periodic kind's clock
     ctrl_timestep: float = 0.02  # the brownian walk's step
+    # The entries' constants as tensors, made once per (dtype, device): a
+    # tensor made from host data each step is a host-to-device copy, which
+    # synchronizes the host with the card.
+    _consts: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    def _const(self, entry: int, name: str, dtype, device):
+        key = (entry, name, dtype, device)
+        t = self._consts.get(key)
+        if t is None:
+            t = self._consts[key] = torch.as_tensor(getattr(self.dists[entry], name),
+                                                    dtype=dtype, device=device)
+        return t
 
     @property
     def num_scheduled(self) -> int:
@@ -96,7 +108,7 @@ class CompiledDisturbances:
                 continue
             u = philox.block_uniforms(ctrl_step, entry, self.site, env_seed, episode_idx,
                                       2 * d.dim)
-            step = torch.as_tensor(d.std, dtype=walk.dtype, device=walk.device) \
+            step = self._const(entry, "std", walk.dtype, walk.device) \
                 * float(np.sqrt(self.ctrl_timestep))
             parts.append(walk[:, wi:wi + d.dim]
                          + step * philox.box_muller(u, d.dim).T.to(walk.dtype))
@@ -117,8 +129,7 @@ class CompiledDisturbances:
         out = target
         si = wi = 0
         for entry, d in enumerate(self.dists):
-            mask = (None if d.mask is None
-                    else torch.as_tensor(d.mask, dtype=dtype, device=target.device))
+            mask = None if d.mask is None else self._const(entry, "mask", dtype, target.device)
             if d.kind == "periodic":
                 # scale * sin(2 pi f t + phase), a fresh uniform phase in
                 # [-pi, pi) each application (disturbances.py:176-183).
@@ -137,8 +148,9 @@ class CompiledDisturbances:
                 continue
             if d.kind == "state_dependent":
                 # A friction-like -coeff * x[state_index] (disturbances.py:187-190).
-                coeff = torch.as_tensor(d.coeff, dtype=dtype, device=target.device)
-                noise = coeff * x[:, torch.as_tensor(d.state_index, device=x.device)].to(dtype)
+                coeff = self._const(entry, "coeff", dtype, target.device)
+                noise = coeff * x[:, self._const(entry, "state_index", torch.int64,
+                                                 x.device)].to(dtype)
                 out = out - (noise if mask is None else noise * mask)
                 continue
             if d.kind == "uniform":
@@ -146,11 +158,11 @@ class CompiledDisturbances:
                 env_seed, episode_idx = identity
                 u = philox.block_uniforms(ctrl_step, entry, self.site, env_seed, episode_idx,
                                           d.dim).T.to(dtype)
-                lo = torch.as_tensor(d.low, dtype=dtype, device=target.device)
-                hi = torch.as_tensor(d.high, dtype=dtype, device=target.device)
+                lo = self._const(entry, "low", dtype, target.device)
+                hi = self._const(entry, "high", dtype, target.device)
                 noise = u * (hi - lo) + lo
                 if d.mask is not None:
-                    noise = noise * torch.as_tensor(d.mask, dtype=dtype, device=target.device)
+                    noise = noise * mask
                 out = out + noise
                 continue
             if d.kind == "white_noise":
@@ -158,10 +170,10 @@ class CompiledDisturbances:
                 env_seed, episode_idx = identity
                 u = philox.block_uniforms(ctrl_step, entry, self.site, env_seed, episode_idx,
                                           2 * d.dim)
-                std = torch.as_tensor(d.std, dtype=dtype, device=target.device)
+                std = self._const(entry, "std", dtype, target.device)
                 noise = philox.box_muller(u, d.dim).T.to(dtype) * std
                 if d.mask is not None:
-                    noise = noise * torch.as_tensor(d.mask, dtype=dtype, device=target.device)
+                    noise = noise * mask
                 out = out + noise
                 continue
             if d.step_offset is None:
@@ -176,8 +188,8 @@ class CompiledDisturbances:
                 peak_offset = (ctrl_step - peak).abs().to(dtype)
                 decay = torch.where(
                     peak_offset < d.duration / 2,
-                    torch.pow(torch.tensor(d.decay_rate, dtype=dtype,
-                                           device=target.device), peak_offset),
+                    torch.pow(self._const(entry, "decay_rate", dtype, target.device),
+                              peak_offset),
                     torch.zeros((), dtype=dtype, device=target.device),
                 )
                 noise = torch.where(ctrl_step >= offset, d.magnitude * decay,
@@ -191,7 +203,7 @@ class CompiledDisturbances:
                 )
             noise = noise[:, None]
             if d.mask is not None:
-                noise = noise * torch.as_tensor(d.mask, dtype=dtype, device=target.device)
+                noise = noise * mask
             out = out + noise
         return out
 

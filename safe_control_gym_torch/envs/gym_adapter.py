@@ -19,7 +19,7 @@ from threefry keys, which the port does not replay: the two adapters agree
 from the same state, not from the same seed.
 
 ``render()`` raises ``NotImplementedError``: the renderer
-(``utils/rendering``) is not ported yet.
+(``utils/rendering``) is ported, but not wired to the adapter yet.
 """
 
 from __future__ import annotations
@@ -132,8 +132,8 @@ class GymEnv:
         return _to_numpy(obs), float(rew[0]), bool(done[0]), _to_numpy(info)
 
     def render(self, mode: str = "rgb_array"):
-        """Not ported yet: the renderer (``utils/rendering``) is to come."""
-        raise NotImplementedError("render() needs utils/rendering, which is not ported yet")
+        """Not wired yet to the port's renderer (``utils/rendering``)."""
+        raise NotImplementedError("render() is not wired to utils/rendering yet")
 
     def close(self):
         self._state = None

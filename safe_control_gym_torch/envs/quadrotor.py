@@ -514,7 +514,7 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
             return torch.stack([torch.zeros_like(x[:, 0]), torch.zeros_like(x[:, 0]), x[:, 0]], -1)
         if quad_type == QuadType.TWO_D:
             return torch.stack([x[:, 0], torch.zeros_like(x[:, 0]), x[:, 2]], -1)
-        return x[:, [0, 2, 4]]
+        return x[:, 0:5:2]  # a view: a list index would copy it to the device
 
     # Consolidated reset randomization: one counter draw covers inertia (4)
     # and initial state (nx), with precomputed affine bounds.  Host float32

@@ -12,9 +12,13 @@ into 16-bit halves so that no intermediate leaves int64.  Inputs and outputs
 are int32 tensors (the bit pattern of the uint32 word).
 
 The JAX package derives each env's seed from threefry key splits
-(``env_seed_from_key``).  That stream is not reproduced here: the port's
-``reset(seed=...)`` uses :func:`env_seeds_from_seed`, and ``env_seeds=...``
-takes int32 seeds from anywhere (the tests pass the seeds JAX derives).
+(``env_seed_from_key``).  That batched stream is not reproduced here: the
+port's ``reset(seed=...)`` uses :func:`env_seeds_from_seed`, and
+``env_seeds=...`` takes int32 seeds from anywhere (the tests pass the seeds
+JAX derives).  The one-env seed of ``jax.random.key(seed)``, which the
+competition loop and the firmware wrapper reset with, is
+:func:`key_env_seed`: the same course as the JAX package's for a level's
+seed.
 """
 
 from __future__ import annotations
@@ -106,3 +110,29 @@ def seed_to_row(es):
 def seed_from_row(row):
     """f32 row payload -> int32 env seeds (bit pattern)."""
     return row.contiguous().view(torch.int32)
+
+
+def _threefry2x32(k0: int, k1: int, x0: int, x1: int):
+    """Threefry-2x32 (20 rounds) of one counter pair under key (k0, k1), on
+    Python ints (Salmon et al. 2011, the JAX package's default PRNG)."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
+    x0, x1 = (x0 + ks[0]) & _U32, (x1 + ks[1]) & _U32
+    for i in range(5):
+        for r in rot[i % 2]:
+            x0 = (x0 + x1) & _U32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _U32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _U32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _U32
+    return x0, x1
+
+
+def key_env_seed(seed: int) -> int:
+    """The int32 env seed the JAX package's one-env ``reset`` derives from
+    ``jax.random.key(seed)`` (``env_seed_from_key``: 32 threefry bits of the
+    key (0, seed), counter (0, 0), the two output words xor-ed, as
+    ``jax.random.bits`` under partitionable threefry), so that a level's
+    seed draws the same course in both packages."""
+    a, b = _threefry2x32((int(seed) >> 32) & _U32, int(seed) & _U32, 0, 0)
+    v = a ^ b
+    return v - (1 << 32) if v >= 1 << 31 else v

@@ -72,8 +72,11 @@ def bits_to_unit(bits):
 
 
 def _word(x, device):
-    """An int or int tensor as uint32 words (non-negative int64)."""
-    return torch.as_tensor(x, device=device).to(torch.int64) & _U32
+    """An int or int tensor as uint32 words (non-negative int64).  An int
+    becomes a fill on ``device``, not a host-to-device copy."""
+    if not torch.is_tensor(x):
+        return torch.full((), int(x) & _U32, dtype=torch.int64, device=device)
+    return x.to(torch.int64) & _U32
 
 
 def block_uniforms(c0, c1, c3, k0, k1, n: int, block0: int = 0):

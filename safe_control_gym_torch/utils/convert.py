@@ -26,6 +26,15 @@ the port's state on a given device, so that both packages can start from
 the same state: the offsets, the brownian walks and the adversary's
 pending force and action offset included.  The PRNG key has no
 counterpart in the port and is dropped.
+
+The firmware: a JAX ``MellingerState`` (one controller, its fields as
+NumPy arrays) becomes the port's on a batch of one by
+:func:`mellinger_state_from_numpy`, and the JAX firmware wrapper's fused
+carry (``FirmwareWrapper._carry`` with NumPy leaves: one env's
+``QuadState`` fields, the Mellinger state, the filter taps, the delay lines,
+the tumble counter) becomes the port's carry by
+:func:`firmware_carry_from_numpy`, so that both wrappers can run a block
+from one state.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from safe_control_gym_torch.controllers.mellinger import MellingerState
 from safe_control_gym_torch.envs.cartpole import CartPoleState
 from safe_control_gym_torch.envs.quadrotor import QuadState
 
@@ -205,3 +215,47 @@ def gp_state_from_numpy(state, device, dtype=torch.float32):
     p = state.params
     return GPState(GPParams(put(p.log_lengthscales), put(p.log_signal_var), put(p.log_noise_var)),
                    put(state.train_x), put(state.train_y), put(state.alpha), put(state.L))
+
+
+def mellinger_state_from_numpy(fields: dict, device, dtype=torch.float32) -> MellingerState:
+    """The port's ``MellingerState`` (a batch of one) from a JAX
+    ``MellingerState``'s fields (``i_error_pos``, ``i_error_m`` (3,),
+    ``prev_omega_rp``, ``prev_setpoint_omega_rp`` (2,))."""
+    def put(name):
+        return torch.as_tensor(np.array(fields[name], np.float32).reshape(1, -1),
+                               device=device).to(dtype)
+
+    return MellingerState(put("i_error_pos"), put("i_error_m"), put("prev_omega_rp"),
+                          put("prev_setpoint_omega_rp"))
+
+
+# The carry entries the port's fused block keeps between control steps (the
+# JAX carry's per-block entries, action, PWMs, flags, reward, counters and
+# clearances, come from the host each block and are not carried).
+FIRMWARE_CARRY_VECTORS = ("obs", "gd1", "gd2", "ad1", "ad2", "prev_vel", "prev_rpy")
+
+
+def firmware_carry_from_numpy(carry: dict, device, dtype=torch.float32) -> dict:
+    """The port's fused-block carry (a batch of one) from the JAX firmware
+    wrapper's ``_carry`` with NumPy leaves: ``env_state`` one env's
+    ``QuadState`` fields (no batch axis; the PRNG key dropped), ``ms`` a
+    ``MellingerState``'s fields, the filter taps and last sensor rows, the
+    tumble counter and the delay lines ``ahist`` (k, 4), ``shist`` (k, 2, 3)."""
+    def batch(a):
+        if isinstance(a, dict):
+            return {k: batch(v) for k, v in a.items()}
+        return np.asarray(a)[None]
+
+    out = {"env_state": quad_state_from_numpy(
+               batch({k: v for k, v in carry["env_state"].items() if k != "key"}), device, dtype),
+           "ms": mellinger_state_from_numpy(carry["ms"], device, dtype),
+           "tumble": torch.as_tensor(np.array(carry["tumble"], np.int32).reshape(1),
+                                     device=device),
+           "ahist": torch.as_tensor(np.array(carry["ahist"], np.float32)[None],
+                                    device=device).to(dtype),
+           "shist": torch.as_tensor(np.array(carry["shist"], np.float32)[None],
+                                    device=device).to(dtype)}
+    for name in FIRMWARE_CARRY_VECTORS:
+        out[name] = torch.as_tensor(np.array(carry[name], np.float32).reshape(1, -1),
+                                    device=device).to(dtype)
+    return out
