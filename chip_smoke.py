@@ -155,6 +155,22 @@ observation noise (the configs: ``safe_control_gym_torch/baseline.py``,
    and warm) and a solve's launches; K1 at B = 1 bit for bit on the
    flight's own inputs, its device time and an empty kernel's (the launch
    floor);
+10f. the other learners and sim2real (``phase_learners``,
+   ``phase_sim2real``): SAC and DDPG on config 4 at the registry's widths
+   (hidden 256, B = 4, train_interval 100, batch 64, a buffer of 1e6; the
+   warm-up cut to 200 env steps), four timed train steps each with K1
+   once an env step (25 a train step) and nothing else, one under
+   ``set_sync_debug_mode("error")``, one profiled (device operations and
+   busy share), K1 at B = 4 bit for bit on the path's own inputs with its
+   device time and the launch floor; a RARL and a RAP cycle on config 4
+   with the adversary on the dynamics (K1 200 a cycle); SafeExplorerPPO's
+   pretrain and a train step on config 4 (K1 100, K4 60 at mb = 64, two of
+   its minibatches against the plain version, K4's device time a call and
+   the launch floor); tests/test_rl.py's SAC learning bar on CartPole (80
+   train steps of 10 updates: r1 > r0); ``fit_quad3d_params`` on
+   tests/test_sim2real.py's synthetic flight over 4096 candidates (K1 120
+   launches without actuation, the test's bars, K1 at B = 4096 bit for
+   bit on the fit's inputs);
 11. prints each kernel's registers and spills (``ptxas -v``), each phase's
    seconds, one JSON line of per-kernel results (K1 with its plan's group
    and block and every instance's registers and spill bytes; K2 with its
@@ -2430,6 +2446,9 @@ def phase_competition_sim_only(dev):
     return res
 
 
+_EMPTY_LIB = {}
+
+
 def empty_kernel_ms(dev, grid, block, reps):
     """The profiler's mean device time of an empty kernel at ``grid`` x
     ``block``: the floor of one launch."""
@@ -2437,15 +2456,17 @@ def empty_kernel_ms(dev, grid, block, reps):
 
     from safe_control_gym_torch import kernels
 
-    out_dir = kernels.BUILD / "smoke"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    src, so = out_dir / "smoke_empty.cu", out_dir / "libsmoke_empty.so"
-    src.write_text(EMPTY_KERNEL_SOURCE)
-    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", str(src), "-o", str(so)],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
-    lib.smoke_empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.smoke_empty.restype = ctypes.c_int
+    lib = _EMPTY_LIB.get("lib")
+    if lib is None:  # built once a process
+        out_dir = kernels.BUILD / "smoke"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        src, so = out_dir / "smoke_empty.cu", out_dir / "libsmoke_empty.so"
+        src.write_text(EMPTY_KERNEL_SOURCE)
+        subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", str(src), "-o", str(so)],
+                       check=True, capture_output=True)
+        lib = _EMPTY_LIB["lib"] = ctypes.CDLL(str(so))
+        lib.smoke_empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.smoke_empty.restype = ctypes.c_int
     stream = kernels.stream_ptr(dev)
     return kernel_device_ms(lambda: kernels.check(lib.smoke_empty(grid, block, stream),
                                                   "smoke_empty"), "smoke_empty_kernel", reps)
@@ -2595,6 +2616,354 @@ def phase_competition(dev):
           f"{plain_ms:.4f} ms a call), "
           f"{launches['k1']} launches = {ticks} ticks; {card_line()}", flush=True)
     return res
+
+
+# The learners (``phase_learners``) at the registry's widths
+# (_registry_entries.py:47-66 of the JAX package): SAC and DDPG hidden 256,
+# B = 4, train_interval 100, batch 64, a buffer of 1e6; the warm-up cut from
+# 1000 (SAC) and 10000 (DDPG) env steps to 200, so that the last two of the
+# LEARNER_STEPS timed train steps act from the policy.  RARL and RAP hidden
+# 64, B = 4, T = 100; SafeExplorerPPO with PPO's defaults (hidden 64, B = 4,
+# T = 100, 10 epochs of 6 minibatches of 64: K4 at mb = 64).
+OFFPOLICY_KW = dict(hidden_dim=256, rollout_batch_size=4, train_interval=100,
+                    train_batch_size=64, max_buffer_size=1_000_000, warm_up_steps=200)
+RARL_KW = dict(hidden_dim=64, rollout_batch_size=4, rollout_steps=100)
+LEARNER_STEPS = 4
+# tests/test_rl.py::test_sac_runs_and_improves on CartPole: its settings and
+# its bar (r1 > r0, finite losses), on the card.
+LEARN_GATE_KW = dict(rollout_batch_size=4, train_interval=100, warm_up_steps=400,
+                     train_batch_size=256, max_buffer_size=20000, updates_per_step=10,
+                     use_entropy_tuning=True)
+LEARN_GATE_STEPS = 80
+K1_SMALL_REPS = 400  # profiled K1 launches at B = 4 and at the fit's B = 4096
+K4_MB64_REPS = 200  # profiled K4 calls at mb = 64
+# tests/test_sim2real.py:63-97's synthetic flight and bars (``phase_sim2real``).
+FIT_MASS, FIT_KF, FIT_DT, FIT_T = 0.031, 1.12, 1 / 60, 120
+FIT_CANDIDATES = 4096
+FIT_K1_STRIDE = 10  # one K1 input of the fit kept every FIT_K1_STRIDE steps
+
+
+class K1Recorder:
+    """Keeps every ``stride``-th input of the K1 calls a module makes
+    (its global ``quad3d_substeps``), cloned; restores it on exit."""
+
+    def __init__(self, module, stride=1, most=64):
+        self.module, self.stride, self.most = module, stride, most
+        self.inputs, self.calls = [], 0
+
+    def __enter__(self):
+        self.saved = k1 = self.module.quad3d_substeps
+
+        def recording(*a, **k):
+            if self.calls % self.stride == 0 and len(self.inputs) < self.most:
+                self.inputs.append((tuple(t.clone() for t in a), dict(k)))
+            self.calls += 1
+            return k1(*a, **k)
+
+        self.module.quad3d_substeps = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.quad3d_substeps = self.saved
+        return False
+
+
+def k1_small(tag, dev, inputs, reps=K1_SMALL_REPS):
+    """K1 on a path's own inputs against its plain version bit for bit, its
+    profiled device ms a launch, an empty kernel's at the same grid and
+    block (the launch floor), and the plain version's ms a call."""
+    import torch
+
+    from safe_control_gym_torch.ops import quad_substeps as K1
+
+    same, err = True, 0.0
+    for args, kw in inputs:
+        out, ref = K1.quad3d_substeps(*args, **kw), K1.quad3d_substeps_plain(*args, **kw)
+        err = max(err, max_err(out, ref))
+        same = same and torch.equal(out, ref)
+    args, kw = inputs[len(inputs) // 2]
+    B = args[0].shape[0]
+    plan = K1.launch_plan(B, args[0].dtype)
+    check(f"K1 at B={B} (G={plan[0]}, actuation {kw['actuation']}) vs plain on {tag}'s inputs",
+          same and len(inputs) > 0, f"{len(inputs)} inputs, max_abs_err {err:.3g} (bit-equal "
+          "expected)")
+    return {"batch": B, "plan": plan, "samples": len(inputs), "max_abs_err": err,
+            "n_sub": kw["n_sub"], "actuation": kw["actuation"],
+            "ms": kernel_device_ms(lambda: K1.quad3d_substeps(*args, **kw),
+                                   "quad3d_substeps_kernel", reps),
+            "empty_kernel_ms": empty_kernel_ms(dev, plan[2], plan[1], reps),
+            "plain_ms": cuda_ms(lambda: K1.quad3d_substeps_plain(*args, **kw), reps)}
+
+
+def timed_steps(agent, steps):
+    """``steps`` train steps, each synchronized, with the launch counters
+    zeroed just before and read just after: (host ms of each, launches,
+    the last metrics)."""
+    import torch
+
+    zero_counters()
+    ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        agent.state, m = agent._train_step(agent.state)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, read_counters(), m
+
+
+def sync_free_step(tag, agent):
+    """One train step under ``set_sync_debug_mode("error")``: any host-device
+    synchronization raises."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        agent.state, m = agent._train_step(agent.state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(f"{tag}: a train step without a host sync", True,
+          "under set_sync_debug_mode('error')")
+    return m
+
+
+def offpolicy_path(dev, cls, tag, **extra):
+    """SAC or DDPG on config 4: a warm-up train step, LEARNER_STEPS timed
+    ones (K1 once an env step, 25 a train step, and nothing else), one under
+    the sync debug mode, one profiled (device operations and busy ms), and
+    K1 at B = 4 on the path's own inputs."""
+    import torch
+
+    from safe_control_gym_torch.envs import quadrotor as Q
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+
+    agent = cls(make_quadrotor(cfg4(), device=dev), seed=0, **OFFPOLICY_KW, **extra)
+    env_steps = agent.cfg.train_interval // agent.cfg.rollout_batch_size
+    agent.state, _ = agent._train_step(agent.state)
+    torch.cuda.synchronize()
+    ms, launches, m = timed_steps(agent, LEARNER_STEPS)
+    losses = {k: float(v) for k, v in m.items()}
+    check(f"{tag} on config 4: K1 once an env step",
+          launches["k1"] == env_steps * LEARNER_STEPS and sum(launches.values()) == launches["k1"],
+          f"launches {launches} in {LEARNER_STEPS} train steps of {env_steps} env steps")
+    check(f"{tag} on config 4: finite losses, the policy acting",
+          all(np.isfinite(v) for v in losses.values())
+          and agent.state.total_steps > agent.cfg.warm_up_steps, f"{losses}, "
+          f"{agent.state.total_steps} env steps (warm-up {agent.cfg.warm_up_steps})")
+    sync_free_step(f"{tag} on config 4", agent)
+    n_ops, busy, top = profile_launches(lambda: agent._train_step(agent.state))
+    with K1Recorder(Q) as rec:
+        agent.state, _ = agent._train_step(agent.state)
+    torch.cuda.synchronize()
+    res = {"train_steps": LEARNER_STEPS, "env_steps_per_train_step": env_steps,
+           "host_ms": ms, "host_ms_per_train_step": float(np.mean(ms)), "launches": launches,
+           "device_ops_per_train_step": n_ops, "device_ms_per_train_step": busy,
+           "busy_share": busy / float(np.mean(ms)), "top": top, "metrics": losses,
+           "k1": k1_small(tag, dev, rec.inputs)}
+    print(f"  {tag}, config 4 (B=4, H=256, train_interval 100, batch 64): "
+          f"{res['host_ms_per_train_step']:.2f} host ms a train step "
+          f"({', '.join(f'{x:.1f}' for x in ms)}), "
+          f"{n_ops} device operations and {busy:.3f} device ms a train step (busy "
+          f"{res['busy_share']:.1%}); K1 {launches['k1']} launches; K1 at B=4 "
+          f"{res['k1']['ms'] * 1e3:.4f} us (empty kernel {res['k1']['empty_kernel_ms'] * 1e3:.4f} "
+          f"us); top {top}; {card_line()}", flush=True)
+    return res
+
+
+def rarl_path(dev, cls, tag, **extra):
+    """A RARL or RAP cycle on config 4 with the adversary on the dynamics
+    channel: a warm-up cycle, then one timed (K1 once an env step, 200 a
+    cycle)."""
+    import torch
+
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+
+    agent = cls(make_quadrotor(cfg4(adversary_disturbance="dynamics"), device=dev), seed=0,
+                **RARL_KW, **extra)
+    cfg = agent.cfg
+    steps = (cfg.num_pro_iters + cfg.num_adv_iters) * cfg.rollout_steps
+    agent.state, _ = agent._train_step(agent.state)
+    torch.cuda.synchronize()
+    ms, launches, m = timed_steps(agent, 1)
+    check(f"{tag} on config 4 (adversary on the dynamics): K1 once an env step",
+          launches["k1"] == steps and sum(launches.values()) == steps
+          and np.isfinite(float(m["kl"])), f"launches {launches} in a cycle of {steps} env "
+          f"steps; kl {float(m['kl']):.4g}")
+    print(f"  {tag}, config 4 (B=4, T=100, H=64{', 3 adversaries' if extra else ''}): "
+          f"{ms[0]:.1f} host ms a cycle, K1 {launches['k1']} launches; {card_line()}", flush=True)
+    return {"host_ms_per_cycle": ms[0], "launches": launches, "env_steps": steps,
+            "kl": float(m["kl"])}
+
+
+def safe_explorer_path(dev):
+    """SafeExplorerPPO on config 4 (its box constraints): ``pretrain()``
+    timed, then one train step with the counters zeroed just before and read
+    just after (K1 once an env step; K4 opt_epochs x n_mini times), its K4
+    minibatches held against the plain version, K4's device time a call at
+    mb = 64 and the launch floor."""
+    import torch
+
+    from safe_control_gym_torch.controllers.safe_explorer import SafeExplorerPPO
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+    from safe_control_gym_torch.parallel import fast_update as U
+
+    agent = SafeExplorerPPO(make_quadrotor(cfg4(), device=dev), seed=0)
+    cfg, fu = agent.cfg, agent._fu
+    check("SafeExplorerPPO on config 4: K4 takes the update", fu is not None,
+          f"(obs {agent.obs_dim}, act {agent.act_dim}, H {cfg.hidden_dim}, mb "
+          f"{cfg.mini_batch_size})")
+    t0 = time.perf_counter()
+    pre = agent.pretrain()
+    torch.cuda.synchronize()
+    pretrain_ms = (time.perf_counter() - t0) * 1e3
+    n_mini = cfg.rollout_batch_size * cfg.rollout_steps // cfg.mini_batch_size
+    recorded, grads = [], fu.grads
+
+    def recording(mb, w):
+        recorded.append((mb.clone(), {k: v.clone() for k, v in w.items()}))
+        return grads(mb, w)
+
+    fu.grads = recording
+    try:
+        ms, launches, m = timed_steps(agent, 1)
+    finally:
+        del fu.grads
+    metrics = {k: float(v) for k, v in m.items()}
+    check("SafeExplorerPPO on config 4: K1 once an env step, K4 once a minibatch",
+          launches["k1"] == cfg.rollout_steps and launches["k4"] == cfg.opt_epochs * n_mini
+          and sum(launches.values()) == launches["k1"] + launches["k4"]
+          and np.isfinite(pre["pretrain_loss"]) and all(np.isfinite(v) for v in metrics.values()),
+          f"launches {launches} ({cfg.opt_epochs} epochs x {n_mini} minibatches); pretrain loss "
+          f"{pre['pretrain_loss']:.4g}; {metrics}")
+    err = 0.0
+    for mb, w in (recorded[0], recorded[-1]):  # the train step's first and last minibatch
+        g, s = U.ppo_grads(mb, w, clip=fu.clip, act=fu.act)
+        gp, sp = U.ppo_grads_plain(mb, w, clip=fu.clip, act=fu.act)
+        err = max(err, check_grads(f"mb=64 (SafeExplorerPPO) vs plain", g, s, gp, sp))
+    mb, w = recorded[0]
+    _, kern = profile_kernels(lambda: U.ppo_grads(mb, w, clip=fu.clip, act=fu.act), K4_MB64_REPS)
+    k4_ms = sum(t for k, (t, _) in kern.items() if "ppo_" in k) / K4_MB64_REPS
+    plan = U._plans[(agent.obs_dim, agent.act_dim, cfg.hidden_dim, cfg.mini_batch_size,
+                     mb.device.index)]
+    per_call = 2 if plan[5] else 3  # the weights' pack kernel, the gradients, the reduction
+    floor_ms = per_call * empty_kernel_ms(dev, plan[1] * 2 * plan[2], 256, K4_MB64_REPS)
+    plain_ms = cuda_ms(lambda: U.ppo_grads_plain(mb, w, clip=fu.clip, act=fu.act), K4_MB64_REPS)
+    res = {"pretrain_ms": pretrain_ms, "pretrain_loss": pre["pretrain_loss"],
+           "host_ms_per_train_step": ms[0], "launches": launches, "metrics": metrics,
+           "k4": {"mb": cfg.mini_batch_size, "launches": launches["k4"], "max_abs_err": err,
+                  "ms": k4_ms, "kernels_per_call": per_call, "empty_kernel_ms": floor_ms,
+                  "plain_ms": plain_ms, "plan": list(plan)}}
+    print(f"  SafeExplorerPPO, config 4: pretrain {pretrain_ms:.1f} host ms (loss "
+          f"{pre['pretrain_loss']:.4g}), a train step {ms[0]:.1f} host ms, K1 {launches['k1']}, "
+          f"K4 {launches['k4']} launches; K4 at mb=64 {k4_ms * 1e3:.3f} us a call ({per_call} "
+          f"kernels; {per_call} empty kernels {floor_ms * 1e3:.3f} us), plain {plain_ms:.4f} ms; "
+          f"{card_line()}", flush=True)
+    return res
+
+
+def learning_gate(dev):
+    """tests/test_rl.py::test_sac_runs_and_improves on the card: SAC on
+    CartPole stabilization (5 s episodes) at the test's settings, 80 train
+    steps of 10 updates; the bar r1 > r0 over 8 evaluation episodes (seed
+    1), finite losses."""
+    from safe_control_gym_torch.controllers.sac import SAC
+    from safe_control_gym_torch.envs.cartpole import CartPoleConfig, make_cartpole
+
+    env = make_cartpole(CartPoleConfig(task="stabilization", cost="rl_reward",
+                                       normalized_rl_action_space=True, randomized_init=True,
+                                       episode_len_sec=5), device=dev)
+    sac = SAC(env, seed=0, **LEARN_GATE_KW)
+    t0 = time.perf_counter()
+    r0 = float(sac.run(num_episodes=8, seed=1)["ep_returns"].mean())
+    for _ in range(LEARN_GATE_STEPS):
+        sac.state, m = sac._train_step(sac.state)
+    r1 = float(sac.run(num_episodes=8, seed=1)["ep_returns"].mean())
+    wall = time.perf_counter() - t0
+    losses = {k: float(v) for k, v in m.items()}
+    check("SAC learns CartPole (tests/test_rl.py's bar: r1 > r0, finite losses)",
+          r1 > r0 and np.isfinite(losses["critic_loss"]) and np.isfinite(losses["actor_loss"]),
+          f"r0 {r0:.4g} -> r1 {r1:.4g} after {LEARN_GATE_STEPS} train steps; {losses}; "
+          f"{wall:.1f} s")
+    return {"r0": r0, "r1": r1, "metrics": losses, "wall_s": wall}
+
+
+def phase_learners(dev):
+    """The other learners on the card (``controllers/sac.py``, ``ddpg.py``,
+    ``rarl.py``, ``safe_explorer.py``): SAC and DDPG on config 4 through
+    the general engine (K1 once an env step, a train step sync-free), a
+    RARL and a RAP cycle, SafeExplorerPPO's pretrain and train step (K4
+    once a minibatch, mb = 64), and SAC's learning gate on CartPole."""
+    from safe_control_gym_torch.controllers.ddpg import DDPG
+    from safe_control_gym_torch.controllers.rarl import RAP, RARL
+    from safe_control_gym_torch.controllers.sac import SAC
+
+    return {"sac": offpolicy_path(dev, SAC, "SAC"),
+            "ddpg": offpolicy_path(dev, DDPG, "DDPG"),
+            "rarl": rarl_path(dev, RARL, "RARL"),
+            "rap": rarl_path(dev, RAP, "RAP", num_adversaries=3),
+            "safe_explorer": safe_explorer_path(dev),
+            "learning_gate": learning_gate(dev)}
+
+
+def synthetic_flight():
+    """tests/test_sim2real.py:63-97's flight (mass 0.031, kf 1.12, dt 1/60,
+    T = 120, 20% thrust noise from a seed), integrated by K1's plain version
+    on the CPU: (positions (T, 3), per-motor forces (T, 4), x0 (12,))."""
+    import torch
+
+    from safe_control_gym_torch.envs.quadrotor import J_DIAG
+    from safe_control_gym_torch.ops.quad_substeps import GRAVITY, quad3d_substeps_plain
+
+    g = torch.Generator().manual_seed(0)
+    hover = FIT_MASS * GRAVITY / 4 / FIT_KF
+    acts = hover * (1 + 0.2 * torch.randn(FIT_T, 4, generator=g))
+    x = torch.zeros(1, 12)
+    x[0, 4] = 1.0
+    x0, pos = x[0].clone(), []
+    ext, mass, j = torch.zeros(1, 3), torch.tensor([FIT_MASS]), torch.tensor([J_DIAG])
+    for t in range(FIT_T):
+        x = quad3d_substeps_plain(x, acts[t:t + 1] * FIT_KF, ext, mass, j, dt=FIT_DT, n_sub=1,
+                                  actuation=False)
+        pos.append(x[0, 0:5:2])
+    return torch.stack(pos).numpy(), acts.numpy(), x0.numpy()
+
+
+def phase_sim2real(dev):
+    """``competition/sim2real.py::fit_quad3d_params`` on the card: the
+    synthetic flight fitted over FIT_CANDIDATES candidates (a warm-up fit,
+    then one timed with the counters zeroed just before and read just
+    after: K1 once a recorded step, nothing else), the bars of
+    tests/test_sim2real.py (thrust/mass within 5%, RMSE < 0.3), and K1 with
+    actuation off at B = 4096 bit for bit against its plain version on the
+    fit's own inputs."""
+    import torch
+
+    from safe_control_gym_torch.competition import sim2real as S
+
+    pos, acts, x0 = synthetic_flight()
+    S.fit_quad3d_params(pos, acts, FIT_DT, x0, num_candidates=FIT_CANDIDATES, device=dev)
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    fit = S.fit_quad3d_params(pos, acts, FIT_DT, x0, num_candidates=FIT_CANDIDATES, device=dev)
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counters()
+    ratio, truth = fit["kf_scale"] / fit["mass"], FIT_KF / FIT_MASS
+    check("sim2real fit (4096 candidates): K1 once a recorded step",
+          launches["k1"] == FIT_T and sum(launches.values()) == FIT_T,
+          f"launches {launches} over {FIT_T} steps")
+    check("sim2real fit recovers the synthetic flight (tests/test_sim2real.py's bars)",
+          abs(ratio - truth) / truth < 0.05 and fit["rmse"] < 0.3,
+          f"{fit}; thrust/mass {ratio:.5g} against {truth:.5g}")
+    with K1Recorder(S, stride=FIT_K1_STRIDE) as rec:
+        S.fit_quad3d_params(pos, acts, FIT_DT, x0, num_candidates=FIT_CANDIDATES, device=dev)
+    k1 = k1_small("the fit", dev, rec.inputs)
+    print(f"  sim2real fit: {fit_ms:.3f} ms for {FIT_CANDIDATES} candidates x {FIT_T} steps, "
+          f"mass {fit['mass']:.5g}, kf {fit['kf_scale']:.5g}, rmse {fit['rmse']:.4g}; K1 at "
+          f"B={FIT_CANDIDATES} (no actuation, one substep) {k1['ms'] * 1e3:.4f} us a launch "
+          f"(empty kernel {k1['empty_kernel_ms'] * 1e3:.4f} us), plain {k1['plain_ms']:.4f} ms; "
+          f"{card_line()}", flush=True)
+    return {**fit, "fit_ms": fit_ms, "launches": launches, "k1": k1,
+            "thrust_mass_ratio": ratio}
 
 
 def sass_instructions(kname):
@@ -3166,13 +3535,21 @@ def phase_train(dev):
     }
 
 
-def k1_bound(B, n_sub):
-    """K1's least time at B envs and n_sub RK4 substeps with the actuation:
-    its rows read and written once, the substeps' and the four motors'
-    operations."""
+def k1_bound(B, n_sub, actuation=True):
+    """K1's least time at B envs and n_sub RK4 substeps, with the actuation
+    or without (the thrust rows taken as motor forces): its rows read and
+    written once, the substeps' and the four motors' operations."""
+    motors = (4 * ACTUATE_OPS + 4 * ACTUATE_TRANS) if actuation else 0
     return bound(B * (12 + 4 + 3 + 1 + 3 + 12) * 4,
-                 B * (n_sub * RK4_SUBSTEP_OPS + 4 * ACTUATE_OPS + 1
-                      + n_sub * 4 * FC_TRANS + 4 * ACTUATE_TRANS))
+                 B * (n_sub * RK4_SUBSTEP_OPS + 1 + n_sub * 4 * FC_TRANS + motors))
+
+
+def k4_bound(nx, nu, h, n):
+    """K4's least time for one minibatch of n samples: the minibatch read
+    once, the weights read and the gradients and loss sums written once,
+    and the operations of k4_ops_per_sample."""
+    n_g = 2 * (h * nx + h + h * h + h) + (nu + 1) * h + nu + 1 + nu
+    return bound(4 * ((nx + nu + 4) * n + 2 * n_g + 3), n * k4_ops_per_sample(nx, nu, h))
 
 
 def bound(nbytes, ops, peak_ops_s=PEAK_F32_OPS_S):
@@ -3271,9 +3648,7 @@ def bounds(res, serve_cp, serve_q2, serve_mz, train, k3_maze):
     # K4 per launch at each of its shapes: the minibatch read once, the
     # weights read and the gradients and loss sums written once.
     for tag, (nx, nu, h, _) in K4_SHAPES.items():
-        n_g = 2 * (h * nx + h + h * h + h) + (nu + 1) * h + nu + 1 + nu
-        out[f"k4_{tag}"] = bound(4 * ((nx + nu + 4) * MB + 2 * n_g + 3),
-                                 MB * k4_ops_per_sample(nx, nu, h))
+        out[f"k4_{tag}"] = k4_bound(nx, nu, h, MB)
     return out
 
 
@@ -3392,8 +3767,13 @@ def main():
     firmware = phase(phase_firmware, dev)
     comp_sim = phase(phase_competition_sim_only, dev)
     comp = phase(phase_competition, dev)
+    learners = phase(phase_learners, dev)
+    s2r = phase(phase_sim2real, dev)
     bnd = bounds(res, serve_cp, serve_q2, serve_mz, train, k3_maze)
     bnd["k1_b1"] = k1_bound(1, 1)
+    bnd["k1_b4"] = k1_bound(4, learners["sac"]["k1"]["n_sub"])
+    bnd["k1_fit"] = k1_bound(FIT_CANDIDATES, 1, actuation=False)
+    bnd["k4_mb64"] = k4_bound(12, 4, HIDDEN, learners["safe_explorer"]["k4"]["mb"])
 
     from safe_control_gym_torch.ops import quad_substeps as K1
     from safe_control_gym_torch.parallel import fast_cartpole as FC
@@ -3481,9 +3861,38 @@ def main():
                         "bound_ms": bnd[f"k4_{tag}"]["bound_ms"],
                         "bound_by": bnd[f"k4_{tag}"]["bound_by"]}
                   for tag in K4_SHAPES}
+    # SafeExplorerPPO's update (config 4, mb = 64): device ms a call (its
+    # two or three kernels), launch floor, against the plain version.
+    k4_by_path["safe_explorer_mb64"] = {**learners["safe_explorer"]["k4"],
+                                        "bound_ms": bnd["k4_mb64"]["bound_ms"],
+                                        "bound_by": bnd["k4_mb64"]["bound_by"]}
+
+    def k1_at(r, b):  # K1 on a learner's or the fit's own inputs
+        return {k: r["k1"][k] for k in ("batch", "samples", "max_abs_err", "ms",
+                                        "empty_kernel_ms", "plain_ms", "n_sub", "actuation")} | {
+            "group": r["k1"]["plan"][0], "block": r["k1"]["plan"][1],
+            "bound_ms": bnd[b]["bound_ms"], "bound_by": bnd[b]["bound_by"]}
+
+    learner_k1 = {
+        **{f"{tag}_config4": {"launches": learners[tag]["launches"]["k1"],
+                              "train_steps": learners[tag]["train_steps"],
+                              "host_ms_per_train_step": learners[tag]["host_ms_per_train_step"],
+                              **k1_at(learners[tag], "k1_b4")} for tag in ("sac", "ddpg")},
+        **{f"{tag}_config4": {"batch": 4, "launches": learners[tag]["launches"]["k1"],
+                              "cycles": 1, "host_ms_per_cycle": learners[tag]["host_ms_per_cycle"]}
+           for tag in ("rarl", "rap")},
+        "safe_explorer_config4": {"batch": 4, "train_steps": 1,
+                                  "launches": learners["safe_explorer"]["launches"]["k1"],
+                                  "host_ms_per_train_step":
+                                      learners["safe_explorer"]["host_ms_per_train_step"]},
+        "sim2real_fit": {"launches": s2r["launches"]["k1"], "fit_ms": s2r["fit_ms"],
+                         **k1_at(s2r, "k1_fit")}}
     kernels_line = {"kernels": [
         kernel_entry("quad3d_substeps", "quad3d_substeps.cu", "ops/pallas_quad.py:109",
-                     res["k1_launches"], max(*k1_errs.values(), res["k1_main_max_abs_err"]),
+                     res["k1_launches"], max(*k1_errs.values(), res["k1_main_max_abs_err"],
+                                             learners["sac"]["k1"]["max_abs_err"],
+                                             learners["ddpg"]["k1"]["max_abs_err"],
+                                             s2r["k1"]["max_abs_err"]),
                      res["k1_ms"], res["k1_plain_ms"], bnd["k1"], group=k1_plan["float32"][0],
                      block=k1_plan["float32"][1], instances=k1_instances(ptxas),
                      float64={**k1_f64, **bnd["k1_f64"], "group": k1_plan["float64"][0],
@@ -3510,7 +3919,8 @@ def main():
                          "max_abs_err": comp["k1_b1"]["max_abs_err"], "group": comp["k1_b1"]["plan"][0],
                          "block": comp["k1_b1"]["plan"][1]},
                         "competition_level0_sim_only": {"batch": 1, "launches": comp_sim["launches"]["k1"],
-                                                        "steps": comp_sim["steps"]}}),
+                                                        "steps": comp_sim["steps"]}}
+                     | learner_k1),
         kernel_entry("quad3d_rollout", "quad3d_rollout.cu", "parallel/fast_env.py:593",
                      res["k2_launches"], max(k2_err, res["k2_main_max_abs_err"]), res["k2_ms"],
                      res["k2_plain_ms"], bnd["k2"], plain_steps=PLAIN_STEPS,
@@ -3530,7 +3940,9 @@ def main():
                      share_not_bit_equal=max(k3_differ, c4["main_differ"]), group=P.GROUP,
                      block=P.BLOCK, by_width=k3_by_width),
         kernel_entry("ppo_grads", "ppo_update.cu", "parallel/fast_update.py:44",
-                     c4["k4_launches"], k4["config4"]["max_abs_err"], k4["config4"]["ms"],
+                     c4["k4_launches"], max(k4["config4"]["max_abs_err"],
+                                            learners["safe_explorer"]["k4"]["max_abs_err"]),
+                     k4["config4"]["ms"],
                      k4["config4"]["plain_ms"], bnd["k4_config4"],
                      max_abs_err_vs_autograd=k4["config4"]["max_abs_err_vs_autograd"],
                      by_path=k4_by_path),
@@ -3623,6 +4035,27 @@ def main():
     print(f"PPO extras: fused/separate update max_abs_err {ppo_extras['max_abs_err']:.3g}; CNN "
           f"{ppo_extras['cnn_max_abs_err']:.3g}, RNN {ppo_extras['rnn_max_abs_err']:.3g}, "
           f"Categorical {ppo_extras['categorical_max_abs_err']:.3g} against the CPU")
+    for tag in ("sac", "ddpg"):
+        r, kb = learners[tag], bnd["k1_b4"]
+        print(f"{tag.upper()} on config 4 (B=4, H=256): {r['host_ms_per_train_step']:.2f} host "
+              f"ms a train step of {r['env_steps_per_train_step']} env steps, "
+              f"{r['device_ops_per_train_step']} device operations, busy {r['busy_share']:.1%}; "
+              f"K1 {r['launches']['k1']} launches in {r['train_steps']} train steps, "
+              f"{r['k1']['ms'] * 1e3:.4f} us a launch at B=4 (bound {kb['bound_ms'] * 1e3:.6f} us, "
+              f"{kb['bound_by']}; empty kernel {r['k1']['empty_kernel_ms'] * 1e3:.4f} us)")
+    se, lg = learners["safe_explorer"], learners["learning_gate"]
+    print(f"RARL {learners['rarl']['host_ms_per_cycle']:.1f} / RAP "
+          f"{learners['rap']['host_ms_per_cycle']:.1f} host ms a cycle (K1 "
+          f"{learners['rarl']['launches']['k1']} / {learners['rap']['launches']['k1']}); "
+          f"SafeExplorerPPO pretrain {se['pretrain_ms']:.1f} ms, train step "
+          f"{se['host_ms_per_train_step']:.1f} ms, K4 {se['k4']['launches']} launches at mb=64, "
+          f"{se['k4']['ms'] * 1e3:.3f} us a call (bound {bnd['k4_mb64']['bound_ms'] * 1e3:.4f} us, "
+          f"floor {se['k4']['empty_kernel_ms'] * 1e3:.3f} us); SAC learning gate r0 "
+          f"{lg['r0']:.4g} -> r1 {lg['r1']:.4g} ({lg['wall_s']:.1f} s)")
+    print(f"sim2real fit: {s2r['fit_ms']:.3f} ms ({FIT_CANDIDATES} candidates, {FIT_T} steps), "
+          f"K1 {s2r['launches']['k1']} launches, {s2r['k1']['ms'] * 1e3:.4f} us a launch at "
+          f"B={FIT_CANDIDATES} without actuation (bound {bnd['k1_fit']['bound_ms'] * 1e3:.4f} us, "
+          f"{bnd['k1_fit']['bound_by']}); {card_line()}")
     total_s = time.perf_counter() - t_start
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -3642,7 +4075,7 @@ def main():
                        "mpc_solve": mpc_solve, "mpc": mpc, "ilqr": ilqr,
                        "linear_mpc": linear_mpc, "gp_mpc": gp_mpc, "cbf": cbf,
                        "firmware": firmware, "competition_sim_only": comp_sim,
-                       "competition": comp,
+                       "competition": comp, "learners": learners, "sim2real": s2r,
                        **res, **kernels_line}, f, indent=1, default=str)
     print(f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     print(f"total {total_s:.1f} s")

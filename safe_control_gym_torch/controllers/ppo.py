@@ -232,14 +232,16 @@ class PPO(BaseController):
 
     # -- train step -----------------------------------------------------------
     @torch.no_grad()
-    def collect(self, state: PPOState):
+    def collect(self, state: PPOState, eps=None):
         """T steps of the general engine, sampling from the controller's
-        generator (ppo.py:289-329)."""
+        generator (ppo.py:289-329); ``eps`` (T, B, act_dim) replaces the
+        sample's normals (``mean + std * eps``, the JAX package's
+        Normal.sample)."""
         cfg, ac = self.cfg, state.ac
         recs = []
-        for _ in range(cfg.rollout_steps):
+        for t in range(cfg.rollout_steps):
             dist = self._dist(ac, state.obs)
-            act = dist.sample(self.gen)
+            act = dist.sample(self.gen) if eps is None else dist.loc + dist.scale * eps[t]
             if self.action_filter_fn is not None:
                 act = self.action_filter_fn(state.obs, act)
             logp = dist.log_prob(act)
@@ -439,17 +441,21 @@ class PPO(BaseController):
         state.critic_opt.step([gc[k] for k, _ in ac.critic.named_parameters()])
         return torch.stack([p_loss, v_loss, e_loss, kl])
 
-    def _train_step(self, state: PPOState):
+    def _train_step(self, state: PPOState, eps=None, perm=None):
         """Collect, GAE, advantage standardization, update (ppo.py:658-666).
-        Returns ``(state, metrics)``; ``state`` is updated in place."""
+        ``eps`` (the general engine's sample normals, :meth:`collect`; the
+        fast rollout draws in its kernel) and ``perm`` (:meth:`update`)
+        replace the generator's draws.  Returns
+        ``(state, metrics)``; ``state`` is updated in place."""
         cfg = self.cfg
-        roll = self.collect_fast(state) if self._fp is not None else self.collect(state)
+        roll = self.collect_fast(state) if self._fp is not None else self.collect(state, eps)
         with torch.no_grad():
             last_val = self._value(state.ac, state.obs)
             rets, advs = self.gae(roll, last_val)
             # jnp.std is the population std; torch.std defaults to correction=1.
             advs = (advs - advs.mean()) / (advs.std(correction=0) + 1e-6)
-        metrics = self.update(state, {**roll, "ret": rets, "adv": advs})
+        batch = {**roll, "ret": rets, "adv": advs}
+        metrics = self.update(state, batch) if perm is None else self.update(state, batch, perm)
         state.total_steps += cfg.rollout_batch_size * cfg.rollout_steps
         return state, metrics
 

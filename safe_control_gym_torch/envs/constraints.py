@@ -46,6 +46,10 @@ class CompiledConstraints:
     row_order: Optional[torch.Tensor] = None  # (nc,) output row -> stacked position
     input_rows: Optional[np.ndarray] = None  # (nc,) bool: rows of input constraints
     rounding: int = 8
+    # The state rows' index per device, made once: an index made from host
+    # data each call is a host-to-device copy, which synchronizes the host
+    # with the card (every auto-reset computes the reset info).
+    _state_idx: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def get_values_raw(self, x, u):
         """Unrounded values, differentiable (constraints.py:76-90): x (B,
@@ -76,7 +80,10 @@ class CompiledConstraints:
     def get_state_values(self, x):
         """State-constraint rows only (reset info)."""
         u = torch.zeros(x.shape[:-1] + (self.A_u.shape[1],), dtype=x.dtype, device=x.device)
-        idx = torch.as_tensor(np.nonzero(self.state_only_rows)[0], device=x.device)
+        idx = self._state_idx.get(x.device)
+        if idx is None:
+            idx = self._state_idx[x.device] = torch.as_tensor(
+                np.nonzero(self.state_only_rows)[0], device=x.device)
         return self.get_values(x, u)[..., idx]
 
 

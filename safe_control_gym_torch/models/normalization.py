@@ -1,7 +1,7 @@
-"""Running normalizers.
+"""Normalization utilities: angle wrapping, running normalizers, rescaling.
 
 Port of ``safe_control_gym_tpu/models/normalization.py`` (reference
-normalization.py:17-163).  The JAX package's normalizers are immutable
+normalization.py:10-240).  The JAX package's normalizers are immutable
 PyTrees updated functionally; here they hold plain tensors and update in
 place.  ``__call__`` still returns ``(out, self)``, so call sites read as
 in the JAX package.
@@ -9,7 +9,14 @@ in the JAX package.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def normalize_angle(x):
+    """Wrap angle to [-pi, pi) (reference normalization.py:10-14); tensors
+    and NumPy arrays alike."""
+    return ((x + np.pi) % (2 * np.pi)) - np.pi
 
 
 class RunningMeanStd:
@@ -77,3 +84,26 @@ class RewardStdNormalizer:
         out = torch.clamp(rewards / torch.sqrt(self.rms.var + self.epsilon), -self.clip, self.clip)
         self.ret = torch.where(dones.to(torch.bool), torch.zeros_like(ret), ret)
         return out, self
+
+
+class RescaleNormalizer:
+    """Constant rescale (reference normalization.py:187-206)."""
+
+    def __init__(self, coef: float = 1.0):
+        self.coef = coef
+
+    def __call__(self, x, update=False):
+        return x * self.coef, self
+
+
+class ActionUnnormalizer:
+    """Map [-1, 1] policy outputs to the action box ``[low, high]``
+    (reference normalization.py:221-240)."""
+
+    def __init__(self, low, high):
+        self.low = low
+        self.high = high
+
+    def __call__(self, action):
+        a = torch.clamp(action, -1.0, 1.0)
+        return self.low + (a + 1.0) * 0.5 * (self.high - self.low)

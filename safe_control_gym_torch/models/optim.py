@@ -2,10 +2,13 @@
 
 ``Adam`` is optax's ``chain(clip_by_global_norm(max_norm), adam(lr))``
 (``max_norm=inf``: plain ``optax.adam``), updated in place; PPO's actor and
-critic, the CBF residual model and the GP fit step with it.
+critic, the off-policy learners, RARL's agents, the safety layer, the CBF
+residual model and the GP fit step with it.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -38,9 +41,10 @@ class Adam:
         grads = [g.detach() for g in grads]
         if scale is not None:
             grads = torch._foreach_mul(grads, scale)
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        clip = torch.where(norm < self.max_norm, torch.ones_like(norm), self.max_norm / norm)
-        grads = torch._foreach_mul(grads, clip)
+        if math.isfinite(self.max_norm):  # optax.adam alone clips nothing
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            clip = torch.where(norm < self.max_norm, torch.ones_like(norm), self.max_norm / norm)
+            grads = torch._foreach_mul(grads, clip)
         torch._foreach_mul_(self.mu, self.b1)
         torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
         torch._foreach_mul_(self.nu, self.b2)

@@ -27,6 +27,15 @@ the same state: the offsets, the brownian walks and the adversary's
 pending force and action offset included.  The PRNG key has no
 counterpart in the port and is dropped.
 
+The learners: :func:`load_twin_q` takes SAC's twin Q (``{"q1", "q2"}``),
+:func:`load_rarl_agent` a RARL ``Agent`` (actor, critic, logstd) and
+:func:`load_rarl_population` RAP's population (the leading axis of the JAX
+leaves, one agent each); SAC's actor (``_Actor.net``), DDPG's actor and
+critic and the ``SafetyLayer`` MLP take :func:`load_mlp`.
+:func:`load_replay_buffer` fills the port's ``ReplayBuffer`` from a JAX
+buffer's data, pointer and fill level, so that an update starts both
+packages from one buffer.
+
 The firmware: a JAX ``MellingerState`` (one controller, its fields as
 NumPy arrays) becomes the port's on a batch of one by
 :func:`mellinger_state_from_numpy`, and the JAX firmware wrapper's fused
@@ -139,6 +148,45 @@ def actor_critic_params(ac):
     """The port's ``ActorCritic`` as flax-layout NumPy (actor, critic,
     logstd)."""
     return mlp_params(ac.actor), mlp_params(ac.critic), ac.logstd.detach().cpu().numpy().copy()
+
+
+def load_twin_q(twin, params) -> None:
+    """Copy SAC's flax twin Q params (``{"q1": ..., "q2": ...}``, NumPy)
+    into the port's ``_TwinQ`` in place."""
+    load_mlp(twin.q1, params["q1"])
+    load_mlp(twin.q2, params["q2"])
+
+
+def load_rarl_agent(agent, actor_params, critic_params, logstd) -> None:
+    """Copy a JAX RARL ``Agent``'s params (NumPy trees) into the port's
+    ``Agent`` in place (the optimizers' moments are left as they are)."""
+    load_mlp(agent.actor, actor_params)
+    load_mlp(agent.critic, critic_params)
+    with torch.no_grad():
+        agent.logstd.copy_(torch.tensor(np.asarray(logstd, np.float32)))
+
+
+def load_rarl_population(agents, actor_params, critic_params, logstd) -> None:
+    """Copy RAP's JAX population (leaves with a leading population axis)
+    into the port's list of agents, one slice each."""
+    def take(tree, i):
+        if isinstance(tree, dict):
+            return {k: take(v, i) for k, v in tree.items()}
+        return np.asarray(tree)[i]
+
+    if len(agents) != np.asarray(logstd).shape[0]:
+        raise ValueError(f"{np.asarray(logstd).shape[0]} JAX agents for {len(agents)}")
+    for i, agent in enumerate(agents):
+        load_rarl_agent(agent, take(actor_params, i), take(critic_params, i), take(logstd, i))
+
+
+def load_replay_buffer(buf, data: dict, ptr: int, size: int) -> None:
+    """Fill the port's ``ReplayBuffer`` from a JAX ``ReplayBuffer``'s data
+    (name -> NumPy (capacity, ...)), pointer and fill level."""
+    with torch.no_grad():
+        for k, v in data.items():
+            _copy(buf.data[k], np.asarray(v, np.float32))
+    buf.ptr, buf.size = int(ptr), int(size)
 
 
 def _dense(d):
