@@ -150,7 +150,7 @@ observation noise (the configs: ``safe_control_gym_torch/baseline.py``,
    ``set_sync_debug_mode("error")``, its device operations and host ms;
    ``getting_started.run`` on level 0 sim-only at 60 Hz (4 gates, 0
    collisions, reward > 300; K1 once a step) and on level 2, seed 2, with
-   the default stack (firmware, MPCC) cut to 6 s (no collision, no early
+   the default stack (firmware, MPCC) cut to 3 s (no collision, no early
    done, K1 launches = ticks executed), its ms a block and a solve (cold
    and warm) and a solve's launches; K1 at B = 1 bit for bit on the
    flight's own inputs, its device time and an empty kernel's (the launch
@@ -171,6 +171,19 @@ observation noise (the configs: ``safe_control_gym_torch/baseline.py``,
    tests/test_sim2real.py's synthetic flight over 4096 candidates (K1 120
    launches without actuation, the test's bars, K1 at B = 4096 bit for
    bit on the fit's inputs);
+10g. the experiment workflow (``phase_experiment``): config 4 at the
+   rl_train shapes through ``ConfigFactory``, ``set_dir_from_config`` and the
+   registry's ``make``: a train step bit for bit against phase_train's
+   directly built PPO (K3 once, K4 forty times each; the same device
+   operations by ``profile_launches``; the walls in turns), three train
+   steps under ``utils/profiling.device_trace`` logged by
+   ``ExperimentLogger`` and metered by ``ThroughputMeter``, whose
+   ``summarize_kernels`` sees K3 3 and K4 120 times; fault (g): 2 train
+   steps, ``save``, ``load`` into a fresh PPO, 1 more, bit for bit against
+   3 uninterrupted; ``ppo.run`` over 4096 episodes (K1 once a step and
+   nothing else); ``GymEnv.render`` of config 4 on the card against the
+   CPU env's frame from the same state; ``getting_started.run`` on level 0,
+   sim-only, with ``gui=True`` cut to 1 s, recording its gif;
 11. prints each kernel's registers and spills (``ptxas -v``), each phase's
    seconds, one JSON line of per-kernel results (K1 with its plan's group
    and block and every instance's registers and spill bytes; K2 with its
@@ -469,32 +482,23 @@ def device_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-# Sacrificial kernels launched at the start of every profiled session
-# before the work it measures (torch.cuda._sleep's spin kernel, left out of
-# the results): the profiler was seen to drop the first events of a session
-# in a process that had launched much before, the policy kernel and the
-# first small kernels of a train step among them (fault (f), PERF.md).
-PROFILE_LEAD_KERNELS, PROFILE_LEAD_CYCLES = 256, 2000
-
-
 def profile_kernels(fn, reps):
     """Run ``fn`` ``reps`` times under torch.profiler; return (wall ms,
-    {kernel name: (device ms total, launches)}) for the CUDA kernels seen,
-    the session's lead kernels left out."""
+    {kernel name: (device ms total, launches)}) for the CUDA kernels seen.
+    The session opens as ``utils/profiling.lead_session`` does (an empty
+    session, then the lead spin kernels, left out here): the profiler was
+    seen to drop the first events of a session in a process that had
+    launched much before, the policy kernel and the first small kernels of
+    a train step among them (fault (f), PERF.md)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from safe_control_gym_torch.utils.profiling import LEAD_KERNEL, lead_session
 
     fn()
     torch.cuda.synchronize()
-    # A first, empty session: after many unprofiled launches the profiler
-    # was seen to drop the first events of the next session (PERF.md).
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_LEAD_KERNELS):
-            torch.cuda._sleep(PROFILE_LEAD_CYCLES)
-        torch.cuda.synchronize()
+    with lead_session([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -502,32 +506,32 @@ def profile_kernels(fn, reps):
         wall = (time.perf_counter() - t0) * 1e3
     kern = {e.key: (e.device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0
-            and "spin_kernel" not in e.key}
+            and LEAD_KERNEL not in e.key}
     return wall, kern
 
 
 def profile_launches(fn):
     """One call of ``fn`` under torch.profiler with the device activity
     alone: (device operations launched (kernels, memsets and copies), their
-    device ms in all, the five names launched most).  Reads the profiler's
-    raw events: ``key_averages`` builds a Python event per record, which
-    over a solve's ~7e4 launches takes longer than the solve, and the CPU
-    activity multiplies the records."""
+    device ms in all, the five names launched most).  The session opens with
+    the lead spin kernels (``utils/profiling.lead_session``, no empty session
+    first).  Reads the profiler's raw events: ``key_averages`` builds a
+    Python event per record, which over a solve's ~7e4 launches takes longer
+    than the solve, and the CPU activity multiplies the records."""
     import collections
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from safe_control_gym_torch.utils.profiling import LEAD_KERNEL, lead_session
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_LEAD_KERNELS):
-            torch.cuda._sleep(PROFILE_LEAD_CYCLES)
-        torch.cuda.synchronize()
+    with lead_session([ProfilerActivity.CUDA], empty_first=False) as prof:
         fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.profiler.kineto_results.events()
-           if e.device_type() == DeviceType.CUDA and "spin_kernel" not in e.name()]
+           if e.device_type() == DeviceType.CUDA and LEAD_KERNEL not in e.name()]
     names = collections.Counter(e.name()[:80] for e in evs)
     return len(evs), sum(e.duration_ns() for e in evs) / 1e6, names.most_common(5)
 
@@ -2286,7 +2290,10 @@ FW_GOTO_STEP = 25
 FW_ATOL = 2e-2  # the JAX suite's fused-against-host tolerance (obs and actions)
 FW_TIMED_BLOCKS = 20  # fused blocks timed after the script
 COMP_FW_FREQ, COMP_CTRL_FREQ = 500, 25
-COMP_EPISODE_S = 6.0  # the level-2 default-stack flight, cut from 33 s
+# The level-2 default-stack flight, cut from 33 s: takeoff and the first
+# MPCC solves, cold and warm.  A 6-s flight took 336 s on a slow host; 3 s
+# keeps the script well inside its time limit.
+COMP_EPISODE_S = 3.0
 COMP_SIM_FREQ = 60  # the sim-only path's control rate (tests/test_competition.py:121)
 K1_B1_SAMPLES = 64  # K1 inputs of the competition flight held against the plain version
 K1_B1_STRIDE = 40  # one K1 input kept every K1_B1_STRIDE ticks of the flight
@@ -2964,6 +2971,312 @@ def phase_sim2real(dev):
           f"{card_line()}", flush=True)
     return {**fit, "fit_ms": fit_ms, "launches": launches, "k1": k1,
             "thrust_mass_ratio": ratio}
+
+
+# The experiment workflow (phase_experiment): BASELINE config 4 at the
+# rl_train shapes of phase_train, through ConfigFactory and the registry.
+EXPERIMENT_TRACE_STEPS = 3  # train steps under device_trace, logged
+RESUME_BEFORE, RESUME_AFTER = 2, 1  # train steps before save and after load
+EXPERIMENT_EVAL_ENVS = B_MAIN  # ppo.run's episodes (general engine, K1 a step)
+GUI_EPISODE_S = 1.0  # level 0's sim-only episode under gui=True, cut short
+GUI_EVERY = 2
+
+
+def state_tensors(obj, seen=None):
+    """Every tensor reachable from a learner's state (dataclasses, modules,
+    optimizers, dicts, lists), in a fixed order, each object once."""
+    import torch
+
+    seen = set() if seen is None else seen
+    if id(obj) in seen:
+        return []
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        return [obj.detach()]
+    if isinstance(obj, torch.nn.Module):
+        return [t.detach() for t in obj.state_dict().values()]
+    if isinstance(obj, dict):
+        return [t for k in sorted(obj) for t in state_tensors(obj[k], seen)]
+    if isinstance(obj, (list, tuple)):
+        return [t for v in obj for t in state_tensors(v, seen)]
+    if hasattr(obj, "__dict__"):
+        return [t for k in sorted(vars(obj)) for t in state_tensors(vars(obj)[k], seen)]
+    return []
+
+
+def states_differ(a, b):
+    """The tensors of two learners' states that are not bit for bit equal
+    (compared as bytes: the packed rows carry int32 seeds as float32 bit
+    patterns, some of them NaNs), and their count (a count mismatch is one
+    difference)."""
+    import torch
+
+    ta, tb = state_tensors(a), state_tensors(b)
+    if len(ta) != len(tb):
+        return [f"{len(ta)} tensors against {len(tb)}"], len(ta)
+
+    def raw(t):
+        return t.reshape(-1).view(torch.uint8)
+
+    bad = [i for i, (x, y) in enumerate(zip(ta, tb))
+           if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(raw(x), raw(y))]
+    return bad, len(ta)
+
+
+def env_state_to(state, device):
+    """An env-state dataclass with every tensor (dicts of them included) on
+    ``device``."""
+    import dataclasses
+
+    def to(v):
+        return {k: to(u) for k, u in v.items()} if isinstance(v, dict) else v.to(device)
+
+    return type(state)(**{f.name: to(getattr(state, f.name)) for f in dataclasses.fields(state)})
+
+
+def experiment_config(out_dir):
+    """The run config a user of the reference builds: ``--algo ppo --task
+    quadrotor --seed 0`` over the registry's defaults, the task config
+    BASELINE config 4 as a dict (its ``dtype``, a torch dtype, which YAML
+    does not hold, left at the default float32) with the normalized action
+    space of phase_train, and phase_train's train sizes with the fast
+    rollout."""
+    import dataclasses
+
+    from safe_control_gym_torch.utils.configuration import ConfigFactory
+
+    task = {k: v for k, v in dataclasses.asdict(cfg4()).items() if k != "dtype"}
+    algo = dict(rollout_batch_size=TRAIN_B, rollout_steps=TRAIN_T, opt_epochs=EPOCHS,
+                mini_batch_size=MB, hidden_dim=HIDDEN, use_fast_rollout=True,
+                reshuffle_each_epoch=False)
+    return ConfigFactory().merge(
+        args=["--algo", "ppo", "--task", "quadrotor", "--seed", "0", "--tag", "phase_experiment",
+              "--output_dir", out_dir],
+        config_override={"task_config": {**task, "normalized_rl_action_space": True},
+                         "algo_config": algo})
+
+
+def phase_experiment(dev):
+    """The reference's experiment workflow on the card at config 4's full
+    width (B = 4096, T = 128, H = 64, 10 epochs of 4 minibatches), in a
+    temporary directory: ``ConfigFactory`` -> ``set_dir_from_config`` ->
+    ``make("quadrotor")`` / ``make("ppo")``; one train step of the registry's
+    PPO and of a directly built one (phase_train's) bit for bit, with K3 once
+    and K4 forty times each, and their device operations counted alike
+    (``profile_launches``); three train steps under ``device_trace``, logged
+    by ``ExperimentLogger`` and timed by ``ThroughputMeter``, whose
+    ``summarize_kernels`` sees K3 3 times and K4 120 times; fault (g): 2
+    train steps, ``save``, ``load`` into a fresh PPO, 1 more, bit-equal to 3
+    uninterrupted (parameters, Adam moments, total_steps, the generator);
+    ``ppo.run`` on the general engine (K1 once a step); ``GymEnv.render`` on
+    the card against the CPU from the same state; ``getting_started.run``
+    on level 0 with ``gui=True`` recording its gif."""
+    import tempfile
+
+    import torch
+
+    from safe_control_gym_torch import make
+    from safe_control_gym_torch.competition.getting_started import run as competition_run
+    from safe_control_gym_torch.controllers.ppo import PPO
+    from safe_control_gym_torch.envs.gym_adapter import make_gym_env
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+    from safe_control_gym_torch.utils.logging import ExperimentLogger
+    from safe_control_gym_torch.utils.profiling import (ThroughputMeter, device_trace,
+                                                        summarize_kernels)
+    from safe_control_gym_torch.utils.utils import set_dir_from_config
+
+    t_phase = time.perf_counter()
+    res = {}
+    steps_per_train = EPOCHS * N_MINI
+    with tempfile.TemporaryDirectory() as tmp:
+        config = experiment_config(tmp)
+        run_dir = set_dir_from_config(config)
+        env = make(config.task, device=dev, **config.task_config)
+
+        def registry_ppo():
+            return make(config.algo, env, seed=config.seed, **config.algo_config)
+
+        def step(p):
+            p.state, _ = p._train_step(p.state)
+
+        ppo = registry_ppo()
+        direct = PPO(make_quadrotor(cfg4(normalized_rl_action_space=True), device=dev), seed=0,
+                     rollout_batch_size=TRAIN_B, rollout_steps=TRAIN_T, opt_epochs=EPOCHS,
+                     mini_batch_size=MB, hidden_dim=HIDDEN, use_fast_rollout=True,
+                     reshuffle_each_epoch=False)
+        check("experiment: the registry's PPO takes K3 and K4, as phase_train's does",
+              ppo._fp is not None and ppo._fu is not None and type(ppo._fp) is type(direct._fp)
+              and ppo.cfg == direct.cfg and os.path.isfile(os.path.join(run_dir, "config.yaml")),
+              f"{type(ppo._fp).__name__}, K4 {ppo._fu is not None}, config {ppo.cfg}; run dir "
+              f"{os.path.relpath(run_dir, tmp)}")
+
+        # -- one train step each, the counters zeroed just before.
+        torch.cuda.synchronize()
+        zero_counters()
+        step(ppo)
+        step(direct)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        others = sum(v for k, v in launches.items() if k not in ("k3", "k4"))
+        check("experiment: one train step of each PPO went through K3 and K4",
+              launches["k3"] == 2 and launches["k4"] == 2 * steps_per_train and others == 0,
+              f"launches {launches} in 2 train steps")
+        bad, n = states_differ(ppo.state, direct.state)
+        check("experiment: the registry's train step is bit-equal to the direct one",
+              not bad and ppo.state.total_steps == direct.state.total_steps
+              and torch.equal(ppo.gen.get_state(), direct.gen.get_state()),
+              f"{n} state tensors (parameters, Adam moments, normalizers, env rows), differing: "
+              f"{bad}")
+
+        # -- device operations of a train step, then the host clock, in turns.
+        ops = {}
+        for tag, p in (("registry", ppo), ("direct", direct)):
+            ops[tag] = profile_launches(lambda: step(p))
+        check("experiment: a train step launches as many device operations either way",
+              ops["registry"][0] == ops["direct"][0] and ops["registry"][0] > 0,
+              f"registry {ops['registry'][0]}, direct {ops['direct'][0]}")
+        wall = {"registry": [], "direct": []}
+        for tag, p in (("registry", ppo), ("direct", direct), ("direct", direct),
+                       ("registry", ppo)):
+            t0 = time.perf_counter()
+            step(p)
+            torch.cuda.synchronize()
+            wall[tag].append((time.perf_counter() - t0) * 1e3)
+        bad, _ = states_differ(ppo.state, direct.state)
+        check("experiment: still bit-equal after 4 train steps each", not bad,
+              f"differing: {bad}")
+        res["train_step"] = {tag: {"wall_ms": wall[tag], "device_ms": ops[tag][1],
+                                   "device_operations": ops[tag][0], "top": ops[tag][2]}
+                             for tag in wall}
+
+        # -- three train steps under device_trace, logged and metered.
+        logger = ExperimentLogger(run_dir, log_std_out=False)
+        meter = ThroughputMeter()
+        trace_dir = os.path.join(run_dir, "trace")
+        n_env = EXPERIMENT_TRACE_STEPS * TRAIN_B * TRAIN_T
+        for _ in range(TRAIN_PROFILE_SESSIONS):
+            zero_counters()
+            with device_trace(trace_dir):
+                with meter.measure(n_env, sync_on=ppo.state.obs):
+                    ppo.learn(max_env_steps=n_env,
+                              log_fn=lambda s, m: logger.add_scalars(m, s, prefix="train"))
+            launches = read_counters()
+            rows = summarize_kernels(trace_dir, top=100_000)
+            k3 = [r for r in rows if "quad3d_policy_rollout_kernel" in r["name"]]
+            k4 = [r for r in rows if "ppo_grads_kernel" in r["name"]]
+            seen = ([r["count"] for r in k3], [r["count"] for r in k4])
+            if seen == ([EXPERIMENT_TRACE_STEPS], [EXPERIMENT_TRACE_STEPS * steps_per_train]):
+                break
+            print(f"  device_trace: K3 {seen[0]}, K4 {seen[1]} in a session; tracing again",
+                  flush=True)
+        logger.dump_scalars()
+        logger.close()
+        check("experiment: summarize_kernels of the trace sees K3 3 times and K4 120 times",
+              seen == ([EXPERIMENT_TRACE_STEPS], [EXPERIMENT_TRACE_STEPS * steps_per_train])
+              and launches["k3"] == EXPERIMENT_TRACE_STEPS
+              and launches["k4"] == EXPERIMENT_TRACE_STEPS * steps_per_train,
+              f"trace {seen}; counters {launches}; top {[(r['name'][:50], r['count']) for r in rows[:4]]}")
+        logged = os.path.join(run_dir, "logs", "train_policy_loss.log")
+        with open(logged) as f:
+            n_rows = len(f.read().splitlines())
+        check("experiment: ExperimentLogger wrote a row a train step", n_rows >= EXPERIMENT_TRACE_STEPS,
+              f"{n_rows} rows in logs/train_policy_loss.log")
+        res["trace"] = {"k3": k3, "k4": k4, "top": rows[:8],
+                        "env_steps_per_s": meter.steps_per_sec, "meter_steps": meter.steps}
+
+        # -- fault (g): save, load into a fresh PPO, train on.
+        straight = registry_ppo()
+        for _ in range(RESUME_BEFORE + RESUME_AFTER):
+            step(straight)
+        first = registry_ppo()
+        for _ in range(RESUME_BEFORE):
+            step(first)
+        path = os.path.join(run_dir, "checkpoint.pkl")
+        first.save(path)
+        del first
+        resumed = registry_ppo()
+        gen = resumed.gen
+        resumed.load(path)
+        for _ in range(RESUME_AFTER):
+            step(resumed)
+        torch.cuda.synchronize()
+        bad, n = states_differ(straight.state, resumed.state)
+        check("experiment: save, load, train is bit-equal to the uninterrupted run (fault (g))",
+              not bad and resumed.gen is gen
+              and straight.state.total_steps == resumed.state.total_steps
+              == (RESUME_BEFORE + RESUME_AFTER) * TRAIN_B * TRAIN_T
+              and straight.state.actor_opt.count == resumed.state.actor_opt.count
+              and torch.equal(straight.gen.get_state(), resumed.gen.get_state()),
+              f"{n} state tensors, differing {bad}; total_steps {resumed.state.total_steps}, "
+              f"Adam count {resumed.state.actor_opt.count}")
+        del straight, resumed, direct
+
+        # -- evaluation on the general engine: K1 once a step, nothing else.
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.perf_counter()
+        ev = ppo.run(num_episodes=EXPERIMENT_EVAL_ENVS)
+        eval_s = time.perf_counter() - t0
+        launches = read_counters()
+        T_ev = ev["reward"].shape[0]
+        check("experiment: ppo.run evaluates on the general engine, K1 once a step",
+              launches["k1"] == T_ev == env.max_episode_steps
+              and sum(launches.values()) == T_ev
+              and ev["ep_returns"].shape == (EXPERIMENT_EVAL_ENVS,)
+              and bool(np.isfinite(ev["ep_returns"]).all()),
+              f"launches {launches} in {T_ev} steps; mean return {ev['ep_returns'].mean():.4g}")
+        res["eval"] = {"envs": EXPERIMENT_EVAL_ENVS, "steps": T_ev, "s": eval_s,
+                       "launches": launches, "mean_return": float(ev["ep_returns"].mean())}
+
+        # -- GymEnv.render on the card against the CPU from the same state.
+        genv, cenv = make_gym_env(cfg4(), device=dev), make_gym_env(cfg4(), device="cpu")
+        genv.reset()
+        cenv.reset()
+        for _ in range(3):
+            genv.step(np.asarray(genv.u_goal, np.float32))
+        cenv._state = env_state_to(genv.state, torch.device("cpu"))
+        frame, frame_cpu = genv.render(), cenv.render()
+        check("experiment: GymEnv.render on the card equals the CPU env's frame",
+              frame.ndim == 3 and frame.shape[-1] == 3 and frame.dtype == np.uint8
+              and np.array_equal(frame, frame_cpu) and bool((frame < 250).any()),
+              f"frame {frame.shape} {frame.dtype}")
+
+        # -- the competition loop with gui=True: no display here, so the
+        # viewer records the episode to gui_episode0.gif in the working
+        # directory.
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            ep = competition_run(load_level(0, episode_len_sec=GUI_EPISODE_S), num_episodes=1,
+                                 use_firmware=False, ctrl_freq=COMP_SIM_FREQ, gui=True,
+                                 gui_every=GUI_EVERY, device=dev)[0]
+            gui_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        gif = os.path.join(tmp, "gui_episode0.gif")
+        check("experiment: getting_started.run(gui=True) records its gif",
+              os.path.isfile(gif) and os.path.getsize(gif) > 0
+              and ep["steps"] == int(GUI_EPISODE_S * COMP_SIM_FREQ),
+              f"{ep['steps']} steps, gif {os.path.getsize(gif) if os.path.isfile(gif) else 0} "
+              "bytes")
+        res["gui"] = {"steps": ep["steps"], "s": gui_s,
+                      "gif_bytes": os.path.getsize(gif)}
+
+    res["phase_s"] = time.perf_counter() - t_phase
+    ts = res["train_step"]
+    print(f"  experiment (config 4, B={TRAIN_B}, T={TRAIN_T}, H={HIDDEN}): train step through "
+          f"the registry wall {ts['registry']['wall_ms']} ms, device "
+          f"{ts['registry']['device_ms']:.3f} ms, {ts['registry']['device_operations']} device "
+          f"operations; built directly wall {ts['direct']['wall_ms']} ms, device "
+          f"{ts['direct']['device_ms']:.3f} ms, {ts['direct']['device_operations']} device "
+          f"operations; {card_line()}", flush=True)
+    print(f"  experiment: ThroughputMeter {res['trace']['env_steps_per_s']:.6g} env-steps/s over "
+          f"{res['trace']['meter_steps']} env steps under device_trace; eval "
+          f"{EXPERIMENT_EVAL_ENVS} episodes of {res['eval']['steps']} steps in "
+          f"{res['eval']['s']:.2f} s; gui episode {res['gui']['steps']} steps in "
+          f"{res['gui']['s']:.2f} s; phase {res['phase_s']:.1f} s; {card_line()}", flush=True)
+    return res
 
 
 def sass_instructions(kname):
@@ -3769,6 +4082,7 @@ def main():
     comp = phase(phase_competition, dev)
     learners = phase(phase_learners, dev)
     s2r = phase(phase_sim2real, dev)
+    experiment = phase(phase_experiment, dev)
     bnd = bounds(res, serve_cp, serve_q2, serve_mz, train, k3_maze)
     bnd["k1_b1"] = k1_bound(1, 1)
     bnd["k1_b4"] = k1_bound(4, learners["sac"]["k1"]["n_sub"])
@@ -4076,6 +4390,7 @@ def main():
                        "linear_mpc": linear_mpc, "gp_mpc": gp_mpc, "cbf": cbf,
                        "firmware": firmware, "competition_sim_only": comp_sim,
                        "competition": comp, "learners": learners, "sim2real": s2r,
+                       "experiment": experiment,
                        **res, **kernels_line}, f, indent=1, default=str)
     print(f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     print(f"total {total_s:.1f} s")

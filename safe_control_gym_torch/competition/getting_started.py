@@ -19,7 +19,9 @@ Two pieces of the JAX module have no counterpart here:
 
 The level's seed draws the JAX package's course: the env resets with the
 env seed ``jax.random.key(seed)`` gives (``ops/ctr_prng.py::key_env_seed``).
-``gui=True`` raises until the live viewer (``utils/viewer``) is ported.
+``gui=True`` attaches the live viewer (``utils/viewer``); on a host with no
+display it records each episode to ``gui_episode<N>.gif`` in the working
+directory.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from safe_control_gym_torch.controllers.firmware import FirmwareWrapper
 from safe_control_gym_torch.envs.quadrotor import QuadrotorConfig, make_quadrotor
 from safe_control_gym_torch.ops.ctr_prng import key_env_seed
 from safe_control_gym_torch.utils.device import resolve_device
+from safe_control_gym_torch.utils.viewer import LiveViewer, sync
 
 
 def _env_config_from_level(level: dict, ctrl_freq: int, pyb_freq: int) -> QuadrotorConfig:
@@ -101,10 +104,9 @@ def run(
     """Run competition episodes on ``device``; returns per-episode stats
     (reference getting_started.py run(), :42-342).
 
-    ``gui=True`` (the reference's live viewer) raises NotImplementedError:
-    the port has no viewer yet."""
-    if gui:
-        raise NotImplementedError("gui=True needs utils/viewer, which is not ported yet")
+    ``gui=True`` shows every ``gui_every``-th control step in the live
+    viewer, paced to the wall clock; without a display it writes
+    ``gui_episode<N>.gif``."""
     device = resolve_device(device)
     episodes = []
     if use_firmware:
@@ -145,6 +147,7 @@ def run(
             # risk advice, flight-plan cache — must survive episode resets.
             ctrl = controller_cls(obs, info, use_firmware=use_firmware, use_mpcc=use_mpcc,
                                   verbose=verbose, device=device)
+        viewer = LiveViewer(env=env, every=gui_every) if gui else None
 
         cum_reward = 0.0
         collisions = 0
@@ -182,6 +185,10 @@ def run(
                 min_obst_m = bc["obstacles"] if min_obst_m is None \
                     else np.minimum(min_obst_m, bc["obstacles"])
             ctrl.interStepLearn()
+            if viewer is not None:
+                viewer.update(np.asarray(obs)[:12], t=t, reward=float(reward))
+                if viewer.interactive:
+                    sync(i, t_start, 1.0 / ctrl_freq)
             if done:
                 break
         if step_info:
@@ -189,6 +196,11 @@ def run(
             n_gates = len(level_config.get("gates", []) or [])
             gates_passed = n_gates if gid == -1 else gid
         elapsed = time.time() - t_start
+        if viewer is not None:
+            saved = viewer.close(save_path=None if viewer.interactive else f"gui_episode{ep}.gif",
+                                 fps=max(1, ctrl_freq // gui_every))
+            if saved and verbose:
+                print(f"episode {ep}: wrote {saved}")
         ctrl.interEpisodeLearn()
         ep_stats = {
             "reward": cum_reward,

@@ -11,7 +11,7 @@ carries the reference's post-analysis and plots (``analysis=True``).
 
 from __future__ import annotations
 
-import pickle
+import os
 from typing import Any
 
 import numpy as np
@@ -19,10 +19,17 @@ import torch
 
 from safe_control_gym_torch.envs.benchmark import where_state
 from safe_control_gym_torch.parallel.vector import make_vec_env
+from safe_control_gym_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 
 class BaseController:
-    """Host-side shell around a controller's ``state``."""
+    """Host-side shell around a controller's ``state``.
+
+    ``GENERATORS`` names the attributes holding the ``torch.Generator``s a
+    learner draws from: the JAX package carries its PRNG keys inside the
+    state, so ``save``/``load`` keep them together with it."""
+
+    GENERATORS: tuple[str, ...] = ()
 
     def __init__(self, env, output_dir: str = ".", seed: int = 0, **kwargs):
         self.env = env
@@ -66,10 +73,18 @@ class BaseController:
         raise NotImplementedError
 
     def save(self, path):
-        torch.save(self.state, path, pickle_protocol=pickle.HIGHEST_PROTOCOL)
+        """Write the state and the generators named in ``GENERATORS``."""
+        save_checkpoint(os.fspath(path), {
+            "state": self.state, "generators": {n: getattr(self, n) for n in self.GENERATORS}})
 
     def load(self, path):
-        self.state = torch.load(path, weights_only=False)
+        """Restore what ``save`` wrote onto the env's device.  Each generator's
+        state is set into the controller's own generator, so every reference
+        to it (a collector's, say) draws the saved stream on."""
+        saved, _, _ = load_checkpoint(os.fspath(path), device=getattr(self.env, "device", None))
+        self.state = saved["state"]
+        for name, gen in saved["generators"].items():
+            getattr(self, name).set_state(gen.get_state())
 
     @torch.no_grad()
     def run(self, num_episodes: int = 1, max_steps: int | None = None, seed: int = 0,

@@ -70,6 +70,8 @@ class DDPGState:
 class DDPG(BaseController):
     """DDPG on the env's device (CUDA unless the env was built on the CPU)."""
 
+    GENERATORS = ("gen",)
+
     def __init__(self, env, seed: int = 0, **kwargs):
         super().__init__(env, seed=seed)
         known = {f.name for f in dataclasses.fields(DDPGConfig)}

@@ -165,6 +165,8 @@ class PPO(BaseController):
     the env's family (:func:`fast_rollout_engine`; running normalizers off;
     no action filter)."""
 
+    GENERATORS = ("gen",)
+
     def __init__(self, env, seed: int = 0, output_dir: str = ".", action_filter_fn=None,
                  use_fast_rollout: bool = False, **kwargs):
         super().__init__(env, output_dir=output_dir, seed=seed)

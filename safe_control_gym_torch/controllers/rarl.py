@@ -90,6 +90,10 @@ _FIELDS = ("obs", "act", "logp", "ret", "adv")  # what a minibatch step reads
 class RARL(BaseController):
     """RARL on the env's device (CUDA unless the env was built on the CPU)."""
 
+    # ``pick_gen`` draws the adversary of a phase where there is a
+    # population (RAP, or RARL given num_adversaries > 1).
+    GENERATORS = ("gen", "pick_gen")
+
     def __init__(self, env, seed: int = 0, **kwargs):
         super().__init__(env, seed=seed)
         if env.config.adversary_disturbance is None:

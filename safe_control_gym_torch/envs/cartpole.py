@@ -450,3 +450,11 @@ def make_cartpole(config: CartPoleConfig = CartPoleConfig(), device=None) -> FnE
         extras={"set_adversary_control": set_adversary_control,
                 "reset_episode": reset_episode},
     )
+
+
+def make_cartpole_from_dict(device=None, **kwargs) -> FnEnv:
+    """Registry entry point: build from flat YAML kwargs on ``device``; keys
+    that are not config fields are dropped."""
+    known = {f.name for f in dataclasses.fields(CartPoleConfig)}
+    return make_cartpole(CartPoleConfig(**{k: v for k, v in kwargs.items() if k in known}),
+                         device=device)

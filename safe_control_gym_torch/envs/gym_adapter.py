@@ -18,8 +18,8 @@ the first, so every episode draws identical randomization
 from threefry keys, which the port does not replay: the two adapters agree
 from the same state, not from the same seed.
 
-``render()`` raises ``NotImplementedError``: the renderer
-(``utils/rendering``) is ported, but not wired to the adapter yet.
+``render()`` draws the current state with ``utils/rendering`` on the host
+(JAX ``envs/gym_adapter.py:134-160``).
 """
 
 from __future__ import annotations
@@ -132,8 +132,27 @@ class GymEnv:
         return _to_numpy(obs), float(rew[0]), bool(done[0]), _to_numpy(info)
 
     def render(self, mode: str = "rgb_array"):
-        """Not wired yet to the port's renderer (``utils/rendering``)."""
-        raise NotImplementedError("render() is not wired to utils/rendering yet")
+        """One RGB frame of the current state, drawn on the host from a copy
+        of the batch of one (``utils/rendering``; the interactive path is
+        ``utils/viewer``)."""
+        from safe_control_gym_torch.envs.cartpole import CartPoleConfig
+
+        if self._state is None:
+            raise RuntimeError("call reset() before render()")
+        x = self._state.x[0].cpu().numpy()
+        cfg = self.fn_env.config
+        if isinstance(cfg, CartPoleConfig):
+            from safe_control_gym_torch.utils.rendering import render_cartpole
+
+            return render_cartpole(x, pole_length=float(self._state.pole_length[0]))
+        from safe_control_gym_torch.utils.rendering import render_quadrotor
+
+        xg = np.asarray(self.x_goal, float)
+        xg0 = xg.reshape(-1, xg.shape[-1])[0] if xg.ndim > 1 else xg
+        # The 3D state [x, x', y, y', z, z', ...] keeps its positions at 0/2/4.
+        goal = xg0[[0, 2, 4]] if xg0.size >= 12 else None
+        return render_quadrotor(x, quad_type=int(cfg.quad_type), gates=getattr(cfg, "gates", None),
+                                obstacles=getattr(cfg, "obstacles", None), goal=goal)
 
     def close(self):
         self._state = None

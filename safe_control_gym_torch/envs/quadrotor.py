@@ -883,3 +883,14 @@ def make_quadrotor(config: QuadrotorConfig = QuadrotorConfig(), device=None) -> 
         extras={"set_adversary_control": set_adversary_control,
                 "reset_episode": reset_episode},
     )
+
+
+def make_quadrotor_from_dict(device=None, **kwargs) -> FnEnv:
+    """Registry entry point: build from flat YAML kwargs on ``device`` (the
+    reference passes ``make('quadrotor', **config.quadrotor_config)``,
+    getting_started.py:76).  Keys that are not config fields (the host
+    loop's ``reseed_on_reset``, ``info_in_reset``, ``gui``, ...) are
+    dropped."""
+    known = {f.name for f in dataclasses.fields(QuadrotorConfig)}
+    return make_quadrotor(QuadrotorConfig(**{k: v for k, v in kwargs.items() if k in known}),
+                          device=device)

@@ -14,17 +14,28 @@ obstacles as cylinders), the goal/reference trajectory, and the drone as a
 cross of motor arms oriented by its Euler angles.  ``render_cartpole`` draws
 the classic cart + pole side view.  ``save_video`` writes GIF (PIL, always
 available) or MP4 (ffmpeg when present).
+
+On a host without matplotlib (the port's card hosts may lack it) both
+frames are drawn by PIL instead (``raster_quadrotor``, ``raster_cartpole``):
+the same scene from the same fixed oblique view of the maze's box (CartPole:
+the side view), in plain lines and discs.  Those frames are the port's own;
+the matplotlib frames are the JAX package's pixel for pixel.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import io
 from typing import Optional, Sequence
 
 import numpy as np
 
 __all__ = ["render_quadrotor", "render_cartpole", "save_video", "FrameRecorder",
-           "draw_quadrotor_scene", "draw_quadrotor_drone"]
+           "draw_quadrotor_scene", "draw_quadrotor_drone", "raster_quadrotor", "raster_cartpole"]
+
+
+def have_matplotlib() -> bool:
+    return importlib.util.find_spec("matplotlib") is not None
 
 
 def _fig_to_rgb(fig):
@@ -145,14 +156,19 @@ def render_quadrotor(
     ``state_x`` is the env state vector (2, 6 or 12 dims per QuadType);
     ``gates`` rows are (x, y, z, r, p, yaw[, type]) apertures, ``obstacles``
     rows (x, y, z, ...) cylinder bases — the same layouts the env config
-    carries (reference quadrotor.py:331-354).
+    carries (reference quadrotor.py:331-354).  Drawn by PIL
+    (``raster_quadrotor``) where matplotlib is not installed.
     """
+    pos, rpy = _pose_from_state(state_x, quad_type)
+    if not have_matplotlib():
+        return raster_quadrotor(pos, rpy, gates=gates, obstacles=obstacles, goal=goal,
+                                trajectory=trajectory, width=width, height=height,
+                                arm_scale=arm_scale)
     import matplotlib
 
     matplotlib.use("Agg", force=False)
     import matplotlib.pyplot as plt
 
-    pos, rpy = _pose_from_state(state_x, quad_type)
     fig = plt.figure(figsize=(width / 100, height / 100), dpi=100)
     ax = fig.add_subplot(projection="3d")
     draw_quadrotor_scene(ax, gates=gates, obstacles=obstacles, goal=goal,
@@ -163,7 +179,10 @@ def render_quadrotor(
 
 def render_cartpole(state_x, width: int = 640, height: int = 360,
                     pole_length: float = 0.5) -> np.ndarray:
-    """Render one cartpole state [x, x_dot, theta, theta_dot] to RGB."""
+    """Render one cartpole state [x, x_dot, theta, theta_dot] to RGB (by
+    PIL, ``raster_cartpole``, where matplotlib is not installed)."""
+    if not have_matplotlib():
+        return raster_cartpole(state_x, width=width, height=height, pole_length=pole_length)
     import matplotlib
 
     matplotlib.use("Agg", force=False)
@@ -180,6 +199,103 @@ def render_cartpole(state_x, width: int = 640, height: int = 360,
     ax.set_ylim(-1.2, 1.6)
     ax.set_aspect("equal")
     return _fig_to_rgb(fig)
+
+
+# The PIL frames: an orthographic view of the maze's box x, y in
+# [-2.5, 2.5], z in [0, 2.5] from azimuth -60 and elevation 30 degrees
+# (matplotlib's default 3D view), z drawn 1.2x (its box aspect (1, 1, 0.6)).
+_VIEW_AZIM, _VIEW_ELEV, _VIEW_Z = np.radians(-60.0), np.radians(30.0), 1.2
+_RGB = {"grid": (217, 217, 217), "gate": (255, 127, 14), "obstacle": (102, 102, 102),
+        "trajectory": (44, 160, 44), "drone": (31, 119, 180), "nose": (214, 39, 40)}
+
+
+def _project(points):
+    """World points (..., 3) -> view-plane coordinates (..., 2), up positive."""
+    p = np.asarray(points, dtype=float) * np.array([1.0, 1.0, _VIEW_Z])
+    ca, sa, ce, se = np.cos(_VIEW_AZIM), np.sin(_VIEW_AZIM), np.cos(_VIEW_ELEV), np.sin(_VIEW_ELEV)
+    right = np.array([-sa, ca, 0.0])
+    up = np.array([-se * ca, -se * sa, ce])
+    return np.stack([p @ right, p @ up], -1)
+
+
+def _canvas(width, height, lo, hi):
+    """A white PIL canvas and the map from view-plane points to its pixels,
+    fitting the box [lo, hi] (2-vectors) with a margin at one scale."""
+    from PIL import Image, ImageDraw
+
+    img = Image.new("RGB", (int(width), int(height)), (255, 255, 255))
+    scale = 0.9 * min(width / (hi[0] - lo[0]), height / (hi[1] - lo[1]))
+    mid = (np.asarray(lo) + np.asarray(hi)) / 2
+
+    def px(q):
+        q = np.atleast_2d(q)
+        return [(float(width / 2 + scale * (a - mid[0])), float(height / 2 - scale * (b - mid[1])))
+                for a, b in q]
+
+    return img, ImageDraw.Draw(img), px, scale
+
+
+def _maze_canvas(width, height):
+    view = _project([[x, y, z] for x in (-2.5, 2.5) for y in (-2.5, 2.5) for z in (0.0, 2.5)])
+    return _canvas(width, height, view.min(0), view.max(0))
+
+
+def raster_quadrotor(pos, rpy, gates=None, obstacles=None, goal=None, trajectory=None,
+                     width: int = 640, height: int = 480, arm_scale: float = 4.0) -> np.ndarray:
+    """The scene of ``render_quadrotor`` drawn by PIL: the ground grid, gates
+    (post and square aperture), obstacles (post and top ring), the reference
+    trajectory, the goal, and the drone's arms and heading, for a drone at
+    ``pos`` with Euler angles ``rpy``."""
+    img, draw, px, _ = _maze_canvas(width, height)
+
+    def line(points, color, w=1):
+        draw.line(px(_project(points)), fill=_RGB[color], width=w)
+
+    g = np.linspace(-2.5, 2.5, 6)
+    for v in g:
+        line([[v, g[0], 0], [v, g[-1], 0]], "grid")
+        line([[g[0], v, 0], [g[-1], v, 0]], "grid")
+    half = 0.45 / 2
+    for gate in gates or []:
+        gate = np.asarray(gate, dtype=float).reshape(-1)
+        gz = gate[2] if len(gate) > 2 and gate[2] > 0 else 1.0
+        yaw = gate[5] if len(gate) > 5 else 0.0
+        lat, centre = np.array([np.cos(yaw), np.sin(yaw), 0.0]), np.array([gate[0], gate[1], gz])
+        line([[gate[0], gate[1], 0.0], [gate[0], gate[1], gz - half]], "gate", 2)
+        line([centre + half * (c1 * lat + c2 * np.array([0, 0, 1.0]))
+              for c1, c2 in [(-1, -1), (1, -1), (1, 1), (-1, 1), (-1, -1)]], "gate", 2)
+    th = np.linspace(0, 2 * np.pi, 20)
+    for obs in obstacles or []:
+        ox, oy = np.asarray(obs, dtype=float).reshape(-1)[:2]
+        line(np.stack([ox + 0.05 * np.cos(th), oy + 0.05 * np.sin(th), np.full(20, 1.05)], -1),
+             "obstacle")
+        line([[ox, oy, 0.0], [ox, oy, 1.05]], "obstacle", 3)
+    if trajectory is not None:
+        line(np.asarray(trajectory, dtype=float)[:, :3], "trajectory")
+    if goal is not None:
+        (gx, gy), = px(_project(np.asarray(goal, dtype=float).reshape(-1)[:3]))
+        draw.regular_polygon((gx, gy, 6), 4, fill=_RGB["trajectory"])
+    arm, rot = 0.0397 * arm_scale, _rot_xyz_np(*rpy)
+    pos = np.asarray(pos, dtype=float)
+    for d in (np.array([1, 1, 0]), np.array([1, -1, 0])):
+        tip = rot @ (arm * d / np.sqrt(2))
+        line([pos + tip, pos - tip], "drone", 3)
+    line([pos, pos + rot @ np.array([2 * arm, 0, 0])], "nose", 2)
+    return np.asarray(img, dtype=np.uint8)
+
+
+def raster_cartpole(state_x, width: int = 640, height: int = 360,
+                    pole_length: float = 0.5) -> np.ndarray:
+    """The side view of ``render_cartpole`` drawn by PIL: the ground, the cart
+    and the pole, over x in [cart - 2.5, cart + 2.5], y in [-1.2, 1.6]."""
+    x = np.asarray(state_x, dtype=float).reshape(-1)
+    cart_x, theta = x[0], x[2]
+    img, draw, px, scale = _canvas(width, height, (cart_x - 2.5, -1.2), (cart_x + 2.5, 1.6))
+    draw.line(px([[cart_x - 2.5, 0.0], [cart_x + 2.5, 0.0]]), fill=(204, 204, 204))
+    draw.rectangle(px([[cart_x - 0.15, 0.05], [cart_x + 0.15, -0.05]]), fill=_RGB["drone"])
+    tip = [cart_x + 2 * pole_length * np.sin(theta), 2 * pole_length * np.cos(theta)]
+    draw.line(px([[cart_x, 0.0], tip]), fill=_RGB["nose"], width=max(int(0.03 * scale), 2))
+    return np.asarray(img, dtype=np.uint8)
 
 
 def save_video(frames: Sequence[np.ndarray], path: str, fps: int = 30) -> str:

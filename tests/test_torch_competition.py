@@ -15,9 +15,8 @@ JAX package's, on the CPU.
   (tests/test_competition.py:128-143);
 - ``dispatch_command`` for every ``Command`` against the JAX package's;
   ``thrusts``, ``plot_trajectory`` and ``draw_trajectory``
-  (tests/test_competition.py:164-191); ``gui=True`` raises; the entry
-  point runs on CUDA unless given ``device="cpu"`` and raises without a
-  card.
+  (tests/test_competition.py:164-191); the entry point runs on CUDA
+  unless given ``device="cpu"`` and raises without a card.
 """
 
 import os
@@ -167,8 +166,9 @@ def test_competition_utils_plot_draw_thrusts(tmp_path):
 
 
 def test_gui_raises_and_device_default():
-    with pytest.raises(NotImplementedError):
-        tg.run(_level(0), gui=True, device="cpu")
+    """The entry point runs on CUDA unless given ``device="cpu"`` and raises
+    without a card.  (``gui=True`` raised here until the viewer was ported;
+    tests/test_torch_viewer.py now flies it.)"""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tg.run(_level(0), use_firmware=False)

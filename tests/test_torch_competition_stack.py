@@ -1,7 +1,7 @@
 """The port's default competition stack on the CPU: ``getting_started.run``
 with the fused 500 Hz firmware block and the MPCC racing stage on level 2,
-seed 2, cut to 3 s (chip_smoke.py's phase_competition flies 6 s on the
-card).  The takeoff and the first second of the race: no collision, no
+seed 2, cut to 3 s (chip_smoke.py's phase_competition flies the same 3 s
+on the card).  The takeoff and the first second of the race: no collision, no
 early done, the drone airborne once the takeoff is over, the tick-rate
 clearance minima reported for every gate and obstacle.
 """
@@ -28,7 +28,7 @@ def _level(n, **kw):
 def test_level2_default_stack_takes_off_and_races():
     """The default stack (fused firmware at 500 Hz, MPCC) on level 2, seed 2,
     cut to 3 s: the takeoff and the first second of the race, with no
-    collision and no early done (chip_smoke.py's phase_competition at 6 s)."""
+    collision and no early done (chip_smoke.py's phase_competition, on the card)."""
     log = []
 
     class Logging(TController):

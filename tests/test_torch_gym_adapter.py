@@ -145,10 +145,17 @@ def test_adapter_matches_jax_adapter_from_the_same_state(family):
 
 
 def test_render_is_not_ported_yet():
+    """The name is older than ``render``'s port: it pinned the raise that
+    ``render`` made until ``utils/rendering`` was wired to it.  Now render
+    draws a frame after reset and raises before it (the JAX adapter's
+    contract); tests/test_torch_viewer.py holds the frames to the JAX
+    adapter's."""
     env = tga.make_gym_env(tc.CartPoleConfig(**CART), device="cpu")
-    env.reset()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="reset"):
         env.render()
+    env.reset()
+    frame = env.render()
+    assert frame.shape[-1] == 3 and frame.dtype == np.uint8 and (frame < 250).any()
 
 
 def test_make_gym_env_configs():
