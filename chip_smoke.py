@@ -184,6 +184,20 @@ observation noise (the configs: ``safe_control_gym_torch/baseline.py``,
    nothing else); ``GymEnv.render`` of config 4 on the card against the
    CPU env's frame from the same state; ``getting_started.run`` on level 0,
    sim-only, with ``gui=True`` cut to 1 s, recording its gif;
+10h. the distributed path (``phase_distributed``): (a) a one-rank NCCL
+   group in this process: config 4's sharded rollout at B = 4096 for 256
+   steps (K1 once a step) against the unsharded rollout, every env's state
+   bit for bit and the statistics equal, the walls in turns; one sharded PPO
+   train step at the rl_train shapes (K4 forty times) against
+   ``_train_step`` with the same sample normals and permutations, the
+   parameters and Adam moments bit for bit; an NCCL all-reduce of K4's
+   gradients timed; the validation worker at B = 4096; the group destroyed.
+   (b) two gloo ranks sharing the card (``launch_workers(..., device="cuda")``):
+   ``dryrun_multichip(2)`` at 1024 envs a rank (the sharded PPO step; K2
+   under the group bit for bit against the same calls in turn; K4's
+   all-reduced gradients against the sequential sum, 2e-5) and the
+   validation worker at B = 4096, whose statistics equal (a)'s (episodes
+   exactly, means rtol 1e-5);
 11. prints each kernel's registers and spills (``ptxas -v``), each phase's
    seconds, one JSON line of per-kernel results (K1 with its plan's group
    and block and every instance's registers and spill bytes; K2 with its
@@ -3279,6 +3293,192 @@ def phase_experiment(dev):
     return res
 
 
+# The distributed path (parallel/mesh.py, distributed.py, dryrun.py,
+# _multihost_worker.py): config 4 at B_MAIN for DIST_STEPS general-engine
+# steps and one train step at the rl_train shapes in a one-rank NCCL group in
+# this process, then DIST_RANKS gloo ranks sharing the card.
+DIST_STEPS = GENERAL_STEPS
+DIST_RANKS = 2
+DIST_WORKER_STEPS = 40  # the validation worker's rollout (its default)
+DIST_ALLREDUCE_REPS = 50
+DIST_STATS_RTOL = 1e-5  # tests/test_multihost.py:66-70
+
+
+def dist_policy(dev, hover):
+    import torch
+
+    def policy(pstate, obs):  # the batch comes from obs: a rank sees its slice
+        return torch.full((obs.shape[0], 4), hover, device=dev), pstate
+
+    return policy
+
+
+def phase_distributed(dev):
+    """(a) The NCCL path at world size 1 in this process: config 4's sharded
+    rollout at B_MAIN through K1 against the unsharded rollout (every env's
+    state bit for bit, the statistics equal), one sharded PPO train step at
+    the rl_train shapes (K4 forty times) against ``ppo._train_step`` with
+    the same sample normals and permutations (parameters and Adam moments
+    bit for bit), an all-reduce of K4's gradients timed, and the validation
+    worker's statistics at B_MAIN.  (b) DIST_RANKS gloo ranks on the one
+    card (``launch_workers(..., device="cuda")``, the kernels built by
+    phase_build before they start): ``dryrun_multichip`` at 1024 envs a rank
+    (the sharded PPO step, K2 bit-equal to sequential calls, K4's all-reduced
+    gradients against the sequential sum, each asserted in every rank) and
+    the validation worker at B_MAIN, whose statistics must equal (a)'s.  A
+    failing rank fails the phase; nothing is caught."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from safe_control_gym_torch.controllers.ppo import PPO
+    from safe_control_gym_torch.envs.quadrotor import make_quadrotor
+    from safe_control_gym_torch.parallel import _multihost_worker as MW
+    from safe_control_gym_torch.parallel import distributed as D
+    from safe_control_gym_torch.parallel import dryrun
+    from safe_control_gym_torch.parallel.mesh import all_reduce_sum
+    from safe_control_gym_torch.parallel.rollout import (
+        EpisodeStats, RolloutCarry, rollout, sharded_rollout_fn)
+    from safe_control_gym_torch.parallel.vector import make_vec_env
+
+    t_phase = time.perf_counter()
+    res = {"card": card_line()}
+    axes = (D.HOST_AXIS, D.CHIP_AXIS)
+    # One rank needs no network: NCCL's bootstrap listens on loopback.
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as tmp:
+        D.initialize(f"file://{tmp}/store", world_size=1, rank=0, device=dev, timeout=300)
+        try:
+            check("distributed (a): a one-rank group on the backend of the rule (NCCL on a card)",
+                  dist.get_backend() == D.backend_for(dev, 1) and dist.get_world_size() == 1,
+                  f"backend {dist.get_backend()}")
+            mesh = D.host_mesh()
+            env = make_quadrotor(cfg4(), device=dev)
+            vec = make_vec_env(env, B_MAIN)
+            policy = dist_policy(dev, float(env.u_goal[0]))
+
+            def unsharded():
+                state, obs, _ = vec.reset(seed=0)
+                carry = RolloutCarry(state, obs, (), EpisodeStats.create(B_MAIN, device=dev))
+                carry, _ = rollout(vec, policy, carry, DIST_STEPS, collect=False)
+                return carry, carry.stats.means()
+
+            def sharded():
+                run = sharded_rollout_fn(vec, policy, DIST_STEPS, mesh, axis_name=axes)
+                return run(D.sharded_init_fn(env, B_MAIN, mesh)(seed=0))
+
+            walls, runs = {"unsharded": [], "sharded": []}, {}
+            for tag in ("unsharded", "sharded", "sharded", "unsharded"):  # in turns
+                zero_counters()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[tag] = (sharded if tag == "sharded" else unsharded)()
+                torch.cuda.synchronize()
+                walls[tag].append(time.perf_counter() - t0)
+                runs[tag] += (read_counters(),)
+            (ref, ref_stats, _), (got, stats, n_roll) = runs["unsharded"], runs["sharded"]
+            bad, n = states_differ(got.env_state, ref.env_state)
+            check(f"distributed (a): sharded rollout, config 4, B={B_MAIN}, {DIST_STEPS} steps, "
+                  "against the unsharded rollout",
+                  not bad and stats == ref_stats and n_roll["k1"] == DIST_STEPS,
+                  f"{n} state tensors bit for bit (differ: {bad}); stats {stats}; K1 "
+                  f"{n_roll['k1']} launches")
+            res["rollout"] = {"batch": B_MAIN, "steps": DIST_STEPS, "stats": stats,
+                              "sharded_s": walls["sharded"], "unsharded_s": walls["unsharded"],
+                              "launches": n_roll}
+
+            # One train step at the rl_train shapes, both ways, the same draws.
+            tenv = make_quadrotor(cfg4(normalized_rl_action_space=True), device=dev)
+            kw = dict(rollout_batch_size=TRAIN_B, rollout_steps=TRAIN_T, opt_epochs=EPOCHS,
+                      mini_batch_size=MB, hidden_dim=HIDDEN)
+            gen = torch.Generator(device=dev).manual_seed(5)
+            eps = torch.randn((TRAIN_T, TRAIN_B, 4), generator=gen, device=dev)
+            perm = torch.stack([torch.randperm(TRAIN_B * TRAIN_T, generator=gen, device=dev)
+                                for _ in range(EPOCHS)])
+
+            def train(tag):
+                """One train step of a fresh PPO, sharded or not, its wall
+                and its launches."""
+                ppo = PPO(tenv, seed=0, **kw)
+                state = D.shard_ppo_state(ppo, mesh) if tag == "sharded" else ppo.state
+                zero_counters()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if tag == "sharded":
+                    D.sharded_train_step(ppo, state, mesh, eps=eps, perm=perm)
+                else:
+                    ppo._train_step(state, eps=eps, perm=perm)
+                torch.cuda.synchronize()
+                return state, time.perf_counter() - t0, read_counters()
+
+            steps = {"unsharded": [], "sharded": []}
+            for tag in ("unsharded", "sharded", "sharded", "unsharded"):  # in turns
+                steps[tag].append(train(tag))
+            (ref_state, _, _), (state, _, n_train) = steps["unsharded"][0], steps["sharded"][0]
+            bad, n = states_differ(state, ref_state)
+            sharded_ms = [r[1] * 1e3 for r in steps["sharded"]]
+            unsharded_ms = [r[1] * 1e3 for r in steps["unsharded"]]
+            check(f"distributed (a): sharded PPO train step (B={TRAIN_B}, T={TRAIN_T}, "
+                  f"H={HIDDEN}) against _train_step",
+                  not bad and not states_differ(steps["sharded"][1][0], ref_state)[0]
+                  and n_train["k4"] == EPOCHS * N_MINI and n_train["k1"] == TRAIN_T,
+                  f"{n} state tensors bit for bit (differ: {bad}); K4 {n_train['k4']}, K1 "
+                  f"{n_train['k1']} launches; walls in turns {sharded_ms} ms sharded, "
+                  f"{unsharded_ms} ms unsharded")
+            grads = torch.cat([p.detach().reshape(-1) for p in state.ac.parameters()])
+            all_reduce_sum(grads, dist.group.WORLD)
+            nccl_ms = cuda_ms(lambda: all_reduce_sum(grads, dist.group.WORLD),
+                              DIST_ALLREDUCE_REPS)
+            res["train_step"] = {"batch": TRAIN_B, "steps": TRAIN_T, "sharded_ms": sharded_ms,
+                                 "unsharded_ms": unsharded_ms, "launches": n_train,
+                                 "allreduce_k4_grads_ms": nccl_ms, "k4_grad_floats": grads.numel()}
+            worker_ref = MW.stats(B_MAIN, DIST_WORKER_STEPS, dev, mesh)
+        finally:
+            dist.destroy_process_group()
+    check("distributed (a): the group is destroyed", not dist.is_initialized(), "")
+
+    # (b) DIST_RANKS gloo ranks on the one card.
+    t0 = time.perf_counter()
+    mc = dryrun.dryrun_multichip(DIST_RANKS, device=dev, timeout=600.0)
+    mc_s = time.perf_counter() - t0
+    check("distributed (b): dryrun_multichip on 2 gloo ranks sharing the card",
+          mc["backend"] == "gloo" and mc["k2"]["bit_equal"] and mc["launches"]["k2"] == DIST_RANKS
+          and mc["launches"]["k4"] > 0 and mc["launches"]["k1"] > 0,
+          f"K2 {mc['k2']['episodes']:.0f} episodes bit-equal, K4 all-reduced within "
+          f"{mc['k4']['max_abs_err']:.3g}, launches {mc['launches']}")
+    t0 = time.perf_counter()
+    worker = D.result_line(D.launch_workers(
+        dryrun.WORKER, 1, DIST_RANKS, device=dev.type, timeout=600.0,
+        env_overrides={"SCG_TEST_NUM_ENVS": str(B_MAIN),
+                       "SCG_TEST_NUM_STEPS": str(DIST_WORKER_STEPS)}), "MULTIHOST_STATS ")
+    worker_s = time.perf_counter() - t0
+    close = all(abs(worker[k] - worker_ref[k]) <= DIST_STATS_RTOL * abs(worker_ref[k])
+                for k in ("mean_return", "mean_length", "mean_violations"))
+    check("distributed (b): the worker on 2 gloo ranks against (a)'s one-rank run",
+          worker["episodes"] == worker_ref["episodes"] > 0 and close
+          and worker["total_steps"] == worker_ref["total_steps"],
+          f"{worker} against {worker_ref} (rtol {DIST_STATS_RTOL:g})")
+    res["cluster"] = {"ranks": DIST_RANKS, "dryrun": mc, "dryrun_s": mc_s, "worker": worker,
+                      "worker_ref": worker_ref, "worker_s": worker_s}
+    res["launches"] = {k: res["rollout"]["launches"][k] + n_train[k] + mc["launches"][k]
+                       + worker["launches"][k] for k in ("k1", "k2", "k4")}
+    res["phase_s"] = time.perf_counter() - t_phase
+    ro, tr = res["rollout"], res["train_step"]
+    print(f"  distributed (a), one-rank NCCL group: sharded rollout (B={B_MAIN}, {DIST_STEPS} "
+          f"steps) {min(ro['sharded_s']):.3f} s against unsharded {min(ro['unsharded_s']):.3f} s "
+          f"(walls {ro['sharded_s']} / {ro['unsharded_s']}); sharded train step "
+          f"{min(tr['sharded_ms']):.1f} ms against {min(tr['unsharded_ms']):.1f} ms (walls "
+          f"{tr['sharded_ms']} / {tr['unsharded_ms']}); NCCL all-reduce of "
+          f"K4's {tr['k4_grad_floats']} gradient floats {tr['allreduce_k4_grads_ms'] * 1e3:.1f} us; "
+          f"{card_line()}", flush=True)
+    print(f"  distributed (b), {DIST_RANKS} gloo ranks on the card: dryrun_multichip "
+          f"{mc_s:.1f} s (gloo all-reduce of K4's gradients {mc['k4']['allreduce_ms']:.3f} ms), "
+          f"the worker at B={B_MAIN} {worker_s:.1f} s; launches in the phase {res['launches']}; "
+          f"phase {res['phase_s']:.1f} s; {card_line()}", flush=True)
+    return res
+
+
 def sass_instructions(kname):
     """SASS instructions of the kernel instance whose mangled name holds
     ``kname`` in the built library (``scripts/ab_kernel.py::sass_count``,
@@ -4083,6 +4283,7 @@ def main():
     learners = phase(phase_learners, dev)
     s2r = phase(phase_sim2real, dev)
     experiment = phase(phase_experiment, dev)
+    dist_res = phase(phase_distributed, dev)
     bnd = bounds(res, serve_cp, serve_q2, serve_mz, train, k3_maze)
     bnd["k1_b1"] = k1_bound(1, 1)
     bnd["k1_b4"] = k1_bound(4, learners["sac"]["k1"]["n_sub"])
@@ -4234,12 +4435,22 @@ def main():
                          "block": comp["k1_b1"]["plan"][1]},
                         "competition_level0_sim_only": {"batch": 1, "launches": comp_sim["launches"]["k1"],
                                                         "steps": comp_sim["steps"]}}
-                     | learner_k1),
+                     | learner_k1
+                     # The distributed path: (a) the one-rank NCCL group's
+                     # rollout and train step, (b) the gloo ranks' dry run
+                     # and worker, launches summed over the ranks.
+                     | {"distributed": {"launches": dist_res["launches"]["k1"],
+                                        "rollout_launches": dist_res["rollout"]["launches"]["k1"],
+                                        "train_step_launches":
+                                            dist_res["train_step"]["launches"]["k1"]}}),
         kernel_entry("quad3d_rollout", "quad3d_rollout.cu", "parallel/fast_env.py:593",
                      res["k2_launches"], max(k2_err, res["k2_main_max_abs_err"]), res["k2_ms"],
                      res["k2_plain_ms"], bnd["k2"], plain_steps=PLAIN_STEPS,
                      max_abs_err_vs_general_engine=cross_err, group=F.GROUP, block=F.BLOCK,
                      **k2_instance(ptxas, False),
+                     distributed={"launches": dist_res["launches"]["k2"], "ranks": DIST_RANKS,
+                                  "envs_per_rank": dist_res["cluster"]["dryrun"]["k2"][
+                                      "envs_per_rank"], "bit_equal": True},
                      maze={"config": 5, "launches": serve_mz["launches"]["k2"],
                            "max_abs_err": max(maze_err, serve_mz["main_max_abs_err"]),
                            "max_abs_err_vs_general_engine": maze_cross_err, "ms": serve_mz["ms"],
@@ -4259,7 +4470,11 @@ def main():
                      k4["config4"]["ms"],
                      k4["config4"]["plain_ms"], bnd["k4_config4"],
                      max_abs_err_vs_autograd=k4["config4"]["max_abs_err_vs_autograd"],
-                     by_path=k4_by_path),
+                     by_path=k4_by_path,
+                     distributed={"launches": dist_res["launches"]["k4"],
+                                  "train_step_launches": dist_res["train_step"]["launches"]["k4"],
+                                  "max_abs_err_allreduced": dist_res["cluster"]["dryrun"]["k4"][
+                                      "max_abs_err"]}),
         kernel_entry("cartpole_rollout", "cartpole_rollout.cu", "parallel/fast_cartpole.py:264",
                      serve_cp["launches"]["k5"], max(small["k5_err"], serve_cp["main_max_abs_err"]),
                      serve_cp["ms"], serve_cp["plain_ms"], bnd["k5"], plain_steps=PLAIN_STEPS,
@@ -4390,7 +4605,7 @@ def main():
                        "linear_mpc": linear_mpc, "gp_mpc": gp_mpc, "cbf": cbf,
                        "firmware": firmware, "competition_sim_only": comp_sim,
                        "competition": comp, "learners": learners, "sim2real": s2r,
-                       "experiment": experiment,
+                       "experiment": experiment, "distributed": dist_res,
                        **res, **kernels_line}, f, indent=1, default=str)
     print(f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     print(f"total {total_s:.1f} s")

@@ -135,3 +135,19 @@ def cfg_mpc_solve(**kw) -> QuadrotorConfig:
     )
     base.update(kw)
     return QuadrotorConfig(**base)
+
+
+def cfg_rl_figure8(**kw) -> QuadrotorConfig:
+    """The env of ``benchmarks/rl_throughput.py`` and ``rl_equivalence.py``:
+    config 4's figure-8 task with the normalized action space and randomized
+    inertia, and nothing else (no constraints, disturbance or random
+    initial state)."""
+    base = dict(
+        quad_type=3, ctrl_freq=60, pyb_freq=240, episode_len_sec=6, task="traj_tracking",
+        task_info={"trajectory_type": "figure8", "trajectory_plane": "xy",
+                   "trajectory_position_offset": [0, 0], "trajectory_scale": 1.0,
+                   "num_cycles": 1, "proj_point": [0, 0, 0.5], "proj_normal": [0, 1, 1]},
+        cost="rl_reward", normalized_rl_action_space=True, randomized_inertial_prop=True,
+    )
+    base.update(kw)
+    return QuadrotorConfig(**base)

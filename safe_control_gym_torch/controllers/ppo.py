@@ -23,6 +23,10 @@ from ``torch.autograd`` of one fused 2H-wide network (``fused_update``, the
 JAX package's A/B path), or, with ``use_fast_update``, from K4
 (``parallel/fast_update.py``, one launch per minibatch).  The optimizers
 repeat optax's ``clip_by_global_norm`` + ``adam`` (see :class:`Adam`).
+Under ``parallel/distributed.py::sharded_train_step`` (data parallelism
+over ranks) each rank computes its share of every minibatch and
+``data_parallel`` sums the gradients and losses over the ranks before the
+KL gate and the Adam steps; in one process it is None.
 Where the JAX package carries a PRNG key in its state, the controller draws
 from its own ``torch.Generator``; the state (:class:`PPOState`) is updated
 in place.
@@ -175,6 +179,7 @@ class PPO(BaseController):
         self.device = dev = env.device
         self.use_fast_rollout = use_fast_rollout
         self.action_filter_fn = action_filter_fn
+        self.data_parallel = None  # set for a step by distributed.sharded_train_step
         self.gen = torch.Generator(device=dev).manual_seed(seed)
         self.vec = make_vec_env(env, cfg.rollout_batch_size)
         obs_dim, act_dim = env.spaces.obs_dim, env.spaces.action_dim
@@ -335,6 +340,8 @@ class PPO(BaseController):
                 self.minibatch_step_fused if cfg.fused_update else self.minibatch_step)
 
         def layout(mbs):  # K4 takes each minibatch batch-last: (n_mini, F, mb)
+            if self.data_parallel is not None:  # this rank's rows of every minibatch
+                mbs = self.data_parallel.share(mbs)
             return mbs if self._fu is None else mbs.transpose(1, 2).contiguous()
 
         blocks = None if cfg.reshuffle_each_epoch else layout(self._minibatches(packed, perm))
@@ -372,6 +379,14 @@ class PPO(BaseController):
         tk = self.cfg.target_kl
         return torch.ones_like(kl) if tk <= 0 else (kl <= 1.5 * tk).to(kl.dtype)
 
+    def _sync(self, grads, losses):
+        """A minibatch's gradients and its (policy, value, entropy, KL) loss
+        means over every rank's share (``data_parallel.sync``); the identity
+        in one process."""
+        if self.data_parallel is None:
+            return list(grads), losses
+        return self.data_parallel.sync(list(grads), losses)
+
     def minibatch_step(self, state: PPOState, mb_rows):
         """Gradients by torch.autograd of the reference losses
         (ppo.py:529-581)."""
@@ -382,9 +397,10 @@ class PPO(BaseController):
                                                       self._value(ac, mb["obs"]), mb)
             ga = torch.autograd.grad(p_loss + cfg.entropy_coef * e_loss, ac.actor_params())
             gc = torch.autograd.grad(v_loss, list(ac.critic.parameters()))
-        state.actor_opt.step(ga, scale=self._kl_gate(kl.detach()))
-        state.critic_opt.step(gc)
-        return torch.stack([p_loss, v_loss, e_loss, kl]).detach()
+        g, losses = self._sync(ga + gc, torch.stack([p_loss, v_loss, e_loss, kl]).detach())
+        state.actor_opt.step(g[:len(ga)], scale=self._kl_gate(losses[3]))
+        state.critic_opt.step(g[len(ga):])
+        return losses
 
     def _losses(self, mean, logstd, v_cur, mb):
         """(policy, entropy, value) losses and the approximate KL of one
@@ -422,26 +438,30 @@ class PPO(BaseController):
                                                       out[:, self.act_dim], mb)
             grads = torch.autograd.grad(p_loss + cfg.entropy_coef * e_loss + v_loss,
                                         actor + critic)
-        state.actor_opt.step(grads[:len(actor)], scale=self._kl_gate(kl.detach()))
+        grads, losses = self._sync(grads, torch.stack([p_loss, v_loss, e_loss, kl]).detach())
+        state.actor_opt.step(grads[:len(actor)], scale=self._kl_gate(losses[3]))
         state.critic_opt.step(grads[len(actor):])
-        return torch.stack([p_loss, v_loss, e_loss, kl]).detach()
+        return losses
 
     def minibatch_step_kernel(self, state: PPOState, mb_T):
         """Gradients from K4 (ppo.py:496-527); the KL gate, the entropy term
         and the Adam steps stay outside (they are parameter-sized)."""
         cfg, ac = self.cfg, state.ac
         ga, gc, glogstd, sums = self._fu.grads(mb_T, prep_weights(ac.actor, ac.critic, ac.logstd))
-        n = cfg.mini_batch_size
+        n = mb_T.shape[1]
         p_loss, kl, v_loss = -sums[0] / n, sums[1] / n, 0.5 * sums[2] / n
         with torch.no_grad():
             # Gaussian entropy depends on logstd alone: its loss and
             # gradient are closed form, d(-coef * entropy)/d logstd = -coef.
             e_loss = -(ac.logstd.sum() + 0.5 * self.act_dim * (1.0 + math.log(2.0 * math.pi)))
-        glogstd = glogstd - cfg.entropy_coef
         names = [k for k, _ in ac.actor.named_parameters()]
-        state.actor_opt.step([ga[k] for k in names] + [glogstd], scale=self._kl_gate(kl))
-        state.critic_opt.step([gc[k] for k, _ in ac.critic.named_parameters()])
-        return torch.stack([p_loss, v_loss, e_loss, kl])
+        g, losses = self._sync([ga[k] for k in names] + [glogstd]
+                               + [gc[k] for k, _ in ac.critic.named_parameters()],
+                               torch.stack([p_loss, v_loss, e_loss, kl]))
+        g[len(names)] = g[len(names)] - cfg.entropy_coef
+        state.actor_opt.step(g[:len(names) + 1], scale=self._kl_gate(losses[3]))
+        state.critic_opt.step(g[len(names) + 1:])
+        return losses
 
     def _train_step(self, state: PPOState, eps=None, perm=None):
         """Collect, GAE, advantage standardization, update (ppo.py:658-666).
@@ -449,10 +469,18 @@ class PPO(BaseController):
         fast rollout draws in its kernel) and ``perm`` (:meth:`update`)
         replace the generator's draws.  Returns
         ``(state, metrics)``; ``state`` is updated in place."""
-        cfg = self.cfg
         roll = self.collect_fast(state) if self._fp is not None else self.collect(state, eps)
         with torch.no_grad():
             last_val = self._value(state.ac, state.obs)
+        return self.update_from(state, roll, last_val, perm)
+
+    def update_from(self, state: PPOState, roll, last_val, perm=None):
+        """GAE, the advantage standardization over the whole batch and the
+        update on a collected rollout (``roll``: (T, B, ...) fields of
+        :meth:`collect`; ``last_val``: (B,) values of the observations that
+        follow it).  Returns ``(state, metrics)``."""
+        cfg = self.cfg
+        with torch.no_grad():
             rets, advs = self.gae(roll, last_val)
             # jnp.std is the population std; torch.std defaults to correction=1.
             advs = (advs - advs.mean()) / (advs.std(correction=0) + 1e-6)

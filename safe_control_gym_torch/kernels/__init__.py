@@ -14,6 +14,7 @@ Every entry point returns ``cudaGetLastError()`` after its launch;
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -121,15 +122,32 @@ def _stamp() -> str:
     return h.hexdigest()
 
 
+def _current(stamp: str) -> bool:
+    stamp_file = BUILD / "stamp"
+    return LIB.exists() and stamp_file.exists() and stamp_file.read_text() == stamp
+
+
 def build(force: bool = False) -> Path:
     """Compile ``csrc/`` into the shared library unless it is current.
-    The compiler's register and spill report goes to ``build/ptxas.log``."""
+    The compiler's register and spill report goes to ``build/ptxas.log``.
+
+    Processes that start together (the ranks of a cluster on one card)
+    build under an exclusive ``flock`` on ``build/build.lock`` and look at
+    the stamp again once they hold it: one of them compiles, the others load
+    its library.  The lock goes with its holder's file descriptor, so a
+    process that dies leaves none behind."""
     BUILD.mkdir(parents=True, exist_ok=True)
-    stamp_file = BUILD / "stamp"
     stamp = _stamp()
-    if not force and LIB.exists() and stamp_file.exists() \
-            and stamp_file.read_text() == stamp:
+    if not force and _current(stamp):
         return LIB
+    with open(BUILD / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not force and _current(stamp):
+            return LIB
+        return _compile(stamp)
+
+
+def _compile(stamp: str) -> Path:
     nvcc = _nvcc()
     procs = []
     for src in SOURCES:
@@ -151,7 +169,7 @@ def build(force: bool = False) -> Path:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
     os.replace(tmp, LIB)
-    stamp_file.write_text(stamp)
+    (BUILD / "stamp").write_text(stamp)
     return LIB
 
 

@@ -27,6 +27,11 @@ class RunningMeanStd:
         self.mean = torch.zeros(shape, dtype=dtype, device=device)
         self.var = torch.ones(shape, dtype=dtype, device=device)
         self.count = torch.tensor(epsilon, dtype=dtype, device=device)
+        # (mean, var, n) of this process's batch -> those of the whole batch
+        # across the ranks of a data-parallel step
+        # (parallel/distributed.py::sharded_train_step); None: the batch is
+        # the whole batch.
+        self.reduce = None
 
     def update(self, batch):
         """Fold in a batch (leading axis = samples)."""
@@ -34,6 +39,8 @@ class RunningMeanStd:
         batch_mean = batch.mean(0)
         batch_var = batch.var(0, correction=0)
         n = batch.shape[0]
+        if self.reduce is not None:
+            batch_mean, batch_var, n = self.reduce(batch_mean, batch_var, n)
         delta = batch_mean - self.mean
         tot = self.count + n
         new_mean = self.mean + delta * n / tot

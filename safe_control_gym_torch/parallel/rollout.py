@@ -2,7 +2,10 @@
 
 Port of ``safe_control_gym_tpu/parallel/rollout.py``: the ``lax.scan``
 becomes a Python loop over batched steps; the episode accumulators stay on
-the env's device.  The sharded rollout is not ported yet.
+the env's device.  The sharded rollout (:func:`sharded_rollout_fn`) runs the
+same loop on each rank's slice of the batch and sums the episode
+statistics over the mesh's process group, where the JAX package runs it
+under ``shard_map`` with ``psum``.
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+
+from safe_control_gym_torch.parallel.mesh import all_reduce_sum
 
 
 @dataclasses.dataclass
@@ -52,14 +57,20 @@ class EpisodeStats:
             sum_violations=self.sum_violations + torch.where(d, ep_vio, zero),
         )
 
-    def means(self):
-        """Completed-episode means over the batch (host floats)."""
-        episodes = int(self.done_count.sum())
+    def means(self, group=None):
+        """Completed-episode means (host floats).  With a process ``group``
+        the counts and sums are summed over its ranks before dividing (the
+        JAX package's ``psum`` over ``axis_name``); one collective, in
+        float64, which holds every float32 sum and int count exactly."""
+        sums = torch.stack([x.sum().double() for x in (
+            self.done_count, self.sum_return, self.sum_length, self.sum_violations)])
+        episodes, ret, length, viol = all_reduce_sum(sums, group).tolist()
+        episodes = int(episodes)
         n = max(episodes, 1)
         return {
-            "mean_return": float(self.sum_return.sum()) / n,
-            "mean_length": float(self.sum_length.sum()) / n,
-            "mean_violations": float(self.sum_violations.sum()) / n,
+            "mean_return": ret / n,
+            "mean_length": length / n,
+            "mean_violations": viol / n,
             "episodes": episodes,
         }
 
@@ -101,3 +112,23 @@ def rollout(vec_env, policy_fn: Callable, carry: RolloutCarry, num_steps: int,
     if collect and records:
         traj = {k: torch.stack([r[k] for r in records]) for k in records[0]}
     return carry, traj
+
+
+def sharded_rollout_fn(vec_env, policy_fn: Callable, num_steps: int, mesh, axis_name="env",
+                       collect: bool = False):
+    """``(carry) -> (carry, global_stats)`` over a mesh of ranks.
+
+    ``carry`` holds this rank's slice of the env batch
+    (``parallel.mesh.shard_batch`` or ``distributed.sharded_init_fn``);
+    every rank runs :func:`rollout` on its own slice, so a rank's code is
+    the one-process path's, kernels included, and the episode statistics
+    are summed over the ranks of ``axis_name`` (:meth:`EpisodeStats.means`;
+    the mesh's axes: a rank's group spans them all).  ``policy_fn`` must take its
+    batch size from ``obs``: it sees the local slice.  ``vec_env`` may be
+    built for the global batch: its step takes any batch."""
+
+    def run(carry: RolloutCarry):
+        carry, _ = rollout(vec_env, policy_fn, carry, num_steps, collect=collect)
+        return carry, carry.stats.means(group=mesh.group(axis_name))
+
+    return run

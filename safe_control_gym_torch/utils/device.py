@@ -15,3 +15,18 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def card_line(device) -> str:
+    """What a measurement ran on: for a CUDA device the card's name and
+    power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them (the device's line), else the
+    device's type."""
+    import subprocess
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device.type
+    lines = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    return lines[device.index or 0]
