@@ -25,11 +25,20 @@ observation noise (the configs: ``safe_control_gym_torch/baseline.py``,
    its plain version at B = 4096 (1e-12); a float64 3D env steps on the
    card through that instance (one launch a step), within 1e-10 of the
    same env on the CPU, and a float32 env launches K1's float32 instance;
+2b. builds the native runtime (``safe_control_gym_torch/native``, host
+   C++) with g++ and loads it, never its NumPy fallback (``phase_native``);
+   flies tests/test_native.py's 3D quad in float64 on the card at B = 4096
+   for 40 steps, each env under its own seeded thrusts (K1's float64
+   instance once a step), and holds every trajectory against the C++
+   oracle on the host at rtol 1e-9 / atol 1e-10; the compiled oracle
+   against its NumPy fallback; env 0's flight through the ring-buffer
+   flight logger, bit for bit, and back from its CSV;
 3. holds K2 (``quad3d_rollout``) against its plain version at B = 1024 and
    at the ragged B = 1000 (the last block's groups partly past the last
-   env) for 25 steps with auto-resets: all rows, done counts exactly;
+   env) for CHECK_STEPS steps with auto-resets: all rows, done counts
+   exactly;
 4. holds K2 against the port's general engine (which runs K1) over the same
-   25 steps and env seeds;
+   steps and env seeds;
 4b. holds K2's maze instance (config 5, 4 s episodes, step noise on)
    against its plain version bit for bit, every row, at B = 1000 and 4096
    over MAZE_CHECK_STEPS steps through collision resets and pose redraws;
@@ -38,11 +47,11 @@ observation noise (the configs: ``safe_control_gym_torch/baseline.py``,
    noise off) against the general engine: done exact, reward atol 1e-4, the
    states of the envs not done rtol 2e-4 / atol 2e-5, their maze counters
    exact, 0.5-90% done;
-5. times config 4's serving path at B = 4096: the general engine for 256
-   hover steps and the whole-rollout engine for one call of 8192 steps,
+5. times config 4's serving path at B = 4096: the general engine for
+   GENERAL_STEPS hover steps and the whole-rollout engine for one call of 8192 steps,
    after two warm-ups, with launch counters zeroed just before and read just
-   after; holds K2 against its plain version on a 512-step call from the
-   timed call's own rows, and K1 on the general engine's own inputs; times
+   after; holds K2 against its plain version on a PLAIN_STEPS-step call
+   from the timed call's own rows, and K1 on the general engine's own inputs; times
    each kernel alone (K1 by the profiler's device time, and its share of
    the general engine's device time; the others, whose
    launches take milliseconds, by CUDA events around back-to-back launches,
@@ -50,7 +59,8 @@ observation noise (the configs: ``safe_control_gym_torch/baseline.py``,
    versions' many small launches) and the plain versions (no yardstick of speed: they
    repeat the kernels' arithmetic op by op);
 6. holds K3 (``quad3d_policy_rollout``, the PPO data collection) against
-   its plain version at B = 1024 and 1000 for 25 steps through auto-resets,
+   its plain version at B = 1024 and 1000 for CHECK_STEPS steps through
+   auto-resets,
    at hidden width 64 and 128 (the run-time-width instance): all rows and
    the whole record, done counts exactly;
 6b. drives K3's maze instances (``phase_k3_maze``): ``FastPolicyRollout`` on
@@ -80,7 +90,7 @@ observation noise (the configs: ``safe_control_gym_torch/baseline.py``,
 8. holds K5 (``cartpole_rollout``) and K6 (``cartpole_policy_rollout``), K7
    (``quad_planar_rollout``, 1D and 2D) and K8
    (``quad_planar_policy_rollout``, 1D and 2D) against their plain versions
-   at B = 1024 for 25 steps through auto-resets (all four, one env over a
+   at B = 1024 for CHECK_STEPS steps through auto-resets (all four, one env over a
    group of lanes, also at the ragged B = 1000 and at the batches where
    their launch plans pick their other group sizes, K7 there with and
    without action noise; K6 and K8 at H = 64 and 128, at every group they
@@ -88,7 +98,7 @@ observation noise (the configs: ``safe_control_gym_torch/baseline.py``,
    noise and an impulse), and K5 and K7 against the port's general engine;
 8b. holds the policy kernels' observation instances (observation white
    noise of std 0.05, goal-horizon rows) against their plain versions at
-   B = 1024 and 1000, H = 64 and 128, 25 steps through resets and
+   B = 1024 and 1000, H = 64 and 128, CHECK_STEPS steps through resets and
    truncations: K3 on config 4-GH (config 4 with two goal-horizon blocks,
    obs 36: ``cfg4_gh``), K8 on 2D stabilization and 2D tracking with two
    goal-horizon blocks, K6 on CartPole stabilization; and under a
@@ -136,7 +146,7 @@ observation noise (the configs: ``safe_control_gym_torch/baseline.py``,
    the CPU on 8 envs, its launches (profiler) and ms, a single solve's ms;
    MPC on B = 1024 3D quads for 50 closed-loop steps through the general
    engine (K1 once a step; the bar at step 50: median position error <=
-   0.45 m and <= 0.65 of its value after the first step; the first 5
+   0.45 m and <= 0.65 of its value after the first step; the first 3
    solves of 32 envs against the CPU);
    iLQR's learn() on CartPole against the CPU and its episode's bar, with
    the backward pass's eigh cost; LinearMPC on 256 2D quads to its bar;
@@ -150,7 +160,7 @@ observation noise (the configs: ``safe_control_gym_torch/baseline.py``,
    ``set_sync_debug_mode("error")``, its device operations and host ms;
    ``getting_started.run`` on level 0 sim-only at 60 Hz (4 gates, 0
    collisions, reward > 300; K1 once a step) and on level 2, seed 2, with
-   the default stack (firmware, MPCC) cut to 3 s (no collision, no early
+   the default stack (firmware, MPCC) cut to 2.5 s (no collision, no early
    done, K1 launches = ticks executed), its ms a block and a solve (cold
    and warm) and a solve's launches; K1 at B = 1 bit for bit on the
    flight's own inputs, its device time and an empty kernel's (the launch
@@ -183,10 +193,10 @@ observation noise (the configs: ``safe_control_gym_torch/baseline.py``,
    3 uninterrupted; ``ppo.run`` over 4096 episodes (K1 once a step and
    nothing else); ``GymEnv.render`` of config 4 on the card against the
    CPU env's frame from the same state; ``getting_started.run`` on level 0,
-   sim-only, with ``gui=True`` cut to 1 s, recording its gif;
+   sim-only, with ``gui=True`` cut to 0.5 s, recording its gif;
 10h. the distributed path (``phase_distributed``): (a) a one-rank NCCL
-   group in this process: config 4's sharded rollout at B = 4096 for 256
-   steps (K1 once a step) against the unsharded rollout, every env's state
+   group in this process: config 4's sharded rollout at B = 4096 for
+   GENERAL_STEPS steps (K1 once a step) against the unsharded rollout, every env's state
    bit for bit and the statistics equal, the walls in turns; one sharded PPO
    train step at the rl_train shapes (K4 forty times) against
    ``_train_step`` with the same sample normals and permutations, the
@@ -227,21 +237,23 @@ from safe_control_gym_torch.baseline import (
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B_MAIN = 4096
-GENERAL_STEPS = 256
+GENERAL_STEPS = 128
 FAST_STEPS = 8192
-CHECK_B, CHECK_STEPS = 1024, 25
+# The kernels' checks against their plain versions run CHECK_STEPS steps of
+# 0.2-s episodes (10 or 12 steps at 50 or 60 Hz): through the first auto-reset
+# and truncation and two or more steps of the next episode.
+CHECK_B, CHECK_STEPS = 1024, 14
 # K2 and K3 also at a batch that leaves the last block's lane groups partly
 # past the last env.
 RAGGED_B = 1000
 # The whole-rollout kernels against their plain versions on a call of this
 # many steps from the timed call's own rows (the plain versions launch
-# thousands of small PyTorch ops per step, and this many keeps the run
-# near 100-150 s).
-PLAIN_STEPS = 512
+# thousands of small PyTorch ops per step: 40-80 ms a step at B = 4096).
+PLAIN_STEPS = 256
 # K2's maze instance against its plain version: steps through collision
 # resets and pose redraws, and the steps of the call from the timed call's
 # rows; the one-step cross-check's batch.
-MAZE_CHECK_STEPS, MAZE_PLAIN_STEPS, MAZE_CROSS_B = 120, 256, 1024
+MAZE_CHECK_STEPS, MAZE_PLAIN_STEPS, MAZE_CROSS_B = 40, 128, 1024
 # tests/test_fast_maze.py's spawns, scattered over the arena.
 MAZE_SCATTER = {"init_x": {"distrib": "uniform", "low": -2.0, "high": 2.0},
                 "init_y": {"distrib": "uniform", "low": -2.5, "high": 2.0},
@@ -788,6 +800,142 @@ def phase_k1_float64(dev, k1_inputs):
     return out
 
 
+# The native runtime's path (``phase_native``): tests/test_native.py's 3D
+# quad and tolerance, at config 4's batch, each env under its own seeded
+# thrusts; a ring of NATIVE_RING records of (t, 12 states).
+NATIVE_B, NATIVE_STEPS, NATIVE_SEED = B_MAIN, 40, 11
+NATIVE_RTOL, NATIVE_ATOL = 1e-9, 1e-10
+NATIVE_RING = 32
+NATIVE_QUAD3D = dict(quad_type=3, ctrl_freq=60, pyb_freq=240, episode_len_sec=2,
+                     task="stabilization", cost="quadratic", randomized_init=False,
+                     init_state={"init_z": 1.0}, randomized_inertial_prop=False,
+                     done_on_out_of_bound=False)
+
+
+def native_cases():
+    """tests/test_native.py:64-77's inputs of the compiled oracle against its
+    NumPy fallback: (CartPole args, 3D quad args)."""
+    rng = np.random.default_rng(2)
+    x0 = rng.normal(size=4) * 0.1
+    forces = rng.uniform(-5, 5, size=(20, 1))
+    mass, j = 0.03454, np.array([1.4e-5, 1.4e-5, 2.17e-5])
+    q0 = np.zeros(12)
+    q0[4] = 1.0
+    thrusts = mass * 9.8 / 4 * (1 + 0.05 * rng.standard_normal((25, 4)))
+    return (x0, forces, 0.02, 2, 1.0, 0.1, 1.0), (q0, thrusts, 1 / 240, 3, mass, j)
+
+
+def phase_native(dev):
+    """The port's native runtime (``safe_control_gym_torch/native``: the host
+    C++ oracle and flight logger).  (a) Built from the checkout's source with
+    g++ and loaded from the port's build directory, never its NumPy
+    fallback.  (b) tests/test_native.py's 3D quad (60/240 Hz, stabilization,
+    no randomization, z = 1) on the card in float64 at B = NATIVE_B, each env
+    under its own thrusts hover x (1 + 0.03 N(0, 1)) for NATIVE_STEPS control
+    steps after one warm-up run, the launch counters zeroed just before and
+    read just after (K1's float64 instance once a step, nothing else); every
+    env's trajectory against the oracle on the host at rtol 1e-9 / atol
+    1e-10.  (c) The compiled oracle against its NumPy fallback (CartPole
+    rtol 1e-12, the 3D quad 1e-10, atol 1e-12).  (d) Env 0's states as (t, x)
+    records into a ring of NATIVE_RING: the snapshot is the last NATIVE_RING
+    records bit for bit, and its CSV reads back equal."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from safe_control_gym_torch import native
+    from safe_control_gym_torch.envs.quadrotor import QuadrotorConfig, make_quadrotor
+    from safe_control_gym_torch.native import _fallback
+
+    t0 = time.perf_counter()
+    lib_path = native.build(force=True)
+    lib = native.load()
+    res = {"build_s": time.perf_counter() - t0, "library": str(lib_path)}
+    home = Path(ROOT) / "safe_control_gym_torch" / "native" / "build"
+    check("native: the port's library, built with g++ and loaded", native.available()
+          and lib._name == str(lib_path) == str(native.LIB) and lib_path.parent == home,
+          f"{lib_path} in {res['build_s']:.2f} s (no NumPy fallback)")
+
+    # (b) the float64 3D env on the card against the oracle on the host.
+    cfg = QuadrotorConfig(**NATIVE_QUAD3D, dtype=torch.float64)
+    n_sub, dt = cfg.pyb_freq // cfg.ctrl_freq, 1.0 / cfg.pyb_freq
+    B, T = NATIVE_B, NATIVE_STEPS
+    env = make_quadrotor(cfg, device=dev)
+    hover = float(env.u_goal[0])
+    thrusts = hover * (1 + 0.03 * np.random.default_rng(NATIVE_SEED).standard_normal((B, T, 4)))
+    thr = torch.tensor(thrusts.transpose(1, 0, 2), dtype=torch.float64, device=dev)
+
+    def fly():
+        state, _, _ = env.reset(torch.arange(B, dtype=torch.int32))
+        xs = [state.x]
+        for t in range(T):
+            state, _, _, _, _ = env.step(state, thr[t])
+            xs.append(state.x)
+        return state, torch.stack(xs)
+
+    fly()
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    state, xs = fly()
+    torch.cuda.synchronize()
+    res["card_ms_per_step"] = (time.perf_counter() - t0) / T * 1e3
+    res["launches"] = read_counters()
+    check("native: the float64 3D env on the card runs K1's float64 instance once a step",
+          res["launches"]["k1"] == T and sum(res["launches"].values()) == T
+          and xs.dtype == torch.float64, f"launches {res['launches']} in {T} steps at B={B}")
+    got = xs.cpu().numpy()
+    x0 = np.zeros(12)
+    x0[4] = 1.0
+    mass, j = state.mass.cpu().numpy(), state.j_diag.cpu().numpy()
+    t0 = time.perf_counter()
+    want = np.stack([native.quad3d_rollout(got[0, b], thrusts[b], dt, n_sub, mass[b], j[b])
+                     for b in range(B)], 1)
+    res["oracle_ms"] = (time.perf_counter() - t0) * 1e3
+    diff = np.abs(got - want)
+    res["max_abs_err"] = float(diff.max())
+    res["max_rel_err"] = float((diff / np.maximum(np.abs(want), 1.0)).max())
+    check(f"native: {B} float64 trajectories on the card against the C++ oracle",
+          bool((got[0] == x0).all()) and np.isfinite(got).all()
+          and np.allclose(got, want, rtol=NATIVE_RTOL, atol=NATIVE_ATOL),
+          f"{T} steps; max_abs_err {res['max_abs_err']:.3g}, max err/max(1,|ref|) "
+          f"{res['max_rel_err']:.3g} (rtol {NATIVE_RTOL:g}, atol {NATIVE_ATOL:g})")
+
+    # (c) the compiled oracle against its NumPy fallback.
+    cp, q = native_cases()
+    res["fallback_err"] = {}
+    for tag, fn, args, rtol in (("CartPole", "cartpole_rollout", cp, 1e-12),
+                                ("3D quad", "quad3d_rollout", q, 1e-10)):
+        a, b = getattr(native, fn)(*args), getattr(_fallback, fn)(*args)
+        res["fallback_err"][tag] = float(np.abs(a - b).max())
+        check(f"native: {tag} oracle against its NumPy fallback",
+              np.allclose(a, b, rtol=rtol, atol=1e-12),
+              f"{a.shape}, max_abs_err {res['fallback_err'][tag]:.3g} (rtol {rtol:g}, atol 1e-12)")
+
+    # (d) the flight logger on env 0's flight.
+    records = np.concatenate([np.arange(1, T + 1)[:, None] / cfg.ctrl_freq, got[1:, 0]], 1)
+    lg = native.NativeFlightLogger(NATIVE_RING, 13, header="t," + ",".join(
+        f"x{i}" for i in range(12)))
+    lg.append(records)
+    snap = lg.snapshot()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flight.csv")
+        lg.flush_csv(path)
+        back = np.loadtxt(path, delimiter=",", skiprows=1)
+    check("native: the flight logger keeps the last records bit for bit",
+          isinstance(lg, native.NativeFlightLogger) and lg.count == T
+          and snap.tobytes() == records[-NATIVE_RING:].tobytes()
+          and back.tobytes() == snap.tobytes(),
+          f"{lg.count} records of 13 into a ring of {NATIVE_RING}: snapshot {snap.shape}, the CSV "
+          "read back equal")
+    print(f"  native: build {res['build_s']:.2f} s ({lib_path}); float64 3D env on the card "
+          f"{res['card_ms_per_step']:.3f} host ms a step at B={B} ({T} steps, K1 "
+          f"{res['launches']['k1']}); the oracle on the host {res['oracle_ms']:.1f} ms for {B} "
+          f"envs x {T} steps; max_abs_err {res['max_abs_err']:.3g}; {card_line()}", flush=True)
+    return res
+
+
 def phase_k2(dev):
     import torch
 
@@ -1175,7 +1323,7 @@ def check_policy_bits(tag, fp, kernel, plain, nx, nu):
 
 def phase_obs_ext(dev):
     """The policy kernels' observation instances against their plain
-    versions at B = 1024 and the ragged 1000, H = 64 and 128, over 25 steps
+    versions at B = 1024 and the ragged 1000, H = 64 and 128, over CHECK_STEPS steps
     through resets and truncations: K3 on config 4-GH, K8 on 2D
     stabilization and 2D tracking with two goal-horizon blocks, K6 on
     cartpole_stab, all with the observation noise; with seeded weights at
@@ -1843,7 +1991,7 @@ def phase_ppo_extras(dev):
 # phase_linear_mpc, phase_gp_mpc, phase_cbf): batched AL-iLQR solves on the
 # card, the 3D closed loop through K1, each against the same code on the CPU.
 MPC_SOLVE_B, MPC_H = 1024, 20  # benchmarks/mpc_solve.py's batch and horizon
-MPC_SOLVE_REPS, MPC_SINGLE_REPS = 2, 3
+MPC_SOLVE_REPS, MPC_SINGLE_REPS = 1, 1
 MPC_CPU_ENVS = 8  # envs of a card solve held against the CPU
 # A card solve against the CPU's: float32 with other rounding (cuBLAS
 # products, CUDA's reciprocal division by a scalar), so the solves' accept
@@ -1871,7 +2019,7 @@ GP_COST_RTOL, GP_US_REL = 1e-2, 2.5e-2
 # 0.696 m after step 1, 0.385 at step 50 (0.55 of it) and 0.0494 at step
 # 150, so both limits sit above the reading with room for the card's
 # float32 drift.
-MPC_STEPS, MPC_CPU_STEPS, MPC_CPU_B = 50, 5, 32
+MPC_STEPS, MPC_CPU_STEPS, MPC_CPU_B = 50, 3, 32
 MPC_BAR_MEDIAN, MPC_BAR_FALL = 0.45, 0.65
 # The 3D PID config (tests/test_controllers.py:82-99) as an MPC task.
 MPC_QUAD3D = dict(PID_QUAD3D, cost="quadratic", randomized_init=True,
@@ -2302,16 +2450,20 @@ def phase_cbf(dev):
 FW_STEPS = 60  # tests/test_firmware.py:175-202's script: takeoff, a goto at step 25
 FW_GOTO_STEP = 25
 FW_ATOL = 2e-2  # the JAX suite's fused-against-host tolerance (obs and actions)
-FW_TIMED_BLOCKS = 20  # fused blocks timed after the script
+FW_TIMED_BLOCKS = 10  # fused blocks timed after the script
 COMP_FW_FREQ, COMP_CTRL_FREQ = 500, 25
 # The level-2 default-stack flight, cut from 33 s: takeoff and the first
-# MPCC solves, cold and warm.  A 6-s flight took 336 s on a slow host; 3 s
-# keeps the script well inside its time limit.
-COMP_EPISODE_S = 3.0
+# MPCC solves, cold and warm.  A 6-s flight took 336 s on a slow host.  The
+# MPCC stage starts at control step 51, and its first 8 solves are cold
+# (``warm_after``): 2.5 s (62 steps) gives 8 cold and 3 warm solves.
+COMP_EPISODE_S = 2.5
 COMP_SIM_FREQ = 60  # the sim-only path's control rate (tests/test_competition.py:121)
 K1_B1_SAMPLES = 64  # K1 inputs of the competition flight held against the plain version
 K1_B1_STRIDE = 40  # one K1 input kept every K1_B1_STRIDE ticks of the flight
 K1_B1_REPS = 400  # profiled K1 launches at B = 1
+# Calls of K1's plain version timed (CUDA events) beside the kernel at B = 1
+# and 4 and at the fit's B = 4096: 7-10 ms each, host-bound.
+K1_PLAIN_REPS = 40
 LEVELS_DIR = os.path.join(ROOT, "safe_control_gym_tpu", "competition", "levels")
 EMPTY_KERNEL_SOURCE = r"""
 #include <cuda_runtime.h>
@@ -2615,7 +2767,7 @@ def phase_competition(dev):
     k1_ms = kernel_device_ms(lambda: K1.quad3d_substeps(*args, **kw), "quad3d_substeps_kernel",
                              K1_B1_REPS)
     floor_ms = empty_kernel_ms(dev, plan[2], plan[1], K1_B1_REPS)
-    plain_ms = cuda_ms(lambda: K1.quad3d_substeps_plain(*args, **kw), K1_B1_REPS)
+    plain_ms = cuda_ms(lambda: K1.quad3d_substeps_plain(*args, **kw), K1_PLAIN_REPS)
     res = {**ep, "wall_s": wall, "launches": launches, "ticks": ticks,
            "blocks": len(block_ms), "block_ms": float(np.mean(block_ms)),
            "block_ms_median": float(np.median(block_ms)),
@@ -2713,7 +2865,7 @@ def k1_small(tag, dev, inputs, reps=K1_SMALL_REPS):
             "ms": kernel_device_ms(lambda: K1.quad3d_substeps(*args, **kw),
                                    "quad3d_substeps_kernel", reps),
             "empty_kernel_ms": empty_kernel_ms(dev, plan[2], plan[1], reps),
-            "plain_ms": cuda_ms(lambda: K1.quad3d_substeps_plain(*args, **kw), reps)}
+            "plain_ms": cuda_ms(lambda: K1.quad3d_substeps_plain(*args, **kw), K1_PLAIN_REPS)}
 
 
 def timed_steps(agent, steps):
@@ -2992,7 +3144,7 @@ def phase_sim2real(dev):
 EXPERIMENT_TRACE_STEPS = 3  # train steps under device_trace, logged
 RESUME_BEFORE, RESUME_AFTER = 2, 1  # train steps before save and after load
 EXPERIMENT_EVAL_ENVS = B_MAIN  # ppo.run's episodes (general engine, K1 a step)
-GUI_EPISODE_S = 1.0  # level 0's sim-only episode under gui=True, cut short
+GUI_EPISODE_S = 0.5  # level 0's sim-only episode under gui=True, cut short
 GUI_EVERY = 2
 
 
@@ -3620,7 +3772,7 @@ def phase_k4(dev):
 
 def phase_k5_k6(dev):
     """K5 and K6 against their plain versions, K5 against the general
-    engine, at B = 1024 over 25 steps through auto-resets."""
+    engine, at B = 1024 over CHECK_STEPS steps through auto-resets."""
     import torch
 
     from safe_control_gym_torch.envs.cartpole import make_cartpole
@@ -3715,7 +3867,7 @@ def check_cross(tag, rows, carry, nx, exact, inertia_field, inertia_row):
 
 def phase_k7_k8(dev):
     """K7 and K8 on the 1D and 2D quads against their plain versions, K7
-    against the general engine, at B = 1024 over 25 steps through resets."""
+    against the general engine, at B = 1024 over CHECK_STEPS steps through resets."""
     import torch
 
     from safe_control_gym_torch.envs.quadrotor import make_quadrotor
@@ -4254,6 +4406,7 @@ def main():
     build_s, ptxas = phase(phase_build)
     k1_errs, k1_inputs = phase(phase_k1, dev)
     k1_f64 = phase(phase_k1_float64, dev, k1_inputs)
+    nat = phase(phase_native, dev)
     k2_err, env_c, fr_c, rows0, rows_k2 = phase(phase_k2, dev)
     cross_err = phase(phase_cross, dev, env_c, fr_c, rows0, rows_k2)
     maze_err = phase(phase_k2_maze, dev)
@@ -4435,6 +4588,13 @@ def main():
                          "block": comp["k1_b1"]["plan"][1]},
                         "competition_level0_sim_only": {"batch": 1, "launches": comp_sim["launches"]["k1"],
                                                         "steps": comp_sim["steps"]}}
+                     # The float64 3D env held against the native C++
+                     # oracle (phase_native): K1's float64 instance a step.
+                     | {"native_oracle_float64": {
+                         "batch": NATIVE_B, "launches": nat["launches"]["k1"],
+                         "steps": NATIVE_STEPS, "host_ms_per_step": nat["card_ms_per_step"],
+                         "max_abs_err_vs_oracle": nat["max_abs_err"],
+                         "oracle_ms": nat["oracle_ms"]}}
                      | learner_k1
                      # The distributed path: (a) the one-rank NCCL group's
                      # rollout and train step, (b) the gloo ranks' dry run
@@ -4592,7 +4752,7 @@ def main():
             json.dump({"card": card_line(), "torch": torch.__version__,
                        "cuda": torch.version.cuda, "build_s": build_s, "total_s": total_s,
                        "phase_s": phase_s,
-                       "k1_max_abs_err": k1_errs, "k1_float64": k1_f64,
+                       "k1_max_abs_err": k1_errs, "k1_float64": k1_f64, "native": nat,
                        "k2_vs_plain_max_abs_err": k2_err,
                        "k2_vs_general_max_abs_err": cross_err,
                        "k2_maze_vs_plain_max_abs_err": maze_err,
