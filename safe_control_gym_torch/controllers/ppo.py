@@ -30,6 +30,12 @@ KL gate and the Adam steps; in one process it is None.
 Where the JAX package carries a PRNG key in its state, the controller draws
 from its own ``torch.Generator``; the state (:class:`PPOState`) is updated
 in place.
+
+Under a profiler a train step shows its phases as spans
+(``utils/profiling.py::annotate``): ``scg.ppo.train_step`` around the
+leaves ``collect``, ``gae``, ``pack``, ``shuffle``, ``gather``,
+``transpose``, ``k4`` (the minibatch's gradients on any path) and
+``optimizer`` (loss means, entropy term, sync, KL gate, Adam steps).
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from safe_control_gym_torch.parallel import fast_cartpole, fast_env, fast_quad_p
 from safe_control_gym_torch.parallel.fast_policy import FastPolicyRollout, pack_weights
 from safe_control_gym_torch.parallel.fast_update import FastPPOUpdate, kernel_scope, prep_weights
 from safe_control_gym_torch.parallel.vector import make_vec_env
+from safe_control_gym_torch.utils.profiling import annotate
 
 _UPDATE_FIELDS = ("obs", "act", "v", "logp", "ret", "adv")  # all the update reads
 _BLK = 256  # samples per block of the one-shuffle-per-step permutation (ppo.py:625)
@@ -246,45 +253,47 @@ class PPO(BaseController):
         Normal.sample)."""
         cfg, ac = self.cfg, state.ac
         recs = []
-        for t in range(cfg.rollout_steps):
-            dist = self._dist(ac, state.obs)
-            act = dist.sample(self.gen) if eps is None else dist.loc + dist.scale * eps[t]
-            if self.action_filter_fn is not None:
-                act = self.action_filter_fn(state.obs, act)
-            logp = dist.log_prob(act)
-            v = self._value(ac, state.obs)
-            env_state, next_obs, rew, done, info = self.vec.step(state.env_state, act)
-            if cfg.norm_obs:
-                next_obs, _ = state.obs_norm(next_obs)
-            if cfg.norm_reward:
-                rew, _ = state.rew_norm(rew, done)
-            # Truncation bootstrap (ppo.py:259-273).
-            term_v = torch.where(info["TimeLimit.truncated"],
-                                 self._value(ac, info["terminal_observation"]),
-                                 torch.zeros_like(rew))
-            recs.append({"obs": state.obs, "act": act, "rew": rew,
-                         "mask": 1.0 - done.to(rew.dtype), "v": v, "logp": logp,
-                         "terminal_v": term_v})
-            state.env_state, state.obs = env_state, next_obs
-        return {k: torch.stack([r[k] for r in recs]) for k in recs[0]}
+        with annotate("scg.ppo.collect"):
+            for t in range(cfg.rollout_steps):
+                dist = self._dist(ac, state.obs)
+                act = dist.sample(self.gen) if eps is None else dist.loc + dist.scale * eps[t]
+                if self.action_filter_fn is not None:
+                    act = self.action_filter_fn(state.obs, act)
+                logp = dist.log_prob(act)
+                v = self._value(ac, state.obs)
+                env_state, next_obs, rew, done, info = self.vec.step(state.env_state, act)
+                if cfg.norm_obs:
+                    next_obs, _ = state.obs_norm(next_obs)
+                if cfg.norm_reward:
+                    rew, _ = state.rew_norm(rew, done)
+                # Truncation bootstrap (ppo.py:259-273).
+                term_v = torch.where(info["TimeLimit.truncated"],
+                                     self._value(ac, info["terminal_observation"]),
+                                     torch.zeros_like(rew))
+                recs.append({"obs": state.obs, "act": act, "rew": rew,
+                             "mask": 1.0 - done.to(rew.dtype), "v": v, "logp": logp,
+                             "terminal_v": term_v})
+                state.env_state, state.obs = env_state, next_obs
+            return {k: torch.stack([r[k] for r in recs]) for k in recs[0]}
 
     @torch.no_grad()
     def collect_fast(self, state: PPOState):
         """The whole rollout in one launch of the policy engine (K3, K6 or
         K8; ppo.py:331-363)."""
         fp, ac = self._fp, state.ac
-        seed = torch.randint(0, 2**31 - 1, (1,), generator=self.gen, device=self.device,
-                             dtype=torch.int32)
-        rows, traj = fp.run(state.env_state, pack_weights(ac.actor, ac.critic, ac.logstd),
-                            seed=seed)
-        d = fp.unpack_traj(traj)
-        # Truncation bootstrap from the stored terminal observations (the
-        # kernels mask them to truncated steps).
-        term_v = torch.where(d["trunc"] > 0.0, self._value(ac, d["term_obs"]),
-                             torch.zeros_like(d["rew"]))
-        # The bootstrap observation carries the observation noise, as the
-        # general engine's (ppo.py:358-361).
-        state.env_state, state.obs = rows, fp.observe(rows, generator=self.gen)
+        with annotate("scg.ppo.collect"):
+            seed = torch.randint(0, 2**31 - 1, (1,), generator=self.gen, device=self.device,
+                                 dtype=torch.int32)
+            rows, traj = fp.run(state.env_state, pack_weights(ac.actor, ac.critic, ac.logstd),
+                                seed=seed)
+            d = fp.unpack_traj(traj)
+            # Truncation bootstrap from the stored terminal observations (the
+            # kernels mask them to truncated steps).
+            term_v = torch.where(d["trunc"] > 0.0, self._value(ac, d["term_obs"]),
+                                 torch.zeros_like(d["rew"]))
+            # The bootstrap observation carries the observation noise, as the
+            # general engine's (ppo.py:358-361).
+            state.env_state, state.obs = rows, fp.observe(rows, generator=self.gen)
         return {"obs": d["obs"], "act": d["act"], "rew": d["rew"], "mask": d["mask"],
                 "v": d["v"], "logp": d["logp"], "terminal_v": term_v}
 
@@ -315,14 +324,15 @@ class PPO(BaseController):
         N, mb = packed.shape[0], self.cfg.mini_batch_size
         n_mini = max(N // mb, 1)
         take = n_mini * mb
-        if take == N and N % _BLK == 0 and mb % _BLK == 0:
-            nb = N // _BLK
-            if perm is None:
-                perm = torch.randperm(nb, generator=self.gen, device=self.device)
-            return packed.reshape(nb, -1)[perm].reshape(n_mini, mb, -1)
+        blocks = take == N and N % _BLK == 0 and mb % _BLK == 0
         if perm is None:
-            perm = torch.randperm(N, generator=self.gen, device=self.device)
-        return packed[perm[:take]].reshape(n_mini, mb, -1)
+            with annotate("scg.ppo.shuffle"):
+                perm = torch.randperm(N // _BLK if blocks else N, generator=self.gen,
+                                      device=self.device)
+        with annotate("scg.ppo.gather"):
+            if blocks:
+                return packed.reshape(N // _BLK, -1)[perm].reshape(n_mini, mb, -1)
+            return packed[perm[:take]].reshape(n_mini, mb, -1)
 
     def update(self, state: PPOState, batch, perm=None):
         """``opt_epochs`` epochs of minibatch steps on ``batch`` ((T, B, ...)
@@ -332,25 +342,31 @@ class PPO(BaseController):
         epoch ((opt_epochs, N)).  Returns the metrics averaged over
         minibatches and epochs."""
         cfg = self.cfg
-        cols = [batch[f].reshape(-1, *batch[f].shape[2:]) for f in _UPDATE_FIELDS]
-        packed = torch.cat([c[:, None] if c.dim() == 1 else c for c in cols], 1).to(torch.float32)
+        with annotate("scg.ppo.pack"):
+            cols = [batch[f].reshape(-1, *batch[f].shape[2:]) for f in _UPDATE_FIELDS]
+            packed = torch.cat([c[:, None] if c.dim() == 1 else c for c in cols],
+                               1).to(torch.float32)
         N, mb = packed.shape[0], cfg.mini_batch_size
         n_mini = max(N // mb, 1)
         step = (self.minibatch_step_kernel if self._fu is not None else
                 self.minibatch_step_fused if cfg.fused_update else self.minibatch_step)
 
         def layout(mbs):  # K4 takes each minibatch batch-last: (n_mini, F, mb)
-            if self.data_parallel is not None:  # this rank's rows of every minibatch
-                mbs = self.data_parallel.share(mbs)
-            return mbs if self._fu is None else mbs.transpose(1, 2).contiguous()
+            with annotate("scg.ppo.transpose"):
+                if self.data_parallel is not None:  # this rank's rows of every minibatch
+                    mbs = self.data_parallel.share(mbs)
+                return mbs if self._fu is None else mbs.transpose(1, 2).contiguous()
 
         blocks = None if cfg.reshuffle_each_epoch else layout(self._minibatches(packed, perm))
         epochs = []
         for e in range(cfg.opt_epochs):
             if cfg.reshuffle_each_epoch:
-                p = perm[e] if perm is not None else torch.randperm(
-                    N, generator=self.gen, device=self.device)
-                blocks = layout(packed[p[:n_mini * mb]].reshape(n_mini, mb, -1))
+                with annotate("scg.ppo.shuffle"):
+                    p = perm[e] if perm is not None else torch.randperm(
+                        N, generator=self.gen, device=self.device)
+                with annotate("scg.ppo.gather"):
+                    mbs = packed[p[:n_mini * mb]].reshape(n_mini, mb, -1)
+                blocks = layout(mbs)
             epochs.append(torch.stack([step(state, blocks[i]) for i in range(n_mini)]).mean(0))
         m = torch.stack(epochs).mean(0)
         return {"policy_loss": m[0], "value_loss": m[1], "entropy_loss": m[2], "approx_kl": m[3]}
@@ -391,15 +407,16 @@ class PPO(BaseController):
         """Gradients by torch.autograd of the reference losses
         (ppo.py:529-581)."""
         cfg, ac = self.cfg, state.ac
-        mb = self._unpack(mb_rows)
-        with torch.enable_grad():
+        with annotate("scg.ppo.k4"), torch.enable_grad():
+            mb = self._unpack(mb_rows)
             p_loss, e_loss, v_loss, kl = self._losses(ac.actor(mb["obs"]), ac.logstd,
                                                       self._value(ac, mb["obs"]), mb)
             ga = torch.autograd.grad(p_loss + cfg.entropy_coef * e_loss, ac.actor_params())
             gc = torch.autograd.grad(v_loss, list(ac.critic.parameters()))
-        g, losses = self._sync(ga + gc, torch.stack([p_loss, v_loss, e_loss, kl]).detach())
-        state.actor_opt.step(g[:len(ga)], scale=self._kl_gate(losses[3]))
-        state.critic_opt.step(g[len(ga):])
+        with annotate("scg.ppo.optimizer"):
+            g, losses = self._sync(ga + gc, torch.stack([p_loss, v_loss, e_loss, kl]).detach())
+            state.actor_opt.step(g[:len(ga)], scale=self._kl_gate(losses[3]))
+            state.critic_opt.step(g[len(ga):])
         return losses
 
     def _losses(self, mean, logstd, v_cur, mb):
@@ -426,9 +443,9 @@ class PPO(BaseController):
         """Both losses through the fused 2H-wide network and one autograd
         pass (ppo.py:420-495)."""
         cfg, ac = self.cfg, state.ac
-        mb = self._unpack(mb_rows)
         actor, critic = ac.actor_params(), list(ac.critic.parameters())
-        with torch.enable_grad():
+        with annotate("scg.ppo.k4"), torch.enable_grad():
+            mb = self._unpack(mb_rows)
             h = mb["obs"]
             layers = fused_net(ac)
             for w, b in layers[:-1]:
@@ -438,29 +455,35 @@ class PPO(BaseController):
                                                       out[:, self.act_dim], mb)
             grads = torch.autograd.grad(p_loss + cfg.entropy_coef * e_loss + v_loss,
                                         actor + critic)
-        grads, losses = self._sync(grads, torch.stack([p_loss, v_loss, e_loss, kl]).detach())
-        state.actor_opt.step(grads[:len(actor)], scale=self._kl_gate(losses[3]))
-        state.critic_opt.step(grads[len(actor):])
+        with annotate("scg.ppo.optimizer"):
+            grads, losses = self._sync(grads,
+                                       torch.stack([p_loss, v_loss, e_loss, kl]).detach())
+            state.actor_opt.step(grads[:len(actor)], scale=self._kl_gate(losses[3]))
+            state.critic_opt.step(grads[len(actor):])
         return losses
 
     def minibatch_step_kernel(self, state: PPOState, mb_T):
         """Gradients from K4 (ppo.py:496-527); the KL gate, the entropy term
         and the Adam steps stay outside (they are parameter-sized)."""
         cfg, ac = self.cfg, state.ac
-        ga, gc, glogstd, sums = self._fu.grads(mb_T, prep_weights(ac.actor, ac.critic, ac.logstd))
-        n = mb_T.shape[1]
-        p_loss, kl, v_loss = -sums[0] / n, sums[1] / n, 0.5 * sums[2] / n
-        with torch.no_grad():
-            # Gaussian entropy depends on logstd alone: its loss and
-            # gradient are closed form, d(-coef * entropy)/d logstd = -coef.
-            e_loss = -(ac.logstd.sum() + 0.5 * self.act_dim * (1.0 + math.log(2.0 * math.pi)))
-        names = [k for k, _ in ac.actor.named_parameters()]
-        g, losses = self._sync([ga[k] for k in names] + [glogstd]
-                               + [gc[k] for k, _ in ac.critic.named_parameters()],
-                               torch.stack([p_loss, v_loss, e_loss, kl]))
-        g[len(names)] = g[len(names)] - cfg.entropy_coef
-        state.actor_opt.step(g[:len(names) + 1], scale=self._kl_gate(losses[3]))
-        state.critic_opt.step(g[len(names) + 1:])
+        with annotate("scg.ppo.k4"):
+            ga, gc, glogstd, sums = self._fu.grads(mb_T,
+                                                   prep_weights(ac.actor, ac.critic, ac.logstd))
+        with annotate("scg.ppo.optimizer"):
+            n = mb_T.shape[1]
+            p_loss, kl, v_loss = -sums[0] / n, sums[1] / n, 0.5 * sums[2] / n
+            with torch.no_grad():
+                # Gaussian entropy depends on logstd alone: its loss and
+                # gradient are closed form, d(-coef * entropy)/d logstd = -coef.
+                e_loss = -(ac.logstd.sum()
+                           + 0.5 * self.act_dim * (1.0 + math.log(2.0 * math.pi)))
+            names = [k for k, _ in ac.actor.named_parameters()]
+            g, losses = self._sync([ga[k] for k in names] + [glogstd]
+                                   + [gc[k] for k, _ in ac.critic.named_parameters()],
+                                   torch.stack([p_loss, v_loss, e_loss, kl]))
+            g[len(names)] = g[len(names)] - cfg.entropy_coef
+            state.actor_opt.step(g[:len(names) + 1], scale=self._kl_gate(losses[3]))
+            state.critic_opt.step(g[len(names) + 1:])
         return losses
 
     def _train_step(self, state: PPOState, eps=None, perm=None):
@@ -469,18 +492,20 @@ class PPO(BaseController):
         fast rollout draws in its kernel) and ``perm`` (:meth:`update`)
         replace the generator's draws.  Returns
         ``(state, metrics)``; ``state`` is updated in place."""
-        roll = self.collect_fast(state) if self._fp is not None else self.collect(state, eps)
-        with torch.no_grad():
-            last_val = self._value(state.ac, state.obs)
-        return self.update_from(state, roll, last_val, perm)
+        with annotate("scg.ppo.train_step"):
+            roll = self.collect_fast(state) if self._fp is not None else self.collect(state, eps)
+            return self.update_from(state, roll, None, perm)
 
-    def update_from(self, state: PPOState, roll, last_val, perm=None):
+    def update_from(self, state: PPOState, roll, last_val=None, perm=None):
         """GAE, the advantage standardization over the whole batch and the
         update on a collected rollout (``roll``: (T, B, ...) fields of
         :meth:`collect`; ``last_val``: (B,) values of the observations that
-        follow it).  Returns ``(state, metrics)``."""
+        follow it, by default the critic's of ``state.obs``).  Returns
+        ``(state, metrics)``."""
         cfg = self.cfg
-        with torch.no_grad():
+        with annotate("scg.ppo.gae"), torch.no_grad():
+            if last_val is None:
+                last_val = self._value(state.ac, state.obs)
             rets, advs = self.gae(roll, last_val)
             # jnp.std is the population std; torch.std defaults to correction=1.
             advs = (advs - advs.mean()) / (advs.std(correction=0) + 1e-6)
