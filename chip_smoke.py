@@ -87,6 +87,18 @@ observation noise (the configs: ``safe_control_gym_torch/baseline.py``,
    quad-2D (6, 2) shapes with H = 64, config 4 with H = 128 and (128, 8)
    with H = 64 and 256, two K4 launches against each other bit for bit, and
    times K4 and its plain version at each shape;
+7b. holds the trainer's minibatch layout (``minibatch_layout``, K4's
+   batch-last minibatches from the packed rows and a shuffle's indices)
+   bit for bit against its plain version, the row gather and transpose, at
+   the train cells' shapes (4,194,304 rows of F = 20 and 9, 4 minibatches
+   of 1,048,576) and SafeExplorerPPO's (400 rows, 6 of 64), each also on a
+   data-parallel rank's column slice of the index, two launches bit for
+   bit; times it against its bound (bytes) and the gather and transpose;
+   every train path below counts its launches (one an epoch, or one a train
+   step where the shuffle is drawn once; none on the autograd paths), and
+   the K4 paths (the training paths' warm-up, SafeExplorerPPO's step, the
+   one-rank group's steps) hold their first two layouts against the plain
+   version bit for bit;
 8. holds K5 (``cartpole_rollout``) and K6 (``cartpole_policy_rollout``), K7
    (``quad_planar_rollout``, 1D and 2D) and K8
    (``quad_planar_policy_rollout``, 1D and 2D) against their plain versions
@@ -213,7 +225,9 @@ observation noise (the configs: ``safe_control_gym_torch/baseline.py``,
    and block and every instance's registers and spill bytes; K2 with its
    maze instance's time, bound, registers and spill bytes; the observation
    instances of K3, K6 and K8 and K3's maze instance as entries of their
-   own), then the final status line.
+   own; the minibatch layout with its time, bound and the library gather
+   and transpose it replaces at each of its shapes), then the final status
+   line.
 
 Any failure raises and exits non-zero; nothing falls back to the CPU.
 
@@ -223,6 +237,7 @@ Any failure raises and exits non-zero; nothing falls back to the CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -452,7 +467,14 @@ def counters():
 
     return {"k1": K1.quad3d_substeps, "k2": F.quad3d_rollout, "k3": P.policy_rollout,
             "k4": U.ppo_grads, "k5": FC.cartpole_rollout, "k6": FC.cartpole_policy_rollout,
-            "k7": PQ.planar_rollout, "k8": PQ.planar_policy_rollout}
+            "k7": PQ.planar_rollout, "k8": PQ.planar_policy_rollout,
+            "layout": U.minibatch_layout}
+
+
+def layout_launches(cfg, train_steps=1):
+    """The minibatch layout's launches in ``train_steps`` PPO train steps on
+    K4's path: one an epoch, or one a step where the shuffle is drawn once."""
+    return train_steps * (cfg.opt_epochs if cfg.reshuffle_each_epoch else 1)
 
 
 # The policy kernels' observation instances: their launches (``obs_launches``)
@@ -1901,7 +1923,8 @@ def phase_ppo_extras(dev):
     K4 never; then the CNN, the RNN with masks and the Categorical forward
     on the card against the CPU from the same seeded weights and inputs
     (CNN rtol 1e-4 / atol 1e-5; RNN rtol 2e-4 / atol 2e-5; Categorical rtol
-    1e-5 / atol 1e-6, the mode exactly)."""
+    1e-5 / atol 1e-6, the mode exactly).  K4's minibatch layout is not
+    launched on these paths."""
     import torch
 
     from safe_control_gym_torch.controllers.ppo import PPO
@@ -1926,7 +1949,7 @@ def phase_ppo_extras(dev):
         secs = time.perf_counter() - t0
         launches = read_counters()
         n = PPO_EXTRAS_STEPS - 1
-        check(f"config 4, {tag} update: K3 collects, K4 idle",
+        check(f"config 4, {tag} update: K3 collects, K4 and the layout idle",
               launches["k3"] == n and sum(launches.values()) == n
               and all(np.isfinite(float(v)) for v in metrics.values()),
               f"launches {launches} in {n} train step(s); metrics "
@@ -2997,13 +3020,17 @@ def safe_explorer_path(dev):
 
     fu.grads = recording
     try:
-        ms, launches, m = timed_steps(agent, 1)
+        with recorded_layouts() as layouts:
+            ms, launches, m = timed_steps(agent, 1)
     finally:
         del fu.grads
+    check_layouts("SafeExplorerPPO's train step (mb = 64)", layouts)
     metrics = {k: float(v) for k, v in m.items()}
-    check("SafeExplorerPPO on config 4: K1 once an env step, K4 once a minibatch",
+    check("SafeExplorerPPO on config 4: K1 once an env step, K4 once a minibatch, the layout "
+          "once an epoch",
           launches["k1"] == cfg.rollout_steps and launches["k4"] == cfg.opt_epochs * n_mini
-          and sum(launches.values()) == launches["k1"] + launches["k4"]
+          and launches["layout"] == layout_launches(cfg)
+          and sum(launches.values()) == launches["k1"] + launches["k4"] + launches["layout"]
           and np.isfinite(pre["pretrain_loss"]) and all(np.isfinite(v) for v in metrics.values()),
           f"launches {launches} ({cfg.opt_epochs} epochs x {n_mini} minibatches); pretrain loss "
           f"{pre['pretrain_loss']:.4g}; {metrics}")
@@ -3022,6 +3049,7 @@ def safe_explorer_path(dev):
     plain_ms = cuda_ms(lambda: U.ppo_grads_plain(mb, w, clip=fu.clip, act=fu.act), K4_MB64_REPS)
     res = {"pretrain_ms": pretrain_ms, "pretrain_loss": pre["pretrain_loss"],
            "host_ms_per_train_step": ms[0], "launches": launches, "metrics": metrics,
+           "layout_launches": launches["layout"],
            "k4": {"mb": cfg.mini_batch_size, "launches": launches["k4"], "max_abs_err": err,
                   "ms": k4_ms, "kernels_per_call": per_call, "empty_kernel_ms": floor_ms,
                   "plain_ms": plain_ms, "plan": list(plan)}}
@@ -3283,9 +3311,10 @@ def phase_experiment(dev):
         step(direct)
         torch.cuda.synchronize()
         launches = read_counters()
-        others = sum(v for k, v in launches.items() if k not in ("k3", "k4"))
-        check("experiment: one train step of each PPO went through K3 and K4",
-              launches["k3"] == 2 and launches["k4"] == 2 * steps_per_train and others == 0,
+        others = sum(v for k, v in launches.items() if k not in ("k3", "k4", "layout"))
+        check("experiment: one train step of each PPO went through K3, the layout and K4",
+              launches["k3"] == 2 and launches["k4"] == 2 * steps_per_train
+              and launches["layout"] == layout_launches(ppo.cfg, 2) and others == 0,
               f"launches {launches} in 2 train steps")
         bad, n = states_differ(ppo.state, direct.state)
         check("experiment: the registry's train step is bit-equal to the direct one",
@@ -3340,7 +3369,8 @@ def phase_experiment(dev):
         check("experiment: summarize_kernels of the trace sees K3 3 times and K4 120 times",
               seen == ([EXPERIMENT_TRACE_STEPS], [EXPERIMENT_TRACE_STEPS * steps_per_train])
               and launches["k3"] == EXPERIMENT_TRACE_STEPS
-              and launches["k4"] == EXPERIMENT_TRACE_STEPS * steps_per_train,
+              and launches["k4"] == EXPERIMENT_TRACE_STEPS * steps_per_train
+              and launches["layout"] == layout_launches(ppo.cfg, EXPERIMENT_TRACE_STEPS),
               f"trace {seen}; counters {launches}; top {[(r['name'][:50], r['count']) for r in rows[:4]]}")
         logged = os.path.join(run_dir, "logs", "train_policy_loss.log")
         with open(logged) as f:
@@ -3565,8 +3595,10 @@ def phase_distributed(dev):
                 return state, time.perf_counter() - t0, read_counters()
 
             steps = {"unsharded": [], "sharded": []}
-            for tag in ("unsharded", "sharded", "sharded", "unsharded"):  # in turns
-                steps[tag].append(train(tag))
+            with recorded_layouts() as layouts:
+                for tag in ("unsharded", "sharded", "sharded", "unsharded"):  # in turns
+                    steps[tag].append(train(tag))
+            check_layouts("the one-rank group's train steps", layouts)
             (ref_state, _, _), (state, _, n_train) = steps["unsharded"][0], steps["sharded"][0]
             bad, n = states_differ(state, ref_state)
             sharded_ms = [r[1] * 1e3 for r in steps["sharded"]]
@@ -3574,8 +3606,10 @@ def phase_distributed(dev):
             check(f"distributed (a): sharded PPO train step (B={TRAIN_B}, T={TRAIN_T}, "
                   f"H={HIDDEN}) against _train_step",
                   not bad and not states_differ(steps["sharded"][1][0], ref_state)[0]
-                  and n_train["k4"] == EPOCHS * N_MINI and n_train["k1"] == TRAIN_T,
-                  f"{n} state tensors bit for bit (differ: {bad}); K4 {n_train['k4']}, K1 "
+                  and n_train["k4"] == EPOCHS * N_MINI and n_train["k1"] == TRAIN_T
+                  and n_train["layout"] == EPOCHS,
+                  f"{n} state tensors bit for bit (differ: {bad}); K4 {n_train['k4']}, layout "
+                  f"{n_train['layout']}, K1 "
                   f"{n_train['k1']} launches; walls in turns {sharded_ms} ms sharded, "
                   f"{unsharded_ms} ms unsharded")
             grads = torch.cat([p.detach().reshape(-1) for p in state.ac.parameters()])
@@ -3615,6 +3649,7 @@ def phase_distributed(dev):
                       "worker_ref": worker_ref, "worker_s": worker_s}
     res["launches"] = {k: res["rollout"]["launches"][k] + n_train[k] + mc["launches"][k]
                        + worker["launches"][k] for k in ("k1", "k2", "k4")}
+    res["launches"]["layout"] = n_train["layout"]  # (a)'s; the ranks of (b) do not count it
     res["phase_s"] = time.perf_counter() - t_phase
     ro, tr = res["rollout"], res["train_step"]
     print(f"  distributed (a), one-rank NCCL group: sharded rollout (B={B_MAIN}, {DIST_STEPS} "
@@ -3767,6 +3802,115 @@ def phase_k4(dev):
         cuda_ms(plain, 3)
         res["plain_ms"] = cuda_ms(plain, 20)
         out[tag] = res
+    return out
+
+
+# The minibatch layout at the shapes its paths run: the train cells'
+# (N = 4,194,304 packed rows, 4 minibatches of 1,048,576; F = 20 for the
+# quadrotor, 9 for cart-pole) and SafeExplorerPPO's (B = 4 x T = 100 rows,
+# 6 minibatches of 64; F = 20): (N, F, n_mini, m).
+LAYOUT_SHAPES = {"quad_train": (4_194_304, 20, 4, 1_048_576),
+                 "cartpole_train": (4_194_304, 9, 4, 1_048_576),
+                 "safe_explorer_mb64": (400, 20, 6, 64)}
+LAYOUT_REPS = 20
+# Data-parallel ranks whose column slice of the index is checked.
+LAYOUT_RANKS = (2, 4)
+
+
+@contextlib.contextmanager
+def recorded_layouts(keep=2):
+    """Inside, the trainer's ``minibatch_layout`` calls (as PPO makes them)
+    go to the kernel as before, and the inputs and output of the first
+    ``keep`` are copied; yields the list of copies (packed, idx, out)."""
+    from safe_control_gym_torch.controllers import ppo as ppo_module
+
+    real, seen = ppo_module.minibatch_layout, []
+
+    def recording(packed, idx):
+        out = real(packed, idx)
+        if len(seen) < keep:
+            seen.append((packed.clone(), idx.clone(), out.clone()))
+        return out
+
+    ppo_module.minibatch_layout = recording
+    try:
+        yield seen
+    finally:
+        ppo_module.minibatch_layout = real
+
+
+def check_layouts(tag, layouts):
+    """The recorded layouts bit for bit against the plain version."""
+    import torch
+
+    from safe_control_gym_torch.parallel import fast_update as U
+
+    ok = bool(layouts) and all(out.is_cuda and torch.equal(out, U.minibatch_layout_plain(p, i))
+                               for p, i, out in layouts)
+    shapes = [(tuple(p.shape), tuple(i.shape)) for p, i, _ in layouts]
+    check(f"{tag}: K4's minibatch layout against its plain version", ok,
+          f"{len(layouts)} launches (packed, index) {shapes} bit for bit")
+
+
+def layout_bytes(N, F, n_mini, m):
+    """Bytes one pass of the layout needs: each packed row read once in
+    whole 32-B sectors, the int64 index read, the output written once."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from minibatch_layout_port import sector_bytes
+
+    return n_mini * m * (sector_bytes(F) + 8 + 4 * F)
+
+
+def phase_layout(dev):
+    """The trainer's minibatch layout at LAYOUT_SHAPES: one randperm's
+    indices, the kernel against the plain gather and transpose bit for bit,
+    two launches bit for bit, each rank's column slice of the index at
+    LAYOUT_RANKS bit for bit, the launch counter; its device time
+    (``device_ms``), the plain version's and the two library copies it
+    replaces, the row gather and the transpose copy, timed apart
+    (``cuda_ms``)."""
+    import torch
+
+    from safe_control_gym_torch.parallel import fast_update as U
+
+    out = {}
+    for tag, (N, F, n_mini, m) in LAYOUT_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(N + F)
+        packed = torch.randn(N, F, generator=gen, device=dev)
+        idx = torch.randperm(N, generator=gen, device=dev)[:n_mini * m].view(n_mini, m)
+        before = U.minibatch_layout.launches
+        got, again = U.minibatch_layout(packed, idx), U.minibatch_layout(packed, idx)
+        want = U.minibatch_layout_plain(packed, idx)
+        slices = [idx[:, r * (m // n):(r + 1) * (m // n)] for n in LAYOUT_RANKS for r in range(n)]
+        ranks_ok = all(torch.equal(U.minibatch_layout(packed, i), U.minibatch_layout_plain(packed, i))
+                       for i in slices)
+        torch.cuda.synchronize()
+        launches = U.minibatch_layout.launches - before
+        shape = f"N={N}, F={F}, {n_mini} x {m}"
+        check(f"layout {tag} ({shape}): kernel against plain, two launches, rank slices",
+              torch.equal(got, want) and torch.equal(again, got) and ranks_ok
+              and launches == 2 + len(slices),
+              f"bit for bit; {len(slices)} column slices (ranks {LAYOUT_RANKS}) bit for bit "
+              f"{ranks_ok}; {launches} launches counted")
+        gathered = packed[idx]
+        nbytes = layout_bytes(N, F, n_mini, m)
+        res = {"N": N, "F": F, "n_mini": n_mini, "m": m, "bytes": nbytes,
+               "ms": device_ms(lambda: U.minibatch_layout(packed, idx), LAYOUT_REPS),
+               "bound": bound(nbytes, 0)}
+        U.minibatch_layout_plain(packed, idx)
+        res["plain_ms"] = cuda_ms(lambda: U.minibatch_layout_plain(packed, idx), LAYOUT_REPS)
+        res["gather_ms"] = cuda_ms(lambda: packed[idx], LAYOUT_REPS)
+        res["transpose_ms"] = cuda_ms(lambda: gathered.transpose(1, 2).contiguous(), LAYOUT_REPS)
+        res["library_ms"] = res["gather_ms"] + res["transpose_ms"]
+        res["bytes_per_s"] = nbytes / (1e-3 * res["ms"])
+        out[tag] = res
+        print(f"  layout {tag} ({shape}): {res['ms']:.4f} ms a launch, {nbytes / 1e6:.1f} MB at "
+              f"{res['bytes_per_s'] / 1e12:.3f} TB/s (bound {res['bound']['bound_ms']:.4f} ms, "
+              f"{res['bound']['bound_ms'] / res['ms']:.1%} of it); plain {res['plain_ms']:.4f} ms; "
+              f"gather {res['gather_ms']:.4f} + transpose {res['transpose_ms']:.4f} ms; "
+              f"{card_line()}", flush=True)
+        del packed, idx, got, again, want, gathered, slices
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4076,10 +4220,12 @@ def run_train(dev, tag, env, key, kernel, plain, kname, layout, nx, nu, hidden=H
     D = ppo._fp.obs_dim
     res = {"obs_dim": D, "train_steps": steps}
     t0 = time.perf_counter()
-    for _ in range(warmup):
-        ppo.state, _ = ppo._train_step(ppo.state)
+    with recorded_layouts() as layouts:
+        for _ in range(warmup):
+            ppo.state, _ = ppo._train_step(ppo.state)
     torch.cuda.synchronize()
     res["warmup_s"] = time.perf_counter() - t0
+    check_layouts(f"{tag}: the warm-up train steps", layouts)
     # The first timed call's own policy-kernel input: rows, packed weights,
     # and the seed the controller's generator is about to draw.
     fp, ac = ppo._fp, ppo.state.ac
@@ -4097,17 +4243,21 @@ def run_train(dev, tag, env, key, kernel, plain, kname, layout, nx, nu, hidden=H
     res["launches"] = read_counters()
     res["policy_launches"], res["k4_launches"] = res["launches"][key], res["launches"]["k4"]
     res["obs_launches"] = res["launches"].get(f"{key}_obs", 0)
-    others = sum(v for k, v in res["launches"].items() if not k.startswith(key) and k != "k4")
+    res["layout_launches"] = res["launches"]["layout"]
+    others = sum(v for k, v in res["launches"].items()
+                 if not k.startswith(key) and k not in ("k4", "layout"))
     res["train_step_s"] = t_train / steps
     res["train_env_steps_s"] = steps * TRAIN_B * TRAIN_T / t_train
     res["train_metrics"] = {k: float(v) for k, v in metrics.items()}
     inst = "observation instance" if obs else "state-observation instance"
     check(f"{tag}: train steps went through the kernels",
           res["policy_launches"] == steps and res["obs_launches"] == (steps if obs else 0)
-          and others == 0 and res["k4_launches"] == steps * EPOCHS * N_MINI,
+          and others == 0 and res["k4_launches"] == steps * EPOCHS * N_MINI
+          and res["layout_launches"] == layout_launches(ppo.cfg, steps),
           f"{kname} {res['policy_launches']} ({inst}; observation instance "
-          f"{res['obs_launches']}) and K4 {res['k4_launches']} launches in {steps} train steps "
-          f"(want 1 and {EPOCHS * N_MINI} per step), {others} others")
+          f"{res['obs_launches']}), K4 {res['k4_launches']} and the layout "
+          f"{res['layout_launches']} launches in {steps} train steps (want 1, {EPOCHS * N_MINI} "
+          f"and {layout_launches(ppo.cfg)} per step), {others} others")
     check(f"{tag}: train step output", all(np.isfinite(v) for v in res["train_metrics"].values())
           and ppo.state.total_steps == (warmup + steps) * TRAIN_B * TRAIN_T
           and tuple(ppo.state.obs.shape) == (TRAIN_B, D),
@@ -4416,6 +4566,7 @@ def main():
     k3_maze = phase(phase_k3_maze, dev)
     surface = phase(phase_env_surface, dev)
     k4 = phase(phase_k4, dev)
+    layout = phase(phase_layout, dev)
     small = {**phase(phase_k5_k6, dev), **phase(phase_k7_k8, dev), **phase(phase_obs_ext, dev)}
     serve_cp = phase(phase_serve_cartpole, dev)
     serve_q2 = phase(phase_serve_quad2d, dev)
@@ -4507,6 +4658,12 @@ def main():
               f"{kr['ms'] * 1e3:.2f} us per launch, bound {kb['bound_ms'] * 1e3:.2f} us "
               f"({kb['bound_by']}), {kb['bound_ms'] / kr['ms']:.1%} of it; plain "
               f"{kr['plain_ms'] * 1e3:.2f} us; plan {kr['plan']}")
+
+    for tag, r in layout.items():
+        print(f"minibatch layout {tag} (N={r['N']}, F={r['F']}, {r['n_mini']} x {r['m']}): "
+              f"{r['ms']:.4f} ms a launch, bound {r['bound']['bound_ms']:.4f} ms (bytes, "
+              f"{r['bytes'] / 1e6:.1f} MB), {r['bound']['bound_ms'] / r['ms']:.1%} of it; plain "
+              f"{r['plain_ms']:.4f} ms; library gather + transpose {r['library_ms']:.4f} ms")
 
     k3_sass = {tag: sass_instructions(name) for tag, name in K3_SASS.items()}
     print(f"K3 SASS instructions: {k3_sass} (config 4's at H = 64: 4856 before the maze instances)")
@@ -4635,6 +4792,20 @@ def main():
                                   "train_step_launches": dist_res["train_step"]["launches"]["k4"],
                                   "max_abs_err_allreduced": dist_res["cluster"]["dryrun"]["k4"][
                                       "max_abs_err"]}),
+        # K4's minibatch layout replaces no TPU kernel: the JAX package
+        # gathers each minibatch's rows with XLA; bit for bit, so 0 error.
+        kernel_entry("minibatch_layout", "minibatch_layout.cu", "controllers/ppo.py:604",
+                     c4["layout_launches"], 0.0, layout["quad_train"]["ms"],
+                     layout["quad_train"]["plain_ms"], layout["quad_train"]["bound"],
+                     library_ms=layout["quad_train"]["library_ms"],
+                     by_shape={tag: {k: r[k] for k in ("N", "F", "n_mini", "m", "bytes", "ms",
+                                                       "plain_ms", "gather_ms", "transpose_ms",
+                                                       "library_ms", "bytes_per_s")}
+                               | {"bound_ms": r["bound"]["bound_ms"]}
+                               for tag, r in layout.items()},
+                     on_paths={"config4_train": c4["layout_launches"],
+                               "safe_explorer_mb64": learners["safe_explorer"]["layout_launches"],
+                               "distributed_one_rank": dist_res["launches"]["layout"]}),
         kernel_entry("cartpole_rollout", "cartpole_rollout.cu", "parallel/fast_cartpole.py:264",
                      serve_cp["launches"]["k5"], max(small["k5_err"], serve_cp["main_max_abs_err"]),
                      serve_cp["ms"], serve_cp["plain_ms"], bnd["k5"], plain_steps=PLAIN_STEPS,
@@ -4758,7 +4929,8 @@ def main():
                        "k2_maze_vs_plain_max_abs_err": maze_err,
                        "k2_maze_vs_general_max_abs_err": maze_cross_err, "serve_maze": serve_mz,
                        "bounds": bnd, "k3_maze": k3_maze, "env_surface": surface,
-                       "k3_vs_plain_max_abs_err": k3_err, "k4": k4, "ptxas": ptxas,
+                       "k3_vs_plain_max_abs_err": k3_err, "k4": k4, "layout": layout,
+                       "ptxas": ptxas,
                        "small_checks": small, "serve_cartpole": serve_cp, "serve_quad2d": serve_q2,
                        "train": train, "lqr": lqr, "pid": pid, "ppo_extras": ppo_extras,
                        "mpc_solve": mpc_solve, "mpc": mpc, "ilqr": ilqr,

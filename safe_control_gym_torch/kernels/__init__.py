@@ -26,8 +26,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 LIB = BUILD / "libscg_kernels.so"
 SOURCES = ("quad3d_substeps.cu", "quad3d_rollout.cu", "quad3d_policy_rollout.cu", "ppo_update.cu",
-           "cartpole_rollout.cu", "cartpole_policy_rollout.cu", "quad_planar_rollout.cu",
-           "quad_planar_policy_rollout.cu")
+           "minibatch_layout.cu", "cartpole_rollout.cu", "cartpole_policy_rollout.cu",
+           "quad_planar_rollout.cu", "quad_planar_policy_rollout.cu")
 # -fmad=false: no contraction of a*b+c into FMA, so the kernels round like
 # their plain PyTorch versions (one rounding per op) and done flags at the
 # bounds do not flip between the two.  K4 alone asks for FMA in its
@@ -76,6 +76,8 @@ _SIGNATURES = {
     # partial, out, stream
     "ppo_grads": [_P, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P],
     "ppo_grads_api_version": [],
+    # packed, idx, idx row stride, out, N, F, n_mini, m, stream
+    "minibatch_layout": [_P, _P, ctypes.c_int64, _P, ctypes.c_int64, _I, _I, _I, _P],
     # params, seed, rows_in, action, rows_out, B, then the launch plan
     # (fast_cartpole.launch_plan: group, block, grid), stream
     "cartpole_rollout": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

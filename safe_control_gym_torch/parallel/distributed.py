@@ -175,10 +175,11 @@ class _DataParallel:
     def __init__(self, group, index: int, n: int):
         self.group, self.index, self.n = group, index, n
 
-    def share(self, mbs):
-        """(n_mini, mb, F) minibatches -> this rank's (n_mini, mb / n, F)."""
-        s = mbs.shape[1] // self.n
-        return mbs[:, self.index * s:(self.index + 1) * s]
+    def share(self, idx):
+        """(n_mini, mb) sample indices of the minibatches -> this rank's
+        columns (n_mini, mb / n), a view."""
+        s = idx.shape[1] // self.n
+        return idx[:, self.index * s:(self.index + 1) * s]
 
     def sync(self, grads, losses):
         """Gradients and loss means of one share each -> those of the whole

@@ -25,6 +25,10 @@ act_dim <= 8, a Gaussian policy with state-independent logstd.  The TPU's
 limits: the kernel takes any minibatch of a multiple of 8.  The JAX kernel
 takes any H; this one stops at 256, where one net's gradient tiles need up
 to five passes over the forward.
+
+:func:`minibatch_layout` writes K4's minibatches of one shuffle in that
+layout straight from the packed rows (``csrc/minibatch_layout.cu``, one
+launch an epoch), with :func:`minibatch_layout_plain` its plain version.
 """
 
 from __future__ import annotations
@@ -217,6 +221,56 @@ def ppo_grads(mb, w, *, clip: float, act: str = "tanh"):
 
 
 ppo_grads.launches = 0
+
+LAYOUT_MAX_F = MAX_OBS + MAX_ACT + 4  # csrc/minibatch_layout.cu::MAX_F
+
+
+def minibatch_layout_plain(packed, idx):
+    """Plain PyTorch version of :func:`minibatch_layout`: the row gather,
+    then the copy into K4's batch-last layout."""
+    return packed[idx].transpose(1, 2).contiguous()
+
+
+def minibatch_layout(packed, idx):
+    """K4's batch-last minibatches ``(n_mini, F, m)`` of the packed rows
+    ``packed`` ((N, F) float32) that the sample indices ``idx`` ((n_mini, m)
+    int64, rows in [0, N)) pick: ``out[i, :, j] = packed[idx[i, j]]``.
+
+    CPU tensors take the plain version; on a CUDA device one launch of
+    ``csrc/minibatch_layout.cu`` writes every minibatch; anything else
+    raises.  ``idx`` may be a column slice of a larger index (unit column
+    stride).  An index outside [0, N) faults the launch, as PyTorch's own
+    gather does on the card."""
+    if packed.device.type == "cpu" and idx.device.type == "cpu":
+        return minibatch_layout_plain(packed, idx)
+    ok = (packed.dim() == 2 and idx.dim() == 2 and packed.is_contiguous()
+          and packed.device.type == "cuda" and idx.device == packed.device
+          and packed.dtype == torch.float32 and idx.dtype == torch.int64
+          and 1 <= packed.shape[1] <= LAYOUT_MAX_F and (idx.shape[1] <= 1 or idx.stride(1) == 1))
+    if not ok:
+        raise ValueError(
+            "minibatch_layout takes contiguous float32 (N, F) rows, F <= "
+            f"{LAYOUT_MAX_F}, and an int64 (n_mini, m) index with unit column stride on one "
+            f"CUDA device; got packed {tuple(packed.shape)} {packed.dtype} {packed.device}, "
+            f"idx {tuple(idx.shape)} {idx.dtype} {idx.device}")
+    (N, F), (n_mini, m) = packed.shape, idx.shape
+    out = torch.empty((n_mini, F, m), dtype=torch.float32, device=packed.device)
+    if out.numel() == 0:
+        return out
+    from safe_control_gym_torch import kernels
+
+    code = kernels.lib().minibatch_layout(packed.data_ptr(), idx.data_ptr(), idx.stride(0),
+                                          out.data_ptr(), N, F, n_mini, m,
+                                          kernels.stream_ptr(packed.device))
+    if code == -1:
+        raise ValueError(f"minibatch_layout: {N} rows and {n_mini} x {m} columns are outside "
+                         "the kernel's scope")
+    kernels.check(code, "minibatch_layout")
+    minibatch_layout.launches += 1
+    return out
+
+
+minibatch_layout.launches = 0
 
 
 class FastPPOUpdate:

@@ -204,7 +204,10 @@ def test_summarize_spans_takes_device_operations_by_correlation(tmp_path):
 # alone may enclose within the step: what the phase table of PERF.md §5
 # reads as each phase rests on these boundaries in controllers/ppo.py.
 SPAN_HOLDS = {"scg.ppo.collect": "aten::tanh", "scg.ppo.pack": "aten::cat",
-              "scg.ppo.transpose": "aten::contiguous"}
+              "scg.ppo.gather": "aten::contiguous"}
+# Leaf spans that open but enclose no operation: K4's layout is one
+# operation in the gather (``fast_update.minibatch_layout``).
+SPAN_EMPTY = ("scg.ppo.transpose",)
 SPAN_ALONE_HOLDS = {"scg.ppo.gae": "aten::std", "scg.ppo.shuffle": "aten::randperm",
                     "scg.ppo.gather": "aten::index", "scg.ppo.k4": "aten::minimum",
                     "scg.ppo.optimizer": "aten::_foreach_addcmul_"}
@@ -216,8 +219,9 @@ def test_ppo_train_step_spans(tmp_path, fast_rollout):
     one span of the step, of collect, GAE and the pack; one shuffle, gather
     and transpose an epoch; one K4 and one optimizer span a minibatch; each
     leaf encloses its phase's operations (``SPAN_HOLDS``,
-    ``SPAN_ALONE_HOLDS``).  The parameters after the step are bit for bit
-    those of the same step run without the profiler."""
+    ``SPAN_ALONE_HOLDS``) and the empty ones none (``SPAN_EMPTY``).  The
+    parameters after the step are bit for bit those of the same step run
+    without the profiler."""
     cfg = tq.QuadrotorConfig(quad_type=3, ctrl_freq=60, pyb_freq=240, episode_len_sec=0.25,
                              task="stabilization", cost="rl_reward", randomized_init=True,
                              normalized_rl_action_space=True)
@@ -259,3 +263,5 @@ def test_ppo_train_step_spans(tmp_path, fast_rollout):
         assert span in held.get(op, set()), (span, op)
     for span, op in SPAN_ALONE_HOLDS.items():
         assert held.get(op) == {span}, (span, op, held.get(op))
+    for span in SPAN_EMPTY:
+        assert not [op for op, around in held.items() if span in around], span
