@@ -14,11 +14,18 @@ check must catch (half of each minibatch left out, the first step's
 rewards zeroed), each planted in the reference put in the program's place.
 A state left unchanged reads 1 on ``change_norm_gap`` and needs no run.
 The benchmark's own runs never run this script.
+
+A cell on several cards runs through the same ranks as ``run.py``
+(``ranks.py``), one process a card: for each seed every rank builds its
+``Job`` and makes the same calls; rank 0 reads as above, the other ranks
+run ``run.py``'s check, and rank 0 keeps the worst reading of each number
+over the ranks.  The control and the faults are rank 0's alone.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -106,75 +113,109 @@ def summary(obs):
             "change": {k: norm(obs["wn"][k] - obs["w0"][k]) for k in obs["wn"]}}
 
 
-def main(argv=None):
+def write(out, path):
+    """The lower reading (the largest over seeds) and the control's (the
+    smallest) of each number, then every reading, to ``path``."""
+    for part in ("lower", "control"):
+        keys = sorted({k for v in out[part].values() for k in v})
+        agg = max if part == "lower" else min
+        out[part + "_reading"] = {k: agg(v[k] for v in out[part].values()) for k in keys}
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(json.dumps(out, indent=1))
+    print(json.dumps({"lower_reading": out["lower_reading"],
+                      "control_reading": out["control_reading"]}))
+
+
+def main(argv=None, device_type: str = "cuda"):
+    """``device_type="cpu"`` (the tests) runs a cell on several cards as
+    ranks on the CPU in a gloo group."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--control-seeds", default="")
     ap.add_argument("--out", required=True)
+    # A rank above 0 of a cell on several cards, started by rank 0 (ranks.py).
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--store", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
 
-    from portbench import harness
+    from portbench import harness, ranks
     from portbench.reference import check
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cell = harness.resolve(args.workload)
-    device = torch.device("cuda")
-    Job = harness.driver(cell).Job
-    seeds = [int(s) for s in args.seeds.split(",") if s]
-    controls = {int(s) for s in args.control_seeds.split(",") if s}
-    out = {"workload": args.workload, "lower": {}, "control": {}, "faults": {}, "seconds": {},
-           "raw": {}}
-    train = cell.traffic["driver"] == "train"
-    for seed in seeds:
-        t0 = time.perf_counter()
-        job = Job(cell, seed, device)
-        look = first_rollout_look(job, seed) if train else None
-        if not train:
-            for _ in range(int(cell.traffic["sample_range"])):
-                job.unit()
-        job.free()
-        t1 = time.perf_counter()
-        if train:
-            ref = check.train_reference(cell, job.w0, seed, device, len(job.losses))
-            out["lower"][seed] = check.train_numbers(job.observed(), ref, cell.config["ppo"])
-            out["raw"][seed] = {"program": summary(job.observed()), "reference": summary(ref),
-                                "first_rollout": look}
-        else:
-            out["lower"][seed] = job.check()
-            out["lower"][seed]["tied_steps"] = job.ties
-        t2 = time.perf_counter()
-        out["seconds"][seed] = {"program": t1 - t0, "check": t2 - t1}
-        if seed in controls:
-            if train:
-                steps = len(job.losses)
-                ctrl = check.train_reference(cell, job.w0, seed, device, steps, "tf32")
-                out["control"][seed] = check.train_numbers(ctrl, ref, cell.config["ppo"])
-                out["raw"][seed]["control"] = summary(ctrl)
-                out["faults"][seed] = {}
-                for fault in ("half_batch", "reward_t0"):
-                    obs = check.train_reference(cell, job.w0, seed, device, steps, fault=fault)
-                    out["faults"][seed][fault] = check.train_numbers(obs, ref, cell.config["ppo"])
-                    out["raw"][seed][fault] = summary(obs)
+    harness.exact_products()
+    group = None
+    if cell.chips > 1:
+        group = ranks.Group(cell.chips, rank=args.rank, store_path=args.store,
+                            script=Path(__file__).resolve(),
+                            argv=["--workload", args.workload, "--seeds", args.seeds,
+                                  "--control-seeds", args.control_seeds, "--out", args.out],
+                            device_type=device_type)
+    lead = group is None or group.rank == 0
+    with group or contextlib.nullcontext():
+        device = group.device if group else torch.device(device_type)
+        Job = harness.driver(cell).Job
+        seeds = [int(s) for s in args.seeds.split(",") if s]
+        controls = {int(s) for s in args.control_seeds.split(",") if s}
+        out = {"workload": args.workload, "lower": {}, "control": {}, "faults": {},
+               "seconds": {}, "raw": {}}
+        train = "check_steps" in cell.traffic
+        for seed in seeds:
+            if group:
+                group.arm(ranks.CALIBRATE_SEED_S, f"seed {seed}")
+            t0 = time.perf_counter()
+            job = Job(cell, seed, device)
+            look = first_rollout_look(job, seed) if train and lead else None
+            if not train:
+                for _ in range(int(cell.traffic["sample_range"])):
+                    job.unit()
+            job.free()
+            t1 = time.perf_counter()
+            if train and lead:
+                ref = check.train_reference(cell, job.w0, seed, device, len(job.losses))
+                numbers = check.train_numbers(job.observed(), ref, cell.config["ppo"])
+                out["raw"][seed] = {"program": summary(job.observed()),
+                                    "reference": summary(ref), "first_rollout": look}
             else:
-                out["control"][seed] = collect_control(job)
-        print(json.dumps({"seed": seed, "lower": out["lower"][seed],
-                          "control": out["control"].get(seed),
-                          "faults": out["faults"].get(seed), "seconds": out["seconds"][seed],
-                          "look": look}),
-              flush=True)
-        del job
-    for part in ("lower", "control"):
-        keys = sorted({k for v in out[part].values() for k in v})
-        agg = max if part == "lower" else min
-        out[part + "_reading"] = {k: agg(v[k] for v in out[part].values()) for k in keys}
-    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    Path(args.out).write_text(json.dumps(out, indent=1))
-    print(json.dumps({"lower_reading": out["lower_reading"],
-                      "control_reading": out["control_reading"]}))
+                # run.py's check: on every rank where the cell runs on several.
+                numbers = job.check()
+                if hasattr(job, "ties"):
+                    numbers["tied_steps"] = job.ties
+            if group:
+                # The worst reading of each number over the ranks, as run.py's.
+                numbers = group.gather(f"check/{seed}", ranks.plain(numbers))
+                numbers = ranks.merge(numbers) if lead else None
+            if lead:
+                out["lower"][seed] = numbers
+                out["seconds"][seed] = {"program": t1 - t0, "check": time.perf_counter() - t1}
+            if lead and seed in controls:
+                if train:
+                    steps = len(job.losses)
+                    ctrl = check.train_reference(cell, job.w0, seed, device, steps, "tf32")
+                    out["control"][seed] = check.train_numbers(ctrl, ref, cell.config["ppo"])
+                    out["raw"][seed]["control"] = summary(ctrl)
+                    out["faults"][seed] = {}
+                    for fault in ("half_batch", "reward_t0"):
+                        obs = check.train_reference(cell, job.w0, seed, device, steps,
+                                                    fault=fault)
+                        out["faults"][seed][fault] = check.train_numbers(obs, ref,
+                                                                         cell.config["ppo"])
+                        out["raw"][seed][fault] = summary(obs)
+                else:
+                    out["control"][seed] = collect_control(job)
+            if lead:
+                print(json.dumps({"seed": seed, "lower": out["lower"][seed],
+                                  "control": out["control"].get(seed),
+                                  "faults": out["faults"].get(seed),
+                                  "seconds": out["seconds"][seed], "look": look}),
+                      flush=True)
+            del job
+            if group:
+                group.barrier(f"done/{seed}")
+    if lead:
+        write(out, args.out)
 
 
 if __name__ == "__main__":

@@ -129,8 +129,14 @@ def window(job, seconds: float):
             events[-1 - LEAD].synchronize()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    return wall, len(events), unit_ms(start, events)
+
+
+def unit_ms(start, events):
+    """Each unit's milliseconds, from the previous unit's event (the first:
+    ``start``) to its own."""
     marks = [start] + events
-    return wall, len(events), [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
 
 
 def traced_window(job, units: int):
@@ -147,6 +153,81 @@ def traced_window(job, units: int):
     return trace.read(prof, units, job)
 
 
+def exact_products() -> None:
+    """float32 products in full, as every configuration states: TF32 off."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def read_end_to_end(cell: Cell, job, wall: float, units: int, unit_ms, setup_s: float) -> dict:
+    """The cell's end-to-end metrics of a window."""
+    values = job.end_to_end(wall, units, unit_ms)
+    values["setup_s"] = setup_s
+    return {m: {"value": values[m], "unit": cell.units[m]} for m in cell.end_to_end}
+
+
+def read_per_layer(cell: Cell, tr) -> dict:
+    """The cell's per-layer metrics that its readers find in trace ``tr``."""
+    metrics = {}
+    for m in cell.per_layer:
+        value = reader(cell, m)(tr)
+        if value is not None:
+            metrics[m] = {"value": value, "unit": cell.units[m]}
+    return metrics
+
+
+def breakdown(tr) -> dict:
+    return {"device_ops": tr.top_ops(), "idle_gaps": tr.idle_gaps()}
+
+
+def verdict(cell: Cell, numbers: dict):
+    """(correct, compared): every limit has its number and none is over it;
+    each number beside its limit."""
+    lim = cell.limits["limits"]
+    correct = set(lim) <= set(numbers) and all(numbers[k] <= lim[k] for k in lim)
+    return bool(correct), {k: {"value": numbers[k], "limit": lim.get(k)} for k in numbers}
+
+
+def device_block(device, count: int, peak: int, **more) -> dict:
+    import torch
+
+    cuda = device.type == "cuda"
+    return {"platform": "gpu" if cuda else "cpu",
+            "kind": torch.cuda.get_device_name(device) if cuda else "cpu", "count": count,
+            "memory_peak_bytes": peak, **more}
+
+
+def result(correct: bool, attempted: int, metrics: dict, device: dict, phases: dict,
+           compared: dict, breakdown=None, **more) -> dict:
+    """The result line's object; ``compared`` comes last."""
+    res = {"correct": correct, "attempted": attempted, "failed": 0, "metrics": metrics,
+           "device": device}
+    if breakdown is not None:
+        res["breakdown"] = breakdown
+    res.update(more)
+    res["setup_phases_s"] = phases
+    res["compared"] = compared
+    return res
+
+
+def report(res: dict, forbidden) -> int:
+    """Prints the run's end and returns its exit code: 3, and no result,
+    where a module the run may not load was loaded; else the set-up parts
+    and each compared number beside its limit on standard error, then the
+    result line."""
+    if forbidden:
+        print(f"portbench: modules the run may not load were loaded: {forbidden}",
+              file=sys.stderr)
+        return 3
+    print(f"setup phases (s from the start): {res['setup_phases_s']}", file=sys.stderr)
+    for k, v in res["compared"].items():
+        print(f"compared {k}: {v['value']!r} limit {v['limit']!r}", file=sys.stderr)
+    print(json.dumps(res))
+    return 0
+
+
 def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device, t_start: float,
              marks=None):
     """Set up, measure, free, check; returns (result dict, compared numbers).
@@ -155,8 +236,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device, t_star
     kernels' plain versions and a few units stand in for the window."""
     import torch
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    exact_products()
     # Seconds from the start at the end of each part of set-up.
     phases = dict(marks or {})
     if device.type == "cuda":
@@ -168,22 +248,16 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device, t_star
         torch.cuda.synchronize(device)
     setup_s = time.perf_counter() - t_start
     phases["job"] = setup_s
-    metrics, extra = {}, {}
+    metrics, more, brk = {}, {}, None
     if traced:
         tr = traced_window(job, int(cell.traffic["trace_units"]))
-        for m in cell.per_layer:
-            value = reader(cell, m)(tr)
-            if value is not None:
-                metrics[m] = {"value": value, "unit": cell.units[m]}
+        metrics = read_per_layer(cell, tr)
         attempted = tr.units
-        extra["device"] = {"busy_s": tr.busy_s(), "window_s": tr.window_s}
-        extra["breakdown"] = {"device_ops": tr.top_ops(), "idle_gaps": tr.idle_gaps()}
+        more = {"busy_s": tr.busy_s(), "window_s": tr.window_s}
+        brk = breakdown(tr)
     elif device.type == "cuda":
-        wall, attempted, unit_ms = window(job, seconds)
-        values = job.end_to_end(wall, attempted, unit_ms)
-        values["setup_s"] = setup_s
-        for m in cell.end_to_end:
-            metrics[m] = {"value": values[m], "unit": cell.units[m]}
+        wall, attempted, times = window(job, seconds)
+        metrics = read_end_to_end(cell, job, wall, attempted, times, setup_s)
     else:
         attempted = int(cell.traffic.get("cpu_units", 2))
         for _ in range(attempted):
@@ -191,16 +265,6 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device, t_star
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     job.free()
     numbers = job.check()
-    lim = cell.limits["limits"]
-    correct = set(lim) <= set(numbers) and all(numbers[k] <= lim[k] for k in lim)
-    result = {"correct": bool(correct), "attempted": attempted, "failed": 0, "metrics": metrics,
-              "device": {"platform": "gpu" if device.type == "cuda" else "cpu",
-                         "kind": torch.cuda.get_device_name(device) if device.type == "cuda"
-                         else "cpu", "count": 1, "memory_peak_bytes": peak,
-                         **extra.get("device", {})}}
-    if "breakdown" in extra:
-        result["breakdown"] = extra["breakdown"]
-    result["setup_phases_s"] = phases
-    result["compared"] = {k: {"value": numbers[k], "limit": lim.get(k)} for k in numbers}
-    return result, numbers
-
+    correct, compared = verdict(cell, numbers)
+    return result(correct, attempted, metrics, device_block(device, 1, peak, **more), phases,
+                  compared, brk), numbers

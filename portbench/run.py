@@ -10,7 +10,8 @@ the plain reference.  Prints each compared number beside its limit as the
 last lines of standard error, and one JSON line as the last line of
 standard output.  Exits non-zero, printing no result, without a CUDA card
 or with fewer cards than the cell asks for, or where a JAX module was
-loaded.
+loaded.  A cell on several cards runs one process a card (``ranks.py``);
+this process is rank 0 and prints the result.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
-import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -37,11 +37,19 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    # A rank above 0 of a cell on several cards, started by rank 0 (ranks.py).
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--store", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     from portbench import harness
 
     cell = harness.resolve(args.workload)
+    if args.rank is not None:
+        from portbench import ranks
+
+        return ranks.follow(cell, args.rank, args.store, args.seed, args.seconds,
+                            bool(args.trace), T_START)
     import torch
 
     marks = {"torch_import": time.perf_counter() - T_START}
@@ -50,19 +58,17 @@ def main(argv=None) -> int:
         print(f"portbench: {args.workload} needs {cell.chips} CUDA card(s); this machine has "
               f"{have}", file=sys.stderr)
         return 2
-    device = torch.device("cuda", 0)
     marks["cuda_probe"] = time.perf_counter() - T_START
-    result, _ = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), device, T_START,
-                                 marks)
-    found = harness.forbidden_modules()
-    if found:
-        print(f"portbench: modules the run may not load were loaded: {found}", file=sys.stderr)
-        return 3
-    print(f"setup phases (s from the start): {result['setup_phases_s']}", file=sys.stderr)
-    for k, v in result["compared"].items():
-        print(f"compared {k}: {v['value']!r} limit {v['limit']!r}", file=sys.stderr)
-    print(json.dumps(result))
-    return 0
+    if cell.chips > 1:
+        from portbench import ranks
+
+        result, found = ranks.lead(cell, args.seed, args.seconds, bool(args.trace), T_START,
+                                   marks)
+    else:
+        result, _ = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace),
+                                     torch.device("cuda", 0), T_START, marks)
+        found = harness.forbidden_modules()
+    return harness.report(result, found)
 
 
 if __name__ == "__main__":

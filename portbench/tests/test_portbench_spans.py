@@ -14,7 +14,7 @@ from portbench import harness, trace
 
 CELL = "quad3d_fig8_ppo.train_b32k"
 LEAVES = {"scg.ppo.collect", "scg.ppo.gae", "scg.ppo.pack", "scg.ppo.shuffle",
-          "scg.ppo.gather", "scg.ppo.transpose", "scg.ppo.k4", "scg.ppo.optimizer"}
+          "scg.ppo.gather", "scg.ppo.k4", "scg.ppo.optimizer"}
 
 
 @pytest.mark.card
@@ -60,7 +60,10 @@ def test_spans_on_the_card(tmp_path, monkeypatch):
     job.free()
     rows = {r["name"]: r for r in profiling.summarize_spans(spans)}
     step = rows.pop("scg.ppo.train_step")
-    assert step["count"] == 1 and set(rows) == LEAVES
+    # A leaf that opens empty on this path (``scg.ppo.transpose`` on K4's
+    # since the layout kernel) launches nothing and is no leaf here.
+    assert step["count"] == 1 and {n for n, r in rows.items() if r["device_ops"]} == LEAVES
+    assert all(r["launches"] == 0 for n, r in rows.items() if n not in LEAVES), rows
     assert device_ops(spans) == device_ops(bare) == step["device_ops"] > 0
     leaves = sum(r["device_ms"] for r in rows.values())
     assert leaves == pytest.approx(step["device_ms"], rel=0.03)
